@@ -1,0 +1,346 @@
+"""Quasi-cyclic (protograph-lifted) LDPC codes.
+
+JAX-free copy of the part of ``ldpc_decoder_tpu/codes/qc.py`` that builds,
+expands and caches the flagship code: :class:`QCStructure`, the girth
+repair lift, :func:`qc_to_code` and the alist cache helpers.
+``tests/test_torch_host.py`` holds the copies equal. QC detection on plain
+alists is not ported yet.
+
+Conventions:
+- variable (j, z) has natural id j*Z + z; check (r, z) id r*Z + z;
+- a base edge (r, j) with shift s connects check (r, z) to variable
+  (j, (z + s) mod Z) for all z.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import numpy as np
+
+from ldpc_decoder_tpu_torch.codes.alist import AlistData
+from ldpc_decoder_tpu_torch.codes.code import LDPCCode
+
+
+@dataclass(frozen=True)
+class QCStructure:
+    """Base-graph metadata of a lifted code."""
+
+    Z: int
+    n_base_rows: int
+    n_base_cols: int
+    # [n_base_edges] int32 each, sorted by (row, col): one entry per circulant
+    edge_row: np.ndarray
+    edge_col: np.ndarray
+    edge_shift: np.ndarray
+
+    @property
+    def n_base_edges(self) -> int:
+        return int(self.edge_row.shape[0])
+
+    def row_degrees(self) -> np.ndarray:
+        return np.bincount(self.edge_row, minlength=self.n_base_rows)
+
+    def col_degrees(self) -> np.ndarray:
+        return np.bincount(self.edge_col, minlength=self.n_base_cols)
+
+    def header_tokens(self) -> list[str]:
+        """Serialize into alist comment headers (ignored by the reference's
+        parser, ldpc_code.cpp:52-76)."""
+        edges = ",".join(
+            f"{r}:{c}:{s}"
+            for r, c, s in zip(
+                self.edge_row.tolist(),
+                self.edge_col.tolist(),
+                self.edge_shift.tolist(),
+            )
+        )
+        return [
+            f"#qc={self.Z};{self.n_base_rows};{self.n_base_cols}",
+            f"#qcedges={edges}",
+        ]
+
+    @staticmethod
+    def from_header(text: str) -> "QCStructure | None":
+        qc = edges = None
+        for line in text.splitlines():
+            line = line.strip()
+            if line.startswith("#qc="):
+                qc = line[4:]
+            elif line.startswith("#qcedges="):
+                edges = line[9:]
+            elif not line.startswith("#"):
+                break
+        if qc is None or edges is None:
+            return None
+        Z, R, C = (int(x) for x in qc.split(";"))
+        triples = [tuple(int(x) for x in e.split(":")) for e in edges.split(",")]
+        arr = np.array(triples, dtype=np.int32)
+        return QCStructure(
+            Z=Z, n_base_rows=R, n_base_cols=C,
+            edge_row=arr[:, 0], edge_col=arr[:, 1], edge_shift=arr[:, 2],
+        )
+
+
+def _cycle_patterns(base01: np.ndarray):
+    """Enumerate the base-graph 4- and 6-cycle patterns of a 0/1 base.
+
+    Returns ``(edge_id, p4, p6)``: ``edge_id[r, c]`` maps cells to edge
+    indices in row-major (np.nonzero) order; ``p4 [n4, 4]`` / ``p6 [n6, 6]``
+    hold the edge indices of each pattern in alternating-sign walk order, so
+    a pattern's lifted cycles close iff the alternating sum of its shifts is
+    0 mod Z (the classic Fossorier condition, generalized to 6-cycles).
+    """
+    base01 = np.asarray(base01)
+    R, C = base01.shape
+    if (base01 > 1).any():
+        raise ValueError("_cycle_patterns supports 0/1 bases only")
+    edge_id = np.full((R, C), -1, dtype=np.int64)
+    rows, cols = np.nonzero(base01)
+    edge_id[rows, cols] = np.arange(rows.shape[0])
+    nbr = [np.nonzero(base01[r])[0] for r in range(R)]
+
+    p4 = []
+    for r1 in range(R):
+        for r2 in range(r1 + 1, R):
+            shared = np.intersect1d(nbr[r1], nbr[r2], assume_unique=True)
+            for i in range(len(shared)):
+                for j in range(i + 1, len(shared)):
+                    c1, c2 = shared[i], shared[j]
+                    p4.append((edge_id[r1, c1], edge_id[r2, c1],
+                               edge_id[r2, c2], edge_id[r1, c2]))
+
+    p6 = []
+    for r1 in range(R):
+        for r2 in range(r1 + 1, R):
+            s12 = np.intersect1d(nbr[r1], nbr[r2], assume_unique=True)
+            if not len(s12):
+                continue
+            for r3 in range(r2 + 1, R):
+                # cycle r1-c1-r2-c2-r3-c3-r1 with r1 < r2 < r3: any cyclic
+                # order of 3 rows uses the same three row-pair slots, and
+                # reversal (the only other traversal) negates the shift sum
+                # — so this enumerates each geometric 6-cycle exactly once.
+                s23 = np.intersect1d(nbr[r2], nbr[r3], assume_unique=True)
+                s31 = np.intersect1d(nbr[r3], nbr[r1], assume_unique=True)
+                if not len(s23) or not len(s31):
+                    continue
+                c1g, c2g, c3g = np.meshgrid(s12, s23, s31, indexing="ij")
+                ok = (c1g != c2g) & (c2g != c3g) & (c1g != c3g)
+                for c1, c2, c3 in zip(c1g[ok], c2g[ok], c3g[ok]):
+                    p6.append((edge_id[r1, c1], edge_id[r2, c1],
+                               edge_id[r2, c2], edge_id[r3, c2],
+                               edge_id[r3, c3], edge_id[r1, c3]))
+    return (
+        edge_id,
+        np.array(p4, dtype=np.int64).reshape(-1, 4),
+        np.array(p6, dtype=np.int64).reshape(-1, 6),
+    )
+
+
+_COEF4 = np.array([1, -1, 1, -1], dtype=np.int64)
+_COEF6 = np.array([1, -1, 1, -1, 1, -1], dtype=np.int64)
+
+
+def make_qc_structure_repair(
+    base: np.ndarray, Z: int, seed: int = 0,
+    coarse: int | None = None, fine_mod: int = 4,
+    weight4: int = 10_000, max_moves: int = 40_000,
+    allow_residual_6cycles: bool = False,
+) -> QCStructure:
+    """Girth-8 lift via targeted shift repair (CCSDS 131.1-style goal).
+
+    Samples lattice shifts, then iteratively resamples the edge involved in
+    the most closed 4-/6-cycle patterns, choosing the candidate shift that
+    minimizes its closures (4-cycles weighted ``weight4``). Each move only
+    re-evaluates the patterns touching one edge.
+
+    Raises RuntimeError if violations cannot be driven to zero.
+    """
+    base = np.asarray(base)
+    rng = np.random.default_rng(seed)
+    edge_id, p4, p6 = _cycle_patterns(base)
+    rows, cols = np.nonzero(base)
+    nE = rows.shape[0]
+    if coarse is not None:
+        if Z % coarse:
+            raise ValueError(f"Z={Z} not divisible by coarse={coarse}")
+        if not 1 <= fine_mod <= coarse // 2:
+            raise ValueError("fine_mod must be in [1, coarse/2]")
+
+    def sample(n):
+        if coarse is None:
+            return rng.integers(0, Z, size=n).astype(np.int64)
+        a = rng.integers(0, Z // coarse, size=n)
+        b = rng.integers(-(fine_mod - 1), fine_mod, size=n)
+        return ((a * coarse + b) % Z).astype(np.int64)
+
+    # pattern -> edges bookkeeping
+    pats = [(p4, _COEF4, weight4), (p6, _COEF6, 1)]
+    edge_pats = [[] for _ in range(nE)]  # (pat_set, pat_row, pos)
+    for si, (P, _, _) in enumerate(pats):
+        for pi in range(P.shape[0]):
+            for pos in range(P.shape[1]):
+                edge_pats[P[pi, pos]].append((si, pi, pos))
+
+    s = sample(nE)
+
+    def closed_mask(P, coef):
+        if P.shape[0] == 0:
+            return np.zeros(0, dtype=bool)
+        return (s[P] * coef).sum(axis=1) % Z == 0
+
+    masks = [closed_mask(P, c) for P, c, _ in pats]
+
+    def edge_scores():
+        sc = np.zeros(nE, dtype=np.int64)
+        for (P, _, w), m in zip(pats, masks):
+            if m.any():
+                np.add.at(sc, P[m].reshape(-1), w)
+        return sc
+
+    for move in range(max_moves):
+        total = sum(int(m.sum()) for m in masks)
+        if total == 0:
+            return QCStructure(
+                Z=Z, n_base_rows=base.shape[0], n_base_cols=base.shape[1],
+                edge_row=rows.astype(np.int32), edge_col=cols.astype(np.int32),
+                edge_shift=s.astype(np.int32),
+            )
+        sc = edge_scores()
+        # random pick among the worst few edges (breaks repair cycles)
+        top = np.argsort(-sc)[:4]
+        e = int(rng.choice(top[sc[top] > 0]))
+        cands = np.unique(sample(96))
+        # evaluate only the patterns touching e, per candidate
+        entries = edge_pats[e]
+        best_c, best_v = None, None
+        # partial sums excluding e's own term, per touching pattern
+        part = []
+        for si, pi, pos in entries:
+            P, coef, w = pats[si]
+            tot = int((s[P[pi]] * coef).sum() - s[e] * coef[pos])
+            part.append((tot, int(coef[pos]), w))
+        part = np.array(part, dtype=np.int64).reshape(-1, 3)
+        v = (
+            ((part[:, 0][None, :] + cands[:, None] * part[:, 1][None, :])
+             % Z == 0) * part[:, 2][None, :]
+        ).sum(axis=1)
+        j = int(np.argmin(v + rng.random(v.shape[0]) * 0.5))
+        best_c, best_v = int(cands[j]), int(v[j])
+        cur_v = sum(
+            w * int((s[pats[si][0][pi]] * pats[si][1]).sum() % Z == 0)
+            for si, pi, pos in entries
+            for w in (pats[si][2],)
+        )
+        if best_v <= cur_v:
+            s[e] = best_c
+            # update masks for touched patterns
+            for si, pi, pos in entries:
+                P, coef, _ = pats[si]
+                masks[si][pi] = (s[P[pi]] * coef).sum() % Z == 0
+    if allow_residual_6cycles and not masks[0].any():
+        # small/mid lift sizes can lack the lattice freedom for girth 8;
+        # a handful of residual 6-cycles is acceptable for waterfall
+        # *evaluation* codes (never for shipped production codes)
+        import warnings
+
+        warnings.warn(
+            f"girth repair left {int(masks[1].sum())} closed 6-cycle "
+            f"patterns (girth 6) after {max_moves} moves"
+        )
+        return QCStructure(
+            Z=Z, n_base_rows=base.shape[0], n_base_cols=base.shape[1],
+            edge_row=rows.astype(np.int32), edge_col=cols.astype(np.int32),
+            edge_shift=s.astype(np.int32),
+        )
+    raise RuntimeError(
+        f"girth repair did not converge in {max_moves} moves "
+        f"(residual violations: {[int(m.sum()) for m in masks]})"
+    )
+
+
+def qc_to_code(structure: QCStructure, n_erased_vars: int = 0) -> LDPCCode:
+    """Expand a QC structure into a full LDPCCode (vectorized)."""
+    Z = structure.Z
+    R, C = structure.n_base_rows, structure.n_base_cols
+    n_checks, n_vars = R * Z, C * Z
+    row_deg = structure.row_degrees()
+
+    # check-major adjacency: checks ordered (r, z); within check (r, z),
+    # slots ordered by base-edge order (sorted by col within a row)
+    order = np.lexsort((structure.edge_col, structure.edge_row))
+    e_col = structure.edge_col[order].astype(np.int64)
+    e_shift = structure.edge_shift[order].astype(np.int64)
+
+    z = np.arange(Z, dtype=np.int64)
+    # for each check row r: blocks of that row -> [deg_r] per z
+    adjacency = np.empty(structure.n_base_edges * Z, dtype=np.int32)
+    check_degrees = np.repeat(row_deg.astype(np.int32), Z)
+    pos = 0
+    e_idx = 0
+    for r in range(R):
+        d = int(row_deg[r])
+        cols_r = e_col[e_idx : e_idx + d]
+        shifts_r = e_shift[e_idx : e_idx + d]
+        # adj[(z, k)] = cols_r[k]*Z + (z + shifts_r[k]) % Z
+        block = cols_r[None, :] * Z + (z[:, None] + shifts_r[None, :]) % Z
+        adjacency[pos : pos + d * Z] = block.reshape(-1)
+        pos += d * Z
+        e_idx += d
+
+    data = AlistData(
+        n_checks=n_checks,
+        n_vars=n_vars,
+        check_degrees=check_degrees,
+        var_degrees=np.repeat(
+            structure.col_degrees().astype(np.int32), Z
+        ),
+        check_adjacency=adjacency,
+        n_erased_vars=n_erased_vars,
+    )
+    return LDPCCode.from_alist_data(data)
+
+
+def write_qc_alist(
+    code: LDPCCode, structure: QCStructure, path: str,
+    params: dict | None = None,
+) -> None:
+    """alist with QC metadata headers (reference-parser compatible).
+
+    ``params``: construction parameters recorded as a ``#params=`` comment
+    so a cached file is self-describing (a stale construction is detected
+    by comparing headers, not trusted by filename)."""
+    from ldpc_decoder_tpu_torch.codes.alist import write_alist
+
+    body = write_alist(code.to_alist_data())
+    with open(path, "w") as f:
+        if params:
+            kv = ";".join(f"{k}={v}" for k, v in sorted(params.items()))
+            f.write(f"#params={kv}\n")
+        for tok in structure.header_tokens():
+            f.write(tok + "\n")
+        f.write(body)
+
+
+def read_alist_params(path: str) -> dict[str, str] | None:
+    """The ``#params=`` construction header of an alist file, if present."""
+    with open(path) as f:
+        for line in f:
+            line = line.strip()
+            if line.startswith("#params="):
+                out = {}
+                for kv in line[8:].split(";"):
+                    if "=" in kv:
+                        k, v = kv.split("=", 1)
+                        out[k] = v
+                return out
+            if not line.startswith("#"):
+                break
+    return None
+
+
+def load_qc_alist(path: str) -> tuple[LDPCCode, QCStructure | None]:
+    with open(path) as f:
+        text = f.read()
+    return LDPCCode.from_alist(text), QCStructure.from_header(text)

@@ -1,0 +1,72 @@
+"""Carry state across from the JAX package to the port, as numpy arrays.
+
+The system has no weights; what must carry across are the code tables and
+the decoder state, so that one input can be fed to a JAX pass and to the
+port's pass and the outputs compared:
+
+- :func:`structure_from_numpy` builds the port's ``QCStructure`` from the
+  numpy fields of a JAX ``QCStructure``;
+- :func:`grouped_state_from_jax` maps the JAX grouped kernels' padded flat
+  message layout (each degree group's first block rounded up to a multiple
+  of its degree) into the port's unpadded ``[nb, Z, B]`` layout, and
+  :func:`grouped_state_to_jax` maps back (padding blocks zero).
+
+The JAX tables are only read through their group metadata
+(``row_groups``/``col_groups`` with ``block_start``), so this module
+imports neither JAX nor the JAX package.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+from ldpc_decoder_tpu_torch.codes.qc import QCStructure
+
+
+def structure_from_numpy(Z, n_base_rows, n_base_cols, edge_row, edge_col,
+                         edge_shift) -> QCStructure:
+    return QCStructure(
+        Z=int(Z), n_base_rows=int(n_base_rows), n_base_cols=int(n_base_cols),
+        edge_row=np.asarray(edge_row, np.int32),
+        edge_col=np.asarray(edge_col, np.int32),
+        edge_shift=np.asarray(edge_shift, np.int32),
+    )
+
+
+def block_map(jax_groups, port_groups) -> np.ndarray:
+    """[nb] padded JAX block index of each port block (groups zipped in
+    order; both sides list the same degrees and counts)."""
+    out = []
+    for jg, pg in zip(jax_groups, port_groups, strict=True):
+        if (jg.degree, jg.count) != (pg.degree, pg.count):
+            raise ValueError(f"group mismatch: JAX {jg} vs port {pg}")
+        out.append(jg.block_start + np.arange(pg.count * pg.degree))
+    return np.concatenate(out)
+
+
+def _blocks(x, n_blocks, Z):
+    x = np.asarray(x)
+    return x.reshape(n_blocks, Z, x.shape[-1])
+
+
+def grouped_state_from_jax(msgs_v, r_c, jax_tables, port_tables):
+    """(msgs_v, r_c) in the JAX padded layout ([nbv_pad(*Z), (Z,) B] and
+    [nbc_pad(*Z), (Z,) B]) -> the port's ([nb, Z, B], [nb, Z, B])."""
+    Z = port_tables.Z
+    mv = _blocks(msgs_v, jax_tables.nbv_pad, Z)
+    rc = _blocks(r_c, jax_tables.nbc_pad, Z)
+    pv = block_map(jax_tables.col_groups, port_tables.col_groups)
+    pc = block_map(jax_tables.row_groups, port_tables.row_groups)
+    return mv[pv], rc[pc]
+
+
+def grouped_state_to_jax(msgs_v, r_c, jax_tables, port_tables):
+    """The port's ([nb, Z, B], [nb, Z, B]) -> the JAX padded layout
+    ([nbv_pad, Z, B], [nbc_pad, Z, B]); padding blocks are zero."""
+    msgs_v, r_c = np.asarray(msgs_v), np.asarray(r_c)
+    Z, B = port_tables.Z, msgs_v.shape[-1]
+    mv = np.zeros((jax_tables.nbv_pad, Z, B), msgs_v.dtype)
+    rc = np.zeros((jax_tables.nbc_pad, Z, B), r_c.dtype)
+    mv[block_map(jax_tables.col_groups, port_tables.col_groups)] = msgs_v
+    rc[block_map(jax_tables.row_groups, port_tables.row_groups)] = r_c
+    return mv, rc

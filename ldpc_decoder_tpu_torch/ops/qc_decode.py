@@ -1,0 +1,131 @@
+"""QC decode tables: the block orders of a lifted code, as torch tensors.
+
+Port of ``BlockGroup`` and ``QCDecodeTables.from_structure`` of
+``ldpc_decoder_tpu/ops/qc_decode.py``. Messages live in ``[n_blocks, Z, B]``
+arrays (Z = circulant size, B frames on the last axis); check-order blocks
+are grouped by base-row degree and variable-order blocks by base-column
+degree, so each degree group is a contiguous block range. Check-order
+block t (row r, col c, shift s) holds at row z the edge
+(check (r, z) <-> variable (c, (z + s) mod Z)).
+
+The XLA oracle passes of the JAX module are not ported: the port's plain
+passes live beside its kernels in :mod:`ops.qc_grouped`.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from ldpc_decoder_tpu_torch.codes.qc import QCStructure
+
+
+@dataclasses.dataclass(frozen=True)
+class BlockGroup:
+    degree: int
+    count: int  # number of base nodes (rows or cols) of this degree
+    block_start: int  # first block index in the sorted block order
+
+
+@dataclasses.dataclass(frozen=True)
+class QCDecodeTables:
+    """Constants of one QC code, on ``device``."""
+
+    n_vars: int
+    n_checks: int
+    n_edges: int
+    Z: int
+    n_blocks: int  # base edges
+    row_groups: tuple[BlockGroup, ...]  # over check-order blocks
+    col_groups: tuple[BlockGroup, ...]  # over variable-order blocks
+
+    cn_shift: torch.Tensor  # [n_blocks] int32 shift of check-order block t
+    vn_of_cn: torch.Tensor  # [n_blocks] int32 vn-block index of cn block t
+    cn_of_vn: torch.Tensor  # [n_blocks] int32 inverse
+    vn_shift: torch.Tensor  # [n_blocks] int32 shift of vn-order block u
+    cn_col_of_block: torch.Tensor  # [n_blocks] int32 sorted col of block t
+
+    # natural <-> sorted node orders (pool permutes, packing, erasures)
+    vn_pos: torch.Tensor  # [n_vars] int64
+    vn_order: torch.Tensor  # [n_vars] int64
+    cn_order: torch.Tensor  # [n_checks] int64
+    erased_mask_sorted: torch.Tensor  # [n_vars, 1] bool
+
+    @staticmethod
+    def from_structure(s: QCStructure, n_erased_vars: int = 0,
+                       device: torch.device | str = "cpu") -> "QCDecodeTables":
+        Z = s.Z
+        row_deg = s.row_degrees()
+        col_deg = s.col_degrees()
+        # sorted node orders (by degree, stable)
+        row_order = np.argsort(row_deg, kind="stable")
+        col_order = np.argsort(col_deg, kind="stable")
+        row_pos = np.empty_like(row_order)
+        row_pos[row_order] = np.arange(len(row_order))
+        col_pos = np.empty_like(col_order)
+        col_pos[col_order] = np.arange(len(col_order))
+
+        # check-order blocks: sort base edges by (row_pos, col); vn-order
+        # blocks by (col_pos, row)
+        cn_key = np.lexsort((s.edge_col, row_pos[s.edge_row]))
+        vn_key = np.lexsort((s.edge_row, col_pos[s.edge_col]))
+        nb = s.n_base_edges
+        vn_rank = np.empty(nb, dtype=np.int64)
+        vn_rank[vn_key] = np.arange(nb)
+        vn_of_cn = vn_rank[cn_key].astype(np.int32)
+        cn_of_vn = np.empty(nb, dtype=np.int32)
+        cn_of_vn[vn_of_cn] = np.arange(nb, dtype=np.int32)
+        cn_shift = s.edge_shift[cn_key].astype(np.int32)
+        vn_shift = cn_shift[cn_of_vn]
+        cn_col_of_block = col_pos[s.edge_col[cn_key]].astype(np.int32)
+
+        def groups(sorted_deg):
+            degs, starts, counts = np.unique(
+                sorted_deg, return_index=True, return_counts=True
+            )
+            out, blk = [], 0
+            for d, c in zip(degs.tolist(), counts.tolist()):
+                out.append(BlockGroup(degree=int(d), count=int(c),
+                                      block_start=blk))
+                blk += int(d) * int(c)
+            return tuple(out)
+
+        # block-expanded orders: sorted var row i*Z+z -> natural
+        # col_order[i]*Z+z
+        z = np.arange(Z, dtype=np.int64)
+        vn_order2 = (
+            col_order.astype(np.int64)[:, None] * Z + z[None, :]
+        ).reshape(-1)
+        cn_order2 = (
+            row_order.astype(np.int64)[:, None] * Z + z[None, :]
+        ).reshape(-1)
+        vn_pos2 = np.empty_like(vn_order2)
+        vn_pos2[vn_order2] = np.arange(vn_order2.shape[0])
+
+        erased_nat = np.zeros(s.n_base_cols * Z, dtype=bool)
+        if n_erased_vars:
+            erased_nat[s.n_base_cols * Z - n_erased_vars :] = True
+
+        def dev(a):
+            return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+        return QCDecodeTables(
+            n_vars=s.n_base_cols * Z,
+            n_checks=s.n_base_rows * Z,
+            n_edges=nb * Z,
+            Z=Z,
+            n_blocks=nb,
+            row_groups=groups(row_deg[row_order]),
+            col_groups=groups(col_deg[col_order]),
+            cn_shift=dev(cn_shift),
+            vn_of_cn=dev(vn_of_cn),
+            cn_of_vn=dev(cn_of_vn),
+            vn_shift=dev(vn_shift),
+            cn_col_of_block=dev(cn_col_of_block),
+            vn_pos=dev(vn_pos2),
+            vn_order=dev(vn_order2),
+            cn_order=dev(cn_order2),
+            erased_mask_sorted=dev(erased_nat[vn_order2])[:, None],
+        )

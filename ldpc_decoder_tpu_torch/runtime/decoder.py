@@ -1,0 +1,308 @@
+"""Decoder orchestration: batched decode with on-the-fly frame replacement.
+
+Port of the grouped-QC branch of ``ldpc_decoder_tpu/runtime/decoder.py``.
+A pool of all frames of a run lives on the device in the decoder's sorted
+layouts; B = parallel_factor lanes decode in parallel; every k iterations a
+superstep checks parity, retires finished or over-budget lanes (packing
+their hard decisions into the results) and refills them from the pool.
+
+The JAX package runs the whole schedule inside one ``lax.while_loop``. Here
+it is a host loop, like the reference's own scheduler
+(ldpc_decoder_gpu.cu:374-611): the device runs the iterations; after each
+superstep the host reads the [B] violated flags — the loop's one
+device-to-host read — and keeps the lane bookkeeping (frame ids, iteration
+counts, pool position) in numpy. The schedule is the JAX package's exactly,
+because per-frame iteration counts depend on it:
+
+- a burst of max(0, first_check − k) plain iterations (no emit, no parity);
+- supersteps of k iterations; a refilled lane is reset in-kernel on the
+  next superstep's first iteration (the lane-reset refill: only llr and syn
+  are reloaded, never the edge arrays), so that iteration is a wash;
+- done = active & (¬violated | iters_done ≥ max_iter); new frame ids come
+  from a cumsum over done; stop when no lane is active and the pool is
+  empty.
+
+The JAX runtime passes the fresh-lane flags on every superstep; this one
+passes them only when some lane was refilled. Results are identical (the
+degree-1 blocks already hold φ(llr) of every unchanged lane), which
+``tests/test_torch_decoder.py`` checks against the JAX decoder.
+"""
+
+from __future__ import annotations
+
+import math
+import time
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from ldpc_decoder_tpu_torch.channels.base import Channel
+from ldpc_decoder_tpu_torch.codes.code import LDPCCode
+from ldpc_decoder_tpu_torch.codes.qc import QCStructure
+from ldpc_decoder_tpu_torch.ops.phi import pre_from_infinity_threshold
+from ldpc_decoder_tpu_torch.ops.qc_decode import QCDecodeTables
+from ldpc_decoder_tpu_torch.ops.qc_grouped import (
+    GroupedQCTables,
+    burst_iterations_qc_grouped,
+    init_messages_qc_grouped,
+    run_iterations_qc_grouped,
+)
+from ldpc_decoder_tpu_torch.runtime.params import DynamicParams, StaticParams
+
+_TORCH_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+@dataclass
+class DecodeStats:
+    """Per-decode iteration statistics (ldpc_decoder_gpu.cu:616-628)."""
+
+    iterations: np.ndarray  # [N] per-frame iteration counts
+    total_supersteps: int
+    total_iterations: int  # global BP iterations executed
+    elapsed_seconds: float
+    batch_size: int
+
+    @property
+    def min_iter(self) -> int:
+        return int(self.iterations.min())
+
+    @property
+    def max_iter(self) -> int:
+        return int(self.iterations.max())
+
+    @property
+    def avg_iter(self) -> float:
+        return float(self.iterations.mean())
+
+    @property
+    def iter_time_per_vector(self) -> float:
+        # reference formula (ldpc_decoder_gpu.cu:628):
+        # elapsed / (global iterations * batch)
+        denom = self.total_iterations * self.batch_size
+        return self.elapsed_seconds / denom if denom else 0.0
+
+
+def _pack_bits_natural(bits: torch.Tensor, block_perm: torch.Tensor,
+                       n_words: int) -> torch.Tensor:
+    """bits [C, Z, n] int8 in sorted column blocks -> [n, n_words] int32
+    holding the uint32 words of each frame's bits in natural order (bit j
+    of word w = variable 32w + j; the deinterlace_output analog,
+    flood.cu:277-295). The QC block permutation makes the natural-order
+    gather a permute of whole Z-blocks."""
+    C, Z, n = bits.shape
+    nat = bits[block_perm].reshape(C * Z, n)
+    pad = n_words * 32 - C * Z
+    if pad:
+        nat = torch.cat([nat, nat.new_zeros((pad, n))])
+    x = nat.view(n_words, 32, n).to(torch.int64)
+    words = torch.zeros((n_words, n), dtype=torch.int64, device=bits.device)
+    for j in range(32):
+        words |= x[:, j] << j
+    # [0, 2^32) -> the int32 with the same bit pattern
+    words -= (words >> 31) << 32
+    return words.to(torch.int32).T.contiguous()
+
+
+class LDPCDecoder:
+    """Batched syndrome BP decoder for one QC code + channel.
+
+    Public surface mirrors the JAX package's (and the reference's,
+    h/ldpc_decoder_gpu_cuda.h:108-132): ``parallel_factor()`` and
+    ``decode(dyn_params, n_vecs, values, syndromes)``. ``device`` defaults
+    to the CUDA card when there is one, else the CPU (plain passes).
+    """
+
+    def __init__(self, code: LDPCCode, channel: Channel,
+                 static_params: StaticParams | None = None,
+                 device: torch.device | str | None = None,
+                 qc: QCStructure | None = None):
+        if qc is None:
+            raise NotImplementedError(
+                "the port decodes QC codes through the grouped kernels: "
+                "pass qc=QCStructure (QC detection on plain alists and the "
+                "general any-alist path are not ported yet)")
+        self.code = code
+        self.channel = channel
+        self.params = static_params or StaticParams()
+        if device is None:
+            device = "cuda" if torch.cuda.is_available() else "cpu"
+        self.device = torch.device(device)
+        qct = QCDecodeTables.from_structure(qc, code.n_erased_vars,
+                                            self.device)
+        if (qct.n_vars != code.n_vars or qct.n_checks != code.n_checks
+                or qct.n_edges != code.n_edges):
+            raise ValueError("QC structure does not match the code")
+        self.tables = GroupedQCTables.from_qc_tables(qct)
+        self.msg_dtype = _TORCH_DTYPES[self.params.message_dtype]
+        self.n_words = (code.n_vars + 31) // 32
+        Z = qct.Z
+        vn_pos = qct.vn_pos.cpu().numpy()
+        # natural column block c -> its sorted block (vn_pos maps Z-blocks)
+        self._block_perm = torch.from_numpy(vn_pos[::Z] // Z).to(self.device)
+        self._vn_order_io = qct.vn_order.cpu().numpy()
+        self._cn_order_io = qct.cn_order.cpu().numpy()
+        self._parallel_factor = self._choose_parallel_factor()
+
+    # ------------------------------------------------------------------
+    def _device_memory(self) -> int:
+        if self.params.device_memory_bytes is not None:
+            return self.params.device_memory_bytes
+        if self.device.type == "cuda":
+            return torch.cuda.mem_get_info(self.device)[1]
+        raise ValueError(
+            f"no device memory size for {self.device}: set "
+            f"StaticParams.device_memory_bytes or parallel_factor_user")
+
+    def _choose_parallel_factor(self) -> int:
+        """Largest power-of-two lane count fitting device memory, capped by
+        the user's -p (reference memory model, ldpc_decoder_gpu.cu:72-99);
+        StaticParams.parallel_factor_user bypasses the model.
+
+        Per lane: msgs_v and r_c in the message dtype, node-sized state and
+        temporaries in float32, syndrome bytes; per pool frame (loading
+        factor 4 assumed): raw values, syndromes and packed results."""
+        if self.params.parallel_factor_user is not None:
+            return int(self.params.parallel_factor_user)
+        msg_bytes = torch.empty((), dtype=self.msg_dtype).element_size()
+        e, nv, nc = self.code.n_edges, self.code.n_vars, self.code.n_checks
+        per_lane = 2 * e * msg_bytes + 3 * nv * 4 + nc
+        per_pool_frame = nv * 4 + nc + nv // 8
+        table_bytes = 3 * e * 4 + 2 * nv * 4 + 2 * nc * 4
+        budget = (self._device_memory() * (1.0 - self.params.memory_headroom)
+                  - table_bytes)
+        max_lanes = max(1, int(budget // (per_lane + 4 * per_pool_frame)))
+        log_pf = min(int(math.floor(math.log2(max_lanes))),
+                     self.params.max_log_parallel_factor_user)
+        return 1 << max(log_pf, 0)
+
+    def parallel_factor(self) -> int:
+        return self._parallel_factor
+
+    # ------------------------------------------------------------------
+    def _lane_llr(self, vals: torch.Tensor):
+        """Pool values [n_vars, n] -> LLR state [C, Z, n] in the message
+        dtype (the kernels' consumption dtype), erased rows zeroed."""
+        llr = self.channel.llr_from_channel(vals).masked_fill(
+            self.tables.erased_mask_sorted, 0.0)
+        t = self.tables
+        return llr.to(self.msg_dtype).view(t.C, t.Z, -1)
+
+    def decode(
+        self,
+        dyn_params: DynamicParams,
+        n_vecs: int,
+        values: np.ndarray,      # [n_vars, n_vecs] float32, natural order
+        syndromes: np.ndarray,   # [n_checks, n_vecs] 0/1, natural order
+    ) -> tuple[np.ndarray, DecodeStats]:
+        """Decode ``n_vecs`` frames; returns (packed bits [n_vecs, n_words]
+        uint32 in natural per-frame layout, stats). ``values[i, v]`` is the
+        i-th channel value of frame v (h/ldpc_decoder_gpu.h:94 transposed).
+        The pools are uploaded in sorted layouts before the timed region."""
+        if values.shape != (self.code.n_vars, n_vecs):
+            raise ValueError(f"values must be [{self.code.n_vars}, {n_vecs}]")
+        if syndromes.shape != (self.code.n_checks, n_vecs):
+            raise ValueError(
+                f"syndromes must be [{self.code.n_checks}, {n_vecs}]")
+        pool_values = torch.from_numpy(np.ascontiguousarray(
+            values[self._vn_order_io], dtype=np.float32)).to(self.device)
+        pool_syn = torch.from_numpy(np.ascontiguousarray(
+            syndromes[self._cn_order_io], dtype=np.int8)).to(self.device)
+        return self.decode_presorted(dyn_params, n_vecs, pool_values,
+                                     pool_syn)
+
+    def decode_presorted(
+        self,
+        dyn_params: DynamicParams,
+        n_vecs: int,
+        pool_values: torch.Tensor,  # [n_vars, n_vecs] f32, SORTED vn order
+        pool_syn: torch.Tensor,     # [n_checks, n_vecs] int8, SORTED cn order
+    ) -> tuple[np.ndarray, DecodeStats]:
+        """Device-pool entry point: pools already on ``self.device`` in the
+        decoder's sorted layouts. Returns what :meth:`decode` returns; times
+        from the pools being on the device to the results being ready."""
+        k = dyn_params.num_iter_check_parity
+        if k < 1:
+            raise ValueError(f"num_iter_check_parity must be >= 1, got {k}")
+        max_iter = dyn_params.num_iter_max
+        pre = pre_from_infinity_threshold(dyn_params.infinity_threshold)
+        burst = max(0, dyn_params.num_iter_first_check - k)
+        t, dev, B = self.tables, self.device, self._parallel_factor
+        n_pool = n_vecs
+        if pool_values.shape != (t.n_vars, n_pool) or pool_syn.shape != (
+                t.n_checks, n_pool):
+            raise ValueError("pool shapes do not match the code and n_vecs")
+
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        frame_ids = np.arange(B)
+        active = frame_ids < n_pool
+        iters_done = np.zeros(B, np.int64)
+        iters_out = np.zeros(n_pool, np.int32)
+        pool_next = min(B, n_pool)
+        results = torch.zeros((n_pool, self.n_words), dtype=torch.int32,
+                              device=dev)
+        if n_pool == B:  # single fill: the lane -> pool map is the identity
+            vals = pool_values
+            syn = pool_syn.clone()
+        else:
+            safe = torch.from_numpy(np.minimum(frame_ids, n_pool - 1)).to(dev)
+            vals = pool_values[:, safe]
+            syn = pool_syn[:, safe]
+        llr = self._lane_llr(vals)
+        syn = syn.view(t.R, t.Z, B)
+        msgs = init_messages_qc_grouped(llr, t, self.msg_dtype, pre)
+        if burst:
+            burst_iterations_qc_grouped(msgs, llr, syn, t, burst, pre)
+            iters_done += burst
+
+        fresh = None
+        supersteps = 0
+        while True:
+            msgs, bits, violated = run_iterations_qc_grouped(
+                msgs, llr, syn, t, k, pre, fresh)
+            supersteps += 1
+            iters_done += k
+            viol = violated.cpu().numpy()  # the superstep's one host read
+            done = active & (~viol | (iters_done >= max_iter))
+
+            if done.any():  # retire: pack the finished lanes' bits
+                lanes = np.nonzero(done)[0]
+                ids = frame_ids[lanes]
+                packed = _pack_bits_natural(
+                    bits[:, :, torch.from_numpy(lanes).to(dev)],
+                    self._block_perm, self.n_words)
+                results[torch.from_numpy(ids).to(dev)] = packed
+                iters_out[ids] = iters_done[lanes]
+
+            # refill from the pool (flood_refill analog)
+            order = np.cumsum(done) - done
+            new_ids = pool_next + order
+            has_new = done & (new_ids < n_pool)
+            frame_ids = np.where(has_new, new_ids, frame_ids)
+            active = np.where(done, has_new, active)
+            pool_next = min(pool_next + int(done.sum()), n_pool)
+            iters_done[done] = 0
+            fresh = None
+            if has_new.any():
+                lanes = torch.from_numpy(np.nonzero(has_new)[0]).to(dev)
+                ids = torch.from_numpy(frame_ids[has_new]).to(dev)
+                llr[:, :, lanes] = self._lane_llr(pool_values[:, ids])
+                syn[:, :, lanes] = pool_syn[:, ids].view(t.R, t.Z, -1)
+                fresh = torch.from_numpy(has_new).to(dev)
+
+            if not active.any() and pool_next == n_pool:
+                break
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        elapsed = time.perf_counter() - t0
+
+        stats = DecodeStats(
+            iterations=iters_out,
+            total_supersteps=supersteps,
+            total_iterations=supersteps * k + burst,
+            elapsed_seconds=elapsed,
+            batch_size=B,
+        )
+        return results.cpu().numpy().view(np.uint32), stats

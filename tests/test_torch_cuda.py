@@ -1,0 +1,118 @@
+"""The CUDA kernels against their plain PyTorch versions, on the card.
+
+Every test here is marked ``cuda`` and skips without an NVIDIA GPU. The
+file imports neither JAX nor the JAX package, so it runs on the card's
+host, which has no JAX; run it there with the repository's conftest
+(which imports JAX) left out:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
+
+Tolerances: signs, hard bits, parity flags and decoded words are exact;
+messages are within one ulp of the storage dtype (the plain version's φ
+goes through torch's CUDA tanh/log, the kernel's through tanhf/logf).
+"""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from ldpc_decoder_tpu_torch.channels import BIAWGNChannel  # noqa: E402
+from ldpc_decoder_tpu_torch.codes.protographs import p41_code  # noqa: E402
+from ldpc_decoder_tpu_torch.ops import qc_grouped as qg  # noqa: E402
+from ldpc_decoder_tpu_torch.ops.qc_decode import QCDecodeTables  # noqa: E402
+from ldpc_decoder_tpu_torch.runtime.datagen import create_data  # noqa: E402
+from ldpc_decoder_tpu_torch.runtime.decoder import LDPCDecoder  # noqa: E402
+from ldpc_decoder_tpu_torch.runtime.params import (  # noqa: E402
+    DynamicParams,
+    StaticParams,
+)
+
+SMALL = dict(Z=128, m=4, coarse=64, fine_mod=16)
+B = 8
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernels have no CPU mode)")
+    return torch.device("cuda")
+
+
+@pytest.fixture(scope="module")
+def small_code():
+    return p41_code(**SMALL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernels_match_plain(small_code, cuda_device, dtype):
+    from ldpc_decoder_tpu_torch.ops import _kernels
+
+    code, s = small_code
+    t = qg.GroupedQCTables.from_qc_tables(QCDecodeTables.from_structure(
+        s, code.n_erased_vars, cuda_device))
+    rng = np.random.default_rng(5)
+
+    def rand(shape, scale):
+        x = rng.standard_normal(shape).astype(np.float32) * scale
+        return torch.from_numpy(x).to(cuda_device, dtype)
+
+    mv, rc = rand((t.nb, t.Z, B), 4), rand((t.nb, t.Z, B), 4)
+    llr = rand((t.C, t.Z, B), 3)
+    syn = torch.from_numpy((rng.random((t.R, t.Z, B)) < 0.5).astype(
+        np.int8)).to(cuda_device)
+    fresh = torch.from_numpy(rng.random(B) < 0.5).to(cuda_device)
+    ulp = 2.0 ** -7 if dtype == torch.bfloat16 else 2.0 ** -22
+    before = dict(_kernels.launch_counts)
+
+    rk = qg.cn_pass_grouped(mv, syn, rc.clone(), t)
+    rp = qg.cn_pass_plain(mv, syn, rc.clone(), t)
+    assert torch.equal(torch.signbit(rk), torch.signbit(rp))
+    torch.testing.assert_close(rk.float(), rp.float(), rtol=ulp, atol=0)
+
+    for emit, fr, d1 in [(False, None, False), (True, fresh, False),
+                         (False, fresh, True)]:
+        bk = torch.full((t.C, t.Z, B), -1, dtype=torch.int8,
+                        device=cuda_device)
+        bp = bk.clone()
+        mk = qg.vn_pass_grouped(rc, llr, mv.clone(), t,
+                                bits=bk if emit else None, fresh=fr,
+                                include_d1=d1)
+        mp = qg.vn_pass_plain(rc, llr, mv.clone(), t,
+                              bits=bp if emit else None, fresh=fr,
+                              include_d1=d1)
+        assert torch.equal(torch.signbit(mk), torch.signbit(mp))
+        torch.testing.assert_close(mk.float(), mp.float(), rtol=ulp, atol=0)
+        assert torch.equal(bk, bp)
+
+    bits = torch.from_numpy((rng.random((t.C, t.Z, B)) < 0.5).astype(
+        np.int8)).to(cuda_device)
+    assert torch.equal(qg.parity_pass_grouped(bits, syn, t),
+                       qg.parity_pass_plain(bits, syn, t))
+    torch.cuda.synchronize()
+    n_rows, n_cols = len(t.row_groups), len(t.col_groups)
+    assert _kernels.launch_counts["cn"] - before["cn"] == n_rows
+    assert _kernels.launch_counts["parity"] - before["parity"] == n_rows
+    # non-emit skips the degree-1 group; emit and include_d1 run it
+    assert _kernels.launch_counts["vn"] - before["vn"] == 3 * n_cols - 1
+
+
+@pytest.mark.cuda
+def test_decode_on_card_matches_cpu(small_code, cuda_device):
+    """The slice on the small code: kernels on the card vs plain passes on
+    the CPU, float32 messages; equal words, zero bit errors."""
+    code, s = small_code
+    ch = BIAWGNChannel(0.7)
+    n = 3 * 32 + 8
+    batch = create_data(code, ch, 0, n, backend="numpy")
+    dyn = DynamicParams(num_iter_max=60, num_iter_check_parity=5)
+    out = {}
+    for dev in ("cpu", cuda_device):
+        dec = LDPCDecoder(code, ch, StaticParams(parallel_factor_user=32),
+                          qc=s, device=dev)
+        out[str(dev)] = dec.decode(dyn, n, batch.values, batch.syndromes)
+    (res_c, st_c), (res_g, st_g) = out["cpu"], out[str(cuda_device)]
+    np.testing.assert_array_equal(res_g, res_c)
+    assert (res_g == batch.ref_bits_packed()).all()
+    assert abs(st_g.avg_iter - st_c.avg_iter) <= 5

@@ -1,0 +1,146 @@
+"""The slice end to end on the small p41-shaped code: the port's
+``LDPCDecoder.decode`` against the JAX package's.
+
+The JAX side runs ``kernel_impl="xla"``, the oracle the Pallas kernels are
+held bit-identical to. In float32 the decoded words and the per-frame
+iteration counts must be equal (φ differs by ulps between the two, far
+below what moves a hard decision at this noise level); in bfloat16 both
+decode every frame and their mean iterations agree within one check
+period k. B = 32 lanes, N = 3B + 8 frames (refills and a partial last
+fill), k = 5.
+"""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+torch.set_num_threads(2)
+
+from ldpc_decoder_tpu.channels import BIAWGNChannel as JaxBIAWGN  # noqa: E402
+from ldpc_decoder_tpu.codes.protographs import p41_code as jax_p41  # noqa: E402
+from ldpc_decoder_tpu.runtime import params as jparams  # noqa: E402
+from ldpc_decoder_tpu.runtime.datagen import create_data  # noqa: E402
+from ldpc_decoder_tpu.runtime.decoder import (  # noqa: E402
+    LDPCDecoder as JaxLDPCDecoder,
+)
+
+from ldpc_decoder_tpu_torch.channels import BIAWGNChannel  # noqa: E402
+from ldpc_decoder_tpu_torch.codes.qc import qc_to_code  # noqa: E402
+from ldpc_decoder_tpu_torch.convert import structure_from_numpy  # noqa: E402
+from ldpc_decoder_tpu_torch.runtime.decoder import (  # noqa: E402
+    LDPCDecoder,
+    _pack_bits_natural,
+)
+from ldpc_decoder_tpu_torch.runtime.params import (  # noqa: E402
+    DynamicParams,
+    StaticParams,
+)
+
+SMALL = dict(Z=128, m=4, coarse=64, fine_mod=16)
+SIGMA = 0.7
+B, K = 32, 5
+N = 3 * B + 8
+
+
+@pytest.fixture(scope="module")
+def setup():
+    jcode, js = jax_p41(**SMALL)
+    s = structure_from_numpy(js.Z, js.n_base_rows, js.n_base_cols,
+                             js.edge_row, js.edge_col, js.edge_shift)
+    code = qc_to_code(s, jcode.n_erased_vars)
+    batch = create_data(jcode, JaxBIAWGN(SIGMA), 0, N, backend="numpy")
+    return dict(jcode=jcode, js=js, code=code, s=s, batch=batch)
+
+
+def _decode_both(setup, dtype, first_check):
+    batch = setup["batch"]
+    jdec = JaxLDPCDecoder(
+        setup["jcode"], JaxBIAWGN(SIGMA),
+        jparams.StaticParams(parallel_factor_user=B, kernel_impl="xla",
+                             message_dtype=dtype),
+        qc=setup["js"])
+    jres, jst = jdec.decode(
+        jparams.DynamicParams(num_iter_max=60, num_iter_check_parity=K,
+                              num_iter_first_check=first_check),
+        N, batch.values, batch.syndromes)
+    dec = LDPCDecoder(setup["code"], BIAWGNChannel(SIGMA),
+                      StaticParams(parallel_factor_user=B,
+                                   message_dtype=dtype),
+                      qc=setup["s"], device="cpu")
+    res, st = dec.decode(
+        DynamicParams(num_iter_max=60, num_iter_check_parity=K,
+                      num_iter_first_check=first_check),
+        N, batch.values, batch.syndromes)
+    return (res, st), (np.asarray(jres), jst)
+
+
+def _bit_errors(setup, res):
+    return np.bitwise_count(setup["batch"].ref_bits_packed() ^ res).sum()
+
+
+@pytest.mark.parametrize("first_check", [0, 10])
+def test_decode_float32_matches_jax(setup, first_check):
+    (res, st), (jres, jst) = _decode_both(setup, "float32", first_check)
+    assert res.dtype == np.uint32 and res.shape == jres.shape
+    np.testing.assert_array_equal(res, jres)
+    np.testing.assert_array_equal(st.iterations, jst.iterations)
+    assert st.total_supersteps == jst.total_supersteps
+    assert st.total_iterations == jst.total_iterations
+    assert _bit_errors(setup, res) == 0
+    if first_check:
+        assert st.min_iter >= first_check
+
+
+def test_decode_bfloat16_matches_jax(setup):
+    (res, st), (jres, jst) = _decode_both(setup, "bfloat16", 0)
+    assert _bit_errors(setup, res) == 0
+    assert _bit_errors(setup, jres) == 0
+    assert abs(st.avg_iter - jst.avg_iter) <= K
+
+
+def test_pack_bits_natural_matches_reference_packing(setup):
+    code, s = setup["code"], setup["s"]
+    dec = LDPCDecoder(code, BIAWGNChannel(SIGMA),
+                      StaticParams(parallel_factor_user=B), qc=s,
+                      device="cpu")
+    ref = setup["batch"].ref_bits[:, :B]  # natural order, bit 31 included
+    t = dec.tables
+    sorted_bits = torch.from_numpy(ref[t.vn_order.numpy()].copy())
+    packed = _pack_bits_natural(sorted_bits.view(t.C, t.Z, B),
+                                dec._block_perm, dec.n_words)
+    np.testing.assert_array_equal(
+        packed.numpy().view(np.uint32),
+        setup["batch"].ref_bits_packed()[:B])
+
+
+def test_lane_count_model(setup):
+    code, s = setup["code"], setup["s"]
+    ch = BIAWGNChannel(SIGMA)
+    with pytest.raises(ValueError, match="device_memory_bytes"):
+        LDPCDecoder(code, ch, StaticParams(), qc=s, device="cpu")
+    dec = LDPCDecoder(code, ch, StaticParams(
+        device_memory_bytes=16 << 30, max_log_parallel_factor_user=8),
+        qc=s, device="cpu")
+    assert dec.parallel_factor() == 256
+    dec = LDPCDecoder(code, ch, StaticParams(device_memory_bytes=1 << 20),
+                      qc=s, device="cpu")
+    assert dec.parallel_factor() & (dec.parallel_factor() - 1) == 0
+    assert dec.parallel_factor() < 32
+
+
+@pytest.mark.parametrize("kw", [
+    dict(algorithm="min-sum"),
+    dict(message_dtype="int8"),
+    dict(message_dtype="float8_e5m2"),
+    dict(kernel_impl="xla"),
+    dict(kernel_impl="pallas"),
+])
+def test_options_not_ported_raise(kw):
+    with pytest.raises(NotImplementedError):
+        StaticParams(**kw)
+
+
+def test_plain_alist_without_qc_raises(setup):
+    with pytest.raises(NotImplementedError, match="qc"):
+        LDPCDecoder(setup["code"], BIAWGNChannel(SIGMA),
+                    StaticParams(parallel_factor_user=B), device="cpu")

@@ -1,0 +1,138 @@
+"""The port's host-side copies equal the JAX package's originals.
+
+The card's host has no JAX, so ``ldpc_decoder_tpu_torch`` carries JAX-free
+copies of the numpy modules (codes, ChaCha8, datagen) and builds the same
+native C++ source. Same seed in, identical arrays out.
+"""
+
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+torch.set_num_threads(2)
+
+from ldpc_decoder_tpu.channels import BIAWGNChannel as JaxBIAWGN  # noqa: E402
+from ldpc_decoder_tpu.codes.protographs import p41_code as jax_p41  # noqa: E402
+from ldpc_decoder_tpu.runtime.datagen import create_data as jax_create  # noqa: E402
+
+from ldpc_decoder_tpu_torch.channels import BIAWGNChannel  # noqa: E402
+from ldpc_decoder_tpu_torch.codes.protographs import (  # noqa: E402
+    p41_code,
+    p41_shipped_params,
+)
+from ldpc_decoder_tpu_torch.runtime.datagen import create_data  # noqa: E402
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SMALL = dict(Z=128, m=4, coarse=64, fine_mod=16)
+
+
+@pytest.fixture(scope="module")
+def codes():
+    return jax_p41(**SMALL), p41_code(**SMALL)
+
+
+def test_p41_structure_identical(codes):
+    (jcode, js), (code, s) = codes
+    for f in ("edge_row", "edge_col", "edge_shift"):
+        np.testing.assert_array_equal(getattr(s, f), getattr(js, f))
+    assert (s.Z, s.n_base_rows, s.n_base_cols) == (
+        js.Z, js.n_base_rows, js.n_base_cols)
+    assert code.n_erased_vars == jcode.n_erased_vars == 4 * 128
+    for f in ("in_bit_to_edge", "out_bit_to_edge", "in_edge_to_bit",
+              "edge_in_to_out"):
+        np.testing.assert_array_equal(getattr(code, f), getattr(jcode, f))
+
+
+def test_shipped_params_match():
+    from ldpc_decoder_tpu.codes.protographs import p41_shipped_params as jp
+
+    assert p41_shipped_params() == jp()
+
+
+def test_alist_round_trip_keeps_params(codes, tmp_path):
+    from ldpc_decoder_tpu.codes.qc import load_qc_alist as jax_load
+    from ldpc_decoder_tpu_torch.codes.qc import (
+        load_qc_alist,
+        read_alist_params,
+        write_qc_alist,
+    )
+
+    _, (code, s) = codes
+    path = str(tmp_path / "p41_small.alist")
+    params = {**p41_shipped_params(), "Z": "128", "m": "4"}
+    write_qc_alist(code, s, path, params=params)
+    assert read_alist_params(path) == params
+    code2, s2 = load_qc_alist(path)
+    np.testing.assert_array_equal(code2.edge_in_to_out, code.edge_in_to_out)
+    np.testing.assert_array_equal(s2.edge_shift, s.edge_shift)
+    assert code2.n_erased_vars == code.n_erased_vars
+    # the JAX package reads the port's cache file identically
+    jcode, js = jax_load(path)
+    np.testing.assert_array_equal(jcode.edge_in_to_out, code.edge_in_to_out)
+    np.testing.assert_array_equal(js.edge_shift, s.edge_shift)
+
+
+def _golden_cases():
+    with open(os.path.join(REPO, "tests", "data", "chacha_golden.txt")) as f:
+        for line in f:
+            seed, iv, first, last = line.split()
+            yield int(seed), int(iv), bytes.fromhex(first), bytes.fromhex(last)
+
+
+@pytest.mark.parametrize("seed,iv,first,last", list(_golden_cases()))
+def test_chacha_words_match_golden(seed, iv, first, last):
+    from ldpc_decoder_tpu_torch.rng.chacha_np import (
+        BLOCKS_PER_REFILL,
+        WORDS_PER_REFILL,
+        stream_words,
+    )
+
+    assert stream_words(seed, WORDS_PER_REFILL * iv, 16).tobytes() == first
+    assert stream_words(
+        seed, WORDS_PER_REFILL * iv + 16 * (BLOCKS_PER_REFILL - 1), 16
+    ).tobytes() == last
+
+
+def test_create_data_numpy_identical(codes):
+    (jcode, _), (code, _) = codes
+    a = jax_create(jcode, JaxBIAWGN(0.8), 5, 8, backend="numpy")
+    b = create_data(code, BIAWGNChannel(0.8), 5, 8, backend="numpy")
+    np.testing.assert_array_equal(b.ref_bits, a.ref_bits)
+    np.testing.assert_array_equal(b.values, a.values)
+    np.testing.assert_array_equal(b.syndromes, a.syndromes)
+    assert (b.values[-code.n_erased_vars:] == 0).all()
+
+
+def test_create_data_native_equals_numpy(codes):
+    from ldpc_decoder_tpu_torch import native
+
+    if not native.available():
+        pytest.skip("g++ cannot build the native library here")
+    _, (code, _) = codes
+    ch = BIAWGNChannel(0.9)
+    a = create_data(code, ch, 40, 40, backend="numpy")
+    b = create_data(code, ch, 40, 40, backend="native")
+    np.testing.assert_array_equal(b.ref_bits, a.ref_bits)
+    np.testing.assert_array_equal(b.syndromes, a.syndromes)
+    # same draws; libm vs numpy log/sqrt differ in the last ulps (the
+    # tolerance of the JAX package's tests/test_native.py)
+    np.testing.assert_allclose(b.values, a.values, rtol=5e-5, atol=2e-5)
+
+
+def test_port_imports_no_jax():
+    code = (
+        "import sys\n"
+        "import ldpc_decoder_tpu_torch.runtime.decoder\n"
+        "import ldpc_decoder_tpu_torch.runtime.datagen\n"
+        "import ldpc_decoder_tpu_torch.convert\n"
+        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
+        " or m == 'ldpc_decoder_tpu' or m.startswith('ldpc_decoder_tpu.')]\n"
+        "assert not bad, bad\n"
+    )
+    r = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr
