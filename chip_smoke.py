@@ -1,23 +1,40 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's main path once on one NVIDIA GPU, and check it.
+"""Drive the PyTorch/CUDA port's paths once on one NVIDIA GPU, and check them.
 
     python3 chip_smoke.py        # from the repository root, one card
 
-The main path is the bench's flagship decode: the punctured p41 code
-(n = 1,032,192, 147,456 punctured), BI-AWGN at sigma = 0.94, sum-product,
-bfloat16 messages, B = 256 frames in flight, 512 frames, k = 14, first
-parity check at iteration 70, at most 120 iterations; frames generated on
-the host and decoded through ``LDPCDecoder.decode``. Phases:
+Two paths, each through ``LDPCDecoder.decode`` with frames generated on the
+host, sum-product, bfloat16 messages, B = 256 frames in flight, at most 120
+iterations:
+
+- p41 (the bench's flagship): the punctured p41 code (n = 1,032,192,
+  147,456 punctured), BI-AWGN at sigma = 0.94, 512 frames, k = 14, first
+  parity check at iteration 70 — the grouped kernels (csrc/qc_grouped.cu);
+- reg36 (the README's library flow, bench.py's secondary point): the
+  regular (3,6) code of n = 2^20 (Z = 32,768), BI-AWGN at sigma = 0.87,
+  512 frames, then the erasure channel at epsilon = 0.40, 256 frames; k =
+  10, first check 0 — the regular kernels (csrc/qc_regular.cu).
+
+Phases:
 
 1. device: the card's name and power limit (nvidia-smi);
-2. build: the CUDA kernels from ldpc_decoder_tpu_torch/csrc/qc_grouped.cu;
+2. build: both kernel libraries from ldpc_decoder_tpu_torch/csrc/, one
+   nvcc each, started together;
 3. phi on the device, through a check-node launch, against float64;
 4. the p41 code (alist cache in codes_cache/) and 512 frames on the host;
-5. each kernel against its plain PyTorch version on the card, at p41 x
-   B = 256 on a real decode state, with both times;
-6. a small decode on the card against the plain passes on the CPU;
-7. the main path, twice; the second decode is reported, and the kernels'
-   launch counts are read around it.
+5. each grouped kernel against its plain PyTorch version on the card, at
+   p41 x B = 256 on a real decode state, with both times;
+6. a small p41 decode on the card against the plain passes on the CPU;
+7. the p41 path, twice; the second decode is reported, and the kernels'
+   launch counts are read around it;
+8. the reg36 code (alist cache) and its frames: 512 at sigma = 0.87, 256
+   over the erasure channel;
+9. each regular kernel against its plain version at reg36 x B = 256 on a
+   real decode state, and against the grouped kernel on the same state,
+   with the three times;
+10. a small regular decode on the card against the plain passes on the CPU;
+11. the reg36 path, twice, reported and counted like phase 7;
+12. the reg36 erasure decode, counted the same way.
 
 Every phase must pass: any failure raises, and the script exits nonzero
 without its result line. The last line of stdout is the result object; the
@@ -29,54 +46,106 @@ import os
 import re
 import subprocess
 import sys
+import threading
 import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 P41_ALIST = os.path.join(REPO, "codes_cache",
                          "code_awgn_rate_0.5_thr_0.95.alist")
+# bench.py's cache file and #params header for the regular (3,6) code
+REG36_ALIST = os.path.join(REPO, "codes_cache",
+                           "bench_qc36x_awgn_r05_1048576_g8.alist")
+REG36_PARAMS = {"base": "reg36_16x32_s2", "Z": "32768", "seed": "1",
+                "coarse": "1024", "fine_mod": "64", "min_girth": "8"}
 SIGMA = 0.94
+REG36_SIGMA = 0.87
+EPSILON = 0.40
 N_FRAMES = 512
+N_ERASURE_FRAMES = 256
 # phi on the device vs float64: rel + abs bound (measured on an H100:
 # max rel 2.43e-6 near x = 5, so 1e-5 keeps a 4x margin)
 PHI_RTOL, PHI_ATOL = 1e-5, 1e-7
 # kernel vs plain bf16 messages: share allowed to differ, by one ulp only
 BF16_ULP_SHARE = 1e-4
-AVG_ITERS = (69.0, 76.0)
+AVG_ITERS = (69.0, 76.0)         # p41 at sigma 0.94
+REG36_AVG_ITERS = (40.0, 45.0)   # reg36 at sigma 0.87, k = 10
+ERASURE_MAX_AVG_ITERS = 40.0     # reg36 at epsilon 0.40, k = 10
+# the card's datasheet peaks (H100 SXM, 700 W): HBM bytes/s and float32
+# operations/s outside the tensor cores
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
+# float32 operations per CN/VN message: |m|, the running sum, the
+# leave-one-out subtract, two clamps, x/2, tanh, log, negate (or exp and
+# a multiply past 5), the branch select and the sign OR; a parity read is
+# one add and one AND
+OPS_PER_MESSAGE = 12
+OPS_PER_PARITY_READ = 2
 
+GROUPED_SOURCE = "ldpc_decoder_tpu_torch/csrc/qc_grouped.cu"
+REGULAR_SOURCE = "ldpc_decoder_tpu_torch/csrc/qc_regular.cu"
+# (name in the kernels line and in launch_counts, source, TPU kernel)
 KERNELS = [
-    ("cn", "ldpc_decoder_tpu/ops/qc_pallas_grouped.py:332"),  # _cn_kernel_g
-    ("vn", "ldpc_decoder_tpu/ops/qc_pallas_grouped.py:414"),  # _vn_kernel_g
-    ("parity", "ldpc_decoder_tpu/ops/qc_pallas_grouped.py:462"),
+    ("cn", GROUPED_SOURCE,
+     "ldpc_decoder_tpu/ops/qc_pallas_grouped.py:332"),  # _cn_kernel_g
+    ("vn", GROUPED_SOURCE,
+     "ldpc_decoder_tpu/ops/qc_pallas_grouped.py:414"),  # _vn_kernel_g
+    ("parity", GROUPED_SOURCE,
+     "ldpc_decoder_tpu/ops/qc_pallas_grouped.py:462"),  # _parity_kernel_g
+    ("cn_regular", REGULAR_SOURCE,
+     "ldpc_decoder_tpu/ops/qc_pallas.py:412"),  # _cn_kernel
+    ("vn_regular", REGULAR_SOURCE,
+     "ldpc_decoder_tpu/ops/qc_pallas.py:469"),  # _vn_kernel
+    ("parity_regular", REGULAR_SOURCE,
+     "ldpc_decoder_tpu/ops/qc_pallas.py:732"),  # _parity_kernel
 ]
-SOURCE = "ldpc_decoder_tpu_torch/csrc/qc_grouped.cu"
+GROUPED = ("cn", "vn", "parity")
+REGULAR = ("cn_regular", "vn_regular", "parity_regular")
 
 
 def log(msg):
     print(msg, flush=True)
 
 
-def get_code():
-    """p41 from the alist cache (checked by its #params header), else
-    built and cached — the same file and header as bench.py."""
-    from ldpc_decoder_tpu_torch.codes.protographs import (
-        p41_code,
-        p41_shipped_params,
-    )
+def cached_code(path, want, build):
+    """(code, structure, how) from the alist cache at ``path`` when its
+    #params header equals ``want``, else built by ``build()`` and cached."""
     from ldpc_decoder_tpu_torch.codes.qc import (
         load_qc_alist,
         read_alist_params,
         write_qc_alist,
     )
 
-    want = p41_shipped_params()
-    if os.path.exists(P41_ALIST) and read_alist_params(P41_ALIST) == want:
-        code, s = load_qc_alist(P41_ALIST)
+    if os.path.exists(path) and read_alist_params(path) == want:
+        code, s = load_qc_alist(path)
         if s is not None:
             return code, s, "cache"
-    code, s = p41_code()
-    os.makedirs(os.path.dirname(P41_ALIST), exist_ok=True)
-    write_qc_alist(code, s, P41_ALIST, params=want)
+    code, s = build()
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    write_qc_alist(code, s, path, params=want)
     return code, s, "built"
+
+
+def get_code():
+    """p41, the same file and header as bench.py."""
+    from ldpc_decoder_tpu_torch.codes.protographs import (
+        p41_code,
+        p41_shipped_params,
+    )
+
+    return cached_code(P41_ALIST, p41_shipped_params(), p41_code)
+
+
+def get_reg36_code():
+    """The README's regular (3,6) 2^20 code, the same file, header and
+    construction as bench.py's get_reg36_code."""
+    from ldpc_decoder_tpu_torch.codes.protographs import regular_base
+    from ldpc_decoder_tpu_torch.codes.qc import make_qc_code
+
+    def build():
+        return make_qc_code(regular_base(16, 32, 3, 6, seed=2), Z=32768,
+                            seed=1, coarse=1024, fine_mod=64, min_girth=8)
+
+    return cached_code(REG36_ALIST, REG36_PARAMS, build)
 
 
 def cuda_ms(fn, reps):
@@ -94,6 +163,13 @@ def cuda_ms(fn, reps):
         b.synchronize()
         times.append(a.elapsed_time(b))
     return sorted(times)[len(times) // 2]
+
+
+def bound(n_bytes, n_ops):
+    """The least time the card could take: (ms, "bytes" or "operations")."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = n_ops / F32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def popcount_rows(x):
@@ -123,6 +199,67 @@ def compare_msgs(name, k, p):
         torch.testing.assert_close(kf, pf, rtol=2.0 ** -22, atol=0)
     log(f"  {name}: {share:.3e} of values differ (max |diff| {max_abs:.3e})")
     return max_abs
+
+
+def bit_identical(a, b):
+    import torch
+
+    if a.dtype.is_floating_point:
+        as_int = torch.int16 if a.element_size() == 2 else torch.int32
+        return torch.equal(a.reshape(-1).view(as_int),
+                           b.reshape(-1).view(as_int))
+    return torch.equal(a.reshape(-1), b.reshape(-1))
+
+
+def ptxas_entries(text):
+    """[(kernel, registers, spill bytes)] from an nvcc -Xptxas -v log."""
+    out = []
+    for chunk in text.split("Compiling entry function '")[1:]:
+        name = chunk.split("'", 1)[0]
+        regs = re.search(r"Used (\d+) registers", chunk)
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", chunk)
+        out.append((name, int(regs.group(1)) if regs else -1,
+                    int(spill.group(1)) + int(spill.group(2))
+                    if spill else -1))
+    return out
+
+
+def phase_build():
+    """Both libraries at once (one nvcc each), then loaded and checked."""
+    from ldpc_decoder_tpu_torch.ops import _kernels
+
+    paths, errors, secs = {}, {}, {}
+
+    def build(name):
+        t0 = time.perf_counter()
+        try:
+            paths[name] = _kernels.library_path(name)
+        except Exception as e:  # reported below, then re-raised
+            errors[name] = e
+        secs[name] = time.perf_counter() - t0
+
+    threads = [threading.Thread(target=build, args=(name,))
+               for name in _kernels.SOURCES]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    for name, e in errors.items():
+        raise RuntimeError(f"building {name} failed") from e
+    for name, path in paths.items():
+        _kernels.load(name)
+        with open(path + ".log") as f:
+            entries = ptxas_entries(f.read())
+        log(f"  {name}.cu -> {os.path.relpath(path, REPO)} in "
+            f"{secs[name]:.1f} s; {len(entries)} kernels, max "
+            f"{max((r for _, r, _ in entries), default=0)} registers, "
+            f"{sum(max(s, 0) for _, _, s in entries)} spill bytes")
+        if name == "qc_regular":
+            for kname, regs, spill in entries:
+                if "Li30E" in kname and "vn_" not in kname:
+                    log(f"    d = 30: {kname}: {regs} registers, {spill} "
+                        f"spill bytes")
 
 
 def phase_phi(torch, np, dev):
@@ -162,8 +299,22 @@ def phase_phi(torch, np, dev):
     assert ok.all(), f"phi out of bound at x={x[~ok][:5]}"
 
 
+def lane_state(torch, np, dev, t, ch, batch, B):
+    """The first B frames of ``batch`` as sorted bf16 llr [C, Z, B] and
+    syndromes [R, Z, B] on the card."""
+    vals = torch.from_numpy(np.ascontiguousarray(
+        batch.values[t.vn_order.cpu().numpy(), :B])).to(dev)
+    llr = ch.llr_from_channel(vals).masked_fill(
+        t.erased_mask_sorted, 0.0).to(torch.bfloat16).view(t.C, t.Z, B)
+    syn = torch.from_numpy(np.ascontiguousarray(
+        batch.syndromes[t.cn_order.cpu().numpy(), :B])).to(dev).view(
+        t.R, t.Z, B)
+    return llr, syn
+
+
 def phase_kernels(torch, np, dev, code, s, batch):
-    """Kernel vs plain at the main path's shapes on a real decode state."""
+    """Grouped kernel vs plain at the p41 path's shapes on a real decode
+    state."""
     from ldpc_decoder_tpu_torch.channels import BIAWGNChannel
     from ldpc_decoder_tpu_torch.ops import qc_grouped as qg
     from ldpc_decoder_tpu_torch.ops.qc_decode import QCDecodeTables
@@ -171,13 +322,7 @@ def phase_kernels(torch, np, dev, code, s, batch):
     t = qg.GroupedQCTables.from_qc_tables(
         QCDecodeTables.from_structure(s, code.n_erased_vars, dev))
     B = 256
-    vals = torch.from_numpy(np.ascontiguousarray(
-        batch.values[t.vn_order.cpu().numpy(), :B])).to(dev)
-    llr = BIAWGNChannel(SIGMA).llr_from_channel(vals).masked_fill(
-        t.erased_mask_sorted, 0.0).to(torch.bfloat16).view(t.C, t.Z, B)
-    syn = torch.from_numpy(np.ascontiguousarray(
-        batch.syndromes[t.cn_order.cpu().numpy(), :B])).to(dev).view(
-        t.R, t.Z, B)
+    llr, syn = lane_state(torch, np, dev, t, BIAWGNChannel(SIGMA), batch, B)
     msgs = qg.init_messages_qc_grouped(llr, t, torch.bfloat16)
     msgs, _, _ = qg.run_iterations_qc_grouped(msgs, llr, syn, t, 4)
     mv, rc = msgs
@@ -191,10 +336,13 @@ def phase_kernels(torch, np, dev, code, s, batch):
     qg.cn_pass_plain(mv, syn, rp, t)
     err = compare_msgs("r_c", rk, rp)
     del rp
+    msg_bytes = t.nb * t.Z * B * 2
     out["cn"] = dict(
         max_abs_err=err,
         ms=cuda_ms(lambda: qg.cn_pass_grouped(mv, syn, rk, t), 10),
-        plain_ms=cuda_ms(lambda: qg.cn_pass_plain(mv, syn, rk, t), 3))
+        plain_ms=cuda_ms(lambda: qg.cn_pass_plain(mv, syn, rk, t), 3),
+        bound=bound(2 * msg_bytes + t.R * t.Z * B + 8 * t.nb,
+                    OPS_PER_MESSAGE * t.nb * t.Z * B))
 
     log("  variable nodes:")
     errs = []
@@ -216,10 +364,16 @@ def phase_kernels(torch, np, dev, code, s, batch):
             emitted = bk
             log(f"  hard bits ({label}): equal")
     del mp
+    # the timed pass is a plain iteration: the degree-1 group is skipped
+    run = [g for g in t.col_groups if g.degree > 1]
+    blocks = sum(g.count * g.degree for g in run)
+    cols = sum(g.count for g in run)
     out["vn"] = dict(
         max_abs_err=max(errs),
         ms=cuda_ms(lambda: qg.vn_pass_grouped(rk, llr, mk, t), 10),
-        plain_ms=cuda_ms(lambda: qg.vn_pass_plain(rk, llr, mk, t), 3))
+        plain_ms=cuda_ms(lambda: qg.vn_pass_plain(rk, llr, mk, t), 3),
+        bound=bound((2 * blocks + cols) * t.Z * B * 2 + 8 * blocks,
+                    OPS_PER_MESSAGE * blocks * t.Z * B))
 
     log("  parity:")
     ref = torch.from_numpy(np.ascontiguousarray(
@@ -242,18 +396,136 @@ def phase_kernels(torch, np, dev, code, s, batch):
     out["parity"] = dict(
         max_abs_err=0.0,
         ms=cuda_ms(lambda: qg.parity_pass_grouped(emitted, syn, t), 10),
-        plain_ms=cuda_ms(lambda: qg.parity_pass_plain(emitted, syn, t), 3))
+        plain_ms=cuda_ms(lambda: qg.parity_pass_plain(emitted, syn, t), 3),
+        bound=bound((t.C + t.R) * t.Z * B + 4 * B + 8 * t.nb,
+                    OPS_PER_PARITY_READ * t.nb * t.Z * B))
     for name, r in out.items():
         log(f"  {name}: kernel {r['ms']:.3f} ms per pass, plain "
-            f"{r['plain_ms']:.3f} ms (p41, B = {B}, bf16)")
+            f"{r['plain_ms']:.3f} ms, bound {r['bound'][0]:.3f} ms "
+            f"({r['bound'][1]}) (p41, B = {B}, bf16)")
     return out
 
 
-def phase_small(torch, np, dev):
-    """The slice on the small p41-shaped code: kernels on the card vs the
-    plain passes on the CPU, float32 messages."""
+def phase_regular_kernels(torch, np, dev, code, s, batch):
+    """Regular kernel vs plain at the reg36 path's shapes on a real decode
+    state, and vs the grouped kernel on the same state."""
     from ldpc_decoder_tpu_torch.channels import BIAWGNChannel
-    from ldpc_decoder_tpu_torch.codes.protographs import p41_code
+    from ldpc_decoder_tpu_torch.ops import qc_grouped as qg
+    from ldpc_decoder_tpu_torch.ops import qc_regular as qr
+    from ldpc_decoder_tpu_torch.ops.qc_decode import QCDecodeTables
+
+    qct = QCDecodeTables.from_structure(s, code.n_erased_vars, dev)
+    t = qr.QCRegularTables.from_qc_tables(qct)
+    tg = qg.GroupedQCTables.from_qc_tables(qct)
+    B = 256
+    llr, syn = lane_state(torch, np, dev, t, BIAWGNChannel(REG36_SIGMA),
+                          batch, B)
+    msgs = qr.init_messages_qc_regular(llr, t, torch.bfloat16)
+    msgs, _, _ = qr.run_iterations_qc_regular(msgs, llr, syn, t, 4)
+    mv, rc = msgs
+    nb, Z = tg.nb, t.Z
+    fresh = torch.zeros(B, dtype=torch.bool, device=dev)
+    fresh[::5] = True
+    out, same = {}, {}
+
+    log("  check nodes:")
+    rk, rp = torch.empty_like(rc), torch.empty_like(rc)
+    rg = torch.empty((nb, Z, B), dtype=rc.dtype, device=dev)
+    qr.cn_pass_regular(mv, syn, rk, t)
+    qr.cn_pass_plain(mv, syn, rp, t)
+    qg.cn_pass_grouped(mv.view(nb, Z, B), syn, rg, tg)
+    err = compare_msgs("r_c", rk, rp)
+    same["r_c"] = bit_identical(rk, rg)
+    del rp
+    msg_bytes = t.n_edges * B * 2
+    out["cn_regular"] = dict(
+        max_abs_err=err,
+        ms=cuda_ms(lambda: qr.cn_pass_regular(mv, syn, rk, t), 10),
+        plain_ms=cuda_ms(lambda: qr.cn_pass_plain(mv, syn, rk, t), 3),
+        grouped_ms=cuda_ms(lambda: qg.cn_pass_grouped(
+            mv.view(nb, Z, B), syn, rg, tg), 10),
+        bound=bound(2 * msg_bytes + t.n_checks * B + t.cn_read.numel() * 4,
+                    OPS_PER_MESSAGE * t.n_edges * B))
+
+    log("  variable nodes:")
+    errs = []
+    mk, mp = mv.clone(), mv.clone()
+    mg = torch.empty((nb, Z, B), dtype=mv.dtype, device=dev)
+    for label, emit, fr in [("plain iteration", False, None),
+                            ("emit + fresh lanes", True, fresh),
+                            ("first after refill", False, fresh)]:
+        mk.copy_(mv)
+        mp.copy_(mv)
+        mg.copy_(mv.view(nb, Z, B))
+        bk = torch.full((t.C, Z, B), -1, dtype=torch.int8, device=dev)
+        bp, bg = bk.clone(), bk.clone()
+        qr.vn_pass_regular(rk, llr, mk, t, bits=bk if emit else None,
+                           fresh=fr)
+        qr.vn_pass_plain(rk, llr, mp, t, bits=bp if emit else None,
+                         fresh=fr)
+        qg.vn_pass_grouped(rk.view(nb, Z, B), llr, mg, tg,
+                           bits=bg if emit else None, fresh=fr,
+                           include_d1=fr is not None)
+        errs.append(compare_msgs(f"msgs_v ({label})", mk, mp))
+        assert torch.equal(bk, bp), f"hard bits differ ({label})"
+        same[f"msgs_v ({label})"] = bit_identical(mk, mg)
+        if emit:
+            emitted = bk
+            same["bits"] = torch.equal(bk, bg)
+            log(f"  hard bits ({label}): equal")
+    del mp
+    out["vn_regular"] = dict(
+        max_abs_err=max(errs),
+        ms=cuda_ms(lambda: qr.vn_pass_regular(rk, llr, mk, t), 10),
+        plain_ms=cuda_ms(lambda: qr.vn_pass_plain(rk, llr, mk, t), 3),
+        grouped_ms=cuda_ms(lambda: qg.vn_pass_grouped(
+            rk.view(nb, Z, B), llr, mg, tg), 10),
+        bound=bound(2 * msg_bytes + t.n_vars * B * 2
+                    + t.vn_read.numel() * 4,
+                    OPS_PER_MESSAGE * t.n_edges * B))
+
+    log("  parity:")
+    ref = torch.from_numpy(np.ascontiguousarray(
+        batch.ref_bits[t.vn_order.cpu().numpy(), :B])).to(dev).view(
+        t.C, Z, B)
+    syn_bad = syn.clone()
+    bad = [3, 77, 200]
+    syn_bad[t.R - 1, Z - 1, bad] ^= 1
+    flags_same = True
+    for label, bits, sy, want in [
+            ("decode state", emitted, syn, None),
+            ("codewords", ref, syn, []),
+            ("codewords, 3 checks flipped", ref, syn_bad, bad)]:
+        fk = qr.parity_pass_regular(bits, sy, t)
+        fp = qr.parity_pass_plain(bits, sy, t)
+        assert torch.equal(fk, fp), f"parity flags differ ({label})"
+        flags_same &= torch.equal(fk, qg.parity_pass_grouped(bits, sy, tg))
+        lanes = torch.nonzero(fk).flatten().tolist()
+        if want is not None:
+            assert lanes == want, f"parity ({label}): {lanes} != {want}"
+        log(f"  flags ({label}): equal, {len(lanes)} of {B} lanes violated")
+    same["flags"] = flags_same
+    out["parity_regular"] = dict(
+        max_abs_err=0.0,
+        ms=cuda_ms(lambda: qr.parity_pass_regular(emitted, syn, t), 10),
+        plain_ms=cuda_ms(lambda: qr.parity_pass_plain(emitted, syn, t), 3),
+        grouped_ms=cuda_ms(lambda: qg.parity_pass_grouped(emitted, syn, tg),
+                           10),
+        bound=bound((t.n_vars + t.n_checks) * B + 4 * B
+                    + t.cn_read.numel() * 4,
+                    OPS_PER_PARITY_READ * t.n_edges * B))
+    log(f"  regular kernel vs grouped kernel on the same state, "
+        f"bit-identical: {same}")
+    for name, r in out.items():
+        log(f"  {name}: kernel {r['ms']:.3f} ms per pass, grouped kernel "
+            f"{r['grouped_ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, bound "
+            f"{r['bound'][0]:.3f} ms ({r['bound'][1]}) (reg36, B = {B}, "
+            f"bf16)")
+    return out
+
+
+def small_decode(np, dev, code, s, ch, n, expect_tables):
+    """Kernels on the card vs plain passes on the CPU, float32 messages."""
     from ldpc_decoder_tpu_torch.runtime.datagen import create_data
     from ldpc_decoder_tpu_torch.runtime.decoder import LDPCDecoder
     from ldpc_decoder_tpu_torch.runtime.params import (
@@ -261,25 +533,62 @@ def phase_small(torch, np, dev):
         StaticParams,
     )
 
-    code, s = p41_code(Z=128, m=4, coarse=64, fine_mod=16)
-    ch = BIAWGNChannel(0.7)
-    n = 104
     batch = create_data(code, ch, 0, n, backend="numpy")
     dyn = DynamicParams(num_iter_max=60, num_iter_check_parity=5)
     got = {}
     for d in ("cpu", dev):
         dec = LDPCDecoder(code, ch, StaticParams(parallel_factor_user=32),
                           qc=s, device=d)
+        assert isinstance(dec.tables, expect_tables), type(dec.tables)
         got[str(d)] = dec.decode(dyn, n, batch.values, batch.syndromes)
     (res_c, st_c), (res_g, st_g) = got["cpu"], got[str(dev)]
     assert res_g.shape == (n, dec.n_words)
     assert np.array_equal(res_g, res_c), "card and CPU decoded words differ"
     assert np.array_equal(res_g, batch.ref_bits_packed()), "bit errors"
-    log(f"  small code (n = {code.n_vars}, {n} frames, f32): card == CPU "
-        f"== reference bits; avg iterations card {st_g.avg_iter:.2f}, CPU "
-        f"{st_c.avg_iter:.2f}, per-frame equal: "
-        f"{np.array_equal(st_g.iterations, st_c.iterations)}")
+    log(f"  small code (n = {code.n_vars}, {n} frames, f32, "
+        f"{expect_tables.__name__}): card == CPU == reference bits; avg "
+        f"iterations card {st_g.avg_iter:.2f}, CPU {st_c.avg_iter:.2f}, "
+        f"per-frame equal: {np.array_equal(st_g.iterations, st_c.iterations)}")
     assert abs(st_g.avg_iter - st_c.avg_iter) <= 5
+
+
+def run_path(dec, dyn, batch, n, kernels, label, repeat=True):
+    """Decode ``n`` frames (twice when ``repeat``; the last is reported)
+    with the launch counts set to 0 just before the reported decode and
+    read just after; every kernel in ``kernels`` must have launched and
+    every other kernel not. Returns (stats, Mb/s pair, launches, errors)."""
+    from ldpc_decoder_tpu_torch.ops import _kernels
+
+    if repeat:
+        t0 = time.perf_counter()
+        dec.decode(dyn, n, batch.values, batch.syndromes)
+        log(f"  {label} decode 1: {time.perf_counter() - t0:.2f} s wall")
+    _kernels.reset_launch_counts()
+    results, stats = dec.decode(dyn, n, batch.values, batch.syndromes)
+    launches = dict(_kernels.launch_counts)
+    assert results.shape == (n, dec.n_words)
+    errors = popcount_rows(batch.ref_bits_packed() ^ results)
+    frame_bits = dec.code.n_vars
+    itpv = stats.iter_time_per_vector
+    dec_mbps = frame_bits / (stats.avg_iter * itpv * 1048576.0)
+    e2e_mbps = (frame_bits * n / 1048576.0) / stats.elapsed_seconds
+    fer1, fer15 = float((errors > 0).mean()), float((errors > 15).mean())
+    ber = float(errors.sum()) / (frame_bits * n)
+    log(f"  {label}: {stats.elapsed_seconds:.3f} s, B = "
+        f"{dec.parallel_factor()}, {stats.total_supersteps} supersteps, "
+        f"{stats.total_iterations} iterations")
+    log(f"  FER(>0) {fer1} ({int((errors > 0).sum())}/{n}), FER(>15) "
+        f"{fer15}, BER {ber:.3e}; iterations avg {stats.avg_iter:.2f} min "
+        f"{stats.min_iter} max {stats.max_iter}")
+    log(f"  itpv {itpv:.4e} s; decoding {dec_mbps:.2f} Mb/s, end-to-end "
+        f"{e2e_mbps:.2f} Mb/s; launches {launches}")
+    for name, count in launches.items():
+        if name in kernels:
+            assert count > 0, f"{name} kernel never launched"
+        else:
+            assert count == 0, f"{name} kernel launched off its path"
+    assert fer1 == 0.0 and ber == 0.0, f"FER(>0) = {fer1}, BER = {ber}"
+    return stats, launches
 
 
 def main():
@@ -304,33 +613,31 @@ def main():
     log(smi)
 
     log("[2] build")
-    from ldpc_decoder_tpu_torch.ops import _kernels
-
-    t0 = time.perf_counter()
-    lib_path = _kernels.library_path()
-    _kernels.load()
-    with open(lib_path + ".log") as f:
-        ptxas = f.read()
-    regs = [int(r) for r in re.findall(r"Used (\d+) registers", ptxas)]
-    spills = [int(a) + int(b) for a, b in re.findall(
-        r"(\d+) bytes spill stores, (\d+) bytes spill loads", ptxas)]
-    log(f"  {SOURCE} -> {os.path.relpath(lib_path, REPO)} in "
-        f"{time.perf_counter() - t0:.1f} s; {len(regs)} kernels, max "
-        f"{max(regs, default=0)} registers, {sum(spills)} spill bytes")
+    phase_build()
 
     log("[3] phi on the device")
     phase_phi(torch, np, dev)
 
     log("[4] code and frames")
+    from ldpc_decoder_tpu_torch import native
+    from ldpc_decoder_tpu_torch.channels import (
+        BIAWGNChannel,
+        ErasureChannel,
+    )
+    from ldpc_decoder_tpu_torch.ops.qc_grouped import GroupedQCTables
+    from ldpc_decoder_tpu_torch.ops.qc_regular import QCRegularTables
+    from ldpc_decoder_tpu_torch.runtime.datagen import create_data
+    from ldpc_decoder_tpu_torch.runtime.decoder import LDPCDecoder
+    from ldpc_decoder_tpu_torch.runtime.params import (
+        DynamicParams,
+        StaticParams,
+    )
+
     t0 = time.perf_counter()
     code, s, how = get_code()
     log(f"  p41: n = {code.n_vars}, {code.n_erased_vars} punctured, "
         f"{s.n_base_edges} circulants of Z = {s.Z} ({how}, "
         f"{time.perf_counter() - t0:.1f} s)")
-    from ldpc_decoder_tpu_torch import native
-    from ldpc_decoder_tpu_torch.channels import BIAWGNChannel
-    from ldpc_decoder_tpu_torch.runtime.datagen import create_data
-
     backend = "native" if native.available() else "numpy"
     t0 = time.perf_counter()
     ch = BIAWGNChannel(SIGMA)
@@ -338,62 +645,92 @@ def main():
     log(f"  create_data: {N_FRAMES} frames at sigma {SIGMA}, {backend} "
         f"backend, {time.perf_counter() - t0:.1f} s")
 
-    log("[5] kernels vs plain at p41 x B = 256")
+    log("[5] grouped kernels vs plain at p41 x B = 256")
     perf = phase_kernels(torch, np, dev, code, s, batch)
     torch.cuda.empty_cache()
 
-    log("[6] small decode: card vs CPU")
-    phase_small(torch, np, dev)
+    log("[6] small p41 decode: card vs CPU")
+    from ldpc_decoder_tpu_torch.codes.protographs import p41_code
 
-    log("[7] main path")
-    from ldpc_decoder_tpu_torch.runtime.decoder import LDPCDecoder
-    from ldpc_decoder_tpu_torch.runtime.params import (
-        DynamicParams,
-        StaticParams,
-    )
+    small, s_small = p41_code(Z=128, m=4, coarse=64, fine_mod=16)
+    small_decode(np, dev, small, s_small, BIAWGNChannel(0.7), 104,
+                 GroupedQCTables)
 
-    dec = LDPCDecoder(code, ch, StaticParams(max_log_parallel_factor_user=8,
-                                             message_dtype="bfloat16"),
-                      qc=s)
-    B = dec.parallel_factor()
-    assert dec.device.type == "cuda" and B == 256, (dec.device, B)
+    log("[7] p41 path")
+    sp = StaticParams(max_log_parallel_factor_user=8,
+                      message_dtype="bfloat16")
+    dec = LDPCDecoder(code, ch, sp, qc=s)
+    assert dec.device.type == "cuda" and dec.parallel_factor() == 256
+    assert isinstance(dec.tables, GroupedQCTables)
     dyn = DynamicParams(num_iter_max=120, num_iter_check_parity=14,
                         num_iter_first_check=70, loading_factor=2)
-    t0 = time.perf_counter()
-    dec.decode(dyn, N_FRAMES, batch.values, batch.syndromes)
-    log(f"  decode 1: {time.perf_counter() - t0:.2f} s wall")
-    _kernels.reset_launch_counts()
-    results, stats = dec.decode(dyn, N_FRAMES, batch.values,
-                                batch.syndromes)
-    launches = dict(_kernels.launch_counts)
-    assert results.shape == (N_FRAMES, dec.n_words)
-    errors = popcount_rows(batch.ref_bits_packed() ^ results)
-    frame_bits = code.n_vars
-    itpv = stats.iter_time_per_vector
-    dec_mbps = frame_bits / (stats.avg_iter * itpv * 1048576.0)
-    e2e_mbps = (frame_bits * N_FRAMES / 1048576.0) / stats.elapsed_seconds
-    fer1, fer15 = float((errors > 0).mean()), float((errors > 15).mean())
-    ber = float(errors.sum()) / (frame_bits * N_FRAMES)
-    log(f"  decode 2: {stats.elapsed_seconds:.3f} s, B = {B}, "
-        f"{stats.total_supersteps} supersteps, {stats.total_iterations} "
-        f"iterations")
-    log(f"  FER(>0) {fer1} ({int((errors > 0).sum())}/{N_FRAMES}), "
-        f"FER(>15) {fer15}, BER {ber:.3e}; iterations avg "
-        f"{stats.avg_iter:.2f} min {stats.min_iter} max {stats.max_iter}")
-    log(f"  itpv {itpv:.4e} s; decoding {dec_mbps:.2f} Mb/s, end-to-end "
-        f"{e2e_mbps:.2f} Mb/s; launches {launches}")
-    for name in launches:
-        assert launches[name] > 0, f"{name} kernel never launched"
-    assert fer1 == 0.0, f"FER(>0) = {fer1}"
+    stats, launches = run_path(dec, dyn, batch, N_FRAMES, GROUPED, "p41")
     assert AVG_ITERS[0] <= stats.avg_iter <= AVG_ITERS[1], stats.avg_iter
+    del dec, batch
+    torch.cuda.empty_cache()
+
+    log("[8] reg36 code and frames")
+    t0 = time.perf_counter()
+    code36, s36, how = get_reg36_code()
+    log(f"  reg36: n = {code36.n_vars}, {s36.n_base_rows} x "
+        f"{s36.n_base_cols} base, {s36.n_base_edges} circulants of Z = "
+        f"{s36.Z} ({how}, {time.perf_counter() - t0:.1f} s)")
+    t0 = time.perf_counter()
+    ch36 = BIAWGNChannel(REG36_SIGMA)
+    batch36 = create_data(code36, ch36, 0, N_FRAMES, backend=backend)
+    log(f"  create_data: {N_FRAMES} frames at sigma {REG36_SIGMA}, "
+        f"{backend} backend, {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    bec = ErasureChannel(EPSILON)
+    batch_bec = create_data(code36, bec, 0, N_ERASURE_FRAMES,
+                            backend="numpy")
+    log(f"  create_data: {N_ERASURE_FRAMES} frames at epsilon {EPSILON}, "
+        f"numpy backend, {time.perf_counter() - t0:.1f} s")
+
+    log("[9] regular kernels vs plain and grouped at reg36 x B = 256")
+    perf.update(phase_regular_kernels(torch, np, dev, code36, s36, batch36))
+    torch.cuda.empty_cache()
+
+    log("[10] small regular decode: card vs CPU")
+    from ldpc_decoder_tpu_torch.codes.qc import make_qc_code
+
+    small, s_small = make_qc_code(np.ones((3, 6), np.int8), Z=128, seed=1)
+    small_decode(np, dev, small, s_small, BIAWGNChannel(0.7), 104,
+                 QCRegularTables)
+
+    log("[11] reg36 path")
+    dec36 = LDPCDecoder(code36, ch36, sp, qc=s36)
+    assert dec36.device.type == "cuda" and dec36.parallel_factor() == 256
+    assert isinstance(dec36.tables, QCRegularTables)
+    dyn36 = DynamicParams(num_iter_max=120, num_iter_check_parity=10,
+                          num_iter_first_check=0, loading_factor=2)
+    stats36, launches36 = run_path(dec36, dyn36, batch36, N_FRAMES, REGULAR,
+                                   "reg36")
+    assert REG36_AVG_ITERS[0] <= stats36.avg_iter <= REG36_AVG_ITERS[1], \
+        stats36.avg_iter
+    del dec36, batch36
+    torch.cuda.empty_cache()
+
+    log("[12] reg36 erasure decode")
+    dec_bec = LDPCDecoder(code36, bec, sp, qc=s36)
+    stats_bec, _ = run_path(dec_bec, dyn36, batch_bec, N_ERASURE_FRAMES,
+                            REGULAR, f"erasure {EPSILON}", repeat=False)
+    assert stats_bec.avg_iter <= ERASURE_MAX_AVG_ITERS, stats_bec.avg_iter
     log(f"  all phases passed in {time.perf_counter() - t_all:.1f} s")
 
-    log(json.dumps({"kernels": [
-        {"name": name, "route": "cuda", "source": SOURCE, "replaces": rep,
-         "launches": launches[name],
-         "max_abs_err": perf[name]["max_abs_err"],
-         "ms": perf[name]["ms"], "plain_ms": perf[name]["plain_ms"]}
-        for name, rep in KERNELS]}))
+    launches.update({name: launches36[name] for name in REGULAR})
+    kernels = []
+    for name, source, rep in KERNELS:
+        r = perf[name]
+        entry = {"name": name, "route": "cuda", "source": source,
+                 "replaces": rep, "launches": launches[name],
+                 "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+                 "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
+                 "bound_by": r["bound"][1], "library_ms": None}
+        if "grouped_ms" in r:
+            entry["grouped_ms"] = r["grouped_ms"]
+        kernels.append(entry)
+    log(json.dumps({"kernels": kernels}))
     assert "jax" not in sys.modules
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -11,7 +11,7 @@ on-the-fly retire and refill of converged frames.
 
 __version__ = "0.1.0"
 
-from ldpc_decoder_tpu_torch.channels import BIAWGNChannel, Channel
+from ldpc_decoder_tpu_torch.channels import BIAWGNChannel, BSCChannel, Channel
 from ldpc_decoder_tpu_torch.codes.alist import parse_alist, write_alist
 from ldpc_decoder_tpu_torch.codes.code import LDPCCode, compute_syndrome, rate
 
@@ -22,6 +22,7 @@ __all__ = [
     "parse_alist",
     "write_alist",
     "Channel",
+    "BSCChannel",
     "BIAWGNChannel",
     "__version__",
 ]

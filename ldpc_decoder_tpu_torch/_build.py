@@ -22,14 +22,15 @@ class BuildError(RuntimeError):
 
 
 def build_shared_library(stem: str, sources: list[str], cmd: list[str],
-                         timeout: float) -> str:
+                         timeout: float, headers: tuple[str, ...] = ()) -> str:
     """Compile ``sources`` with ``cmd + ["-o", out] + sources``; return the
-    library's path. Raises BuildError (or OSError if the compiler is
+    library's path. ``headers`` are the files the sources include: hashed,
+    not compiled. Raises BuildError (or OSError if the compiler is
     missing)."""
     h = hashlib.sha256()
     for part in cmd:
         h.update(part.encode() + b"\0")
-    for src in sources:
+    for src in [*sources, *headers]:
         with open(src, "rb") as f:
             h.update(f.read())
     path = os.path.join(BUILD_DIR, f"{stem}-{h.hexdigest()[:16]}.so")

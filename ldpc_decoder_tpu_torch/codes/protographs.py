@@ -1,15 +1,42 @@
-"""The flagship punctured protograph code p41 and its two-stage lift.
+"""Base matrices: the flagship punctured protograph p41 and its two-stage
+lift, and random regular bases.
 
-JAX-free copy of the p41 part of ``ldpc_decoder_tpu/codes/protographs.py``
-(``prelift_base``, ``make_protograph_code_two_stage``, ``P41_BASE``,
-``p41_code``, ``p41_shipped_params``); ``tests/test_torch_host.py`` holds
-the built structures equal. A base matrix entry m > 1 means m parallel
-edges between that (check, variable) pair in the protograph.
+JAX-free copy of part of ``ldpc_decoder_tpu/codes/protographs.py``
+(``regular_base``, ``prelift_base``, ``make_protograph_code_two_stage``,
+``P41_BASE``, ``p41_code``, ``p41_shipped_params``);
+``tests/test_torch_host.py`` holds the built bases and structures equal. A
+base matrix entry m > 1 means m parallel edges between that (check,
+variable) pair in the protograph.
 """
 
 from __future__ import annotations
 
 import numpy as np
+
+
+def regular_base(R: int, C: int, dv: int, dc: int, seed: int = 0):
+    """Random (dv, dc)-regular 0/1 base matrix (configuration model,
+    parallel edges rejected). A sparse scaled base, not the all-ones
+    dv x dc one: QC lifts of fully connected bases have minimum distance
+    <= (dv+1)! whatever the lift size (MacKay/Davey bound)."""
+    if R * dc != C * dv:
+        raise ValueError("degree/size mismatch: R*dc must equal C*dv")
+    rng = np.random.default_rng(seed)
+    for _ in range(500):
+        cap = np.full(R, dc, dtype=np.float64)
+        base = np.zeros((R, C), dtype=np.int8)
+        ok = True
+        for c in range(C):
+            if (cap > 0).sum() < dv:
+                ok = False
+                break
+            picks = rng.choice(R, size=dv, replace=False, p=cap / cap.sum())
+            base[picks, c] = 1
+            cap[picks] -= 1
+        if ok and (base.sum(axis=1) == dc).all():
+            return base
+        rng = np.random.default_rng(rng.integers(1 << 31))
+    raise RuntimeError("could not realize a simple regular base")
 
 
 def prelift_base(base, m: int, seed: int = 0, tries: int = 64):

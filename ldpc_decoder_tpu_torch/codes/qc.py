@@ -1,8 +1,9 @@
 """Quasi-cyclic (protograph-lifted) LDPC codes.
 
 JAX-free copy of the part of ``ldpc_decoder_tpu/codes/qc.py`` that builds,
-expands and caches the flagship code: :class:`QCStructure`, the girth
-repair lift, :func:`qc_to_code` and the alist cache helpers.
+expands and caches QC codes: :class:`QCStructure`, the rejection lift
+(:func:`make_qc_structure`, :func:`make_qc_code`) and the girth repair
+lift, :func:`qc_to_code` and the alist cache helpers.
 ``tests/test_torch_host.py`` holds the copies equal. QC detection on plain
 alists is not ported yet.
 
@@ -80,6 +81,75 @@ class QCStructure:
             Z=Z, n_base_rows=R, n_base_cols=C,
             edge_row=arr[:, 0], edge_col=arr[:, 1], edge_shift=arr[:, 2],
         )
+
+
+def _has_4cycle(structure: QCStructure) -> bool:
+    """4-cycle test, multi-edge aware: a lifted 4-cycle exists iff two
+    distinct (edge, edge) pairs bridging the same row pair give equal shift
+    differences mod Z; parallel edges within a cell also close same-row
+    cycles when two in-cell differences coincide (or shifts repeat)."""
+    from collections import defaultdict
+
+    R, C, Z = structure.n_base_rows, structure.n_base_cols, structure.Z
+    cell = defaultdict(list)
+    for r, c, sh in zip(structure.edge_row.tolist(),
+                        structure.edge_col.tolist(),
+                        structure.edge_shift.tolist()):
+        cell[(r, c)].append(sh)
+    for ss in cell.values():
+        if len(set(ss)) < len(ss):  # collapsed parallel edge
+            return True
+    for r in range(R):  # same-row pair differences (multi-edge cells)
+        diffs = []
+        for c in range(C):
+            ss = cell.get((r, c), [])
+            for i in range(len(ss)):
+                for j in range(len(ss)):
+                    if i != j:
+                        diffs.append((ss[i] - ss[j]) % Z)
+        if len(diffs) != len(set(diffs)):
+            return True
+    for r1 in range(R):  # cross-row-pair differences
+        for r2 in range(r1 + 1, R):
+            diffs = []
+            for c in range(C):
+                for s1 in cell.get((r1, c), []):
+                    for s2 in cell.get((r2, c), []):
+                        diffs.append((s1 - s2) % Z)
+            if len(diffs) != len(set(diffs)):
+                return True
+    return False
+
+
+def _count_6cycles(structure: QCStructure) -> int:
+    """Number of base 6-cycle patterns whose shift condition closes (each
+    gives Z lifted six-cycles); every cycle is counted a constant number of
+    times, which is enough for rejection."""
+    from itertools import combinations, permutations
+
+    R, C, Z = structure.n_base_rows, structure.n_base_cols, structure.Z
+    S = np.full((R, C), -1, dtype=np.int64)
+    S[structure.edge_row, structure.edge_col] = structure.edge_shift
+    count = 0
+    cols = np.arange(C)
+    for rows in combinations(range(R), 3):
+        for r1, r2, r3 in permutations(rows):
+            if (r1, r2, r3)[0] != min(r1, r2, r3):
+                continue  # fix rotation symmetry
+            c1, c2, c3 = np.meshgrid(cols, cols, cols, indexing="ij")
+            distinct = (c1 != c2) & (c2 != c3) & (c1 != c3)
+            ok = (
+                (S[r1, c1] >= 0) & (S[r1, c2] >= 0)
+                & (S[r2, c2] >= 0) & (S[r2, c3] >= 0)
+                & (S[r3, c3] >= 0) & (S[r3, c1] >= 0)
+                & distinct
+            )
+            d = (
+                S[r1, c1] - S[r1, c2] + S[r2, c2] - S[r2, c3]
+                + S[r3, c3] - S[r3, c1]
+            ) % Z
+            count += int(((d == 0) & ok).sum())
+    return count
 
 
 def _cycle_patterns(base01: np.ndarray):
@@ -258,6 +328,63 @@ def make_qc_structure_repair(
         f"girth repair did not converge in {max_moves} moves "
         f"(residual violations: {[int(m.sum()) for m in masks]})"
     )
+
+
+def make_qc_structure(
+    base: np.ndarray, Z: int, seed: int = 0, max_tries: int = 200,
+    coarse: int | None = None, fine_mod: int = 4, min_girth: int = 6,
+) -> QCStructure:
+    """Random circulant shifts for a base matrix, rejecting 4-cycles (and,
+    with ``min_girth=8``, closed 6-cycle patterns of a 0/1 base).
+
+    With ``coarse``, shifts lie on the lattice s = a*coarse + b (mod Z),
+    |b| < ``fine_mod`` (the JAX package's seam-mode co-design; the port's
+    kernels take any shift). Entries > 1 become parallel edges.
+    """
+    base = np.asarray(base)
+    r0, c0 = np.nonzero(base)
+    mult = base[r0, c0].astype(np.int64)
+    rows = np.repeat(r0, mult)
+    cols = np.repeat(c0, mult)
+    rng = np.random.default_rng(seed)
+    if coarse is not None:
+        if Z % coarse:
+            raise ValueError(f"Z={Z} not divisible by coarse={coarse}")
+        if not 1 <= fine_mod <= coarse // 2:
+            raise ValueError("fine_mod must be in [1, coarse/2]")
+    for _ in range(max_tries):
+        if coarse is None:
+            shifts = rng.integers(0, Z, size=rows.shape[0]).astype(np.int32)
+        else:
+            a = rng.integers(0, Z // coarse, size=rows.shape[0])
+            b = rng.integers(-(fine_mod - 1), fine_mod, size=rows.shape[0])
+            shifts = ((a * coarse + b) % Z).astype(np.int32)
+        s = QCStructure(
+            Z=Z, n_base_rows=base.shape[0], n_base_cols=base.shape[1],
+            edge_row=rows.astype(np.int32), edge_col=cols.astype(np.int32),
+            edge_shift=shifts,
+        )
+        if _has_4cycle(s):
+            continue
+        if min_girth >= 8:
+            if (base > 1).any():
+                raise ValueError(
+                    "min_girth=8 rejection supports 0/1 bases only")
+            if _count_6cycles(s) > 0:
+                continue
+        return s
+    raise RuntimeError(
+        f"could not find girth-{min_girth} shifts for Z={Z} "
+        f"(base too dense for this lift size / lattice)")
+
+
+def make_qc_code(
+    base: np.ndarray, Z: int, seed: int = 0, n_erased_vars: int = 0,
+    coarse: int | None = None, fine_mod: int = 4, min_girth: int = 6,
+) -> tuple[LDPCCode, QCStructure]:
+    structure = make_qc_structure(base, Z, seed, coarse=coarse,
+                                  fine_mod=fine_mod, min_girth=min_girth)
+    return qc_to_code(structure, n_erased_vars), structure
 
 
 def qc_to_code(structure: QCStructure, n_erased_vars: int = 0) -> LDPCCode:

@@ -9,11 +9,17 @@ port's pass and the outputs compared:
 - :func:`grouped_state_from_jax` maps the JAX grouped kernels' padded flat
   message layout (each degree group's first block rounded up to a multiple
   of its degree) into the port's unpadded ``[nb, Z, B]`` layout, and
-  :func:`grouped_state_to_jax` maps back (padding blocks zero).
+  :func:`grouped_state_to_jax` maps back (padding blocks zero);
+- :func:`regular_state_from_jax` maps the JAX regular family's 2-D
+  ``[n_edges, B]`` messages (its runners' interface) into the port's
+  ``[C, d_v, Z, B]`` and ``[R, d_c, Z, B]``, and
+  :func:`regular_state_to_jax` maps back. Both sides keep the same edge
+  order, so this is a reshape.
 
-The JAX tables are only read through their group metadata
-(``row_groups``/``col_groups`` with ``block_start``), so this module
-imports neither JAX nor the JAX package.
+The JAX grouped tables are only read through their group metadata
+(``row_groups``/``col_groups`` with ``block_start``) and the regular
+layout comes from the port's tables, so this module imports neither JAX
+nor the JAX package.
 """
 
 from __future__ import annotations
@@ -70,3 +76,21 @@ def grouped_state_to_jax(msgs_v, r_c, jax_tables, port_tables):
     mv[block_map(jax_tables.col_groups, port_tables.col_groups)] = msgs_v
     rc[block_map(jax_tables.row_groups, port_tables.row_groups)] = r_c
     return mv, rc
+
+
+def regular_state_from_jax(msgs2d, r_c2d, port_tables):
+    """(msgs_v, r_c) as JAX 2-D [n_edges, B] arrays (variable order, check
+    order) -> the port's ([C, d_v, Z, B], [R, d_c, Z, B])."""
+    t = port_tables
+    msgs2d, r_c2d = np.asarray(msgs2d), np.asarray(r_c2d)
+    B = msgs2d.shape[-1]
+    return (msgs2d.reshape(t.C, t.d_v, t.Z, B),
+            r_c2d.reshape(t.R, t.d_c, t.Z, B))
+
+
+def regular_state_to_jax(msgs_v, r_c):
+    """The port's ([C, d_v, Z, B], [R, d_c, Z, B]) -> JAX 2-D
+    ([n_edges, B], [n_edges, B])."""
+    msgs_v, r_c = np.asarray(msgs_v), np.asarray(r_c)
+    B = msgs_v.shape[-1]
+    return msgs_v.reshape(-1, B), r_c.reshape(-1, B)

@@ -22,49 +22,25 @@
 // allocate nothing and never synchronise. Every C entry returns
 // cudaGetLastError(), which the Python wrapper turns into an exception.
 //
-// phi is evaluated in float32 with the accurate tanhf/logf/expf: this file
-// is never built with --use_fast_math (the decoder's accuracy depends on
-// phi near x = 5, where -log(tanh) amplifies tanh's rounding).
+// phi and the other device helpers come from common.cuh; this file is
+// never built with --use_fast_math.
 
 #include <cstdint>
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+#include "common.cuh"
 
 namespace {
+
+using ldpc::from_f32;
+using ldpc::kSignBit;
+using ldpc::phi_abs;
+using ldpc::rotate;
+using ldpc::to_f32;
 
 constexpr int kMaxDegree = 16;
 constexpr int kLaneThreads = 128;       // threads per block, along B
 constexpr int kRowsPerBlock = 8;        // CN/VN rows walked per thread
 constexpr int kParityRowsPerBlock = 32; // parity rows walked per thread
-constexpr uint32_t kSignBit = 0x80000000u;
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float x);
-template <>
-__device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);  // round to nearest even, as torch and XLA
-}
-
-// phi_abs(x) = -log(tanh(x/2)) on [pre, 80], 2 e^-x above 5
-// (ldpc_decoder_tpu_torch/ops/phi.py). Positive for every input, so a sign
-// bit OR-ed into it gives the signed message exactly.
-__device__ __forceinline__ float phi_abs(float x, float pre) {
-  const float xm = fminf(fmaxf(x, pre), 80.0f);
-  return xm > 5.0f ? 2.0f * expf(-xm) : -logf(tanhf(xm * 0.5f));
-}
-
-__device__ __forceinline__ int rotate(int z, int s, int Z) {
-  const int r = z + s;
-  return r >= Z ? r - Z : r;
-}
 
 // ---- check-node update ------------------------------------------------------
 //
@@ -276,7 +252,7 @@ void launch_parity(const void* bits, const void* syn, void* flags,
 
 extern "C" {
 
-int ldpc_qc_max_degree() { return kMaxDegree; }
+int ldpc_max_degree() { return kMaxDegree; }
 
 const char* ldpc_cuda_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));

@@ -1,16 +1,20 @@
-"""Build, load and launch the CUDA kernels of ``csrc/qc_grouped.cu``.
+"""Build, load and launch the CUDA kernels of ``csrc/``.
 
-The source is compiled by ``nvcc`` for ``sm_90a`` into a shared library with
-a plain ``extern "C"`` interface (no PyTorch headers, so it builds in
-seconds) at first use, into the git-ignored ``ldpc_decoder_tpu_torch/build/``;
-a changed source rebuilds. Fast math is never enabled: φ's accuracy near
-x = 5 carries the decoder.
+Two sources, one shared library each: ``qc_grouped.cu`` (the grouped
+family, one launch per degree group) and ``qc_regular.cu`` (the regular
+family, one launch per pass); both include ``common.cuh``. Each is compiled
+by ``nvcc`` for ``sm_90a`` into a library with a plain ``extern "C"``
+interface (no PyTorch headers, so it builds in seconds) at first use, into
+the git-ignored ``ldpc_decoder_tpu_torch/build/``; a changed source or
+header rebuilds. Fast math is never enabled: φ's accuracy near x = 5
+carries the decoder.
 
-Each launch function below launches one kernel for one degree group on the
-current torch stream and adds one to its entry of :data:`launch_counts`
-(the port's only global state), so a run can show that its main path went
-through the kernels. Argument checking is the callers' job
-(:mod:`ldpc_decoder_tpu_torch.ops.qc_grouped`); a nonzero CUDA error from a
+Each launch function below launches one kernel on the current torch
+stream and adds one to its entry of :data:`launch_counts` (the port's only
+global state), so a run can show that its main path went through the
+kernels. Argument checking is the callers' job
+(:mod:`ldpc_decoder_tpu_torch.ops.qc_grouped`,
+:mod:`ldpc_decoder_tpu_torch.ops.qc_regular`); a nonzero CUDA error from a
 launch raises.
 """
 
@@ -25,16 +29,41 @@ import torch
 
 from ldpc_decoder_tpu_torch._build import build_shared_library
 
-SOURCE = os.path.join(os.path.dirname(os.path.dirname(
-    os.path.abspath(__file__))), "csrc", "qc_grouped.cu")
+CSRC = os.path.join(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))), "csrc")
+SOURCES = {name: os.path.join(CSRC, f"{name}.cu")
+           for name in ("qc_grouped", "qc_regular")}
+HEADERS = (os.path.join(CSRC, "common.cuh"),)
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
-MAX_DEGREE = 16  # kMaxDegree of the source: the instantiated degrees 1..16
+# each source's kMaxDegree: degrees 1..max are instantiated
+MAX_DEGREES = {"qc_grouped": 16, "qc_regular": 32}
 
-launch_counts = {"cn": 0, "vn": 0, "parity": 0}
+launch_counts = {"cn": 0, "vn": 0, "parity": 0,
+                 "cn_regular": 0, "vn_regular": 0, "parity_regular": 0}
+
+_p, _i, _f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# per library: {launch function: argtypes}; each returns a CUDA error code.
+# Both libraries also export ldpc_max_degree() and ldpc_cuda_error_string.
+_SIGNATURES = {
+    "qc_grouped": {
+        "ldpc_cn_group": [_p, _p, _p, _p, _p, _i, _i, _i, _i, _i, _i, _f, _i,
+                          _p],
+        "ldpc_vn_group": [_p, _p, _p, _p, _p, _p, _p, _i, _i, _i, _i, _i, _i,
+                          _f, _i, _p],
+        "ldpc_parity_group": [_p, _p, _p, _p, _p, _i, _i, _i, _i, _i, _i,
+                              _p],
+    },
+    "qc_regular": {
+        "ldpc_cn_regular": [_p, _p, _p, _p, _i, _i, _i, _i, _i, _f, _i, _p],
+        "ldpc_vn_regular": [_p, _p, _p, _p, _p, _p, _i, _i, _i, _i, _i, _f,
+                            _i, _p],
+        "ldpc_parity_regular": [_p, _p, _p, _p, _i, _i, _i, _i, _p],
+    },
+}
 
 _lock = threading.Lock()
-_lib = None
+_libs: dict[str, ctypes.CDLL] = {}
 
 
 def reset_launch_counts() -> None:
@@ -47,38 +76,34 @@ def _nvcc() -> str:
         if cand and os.path.exists(cand):
             return cand
     raise RuntimeError("nvcc not found: the CUDA kernels are built from "
-                       "csrc/qc_grouped.cu at first use")
+                       "ldpc_decoder_tpu_torch/csrc/ at first use")
 
 
-def library_path() -> str:
-    """Build (if needed) and return the kernels' shared library path; its
-    ``.log`` beside it holds ptxas's register and spill report."""
-    return build_shared_library("qc_grouped", [SOURCE],
-                                [_nvcc(), *NVCC_FLAGS], timeout=900)
+def library_path(name: str) -> str:
+    """Build (if needed) and return the path of library ``name`` (a key of
+    :data:`SOURCES`); its ``.log`` beside it holds ptxas's register and
+    spill report. Safe to call for both libraries from two threads at once:
+    each nvcc runs in its own process."""
+    return build_shared_library(name, [SOURCES[name]], [_nvcc(), *NVCC_FLAGS],
+                                timeout=900, headers=HEADERS)
 
 
-def load() -> ctypes.CDLL:
-    global _lib
+def load(name: str) -> ctypes.CDLL:
     with _lock:
-        if _lib is not None:
-            return _lib
-        lib = ctypes.CDLL(library_path())
-        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.ldpc_qc_max_degree.argtypes = []
-        lib.ldpc_qc_max_degree.restype = i
-        lib.ldpc_cuda_error_string.argtypes = [i]
+        if name in _libs:
+            return _libs[name]
+        lib = ctypes.CDLL(library_path(name))
+        for fn, argtypes in _SIGNATURES[name].items():
+            getattr(lib, fn).argtypes = argtypes
+            getattr(lib, fn).restype = _i
+        lib.ldpc_cuda_error_string.argtypes = [_i]
         lib.ldpc_cuda_error_string.restype = ctypes.c_char_p
-        lib.ldpc_cn_group.argtypes = [p, p, p, p, p, i, i, i, i, i, i, f, i, p]
-        lib.ldpc_cn_group.restype = i
-        lib.ldpc_vn_group.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i,
-                                      f, i, p]
-        lib.ldpc_vn_group.restype = i
-        lib.ldpc_parity_group.argtypes = [p, p, p, p, p, i, i, i, i, i, i, p]
-        lib.ldpc_parity_group.restype = i
-        if lib.ldpc_qc_max_degree() != MAX_DEGREE:
-            raise RuntimeError("kernel library and MAX_DEGREE disagree")
-        _lib = lib
-        return _lib
+        lib.ldpc_max_degree.argtypes = []
+        lib.ldpc_max_degree.restype = _i
+        if lib.ldpc_max_degree() != MAX_DEGREES[name]:
+            raise RuntimeError(f"{name} library and MAX_DEGREES disagree")
+        _libs[name] = lib
+        return lib
 
 
 def _check(lib, err: int, what: str) -> None:
@@ -98,7 +123,7 @@ def _stream(t: torch.Tensor) -> int:
 def cn_group(msgs_v, syn, r_c, src, shift, g, Z: int, B: int,
              pre: float) -> None:
     """Check-node kernel for one check-degree group ``g``."""
-    lib = load()
+    lib = load("qc_grouped")
     err = lib.ldpc_cn_group(
         _ptr(msgs_v), _ptr(syn), _ptr(r_c), _ptr(src), _ptr(shift),
         g.node_start, g.count, g.degree, g.block_start, Z, B, pre,
@@ -111,7 +136,7 @@ def vn_group(r_c, llr, msgs_v, bits, fresh, src, shift, g, Z: int, B: int,
              pre: float) -> None:
     """Variable-node kernel for one variable-degree group ``g``; ``bits``
     and ``fresh`` may be None."""
-    lib = load()
+    lib = load("qc_grouped")
     err = lib.ldpc_vn_group(
         _ptr(r_c), _ptr(llr), _ptr(msgs_v), _ptr(bits), _ptr(fresh),
         _ptr(src), _ptr(shift), g.node_start, g.count, g.degree,
@@ -123,9 +148,42 @@ def vn_group(r_c, llr, msgs_v, bits, fresh, src, shift, g, Z: int, B: int,
 
 def parity_group(bits, syn, flags, src, shift, g, Z: int, B: int) -> None:
     """Parity kernel for one check-degree group ``g``: flags [B] int32."""
-    lib = load()
+    lib = load("qc_grouped")
     err = lib.ldpc_parity_group(
         _ptr(bits), _ptr(syn), _ptr(flags), _ptr(src), _ptr(shift),
         g.node_start, g.count, g.degree, g.block_start, Z, B, _stream(bits))
     _check(lib, err, "parity kernel")
     launch_counts["parity"] += 1
+
+
+def cn_regular(msgs_v, syn, r_c, tables, pre: float) -> None:
+    """Regular check-node kernel over all R checks (one launch)."""
+    lib = load("qc_regular")
+    err = lib.ldpc_cn_regular(
+        _ptr(msgs_v), _ptr(syn), _ptr(r_c), _ptr(tables.cn_read), tables.R,
+        tables.d_c, tables.d_v, tables.Z, msgs_v.shape[-1], pre,
+        int(msgs_v.dtype == torch.bfloat16), _stream(msgs_v))
+    _check(lib, err, "regular check-node kernel")
+    launch_counts["cn_regular"] += 1
+
+
+def vn_regular(r_c, llr, msgs_v, bits, fresh, tables, pre: float) -> None:
+    """Regular variable-node kernel over all C variables (one launch);
+    ``bits`` and ``fresh`` may be None."""
+    lib = load("qc_regular")
+    err = lib.ldpc_vn_regular(
+        _ptr(r_c), _ptr(llr), _ptr(msgs_v), _ptr(bits), _ptr(fresh),
+        _ptr(tables.vn_read), tables.C, tables.d_v, tables.d_c, tables.Z,
+        r_c.shape[-1], pre, int(r_c.dtype == torch.bfloat16), _stream(r_c))
+    _check(lib, err, "regular variable-node kernel")
+    launch_counts["vn_regular"] += 1
+
+
+def parity_regular(bits, syn, flags, tables) -> None:
+    """Regular parity kernel over all R checks: flags [B] int32."""
+    lib = load("qc_regular")
+    err = lib.ldpc_parity_regular(
+        _ptr(bits), _ptr(syn), _ptr(flags), _ptr(tables.cn_read), tables.R,
+        tables.d_c, tables.Z, bits.shape[-1], _stream(bits))
+    _check(lib, err, "regular parity kernel")
+    launch_counts["parity_regular"] += 1

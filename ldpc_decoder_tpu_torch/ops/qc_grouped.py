@@ -33,6 +33,7 @@ import dataclasses
 import torch
 
 from ldpc_decoder_tpu_torch.ops import _kernels
+from ldpc_decoder_tpu_torch.ops._dispatch import backend, check
 from ldpc_decoder_tpu_torch.ops.phi import PRE_THRESHOLD, phi, phi_abs
 from ldpc_decoder_tpu_torch.ops.qc_decode import QCDecodeTables
 
@@ -116,38 +117,14 @@ class GroupedQCTables:
 # ---- argument checks and dispatch ----------------------------------------
 
 def _backend(tables: GroupedQCTables, *tensors: torch.Tensor) -> str:
-    """"cpu" (plain version) or "cuda" (kernel); raises otherwise."""
-    devices = {t.device for t in tensors} | {tables.device}
-    if len(devices) != 1:
-        raise ValueError(f"tensors and tables on different devices: "
-                         f"{sorted(map(str, devices))}")
-    dev = devices.pop()
-    if dev.type == "cpu":
-        return "cpu"
-    if dev.type != "cuda":
-        raise ValueError(f"no implementation for device {dev}: the passes "
-                         f"run on CPU (plain) or CUDA (kernels)")
-    if tables.max_degree > _kernels.MAX_DEGREE:
-        raise ValueError(f"node degree {tables.max_degree} exceeds the "
-                         f"kernels' maximum {_kernels.MAX_DEGREE}")
-    for t in tensors:
-        if not t.is_contiguous():
-            raise ValueError("the CUDA kernels need contiguous tensors")
-    return "cuda"
-
-
-def _check(t: torch.Tensor, name: str, shape: tuple, dtypes) -> None:
-    if tuple(t.shape) != shape:
-        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {shape}")
-    if t.dtype not in dtypes:
-        raise ValueError(f"{name} has dtype {t.dtype}, expected one of "
-                         f"{dtypes}")
+    return backend(tables.device, tables.max_degree,
+                   _kernels.MAX_DEGREES["qc_grouped"], *tensors)
 
 
 def _check_msgs(tables, a, name_a, b, name_b):
     B = a.shape[-1]
-    _check(a, name_a, (tables.nb, tables.Z, B), _MSG_DTYPES)
-    _check(b, name_b, (tables.nb, tables.Z, B), (a.dtype,))
+    check(a, name_a, (tables.nb, tables.Z, B), _MSG_DTYPES)
+    check(b, name_b, (tables.nb, tables.Z, B), (a.dtype,))
     return B
 
 
@@ -195,7 +172,7 @@ def cn_pass_grouped(msgs_v, syn, r_c, tables: GroupedQCTables,
     """msgs_v [nb, Z, B] (vn order), syn [R, Z, B] int8 -> r_c [nb, Z, B]
     (check order), every block rewritten in place; returns r_c."""
     B = _check_msgs(tables, msgs_v, "msgs_v", r_c, "r_c")
-    _check(syn, "syn", (tables.R, tables.Z, B), (torch.int8,))
+    check(syn, "syn", (tables.R, tables.Z, B), (torch.int8,))
     if _backend(tables, msgs_v, syn, r_c) == "cpu":
         return cn_pass_plain(msgs_v, syn, r_c, tables, pre)
     with torch.cuda.device(msgs_v.device):
@@ -260,13 +237,13 @@ def vn_pass_grouped(r_c, llr, msgs_v, tables: GroupedQCTables,
     ``include_d1``: run the degree-1 groups on a non-emit iteration (the
     first iteration after a refill, when their φ(llr) changed)."""
     B = _check_msgs(tables, r_c, "r_c", msgs_v, "msgs_v")
-    _check(llr, "llr", (tables.C, tables.Z, B), (r_c.dtype,))
+    check(llr, "llr", (tables.C, tables.Z, B), (r_c.dtype,))
     tensors = [r_c, llr, msgs_v]
     if bits is not None:
-        _check(bits, "bits", (tables.C, tables.Z, B), (torch.int8,))
+        check(bits, "bits", (tables.C, tables.Z, B), (torch.int8,))
         tensors.append(bits)
     if fresh is not None:
-        _check(fresh, "fresh", (B,), (torch.bool,))
+        check(fresh, "fresh", (B,), (torch.bool,))
         tensors.append(fresh)
     if _backend(tables, *tensors) == "cpu":
         return vn_pass_plain(r_c, llr, msgs_v, tables, pre, bits, fresh,
@@ -301,8 +278,8 @@ def parity_pass_grouped(bits, syn, tables: GroupedQCTables) -> torch.Tensor:
     """bits [C, Z, B] int8 (sorted columns), syn [R, Z, B] int8 -> [B]
     bool, True where any check of the lane is violated."""
     B = bits.shape[-1]
-    _check(bits, "bits", (tables.C, tables.Z, B), (torch.int8,))
-    _check(syn, "syn", (tables.R, tables.Z, B), (torch.int8,))
+    check(bits, "bits", (tables.C, tables.Z, B), (torch.int8,))
+    check(syn, "syn", (tables.R, tables.Z, B), (torch.int8,))
     if _backend(tables, bits, syn) == "cpu":
         return parity_pass_plain(bits, syn, tables)
     flags = torch.zeros(B, dtype=torch.int32, device=bits.device)

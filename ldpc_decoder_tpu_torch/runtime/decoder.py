@@ -1,10 +1,15 @@
 """Decoder orchestration: batched decode with on-the-fly frame replacement.
 
-Port of the grouped-QC branch of ``ldpc_decoder_tpu/runtime/decoder.py``.
-A pool of all frames of a run lives on the device in the decoder's sorted
-layouts; B = parallel_factor lanes decode in parallel; every k iterations a
-superstep checks parity, retires finished or over-budget lanes (packing
-their hard decisions into the results) and refills them from the pool.
+Port of the QC branch of ``ldpc_decoder_tpu/runtime/decoder.py``. The
+decoder picks the kernel family the way the JAX decoder does: a regular
+base (one check degree, one variable degree) takes the regular family
+(:mod:`..ops.qc_regular`), any other base the grouped one
+(:mod:`..ops.qc_grouped`); both expose the same init, burst and superstep
+functions. A pool of all frames of a run lives on the device in the
+decoder's sorted layouts; B = parallel_factor lanes decode in parallel;
+every k iterations a superstep checks parity, retires finished or
+over-budget lanes (packing their hard decisions into the results) and
+refills them from the pool.
 
 The JAX package runs the whole schedule inside one ``lax.while_loop``. Here
 it is a host loop, like the reference's own scheduler
@@ -23,8 +28,9 @@ because per-frame iteration counts depend on it:
   empty.
 
 The JAX runtime passes the fresh-lane flags on every superstep; this one
-passes them only when some lane was refilled. Results are identical (the
-degree-1 blocks already hold φ(llr) of every unchanged lane), which
+passes them only when some lane was refilled. Results are identical (an
+unflagged lane runs the plain iteration either way, and the grouped
+family's degree-1 blocks already hold φ(llr) of every unchanged lane), which
 ``tests/test_torch_decoder.py`` checks against the JAX decoder.
 """
 
@@ -47,6 +53,12 @@ from ldpc_decoder_tpu_torch.ops.qc_grouped import (
     burst_iterations_qc_grouped,
     init_messages_qc_grouped,
     run_iterations_qc_grouped,
+)
+from ldpc_decoder_tpu_torch.ops.qc_regular import (
+    QCRegularTables,
+    burst_iterations_qc_regular,
+    init_messages_qc_regular,
+    run_iterations_qc_regular,
 )
 from ldpc_decoder_tpu_torch.runtime.params import DynamicParams, StaticParams
 
@@ -110,7 +122,8 @@ class LDPCDecoder:
     Public surface mirrors the JAX package's (and the reference's,
     h/ldpc_decoder_gpu_cuda.h:108-132): ``parallel_factor()`` and
     ``decode(dyn_params, n_vecs, values, syndromes)``. ``device`` defaults
-    to the CUDA card when there is one, else the CPU (plain passes).
+    to the CUDA card and raises without one; ``device="cpu"`` runs the
+    plain passes on the CPU.
     """
 
     def __init__(self, code: LDPCCode, channel: Channel,
@@ -119,21 +132,34 @@ class LDPCDecoder:
                  qc: QCStructure | None = None):
         if qc is None:
             raise NotImplementedError(
-                "the port decodes QC codes through the grouped kernels: "
+                "the port decodes QC codes through the QC kernels: "
                 "pass qc=QCStructure (QC detection on plain alists and the "
                 "general any-alist path are not ported yet)")
         self.code = code
         self.channel = channel
         self.params = static_params or StaticParams()
         if device is None:
-            device = "cuda" if torch.cuda.is_available() else "cpu"
+            if not torch.cuda.is_available():
+                raise RuntimeError(
+                    "LDPCDecoder found no CUDA device: pass device='cpu' to "
+                    "run the plain passes on the CPU")
+            device = "cuda"
         self.device = torch.device(device)
         qct = QCDecodeTables.from_structure(qc, code.n_erased_vars,
                                             self.device)
         if (qct.n_vars != code.n_vars or qct.n_checks != code.n_checks
                 or qct.n_edges != code.n_edges):
             raise ValueError("QC structure does not match the code")
-        self.tables = GroupedQCTables.from_qc_tables(qct)
+        if len(qct.row_groups) == 1 and len(qct.col_groups) == 1:
+            self.tables = QCRegularTables.from_qc_tables(qct)
+            self._init_messages = init_messages_qc_regular
+            self._run_iterations = run_iterations_qc_regular
+            self._run_burst = burst_iterations_qc_regular
+        else:
+            self.tables = GroupedQCTables.from_qc_tables(qct)
+            self._init_messages = init_messages_qc_grouped
+            self._run_iterations = run_iterations_qc_grouped
+            self._run_burst = burst_iterations_qc_grouped
         self.msg_dtype = _TORCH_DTYPES[self.params.message_dtype]
         self.n_words = (code.n_vars + 31) // 32
         Z = qct.Z
@@ -252,15 +278,15 @@ class LDPCDecoder:
             syn = pool_syn[:, safe]
         llr = self._lane_llr(vals)
         syn = syn.view(t.R, t.Z, B)
-        msgs = init_messages_qc_grouped(llr, t, self.msg_dtype, pre)
+        msgs = self._init_messages(llr, t, self.msg_dtype, pre)
         if burst:
-            burst_iterations_qc_grouped(msgs, llr, syn, t, burst, pre)
+            self._run_burst(msgs, llr, syn, t, burst, pre)
             iters_done += burst
 
         fresh = None
         supersteps = 0
         while True:
-            msgs, bits, violated = run_iterations_qc_grouped(
+            msgs, bits, violated = self._run_iterations(
                 msgs, llr, syn, t, k, pre, fresh)
             supersteps += 1
             iters_done += k

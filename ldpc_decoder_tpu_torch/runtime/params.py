@@ -30,7 +30,8 @@ class StaticParams:
     memory_headroom: float = 0.10
     # device memory in bytes for the lane model (None = ask the card)
     device_memory_bytes: int | None = None
-    # kernel family: only "auto" (the grouped QC kernels) is ported
+    # kernel family: only "auto" is ported (a regular base takes the
+    # regular QC kernels, any other base the grouped ones)
     kernel_impl: str = "auto"
     # check-node rule: only "sum-product" is ported
     algorithm: str = "sum-product"
@@ -55,7 +56,7 @@ class StaticParams:
         if self.kernel_impl in ("pallas", "xla"):
             raise NotImplementedError(
                 f"kernel_impl={self.kernel_impl!r} is not ported: the port "
-                f"runs the grouped QC kernels ('auto')")
+                f"runs the QC kernels ('auto')")
         if self.kernel_impl != "auto":
             raise ValueError(f"unknown kernel_impl {self.kernel_impl!r}")
 

@@ -19,7 +19,12 @@ torch = pytest.importorskip("torch")
 
 from ldpc_decoder_tpu_torch.channels import BIAWGNChannel  # noqa: E402
 from ldpc_decoder_tpu_torch.codes.protographs import p41_code  # noqa: E402
+from ldpc_decoder_tpu_torch.codes.qc import (  # noqa: E402
+    QCStructure,
+    make_qc_code,
+)
 from ldpc_decoder_tpu_torch.ops import qc_grouped as qg  # noqa: E402
+from ldpc_decoder_tpu_torch.ops import qc_regular as qr  # noqa: E402
 from ldpc_decoder_tpu_torch.ops.qc_decode import QCDecodeTables  # noqa: E402
 from ldpc_decoder_tpu_torch.runtime.datagen import create_data  # noqa: E402
 from ldpc_decoder_tpu_torch.runtime.decoder import LDPCDecoder  # noqa: E402
@@ -111,6 +116,88 @@ def test_decode_on_card_matches_cpu(small_code, cuda_device):
     for dev in ("cpu", cuda_device):
         dec = LDPCDecoder(code, ch, StaticParams(parallel_factor_user=32),
                           qc=s, device=dev)
+        out[str(dev)] = dec.decode(dyn, n, batch.values, batch.syndromes)
+    (res_c, st_c), (res_g, st_g) = out["cpu"], out[str(cuda_device)]
+    np.testing.assert_array_equal(res_g, res_c)
+    assert (res_g == batch.ref_bits_packed()).all()
+    assert abs(st_g.avg_iter - st_c.avg_iter) <= 5
+
+
+def _regular_structure(d_c, Z, seed):
+    """A (3, d_c) all-ones base with random shifts: enough for holding the
+    kernels to their plain versions (no girth needed)."""
+    rows, cols = np.nonzero(np.ones((3, d_c), np.int8))
+    shifts = np.random.default_rng(seed).integers(0, Z, rows.size)
+    return QCStructure(Z=Z, n_base_rows=3, n_base_cols=d_c,
+                       edge_row=rows.astype(np.int32),
+                       edge_col=cols.astype(np.int32),
+                       edge_shift=shifts.astype(np.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d_c", [6, 30])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_regular_kernels_match_plain(cuda_device, dtype, d_c):
+    from ldpc_decoder_tpu_torch.ops import _kernels
+
+    t = qr.QCRegularTables.from_qc_tables(QCDecodeTables.from_structure(
+        _regular_structure(d_c, 96, d_c), 0, cuda_device))
+    rng = np.random.default_rng(6)
+
+    def rand(shape, scale):
+        x = rng.standard_normal(shape).astype(np.float32) * scale
+        return torch.from_numpy(x).to(cuda_device, dtype)
+
+    mv = rand((t.C, t.d_v, t.Z, B), 4)
+    rc = rand((t.R, t.d_c, t.Z, B), 4)
+    llr = rand((t.C, t.Z, B), 3)
+    syn = torch.from_numpy((rng.random((t.R, t.Z, B)) < 0.5).astype(
+        np.int8)).to(cuda_device)
+    fresh = torch.from_numpy(rng.random(B) < 0.5).to(cuda_device)
+    ulp = 2.0 ** -7 if dtype == torch.bfloat16 else 2.0 ** -22
+    before = dict(_kernels.launch_counts)
+
+    rk = qr.cn_pass_regular(mv, syn, rc.clone(), t)
+    rp = qr.cn_pass_plain(mv, syn, rc.clone(), t)
+    assert torch.equal(torch.signbit(rk), torch.signbit(rp))
+    torch.testing.assert_close(rk.float(), rp.float(), rtol=ulp, atol=0)
+
+    for emit, fr in [(False, None), (True, fresh), (False, fresh)]:
+        bk = torch.full((t.C, t.Z, B), -1, dtype=torch.int8,
+                        device=cuda_device)
+        bp = bk.clone()
+        mk = qr.vn_pass_regular(rc, llr, mv.clone(), t,
+                                bits=bk if emit else None, fresh=fr)
+        mp = qr.vn_pass_plain(rc, llr, mv.clone(), t,
+                              bits=bp if emit else None, fresh=fr)
+        assert torch.equal(torch.signbit(mk), torch.signbit(mp))
+        torch.testing.assert_close(mk.float(), mp.float(), rtol=ulp, atol=0)
+        assert torch.equal(bk, bp)
+
+    bits = torch.from_numpy((rng.random((t.C, t.Z, B)) < 0.5).astype(
+        np.int8)).to(cuda_device)
+    assert torch.equal(qr.parity_pass_regular(bits, syn, t),
+                       qr.parity_pass_plain(bits, syn, t))
+    torch.cuda.synchronize()
+    for name, n in (("cn_regular", 1), ("vn_regular", 3),
+                    ("parity_regular", 1)):
+        assert _kernels.launch_counts[name] - before[name] == n
+
+
+@pytest.mark.cuda
+def test_regular_decode_on_card_matches_cpu(cuda_device):
+    """The regular family on a small (3,6) code: kernels on the card vs
+    plain passes on the CPU, float32 messages; equal words."""
+    code, s = make_qc_code(np.ones((3, 6), np.int8), Z=128, seed=1)
+    ch = BIAWGNChannel(0.7)
+    n = 3 * 32 + 8
+    batch = create_data(code, ch, 0, n, backend="numpy")
+    dyn = DynamicParams(num_iter_max=60, num_iter_check_parity=5)
+    out = {}
+    for dev in ("cpu", cuda_device):
+        dec = LDPCDecoder(code, ch, StaticParams(parallel_factor_user=32),
+                          qc=s, device=dev)
+        assert isinstance(dec.tables, qr.QCRegularTables)
         out[str(dev)] = dec.decode(dyn, n, batch.values, batch.syndromes)
     (res_c, st_c), (res_g, st_g) = out["cpu"], out[str(cuda_device)]
     np.testing.assert_array_equal(res_g, res_c)

@@ -1,5 +1,6 @@
-"""The slice end to end on the small p41-shaped code: the port's
-``LDPCDecoder.decode`` against the JAX package's.
+"""The port's ``LDPCDecoder.decode`` against the JAX package's, end to end
+on the small p41-shaped code (the grouped family) and on a small regular
+(3,6) code (the regular family, over BI-AWGN and the erasure channel).
 
 The JAX side runs ``kernel_impl="xla"``, the oracle the Pallas kernels are
 held bit-identical to. In float32 the decoded words and the per-frame
@@ -24,8 +25,18 @@ from ldpc_decoder_tpu.runtime.decoder import (  # noqa: E402
     LDPCDecoder as JaxLDPCDecoder,
 )
 
-from ldpc_decoder_tpu_torch.channels import BIAWGNChannel  # noqa: E402
+from ldpc_decoder_tpu.channels.erasure import (  # noqa: E402
+    ErasureChannel as JaxErasure,
+)
+from ldpc_decoder_tpu.codes.qc import make_qc_code as jax_make_qc  # noqa: E402
+
+from ldpc_decoder_tpu_torch.channels import (  # noqa: E402
+    BIAWGNChannel,
+    ErasureChannel,
+)
 from ldpc_decoder_tpu_torch.codes.qc import qc_to_code  # noqa: E402
+from ldpc_decoder_tpu_torch.ops.qc_grouped import GroupedQCTables  # noqa: E402
+from ldpc_decoder_tpu_torch.ops.qc_regular import QCRegularTables  # noqa: E402
 from ldpc_decoder_tpu_torch.convert import structure_from_numpy  # noqa: E402
 from ldpc_decoder_tpu_torch.runtime.decoder import (  # noqa: E402
     LDPCDecoder,
@@ -52,10 +63,30 @@ def setup():
     return dict(jcode=jcode, js=js, code=code, s=s, batch=batch)
 
 
-def _decode_both(setup, dtype, first_check):
-    batch = setup["batch"]
+# (port channel, JAX channel); p41 runs over BI-AWGN, the regular (3,6)
+# code over both
+CHANNELS = {
+    "awgn": (BIAWGNChannel(SIGMA), JaxBIAWGN(SIGMA)),
+    "erasure": (ErasureChannel(0.3), JaxErasure(0.3)),
+}
+
+
+@pytest.fixture(scope="module")
+def regular():
+    jcode, js = jax_make_qc(np.ones((3, 6), np.int8), Z=128, seed=1)
+    s = structure_from_numpy(js.Z, js.n_base_rows, js.n_base_cols,
+                             js.edge_row, js.edge_col, js.edge_shift)
+    batches = {name: create_data(jcode, jch, 0, N, backend="numpy")
+               for name, (_, jch) in CHANNELS.items()}
+    return dict(jcode=jcode, js=js, code=qc_to_code(s), s=s,
+                batches=batches)
+
+
+def _decode_both(setup, dtype, first_check, channel="awgn"):
+    batch = setup["batch"] if "batch" in setup else setup["batches"][channel]
+    ch, jch = CHANNELS[channel]
     jdec = JaxLDPCDecoder(
-        setup["jcode"], JaxBIAWGN(SIGMA),
+        setup["jcode"], jch,
         jparams.StaticParams(parallel_factor_user=B, kernel_impl="xla",
                              message_dtype=dtype),
         qc=setup["js"])
@@ -63,7 +94,7 @@ def _decode_both(setup, dtype, first_check):
         jparams.DynamicParams(num_iter_max=60, num_iter_check_parity=K,
                               num_iter_first_check=first_check),
         N, batch.values, batch.syndromes)
-    dec = LDPCDecoder(setup["code"], BIAWGNChannel(SIGMA),
+    dec = LDPCDecoder(setup["code"], ch,
                       StaticParams(parallel_factor_user=B,
                                    message_dtype=dtype),
                       qc=setup["s"], device="cpu")
@@ -74,8 +105,9 @@ def _decode_both(setup, dtype, first_check):
     return (res, st), (np.asarray(jres), jst)
 
 
-def _bit_errors(setup, res):
-    return np.bitwise_count(setup["batch"].ref_bits_packed() ^ res).sum()
+def _bit_errors(setup, res, channel="awgn"):
+    batch = setup["batch"] if "batch" in setup else setup["batches"][channel]
+    return np.bitwise_count(batch.ref_bits_packed() ^ res).sum()
 
 
 @pytest.mark.parametrize("first_check", [0, 10])
@@ -96,6 +128,43 @@ def test_decode_bfloat16_matches_jax(setup):
     assert _bit_errors(setup, res) == 0
     assert _bit_errors(setup, jres) == 0
     assert abs(st.avg_iter - jst.avg_iter) <= K
+
+
+@pytest.mark.parametrize("channel", sorted(CHANNELS))
+def test_decode_regular_float32_matches_jax(regular, channel):
+    """The regular family end to end: equal words and per-frame
+    iterations against the JAX decoder."""
+    (res, st), (jres, jst) = _decode_both(regular, "float32", 0, channel)
+    np.testing.assert_array_equal(res, jres)
+    np.testing.assert_array_equal(st.iterations, jst.iterations)
+    assert st.total_iterations == jst.total_iterations
+    assert _bit_errors(regular, res, channel) == 0
+
+
+def test_decode_regular_bfloat16_decodes_all(regular):
+    (res, st), (jres, jst) = _decode_both(regular, "bfloat16", 0)
+    assert _bit_errors(regular, res) == 0
+    assert _bit_errors(regular, jres) == 0
+    assert abs(st.avg_iter - jst.avg_iter) <= K
+
+
+def test_family_follows_the_base(setup, regular):
+    """A regular base takes the regular kernels, p41 the grouped ones."""
+    sp = StaticParams(parallel_factor_user=B)
+    ch = BIAWGNChannel(SIGMA)
+    dec = LDPCDecoder(regular["code"], ch, sp, qc=regular["s"], device="cpu")
+    assert isinstance(dec.tables, QCRegularTables)
+    dec = LDPCDecoder(setup["code"], ch, sp, qc=setup["s"], device="cpu")
+    assert isinstance(dec.tables, GroupedQCTables)
+
+
+def test_default_device_needs_cuda(regular, monkeypatch):
+    """No device given means the card: without one the decoder raises
+    instead of running on the CPU unasked."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        LDPCDecoder(regular["code"], BIAWGNChannel(SIGMA),
+                    StaticParams(parallel_factor_user=B), qc=regular["s"])
 
 
 def test_pack_bits_natural_matches_reference_packing(setup):

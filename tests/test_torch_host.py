@@ -1,8 +1,8 @@
 """The port's host-side copies equal the JAX package's originals.
 
 The card's host has no JAX, so ``ldpc_decoder_tpu_torch`` carries JAX-free
-copies of the numpy modules (codes, ChaCha8, datagen) and builds the same
-native C++ source. Same seed in, identical arrays out.
+copies of the numpy modules (codes, channels, ChaCha8, datagen) and builds
+the same native C++ source. Same seed in, identical arrays out.
 """
 
 import os
@@ -26,6 +26,20 @@ from ldpc_decoder_tpu_torch.codes.protographs import (  # noqa: E402
 )
 from ldpc_decoder_tpu_torch.runtime.datagen import create_data  # noqa: E402
 
+import jax.numpy as jnp  # noqa: E402
+
+from ldpc_decoder_tpu.channels.bsc import BSCChannel as JaxBSC  # noqa: E402
+from ldpc_decoder_tpu.channels.erasure import (  # noqa: E402
+    ErasureChannel as JaxErasure,
+)
+from ldpc_decoder_tpu.rng.chacha_np import PrngChacha as JaxPrng  # noqa: E402
+
+from ldpc_decoder_tpu_torch.channels import (  # noqa: E402
+    BSCChannel,
+    ErasureChannel,
+)
+from ldpc_decoder_tpu_torch.rng.chacha_np import PrngChacha  # noqa: E402
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SMALL = dict(Z=128, m=4, coarse=64, fine_mod=16)
 
@@ -45,6 +59,65 @@ def test_p41_structure_identical(codes):
     for f in ("in_bit_to_edge", "out_bit_to_edge", "in_edge_to_bit",
               "edge_in_to_out"):
         np.testing.assert_array_equal(getattr(code, f), getattr(jcode, f))
+
+
+@pytest.mark.parametrize("R,C,dv,dc,seed", [
+    (3, 6, 3, 6, 0), (8, 80, 3, 30, 3), (16, 32, 3, 6, 2)])
+def test_regular_base_identical(R, C, dv, dc, seed):
+    from ldpc_decoder_tpu.codes.protographs import regular_base as jrb
+    from ldpc_decoder_tpu_torch.codes.protographs import regular_base
+
+    np.testing.assert_array_equal(regular_base(R, C, dv, dc, seed),
+                                  jrb(R, C, dv, dc, seed))
+
+
+@pytest.mark.parametrize("case", ["small", "reg36"])
+def test_make_qc_structure_identical(case):
+    """The rejection lift: same shifts for the same seed, on a small base
+    and once on the README's regular (3,6) 2^20 code (bench.py's reg36)."""
+    from ldpc_decoder_tpu.codes.protographs import regular_base as jrb
+    from ldpc_decoder_tpu.codes.qc import make_qc_structure as jmake
+    from ldpc_decoder_tpu_torch.codes.qc import make_qc_structure
+
+    if case == "small":
+        base, kw = np.ones((3, 6), np.int8), dict(Z=64, seed=1)
+    else:
+        base = jrb(16, 32, 3, 6, seed=2)
+        kw = dict(Z=32768, seed=1, coarse=1024, fine_mod=64, min_girth=8)
+    s, js = make_qc_structure(base, **kw), jmake(base, **kw)
+    for f in ("edge_row", "edge_col", "edge_shift"):
+        np.testing.assert_array_equal(getattr(s, f), getattr(js, f))
+    assert (s.Z, s.n_base_rows, s.n_base_cols) == (
+        js.Z, js.n_base_rows, js.n_base_cols)
+
+
+# (port channel, JAX channel) pairs at two noise levels each
+CHANNEL_PAIRS = {
+    "bsc-0.004": (BSCChannel(0.004), JaxBSC(0.004)),
+    "bsc-0.1": (BSCChannel(0.1), JaxBSC(0.1)),
+    "erasure-0.4": (ErasureChannel(0.4), JaxErasure(0.4)),
+    "erasure-0.1": (ErasureChannel(0.1), JaxErasure(0.1)),
+}
+
+
+@pytest.mark.parametrize("name", sorted(CHANNEL_PAIRS))
+def test_bsc_erasure_channels_identical(name):
+    """Noise from one ChaCha8 stream, LLRs (BSC keeps the sign of ±0),
+    capacity and description: all equal to the JAX package's."""
+    ch, jch = CHANNEL_PAIRS[name]
+    tx = np.where(np.arange(999) % 3, 1.0, -1.0).astype(np.float32)
+    noisy = ch.add_noise_np(PrngChacha(11), tx)
+    np.testing.assert_array_equal(noisy, jch.add_noise_np(JaxPrng(11), tx))
+    v = np.concatenate([noisy, [0.0, -0.0, 2.5, -2.5]]).astype(np.float32)
+    llr = ch.llr_from_channel(torch.from_numpy(v))
+    assert llr.dtype == torch.float32
+    ref = np.asarray(jch.llr_from_channel(jnp.asarray(v)))
+    np.testing.assert_array_equal(llr.numpy(), ref)
+    np.testing.assert_array_equal(np.signbit(llr.numpy()), np.signbit(ref))
+    np.testing.assert_array_equal(ch.llr_np(v), jch.llr_np(v))
+    assert ch.capacity() == jch.capacity()
+    assert ch.description() == jch.description()
+    assert ch.channel_type == jch.channel_type
 
 
 def test_shipped_params_match():
@@ -129,6 +202,9 @@ def test_port_imports_no_jax():
         "import ldpc_decoder_tpu_torch.runtime.decoder\n"
         "import ldpc_decoder_tpu_torch.runtime.datagen\n"
         "import ldpc_decoder_tpu_torch.convert\n"
+        "import ldpc_decoder_tpu_torch.ops.qc_regular\n"
+        "import ldpc_decoder_tpu_torch.channels.bsc\n"
+        "import ldpc_decoder_tpu_torch.channels.erasure\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'ldpc_decoder_tpu' or m.startswith('ldpc_decoder_tpu.')]\n"
         "assert not bad, bad\n"
