@@ -3,9 +3,9 @@
 
     python3 chip_smoke.py        # from the repository root, one card
 
-Two paths, each through ``LDPCDecoder.decode`` with frames generated on the
-host, sum-product, bfloat16 messages, B = 256 frames in flight, at most 120
-iterations:
+Four paths, each through ``LDPCDecoder.decode`` with frames generated on
+the host, at most 120 iterations. The QC paths run sum-product on bfloat16
+messages with B = 256 frames in flight:
 
 - p41 (the bench's flagship): the punctured p41 code (n = 1,032,192,
   147,456 punctured), BI-AWGN at sigma = 0.94, 512 frames, k = 14, first
@@ -15,11 +15,19 @@ iterations:
   512 frames, then the erasure channel at epsilon = 0.40, 256 frames; k =
   10, first check 0 — the regular kernels (csrc/qc_regular.cu).
 
+The general (any-alist) paths decode a random non-QC (3,6) code of n = 2^20
+(``make_regular_code(2**20, 3, 6, seed=9)``, the JAX package's
+scripts/bench_general.py code) at sigma = 0.84, 768 frames, k = 10, through
+the general kernels (csrc/general.cu):
+
+- sum-product, bfloat16, B = 384 (two fills, so the refill runs);
+- int8 min-sum (alpha 0.8, offset 0, scale 4), B = 768 (one fill).
+
 Phases:
 
 1. device: the card's name and power limit (nvidia-smi);
-2. build: both kernel libraries from ldpc_decoder_tpu_torch/csrc/, one
-   nvcc each, started together;
+2. build: the three kernel libraries from ldpc_decoder_tpu_torch/csrc/,
+   one nvcc each, started together;
 3. phi on the device, through a check-node launch, against float64;
 4. the p41 code (alist cache in codes_cache/) and 512 frames on the host;
 5. each grouped kernel against its plain PyTorch version on the card, at
@@ -34,7 +42,15 @@ Phases:
    with the three times;
 10. a small regular decode on the card against the plain passes on the CPU;
 11. the reg36 path, twice, reported and counted like phase 7;
-12. the reg36 erasure decode, counted the same way.
+12. the reg36 erasure decode, counted the same way;
+13. the general code (generated and compiled, timed) and 768 frames;
+14. each general kernel against its plain version on the card, at full
+    width on a real decode state: sum-product bf16 at B = 384, int8
+    min-sum at B = 768 and bf16 min-sum at B = 384, with both times;
+15. a small multi-bucket irregular decode (degree-1 variables) on the card
+    against the plain passes on the CPU, f32 sum-product and int8 min-sum;
+16. the general sum-product path, twice, counted like phase 7;
+17. the general int8 min-sum path, twice, counted the same way.
 
 Every phase must pass: any failure raises, and the script exits nonzero
 without its result line. The last line of stdout is the result object; the
@@ -70,6 +86,10 @@ BF16_ULP_SHARE = 1e-4
 AVG_ITERS = (69.0, 76.0)         # p41 at sigma 0.94
 REG36_AVG_ITERS = (40.0, 45.0)   # reg36 at sigma 0.87, k = 10
 ERASURE_MAX_AVG_ITERS = 40.0     # reg36 at epsilon 0.40, k = 10
+GENERAL_SIGMA = 0.84
+N_GENERAL_FRAMES = 768
+GENERAL_AVG_ITERS = (20.0, 30.0)         # sum-product, k = 10
+GENERAL_MINSUM_AVG_ITERS = (20.0, 40.0)  # int8 min-sum, k = 10
 # the card's datasheet peaks (H100 SXM, 700 W): HBM bytes/s and float32
 # operations/s outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
@@ -80,9 +100,14 @@ F32_OPS_PER_S = 67e12
 # one add and one AND
 OPS_PER_MESSAGE = 12
 OPS_PER_PARITY_READ = 2
+# min-sum: |m|, a compare and two selects for the two minima, the leave-
+# one-out select, a multiply, a subtract, a max, the sign OR, and the int8
+# dequantize/quantize multiply, round and clamp
+OPS_PER_MINSUM_MESSAGE = 12
 
 GROUPED_SOURCE = "ldpc_decoder_tpu_torch/csrc/qc_grouped.cu"
 REGULAR_SOURCE = "ldpc_decoder_tpu_torch/csrc/qc_regular.cu"
+GENERAL_SOURCE = "ldpc_decoder_tpu_torch/csrc/general.cu"
 # (name in the kernels line and in launch_counts, source, TPU kernel)
 KERNELS = [
     ("cn", GROUPED_SOURCE,
@@ -97,13 +122,30 @@ KERNELS = [
      "ldpc_decoder_tpu/ops/qc_pallas.py:469"),  # _vn_kernel
     ("parity_regular", REGULAR_SOURCE,
      "ldpc_decoder_tpu/ops/qc_pallas.py:732"),  # _parity_kernel
+    ("cn_general", GENERAL_SOURCE,
+     "ldpc_decoder_tpu/ops/general_pallas.py:252"),  # _cn_kernel
+    ("vn_general", GENERAL_SOURCE,
+     "ldpc_decoder_tpu/ops/general_pallas.py:280"),  # _vn_kernel
+    ("cn_general_minsum", GENERAL_SOURCE,
+     "ldpc_decoder_tpu/ops/general_pallas.py:308"),  # _cn_kernel_minsum
+    ("vn_general_minsum", GENERAL_SOURCE,
+     "ldpc_decoder_tpu/ops/general_pallas.py:350"),  # _vn_kernel_minsum
 ]
 GROUPED = ("cn", "vn", "parity")
 REGULAR = ("cn_regular", "vn_regular", "parity_regular")
+GENERAL_SP = ("cn_general", "vn_general")
+GENERAL_MS = ("cn_general_minsum", "vn_general_minsum")
 
 
 def log(msg):
     print(msg, flush=True)
+
+
+T_START = time.perf_counter()
+
+
+def phase(number, title):
+    log(f"[{number}] {title} (at {time.perf_counter() - T_START:.1f} s)")
 
 
 def cached_code(path, want, build):
@@ -226,7 +268,7 @@ def ptxas_entries(text):
 
 
 def phase_build():
-    """Both libraries at once (one nvcc each), then loaded and checked."""
+    """All libraries at once (one nvcc each), then loaded and checked."""
     from ldpc_decoder_tpu_torch.ops import _kernels
 
     paths, errors, secs = {}, {}, {}
@@ -552,11 +594,12 @@ def small_decode(np, dev, code, s, ch, n, expect_tables):
     assert abs(st_g.avg_iter - st_c.avg_iter) <= 5
 
 
-def run_path(dec, dyn, batch, n, kernels, label, repeat=True):
+def run_path(dec, dyn, batch, n, kernels, label, repeat=True, ref=None):
     """Decode ``n`` frames (twice when ``repeat``; the last is reported)
     with the launch counts set to 0 just before the reported decode and
     read just after; every kernel in ``kernels`` must have launched and
-    every other kernel not. Returns (stats, Mb/s pair, launches, errors)."""
+    every other kernel not. ``ref``: the batch's packed reference bits,
+    when already computed. Returns (stats, launches)."""
     from ldpc_decoder_tpu_torch.ops import _kernels
 
     if repeat:
@@ -567,7 +610,9 @@ def run_path(dec, dyn, batch, n, kernels, label, repeat=True):
     results, stats = dec.decode(dyn, n, batch.values, batch.syndromes)
     launches = dict(_kernels.launch_counts)
     assert results.shape == (n, dec.n_words)
-    errors = popcount_rows(batch.ref_bits_packed() ^ results)
+    if ref is None:
+        ref = batch.ref_bits_packed()
+    errors = popcount_rows(ref ^ results)
     frame_bits = dec.code.n_vars
     itpv = stats.iter_time_per_vector
     dec_mbps = frame_bits / (stats.avg_iter * itpv * 1048576.0)
@@ -591,6 +636,168 @@ def run_path(dec, dyn, batch, n, kernels, label, repeat=True):
     return stats, launches
 
 
+def general_lane_state(torch, np, dev, t, ch, batch, B, dtype):
+    """The first B frames of ``batch`` as sorted llr [n_vars, B] in the
+    LLR-state dtype of ``dtype`` messages and syndromes [n_checks, B] on
+    the card."""
+    from ldpc_decoder_tpu_torch.ops.general import llr_dtype
+
+    vals = torch.from_numpy(np.ascontiguousarray(
+        batch.values[t.vn_order.cpu().numpy(), :B])).to(dev)
+    llr = ch.llr_from_channel(vals).masked_fill(
+        t.erased_mask_sorted, 0.0).to(llr_dtype(dtype))
+    syn = torch.from_numpy(np.ascontiguousarray(
+        batch.syndromes[t.cn_order.cpu().numpy(), :B])).to(dev)
+    return llr, syn
+
+
+def phase_general_kernels(torch, np, dev, cc, batch):
+    """Each general kernel vs its plain version at full width on a real
+    decode state (four iterations in): sum-product bf16 at B = 384 (the
+    sum-product path's), int8 min-sum at B = 768 (the min-sum path's) and
+    bf16 min-sum at B = 384. Sum-product within the one-ulp share, min-sum
+    bitwise; signs and hard bits exact."""
+    from ldpc_decoder_tpu_torch.channels import BIAWGNChannel
+    from ldpc_decoder_tpu_torch.ops import general as G
+
+    t = G.GeneralTables.from_compiled(cc, dev)
+    ch = BIAWGNChannel(GENERAL_SIGMA)
+    E, nv, nc = t.n_edges, t.n_vars, t.n_checks
+    index_bytes = 4 * E  # one slot index per edge
+    ms = dict(alpha=0.8, beta=0.0, clamp=64.0, qscale=4.0)
+    out = {}
+    for label, alg, dtype, B in [
+            ("sum-product", "sum-product", torch.bfloat16, 384),
+            ("min-sum", "min-sum", torch.int8, 768),
+            ("min-sum", "min-sum", torch.bfloat16, 384)]:
+        tag = f"{label}, {str(dtype)[6:]}, B = {B}"
+        log(f"  {tag}:")
+        llr, syn = general_lane_state(torch, np, dev, t, ch, batch, B, dtype)
+        kw = dict(alg=alg, **ms) if alg == "min-sum" else {}
+        init_kw = {k: kw[k] for k in ("alg", "clamp", "qscale") if k in kw}
+        msgs = G.init_messages_general(llr, t, dtype, **init_kw)
+        msgs, _, _ = G.run_iterations_general(msgs, llr, syn, t, 4, **kw)
+        mv, rc = msgs
+        if alg == "min-sum":
+            def cn(impl, r):
+                return impl(mv, syn, r, t, ms["alpha"], ms["beta"],
+                            ms["qscale"])
+
+            def vn(impl, m, bits=None):
+                return impl(rc, llr, m, t, ms["clamp"], ms["qscale"],
+                            bits=bits)
+
+            cnk, cnp = G.cn_pass_general_minsum, G.cn_pass_general_minsum_plain
+            vnk, vnp = G.vn_pass_general_minsum, G.vn_pass_general_minsum_plain
+            ops = OPS_PER_MINSUM_MESSAGE
+        else:
+            def cn(impl, r):
+                return impl(mv, syn, r, t)
+
+            def vn(impl, m, bits=None):
+                return impl(rc, llr, m, t, bits=bits)
+
+            cnk, cnp = G.cn_pass_general, G.cn_pass_general_plain
+            vnk, vnp = G.vn_pass_general, G.vn_pass_general_plain
+            ops = OPS_PER_MESSAGE
+
+        def compare(name, k, p):
+            if alg == "min-sum":
+                assert bit_identical(k, p), f"{name} ({tag}): not bitwise"
+                log(f"  {name}: bitwise equal")
+                return float((k.float() - p.float()).abs().max())
+            return compare_msgs(name, k, p)
+
+        rk, rp = torch.empty_like(rc), torch.empty_like(rc)
+        cn(cnk, rk)
+        cn(cnp, rp)
+        err_cn = compare("r_c", rk, rp)
+        del rp
+        errs = []
+        mk, mp = torch.empty_like(mv), torch.empty_like(mv)
+        for emit in (False, True):
+            bk = torch.full((nv, B), -1, dtype=torch.int8, device=dev)
+            bp = bk.clone()
+            vn(vnk, mk, bk if emit else None)
+            vn(vnp, mp, bp if emit else None)
+            errs.append(compare(f"msgs_v ({'emit' if emit else 'no emit'})",
+                                mk, mp))
+            assert torch.equal(bk, bp), f"hard bits differ ({tag})"
+        log("  hard bits (emit): equal")
+        del mp
+        msg_bytes = E * B * mv.element_size()
+        llr_bytes = nv * B * llr.element_size()
+        r = {
+            "cn": dict(
+                max_abs_err=err_cn,
+                ms=cuda_ms(lambda: cn(cnk, rk), 10),
+                plain_ms=cuda_ms(lambda: cn(cnp, rk), 3),
+                bound=bound(2 * msg_bytes + nc * B + index_bytes,
+                            ops * E * B)),
+            "vn": dict(
+                max_abs_err=max(errs),
+                ms=cuda_ms(lambda: vn(vnk, mk), 10),
+                plain_ms=cuda_ms(lambda: vn(vnp, mk), 3),
+                bound=bound(2 * msg_bytes + llr_bytes + index_bytes,
+                            ops * E * B)),
+        }
+        for name, v in r.items():
+            log(f"  {name}: kernel {v['ms']:.3f} ms per pass, plain "
+                f"{v['plain_ms']:.3f} ms, bound {v['bound'][0]:.3f} ms "
+                f"({v['bound'][1]}) (general, {tag})")
+        suffix = "_minsum" if alg == "min-sum" else ""
+        if f"cn_general{suffix}" not in out:  # the main paths' shapes
+            out[f"cn_general{suffix}"] = r["cn"]
+            out[f"vn_general{suffix}"] = r["vn"]
+        del mv, rc, rk, mk, msgs, llr, syn
+        torch.cuda.empty_cache()
+    return out
+
+
+def small_general_decode(np, dev):
+    """A multi-bucket irregular code with degree-1 variables: kernels on
+    the card vs plain passes on the CPU, f32 sum-product and int8 min-sum
+    with a per-degree alpha table; equal words and per-frame iterations.
+    (Degree-1 variables leave some frames in error at any noise; the card
+    and the CPU must agree on them too.)"""
+    from ldpc_decoder_tpu_torch.channels import BIAWGNChannel
+    from ldpc_decoder_tpu_torch.codes.generate import make_irregular_code
+    from ldpc_decoder_tpu_torch.ops.general import GeneralTables
+    from ldpc_decoder_tpu_torch.runtime.datagen import create_data
+    from ldpc_decoder_tpu_torch.runtime.decoder import LDPCDecoder
+    from ldpc_decoder_tpu_torch.runtime.params import (
+        DynamicParams,
+        StaticParams,
+    )
+
+    code = make_irregular_code(2000, 1000, {1: 0.05, 2: 0.35, 3: 0.4,
+                                            4: 0.2}, {5: 0.5, 6: 0.5},
+                               seed=3)
+    ch = BIAWGNChannel(0.65)
+    n = 104
+    batch = create_data(code, ch, 0, n, backend="numpy")
+    dyn = DynamicParams(num_iter_max=60, num_iter_check_parity=5)
+    for kw in (dict(message_dtype="float32"),
+               dict(message_dtype="int8", algorithm="min-sum",
+                    minsum_alpha={5: 0.8, 6: 0.75}, minsum_offset=0.0)):
+        got = {}
+        for d in ("cpu", dev):
+            dec = LDPCDecoder(code, ch, StaticParams(
+                parallel_factor_user=32, qc_autodetect=False, **kw), device=d)
+            assert isinstance(dec.tables, GeneralTables)
+            got[str(d)] = dec.decode(dyn, n, batch.values, batch.syndromes)
+        (res_c, st_c), (res_g, st_g) = got["cpu"], got[str(dev)]
+        assert np.array_equal(res_g, res_c), "card and CPU words differ"
+        assert np.array_equal(st_g.iterations, st_c.iterations), \
+            "card and CPU per-frame iterations differ"
+        bad = int((popcount_rows(batch.ref_bits_packed() ^ res_g) > 0).sum())
+        log(f"  irregular n = {code.n_vars} (degree-1..4 variables), {n} "
+            f"frames, {kw['message_dtype']} "
+            f"{kw.get('algorithm', 'sum-product')}: card == CPU words and "
+            f"per-frame iterations; avg iterations {st_g.avg_iter:.2f}, "
+            f"{bad} frames with bit errors")
+
+
 def main():
     import numpy as np
     import torch
@@ -601,7 +808,7 @@ def main():
     dev = torch.device("cuda", 0)
     t_all = time.perf_counter()
 
-    log("[1] device")
+    phase(1, "device")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
@@ -612,13 +819,13 @@ def main():
         f"device(s); name and power limit:")
     log(smi)
 
-    log("[2] build")
+    phase(2, "build")
     phase_build()
 
-    log("[3] phi on the device")
+    phase(3, "phi on the device")
     phase_phi(torch, np, dev)
 
-    log("[4] code and frames")
+    phase(4, "code and frames")
     from ldpc_decoder_tpu_torch import native
     from ldpc_decoder_tpu_torch.channels import (
         BIAWGNChannel,
@@ -645,18 +852,18 @@ def main():
     log(f"  create_data: {N_FRAMES} frames at sigma {SIGMA}, {backend} "
         f"backend, {time.perf_counter() - t0:.1f} s")
 
-    log("[5] grouped kernels vs plain at p41 x B = 256")
+    phase(5, "grouped kernels vs plain at p41 x B = 256")
     perf = phase_kernels(torch, np, dev, code, s, batch)
     torch.cuda.empty_cache()
 
-    log("[6] small p41 decode: card vs CPU")
+    phase(6, "small p41 decode: card vs CPU")
     from ldpc_decoder_tpu_torch.codes.protographs import p41_code
 
     small, s_small = p41_code(Z=128, m=4, coarse=64, fine_mod=16)
     small_decode(np, dev, small, s_small, BIAWGNChannel(0.7), 104,
                  GroupedQCTables)
 
-    log("[7] p41 path")
+    phase(7, "p41 path")
     sp = StaticParams(max_log_parallel_factor_user=8,
                       message_dtype="bfloat16")
     dec = LDPCDecoder(code, ch, sp, qc=s)
@@ -669,7 +876,7 @@ def main():
     del dec, batch
     torch.cuda.empty_cache()
 
-    log("[8] reg36 code and frames")
+    phase(8, "reg36 code and frames")
     t0 = time.perf_counter()
     code36, s36, how = get_reg36_code()
     log(f"  reg36: n = {code36.n_vars}, {s36.n_base_rows} x "
@@ -687,18 +894,18 @@ def main():
     log(f"  create_data: {N_ERASURE_FRAMES} frames at epsilon {EPSILON}, "
         f"numpy backend, {time.perf_counter() - t0:.1f} s")
 
-    log("[9] regular kernels vs plain and grouped at reg36 x B = 256")
+    phase(9, "regular kernels vs plain and grouped at reg36 x B = 256")
     perf.update(phase_regular_kernels(torch, np, dev, code36, s36, batch36))
     torch.cuda.empty_cache()
 
-    log("[10] small regular decode: card vs CPU")
+    phase(10, "small regular decode: card vs CPU")
     from ldpc_decoder_tpu_torch.codes.qc import make_qc_code
 
     small, s_small = make_qc_code(np.ones((3, 6), np.int8), Z=128, seed=1)
     small_decode(np, dev, small, s_small, BIAWGNChannel(0.7), 104,
                  QCRegularTables)
 
-    log("[11] reg36 path")
+    phase(11, "reg36 path")
     dec36 = LDPCDecoder(code36, ch36, sp, qc=s36)
     assert dec36.device.type == "cuda" and dec36.parallel_factor() == 256
     assert isinstance(dec36.tables, QCRegularTables)
@@ -711,14 +918,70 @@ def main():
     del dec36, batch36
     torch.cuda.empty_cache()
 
-    log("[12] reg36 erasure decode")
+    phase(12, "reg36 erasure decode")
     dec_bec = LDPCDecoder(code36, bec, sp, qc=s36)
     stats_bec, _ = run_path(dec_bec, dyn36, batch_bec, N_ERASURE_FRAMES,
                             REGULAR, f"erasure {EPSILON}", repeat=False)
     assert stats_bec.avg_iter <= ERASURE_MAX_AVG_ITERS, stats_bec.avg_iter
+    del dec_bec, batch_bec
+    torch.cuda.empty_cache()
+
+    phase(13, "general code and frames")
+    from ldpc_decoder_tpu_torch.codes.compiled import compile_code
+    from ldpc_decoder_tpu_torch.codes.generate import make_regular_code
+    from ldpc_decoder_tpu_torch.ops.general import GeneralTables
+
+    t0 = time.perf_counter()
+    gcode = make_regular_code(2**20, 3, 6, seed=9)
+    t1 = time.perf_counter()
+    gcc = compile_code(gcode)
+    log(f"  random (3,6) code: n = {gcode.n_vars}, {gcode.n_edges} edges, "
+        f"generated in {t1 - t0:.1f} s, compiled in "
+        f"{time.perf_counter() - t1:.1f} s")
+    t0 = time.perf_counter()
+    gch = BIAWGNChannel(GENERAL_SIGMA)
+    gbatch = create_data(gcode, gch, 0, N_GENERAL_FRAMES, backend=backend)
+    gref = gbatch.ref_bits_packed()
+    log(f"  create_data: {N_GENERAL_FRAMES} frames at sigma "
+        f"{GENERAL_SIGMA}, {backend} backend, "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    phase(14, "general kernels vs plain at full width")
+    perf.update(phase_general_kernels(torch, np, dev, gcc, gbatch))
+
+    phase(15, "small general decode: card vs CPU")
+    small_general_decode(np, dev)
+
+    phase(16, "general sum-product path")
+    gdyn = DynamicParams(num_iter_max=120, num_iter_check_parity=10,
+                         num_iter_first_check=0, loading_factor=2)
+    gdec = LDPCDecoder(gcc, gch, StaticParams(
+        parallel_factor_user=384, message_dtype="bfloat16",
+        qc_autodetect=False))
+    assert gdec.device.type == "cuda" and isinstance(gdec.tables,
+                                                     GeneralTables)
+    gstats, glaunches = run_path(gdec, gdyn, gbatch, N_GENERAL_FRAMES,
+                                 GENERAL_SP, "general sum-product", ref=gref)
+    assert GENERAL_AVG_ITERS[0] <= gstats.avg_iter <= GENERAL_AVG_ITERS[1], \
+        gstats.avg_iter
+    del gdec
+    torch.cuda.empty_cache()
+
+    phase(17, "general int8 min-sum path")
+    mdec = LDPCDecoder(gcc, gch, StaticParams(
+        parallel_factor_user=768, message_dtype="int8", algorithm="min-sum",
+        minsum_alpha=0.8, minsum_offset=0.0, qc_autodetect=False))
+    mstats, mlaunches = run_path(mdec, gdyn, gbatch, N_GENERAL_FRAMES,
+                                 GENERAL_MS, "general int8 min-sum", ref=gref)
+    lo, hi = GENERAL_MINSUM_AVG_ITERS
+    assert lo <= mstats.avg_iter <= hi, mstats.avg_iter
+    del mdec
+    torch.cuda.empty_cache()
     log(f"  all phases passed in {time.perf_counter() - t_all:.1f} s")
 
     launches.update({name: launches36[name] for name in REGULAR})
+    launches.update({name: glaunches[name] for name in GENERAL_SP})
+    launches.update({name: mlaunches[name] for name in GENERAL_MS})
     kernels = []
     for name, source, rep in KERNELS:
         r = perf[name]

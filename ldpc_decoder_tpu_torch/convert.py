@@ -14,12 +14,17 @@ port's pass and the outputs compared:
   ``[n_edges, B]`` messages (its runners' interface) into the port's
   ``[C, d_v, Z, B]`` and ``[R, d_c, Z, B]``, and
   :func:`regular_state_to_jax` maps back. Both sides keep the same edge
-  order, so this is a reshape.
+  order, so this is a reshape;
+- :func:`general_state_from_jax` maps the JAX general path's padded
+  plane-major arrays (``[ev_pad|ec_pad, B]`` edges, ``[nv_pad|nc_pad, B]``
+  nodes) into the port's unpadded ones, and :func:`general_state_to_jax`
+  maps back (pad rows zero).
 
-The JAX grouped tables are only read through their group metadata
-(``row_groups``/``col_groups`` with ``block_start``) and the regular
-layout comes from the port's tables, so this module imports neither JAX
-nor the JAX package.
+The JAX tables are only read through their group or bucket metadata
+(``row_groups``/``col_groups`` with ``block_start``; ``vn_buckets``/
+``cn_buckets`` with ``count_pad``, ``node_start``, ``edge_start``) and the
+regular layout comes from the port's tables, so this module imports
+neither JAX nor the JAX package.
 """
 
 from __future__ import annotations
@@ -94,3 +99,39 @@ def regular_state_to_jax(msgs_v, r_c):
     msgs_v, r_c = np.asarray(msgs_v), np.asarray(r_c)
     B = msgs_v.shape[-1]
     return msgs_v.reshape(-1, B), r_c.reshape(-1, B)
+
+
+def general_rows(jax_buckets, port_buckets, edges: bool = True) -> np.ndarray:
+    """Padded JAX row of each port row, for the edge rows (``edges``) or the
+    node rows of one side. ``jax_buckets`` are the JAX general tables'
+    ``vn_buckets``/``cn_buckets`` (degree, count, count_pad, node_start,
+    edge_start); ``port_buckets`` the port's (degree, count, row_start,
+    edge_start), zipped in order. Slot k of node i sits at JAX row
+    edge_start + k·count_pad + i and port row edge_start + k·count + i."""
+    out = []
+    for jb, pb in zip(jax_buckets, port_buckets, strict=True):
+        if (jb.degree, jb.count) != (pb.degree, pb.count):
+            raise ValueError(f"bucket mismatch: JAX {jb} vs port {pb}")
+        i = np.arange(pb.count, dtype=np.int64)
+        if edges:
+            k = np.arange(pb.degree, dtype=np.int64)[:, None]
+            out.append((jb.edge_start + k * jb.count_pad + i).reshape(-1))
+        else:
+            out.append(jb.node_start + i)
+    return np.concatenate(out)
+
+
+def general_state_from_jax(x, jax_buckets, port_buckets, edges: bool = True):
+    """A JAX padded [ev_pad|ec_pad, B] edge array (``edges``) or [nv_pad|
+    nc_pad, B] node array -> the port's unpadded [E, B] / [n, B]."""
+    return np.asarray(x)[general_rows(jax_buckets, port_buckets, edges)]
+
+
+def general_state_to_jax(x, jax_buckets, port_buckets, n_rows: int,
+                         edges: bool = True):
+    """The port's [E, B] / [n, B] -> the JAX padded layout with ``n_rows``
+    rows (ev_pad, ec_pad, nv_pad or nc_pad); pad rows are zero."""
+    x = np.asarray(x)
+    out = np.zeros((n_rows,) + x.shape[1:], x.dtype)
+    out[general_rows(jax_buckets, port_buckets, edges)] = x
+    return out

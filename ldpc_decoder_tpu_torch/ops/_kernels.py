@@ -1,8 +1,10 @@
 """Build, load and launch the CUDA kernels of ``csrc/``.
 
-Two sources, one shared library each: ``qc_grouped.cu`` (the grouped
-family, one launch per degree group) and ``qc_regular.cu`` (the regular
-family, one launch per pass); both include ``common.cuh``. Each is compiled
+Three sources, one shared library each: ``qc_grouped.cu`` (the grouped
+family, one launch per degree group), ``qc_regular.cu`` (the regular
+family, one launch per pass) and ``general.cu`` (the general any-alist
+path, sum-product and min-sum, one launch per degree bucket); all include
+``common.cuh``. Each is compiled
 by ``nvcc`` for ``sm_90a`` into a library with a plain ``extern "C"``
 interface (no PyTorch headers, so it builds in seconds) at first use, into
 the git-ignored ``ldpc_decoder_tpu_torch/build/``; a changed source or
@@ -14,7 +16,8 @@ stream and adds one to its entry of :data:`launch_counts` (the port's only
 global state), so a run can show that its main path went through the
 kernels. Argument checking is the callers' job
 (:mod:`ldpc_decoder_tpu_torch.ops.qc_grouped`,
-:mod:`ldpc_decoder_tpu_torch.ops.qc_regular`); a nonzero CUDA error from a
+:mod:`ldpc_decoder_tpu_torch.ops.qc_regular`,
+:mod:`ldpc_decoder_tpu_torch.ops.general`); a nonzero CUDA error from a
 launch raises.
 """
 
@@ -32,19 +35,26 @@ from ldpc_decoder_tpu_torch._build import build_shared_library
 CSRC = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "csrc")
 SOURCES = {name: os.path.join(CSRC, f"{name}.cu")
-           for name in ("qc_grouped", "qc_regular")}
+           for name in ("qc_grouped", "qc_regular", "general")}
 HEADERS = (os.path.join(CSRC, "common.cuh"),)
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+# per-source extra flags: general.cu's 320 template instantiations take
+# 75 s in one thread and 46 s with nvcc optimizing them in parallel
+# (--split-compile=0: one thread per CPU; measured on an H100 host with 8
+# cores, PERF.md), which keeps it off the parallel build's critical path
+NVCC_EXTRA_FLAGS = {"general": ["--split-compile=0"]}
 # each source's kMaxDegree: degrees 1..max are instantiated
-MAX_DEGREES = {"qc_grouped": 16, "qc_regular": 32}
+MAX_DEGREES = {"qc_grouped": 16, "qc_regular": 32, "general": 32}
 
 launch_counts = {"cn": 0, "vn": 0, "parity": 0,
-                 "cn_regular": 0, "vn_regular": 0, "parity_regular": 0}
+                 "cn_regular": 0, "vn_regular": 0, "parity_regular": 0,
+                 "cn_general": 0, "vn_general": 0,
+                 "cn_general_minsum": 0, "vn_general_minsum": 0}
 
 _p, _i, _f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # per library: {launch function: argtypes}; each returns a CUDA error code.
-# Both libraries also export ldpc_max_degree() and ldpc_cuda_error_string.
+# Every library also exports ldpc_max_degree() and ldpc_cuda_error_string.
 _SIGNATURES = {
     "qc_grouped": {
         "ldpc_cn_group": [_p, _p, _p, _p, _p, _i, _i, _i, _i, _i, _i, _f, _i,
@@ -60,7 +70,18 @@ _SIGNATURES = {
                             _i, _p],
         "ldpc_parity_regular": [_p, _p, _p, _p, _i, _i, _i, _i, _p],
     },
+    "general": {
+        "ldpc_cn_general": [_p, _p, _p, _p, _i, _i, _i, _i, _i, _f, _i, _p],
+        "ldpc_vn_general": [_p, _p, _p, _p, _p, _i, _i, _i, _i, _i, _f, _i,
+                            _p],
+        "ldpc_cn_general_minsum": [_p, _p, _p, _p, _i, _i, _i, _i, _i, _f,
+                                   _f, _f, _i, _p],
+        "ldpc_vn_general_minsum": [_p, _p, _p, _p, _p, _i, _i, _i, _i, _i,
+                                   _f, _f, _i, _p],
+    },
 }
+# message dtype codes of the general library
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
@@ -82,10 +103,11 @@ def _nvcc() -> str:
 def library_path(name: str) -> str:
     """Build (if needed) and return the path of library ``name`` (a key of
     :data:`SOURCES`); its ``.log`` beside it holds ptxas's register and
-    spill report. Safe to call for both libraries from two threads at once:
-    each nvcc runs in its own process."""
-    return build_shared_library(name, [SOURCES[name]], [_nvcc(), *NVCC_FLAGS],
-                                timeout=900, headers=HEADERS)
+    spill report. Safe to call for all libraries from several threads at
+    once: each nvcc runs in its own process."""
+    cmd = [_nvcc(), *NVCC_FLAGS, *NVCC_EXTRA_FLAGS.get(name, [])]
+    return build_shared_library(name, [SOURCES[name]], cmd, timeout=900,
+                                headers=HEADERS)
 
 
 def load(name: str) -> ctypes.CDLL:
@@ -187,3 +209,52 @@ def parity_regular(bits, syn, flags, tables) -> None:
         tables.d_c, tables.Z, bits.shape[-1], _stream(bits))
     _check(lib, err, "regular parity kernel")
     launch_counts["parity_regular"] += 1
+
+
+def cn_general(msgs_v, syn, r_c, perm_v2c, bucket, pre: float) -> None:
+    """General sum-product check-node kernel for one check bucket."""
+    lib = load("general")
+    err = lib.ldpc_cn_general(
+        _ptr(msgs_v), _ptr(syn), _ptr(r_c), _ptr(perm_v2c), bucket.row_start,
+        bucket.count, bucket.degree, bucket.edge_start, msgs_v.shape[-1], pre,
+        _DTYPE_CODES[msgs_v.dtype], _stream(msgs_v))
+    _check(lib, err, "general check-node kernel")
+    launch_counts["cn_general"] += 1
+
+
+def vn_general(r_c, llr, msgs_v, bits, perm_c2v, bucket, pre: float) -> None:
+    """General sum-product variable-node kernel for one variable bucket;
+    ``bits`` may be None."""
+    lib = load("general")
+    err = lib.ldpc_vn_general(
+        _ptr(r_c), _ptr(llr), _ptr(msgs_v), _ptr(bits), _ptr(perm_c2v),
+        bucket.row_start, bucket.count, bucket.degree, bucket.edge_start,
+        r_c.shape[-1], pre, _DTYPE_CODES[r_c.dtype], _stream(r_c))
+    _check(lib, err, "general variable-node kernel")
+    launch_counts["vn_general"] += 1
+
+
+def cn_general_minsum(msgs_v, syn, r_c, perm_v2c, bucket, alpha: float,
+                      beta: float, qscale: float) -> None:
+    """General min-sum check-node kernel for one check bucket (``alpha``
+    for its degree)."""
+    lib = load("general")
+    err = lib.ldpc_cn_general_minsum(
+        _ptr(msgs_v), _ptr(syn), _ptr(r_c), _ptr(perm_v2c), bucket.row_start,
+        bucket.count, bucket.degree, bucket.edge_start, msgs_v.shape[-1],
+        alpha, beta, qscale, _DTYPE_CODES[msgs_v.dtype], _stream(msgs_v))
+    _check(lib, err, "general min-sum check-node kernel")
+    launch_counts["cn_general_minsum"] += 1
+
+
+def vn_general_minsum(r_c, llr, msgs_v, bits, perm_c2v, bucket,
+                      clamp: float, qscale: float) -> None:
+    """General min-sum variable-node kernel for one variable bucket;
+    ``bits`` may be None."""
+    lib = load("general")
+    err = lib.ldpc_vn_general_minsum(
+        _ptr(r_c), _ptr(llr), _ptr(msgs_v), _ptr(bits), _ptr(perm_c2v),
+        bucket.row_start, bucket.count, bucket.degree, bucket.edge_start,
+        r_c.shape[-1], clamp, qscale, _DTYPE_CODES[r_c.dtype], _stream(r_c))
+    _check(lib, err, "general min-sum variable-node kernel")
+    launch_counts["vn_general_minsum"] += 1

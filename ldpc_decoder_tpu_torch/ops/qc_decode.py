@@ -129,3 +129,37 @@ class QCDecodeTables:
             cn_order=dev(cn_order2),
             erased_mask_sorted=dev(erased_nat[vn_order2])[:, None],
         )
+
+
+# ---- min-sum helpers (ldpc_decoder_tpu/ops/qc_decode.py:297-331) -------------
+
+def quantize_msgs(x: torch.Tensor, qscale: float) -> torch.Tensor:
+    """float LLR messages -> int8 fixed point at ``qscale`` steps per unit:
+    round half to even, saturate at ±127 (the hardware min-sum
+    quantization; -0.0 becomes 0)."""
+    q = torch.round(x.to(torch.float32) * torch.tensor(qscale,
+                                                       dtype=torch.float32))
+    return q.clamp(-127.0, 127.0).to(torch.int8)
+
+
+def dequantize_msgs(m: torch.Tensor, qscale: float) -> torch.Tensor:
+    """int8 fixed point -> float32 LLRs (exact: qscale is a power of two);
+    a zero dequantizes to +0.0."""
+    return m.to(torch.float32) * torch.tensor(1.0 / qscale,
+                                              dtype=torch.float32)
+
+
+def resolve_minsum_alpha(alpha, degree: int) -> float:
+    """Normalization α of normalized min-sum for check degree ``degree``:
+    ``alpha`` is a scalar (uniform) or a tuple of (degree, α) pairs, where
+    a (0, α) pair is the fallback for degrees not listed."""
+    if isinstance(alpha, (int, float)):
+        return float(alpha)
+    table = dict(alpha)
+    if degree in table:
+        return float(table[degree])
+    if 0 in table:
+        return float(table[0])
+    raise ValueError(
+        f"minsum alpha table {alpha!r} has no entry for check degree "
+        f"{degree} and no (0, default) fallback")

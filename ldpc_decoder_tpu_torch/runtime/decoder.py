@@ -1,14 +1,16 @@
 """Decoder orchestration: batched decode with on-the-fly frame replacement.
 
-Port of the QC branch of ``ldpc_decoder_tpu/runtime/decoder.py``. The
-decoder picks the kernel family the way the JAX decoder does: a regular
-base (one check degree, one variable degree) takes the regular family
-(:mod:`..ops.qc_regular`), any other base the grouped one
-(:mod:`..ops.qc_grouped`); both expose the same init, burst and superstep
-functions. A pool of all frames of a run lives on the device in the
-decoder's sorted layouts; B = parallel_factor lanes decode in parallel;
-every k iterations a superstep checks parity, retires finished or
-over-budget lanes (packing their hard decisions into the results) and
+Port of ``ldpc_decoder_tpu/runtime/decoder.py``. The decoder picks the
+kernel family the way the JAX decoder does: a QC code (``qc=`` given) with
+a regular base (one check degree, one variable degree) takes the regular
+family (:mod:`..ops.qc_regular`), any other base the grouped one
+(:mod:`..ops.qc_grouped`); a code without QC structure, with
+``qc_autodetect=False``, takes the general path (:mod:`..ops.general`),
+which runs sum-product and min-sum. All expose the same init, burst and
+superstep functions. A pool of all frames of a run lives on the device in
+the decoder's sorted layouts; B = parallel_factor lanes decode in
+parallel; every k iterations a superstep checks parity, retires finished
+or over-budget lanes (packing their hard decisions into the results) and
 refills them from the pool.
 
 The JAX package runs the whole schedule inside one ``lax.while_loop``. Here
@@ -20,9 +22,13 @@ counts, pool position) in numpy. The schedule is the JAX package's exactly,
 because per-frame iteration counts depend on it:
 
 - a burst of max(0, first_check − k) plain iterations (no emit, no parity);
-- supersteps of k iterations; a refilled lane is reset in-kernel on the
-  next superstep's first iteration (the lane-reset refill: only llr and syn
-  are reloaded, never the edge arrays), so that iteration is a wash;
+- supersteps of k iterations. On the QC paths a refilled lane is reset
+  in-kernel on the next superstep's first iteration (the lane-reset
+  refill: only llr and syn are reloaded, never the edge arrays), so that
+  iteration is a wash. The general path's runner has no reset (as in JAX,
+  ``decoder.py:580-612``): a refilled lane's messages are re-initialised at
+  once from its new llr (only that lane's columns of msgs_v; r_c is
+  rewritten by the next check pass), and every iteration counts;
 - done = active & (¬violated | iters_done ≥ max_iter); new frame ids come
   from a cumsum over done; stop when no lane is active and the pool is
   empty.
@@ -39,13 +45,23 @@ from __future__ import annotations
 import math
 import time
 from dataclasses import dataclass
+from functools import partial
 
 import numpy as np
 import torch
 
 from ldpc_decoder_tpu_torch.channels.base import Channel
 from ldpc_decoder_tpu_torch.codes.code import LDPCCode
+from ldpc_decoder_tpu_torch.codes.compiled import CompiledCode, compile_code
 from ldpc_decoder_tpu_torch.codes.qc import QCStructure
+from ldpc_decoder_tpu_torch.ops.general import (
+    GeneralTables,
+    burst_iterations_general,
+    init_messages_general,
+    init_variable_messages_general,
+    llr_dtype,
+    run_iterations_general,
+)
 from ldpc_decoder_tpu_torch.ops.phi import pre_from_infinity_threshold
 from ldpc_decoder_tpu_torch.ops.qc_decode import QCDecodeTables
 from ldpc_decoder_tpu_torch.ops.qc_grouped import (
@@ -62,7 +78,8 @@ from ldpc_decoder_tpu_torch.ops.qc_regular import (
 )
 from ldpc_decoder_tpu_torch.runtime.params import DynamicParams, StaticParams
 
-_TORCH_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+_TORCH_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+                 "int8": torch.int8}
 
 
 @dataclass
@@ -103,12 +120,18 @@ def _pack_bits_natural(bits: torch.Tensor, block_perm: torch.Tensor,
     flood.cu:277-295). The QC block permutation makes the natural-order
     gather a permute of whole Z-blocks."""
     C, Z, n = bits.shape
-    nat = bits[block_perm].reshape(C * Z, n)
-    pad = n_words * 32 - C * Z
+    return _pack_words(bits[block_perm].reshape(C * Z, n), n_words)
+
+
+def _pack_words(nat: torch.Tensor, n_words: int) -> torch.Tensor:
+    """bits [n_vars, n] int8 in natural order -> [n, n_words] int32 words
+    (see :func:`_pack_bits_natural`)."""
+    n_vars, n = nat.shape
+    pad = n_words * 32 - n_vars
     if pad:
         nat = torch.cat([nat, nat.new_zeros((pad, n))])
     x = nat.view(n_words, 32, n).to(torch.int64)
-    words = torch.zeros((n_words, n), dtype=torch.int64, device=bits.device)
+    words = torch.zeros((n_words, n), dtype=torch.int64, device=nat.device)
     for j in range(32):
         words |= x[:, j] << j
     # [0, 2^32) -> the int32 with the same bit pattern
@@ -117,27 +140,41 @@ def _pack_bits_natural(bits: torch.Tensor, block_perm: torch.Tensor,
 
 
 class LDPCDecoder:
-    """Batched syndrome BP decoder for one QC code + channel.
+    """Batched syndrome BP decoder for one code + channel.
 
     Public surface mirrors the JAX package's (and the reference's,
     h/ldpc_decoder_gpu_cuda.h:108-132): ``parallel_factor()`` and
     ``decode(dyn_params, n_vecs, values, syndromes)``. ``device`` defaults
     to the CUDA card and raises without one; ``device="cpu"`` runs the
     plain passes on the CPU.
+
+    ``qc`` (a QCStructure) selects the QC kernels; without it the code
+    takes the general path, which needs ``qc_autodetect=False``: QC
+    detection on plain alists is not ported, and the JAX decoder would run
+    it and might pick a QC family instead. Min-sum and int8 messages run on
+    the general path only.
     """
 
-    def __init__(self, code: LDPCCode, channel: Channel,
+    def __init__(self, code: LDPCCode | CompiledCode, channel: Channel,
                  static_params: StaticParams | None = None,
                  device: torch.device | str | None = None,
                  qc: QCStructure | None = None):
-        if qc is None:
-            raise NotImplementedError(
-                "the port decodes QC codes through the QC kernels: "
-                "pass qc=QCStructure (QC detection on plain alists and the "
-                "general any-alist path are not ported yet)")
-        self.code = code
-        self.channel = channel
         self.params = static_params or StaticParams()
+        p = self.params
+        if qc is None and p.qc_autodetect:
+            raise NotImplementedError(
+                "QC detection on plain alists is not ported: pass "
+                "qc=QCStructure for the QC kernels, or "
+                "StaticParams(qc_autodetect=False) for the general path")
+        if qc is not None and (p.algorithm != "sum-product"
+                               or p.message_dtype == "int8"):
+            raise NotImplementedError(
+                f"algorithm={p.algorithm!r} with message_dtype="
+                f"{p.message_dtype!r} runs on the general path only: the QC "
+                f"kernels' min-sum and int8 branches are not ported")
+        cc = code if isinstance(code, CompiledCode) else None
+        self.code = cc.code if cc is not None else code
+        self.channel = channel
         if device is None:
             if not torch.cuda.is_available():
                 raise RuntimeError(
@@ -145,6 +182,20 @@ class LDPCDecoder:
                     "run the plain passes on the CPU")
             device = "cuda"
         self.device = torch.device(device)
+        self.msg_dtype = _TORCH_DTYPES[p.message_dtype]
+        self._llr_dtype = llr_dtype(self.msg_dtype)
+        self.n_words = (self.code.n_vars + 31) // 32
+        # the general runner re-initialises refilled lanes at once; the QC
+        # runners reset them in-kernel (the ``fresh`` flags)
+        self._lane_reset = qc is not None
+        if qc is None:
+            self._init_general(cc or compile_code(self.code))
+        else:
+            self._init_qc(qc)
+        self._parallel_factor = self._choose_parallel_factor()
+
+    def _init_qc(self, qc: QCStructure) -> None:
+        code = self.code
         qct = QCDecodeTables.from_structure(qc, code.n_erased_vars,
                                             self.device)
         if (qct.n_vars != code.n_vars or qct.n_checks != code.n_checks
@@ -160,15 +211,33 @@ class LDPCDecoder:
             self._init_messages = init_messages_qc_grouped
             self._run_iterations = run_iterations_qc_grouped
             self._run_burst = burst_iterations_qc_grouped
-        self.msg_dtype = _TORCH_DTYPES[self.params.message_dtype]
-        self.n_words = (code.n_vars + 31) // 32
         Z = qct.Z
+        self._node_shape = ((qct.n_vars // Z, Z), (qct.n_checks // Z, Z))
         vn_pos = qct.vn_pos.cpu().numpy()
         # natural column block c -> its sorted block (vn_pos maps Z-blocks)
         self._block_perm = torch.from_numpy(vn_pos[::Z] // Z).to(self.device)
+        self._pack = lambda bits: _pack_bits_natural(bits, self._block_perm,
+                                                     self.n_words)
         self._vn_order_io = qct.vn_order.cpu().numpy()
         self._cn_order_io = qct.cn_order.cpu().numpy()
-        self._parallel_factor = self._choose_parallel_factor()
+
+    def _init_general(self, cc: CompiledCode) -> None:
+        p = self.params
+        t = self.tables = GeneralTables.from_compiled(cc, self.device)
+        alg = dict(alg=p.algorithm)
+        if p.algorithm == "min-sum":
+            alg.update(clamp=p.minsum_clamp, qscale=p.minsum_qscale)
+        self._init_messages = partial(init_messages_general, **alg)
+        self._init_lanes = partial(init_variable_messages_general, **alg)
+        if p.algorithm == "min-sum":
+            alg.update(beta=p.minsum_offset, alpha=p.minsum_alpha)
+        self._run_iterations = partial(run_iterations_general, **alg)
+        self._run_burst = partial(burst_iterations_general, **alg)
+        self._node_shape = ((t.n_vars,), (t.n_checks,))
+        self._pack = lambda bits: _pack_words(
+            bits.index_select(0, t.vn_pos), self.n_words)
+        self._vn_order_io = t.vn_order.cpu().numpy()
+        self._cn_order_io = t.cn_order.cpu().numpy()
 
     # ------------------------------------------------------------------
     def _device_memory(self) -> int:
@@ -186,13 +255,17 @@ class LDPCDecoder:
         StaticParams.parallel_factor_user bypasses the model.
 
         Per lane: msgs_v and r_c in the message dtype, node-sized state and
-        temporaries in float32, syndrome bytes; per pool frame (loading
-        factor 4 assumed): raw values, syndromes and packed results."""
+        temporaries in float32, syndrome bytes; on the general path also
+        the parity check's gathered int8 bits (one byte per edge); per pool
+        frame (loading factor 4 assumed): raw values, syndromes and packed
+        results."""
         if self.params.parallel_factor_user is not None:
             return int(self.params.parallel_factor_user)
         msg_bytes = torch.empty((), dtype=self.msg_dtype).element_size()
         e, nv, nc = self.code.n_edges, self.code.n_vars, self.code.n_checks
         per_lane = 2 * e * msg_bytes + 3 * nv * 4 + nc
+        if not self._lane_reset:  # the general path
+            per_lane += e
         per_pool_frame = nv * 4 + nc + nv // 8
         table_bytes = 3 * e * 4 + 2 * nv * 4 + 2 * nc * 4
         budget = (self._device_memory() * (1.0 - self.params.memory_headroom)
@@ -207,12 +280,12 @@ class LDPCDecoder:
 
     # ------------------------------------------------------------------
     def _lane_llr(self, vals: torch.Tensor):
-        """Pool values [n_vars, n] -> LLR state [C, Z, n] in the message
-        dtype (the kernels' consumption dtype), erased rows zeroed."""
+        """Pool values [n_vars, n] -> LLR state [*node shape, n] in the
+        kernels' consumption dtype (the message dtype; bfloat16 for int8
+        messages), erased rows zeroed."""
         llr = self.channel.llr_from_channel(vals).masked_fill(
             self.tables.erased_mask_sorted, 0.0)
-        t = self.tables
-        return llr.to(self.msg_dtype).view(t.C, t.Z, -1)
+        return llr.to(self._llr_dtype).view(*self._node_shape[0], -1)
 
     def decode(
         self,
@@ -277,7 +350,7 @@ class LDPCDecoder:
             vals = pool_values[:, safe]
             syn = pool_syn[:, safe]
         llr = self._lane_llr(vals)
-        syn = syn.view(t.R, t.Z, B)
+        syn = syn.view(*self._node_shape[1], B)
         msgs = self._init_messages(llr, t, self.msg_dtype, pre)
         if burst:
             self._run_burst(msgs, llr, syn, t, burst, pre)
@@ -286,8 +359,9 @@ class LDPCDecoder:
         fresh = None
         supersteps = 0
         while True:
+            extra = {"fresh": fresh} if self._lane_reset else {}
             msgs, bits, violated = self._run_iterations(
-                msgs, llr, syn, t, k, pre, fresh)
+                msgs, llr, syn, t, k, pre, **extra)
             supersteps += 1
             iters_done += k
             viol = violated.cpu().numpy()  # the superstep's one host read
@@ -296,9 +370,7 @@ class LDPCDecoder:
             if done.any():  # retire: pack the finished lanes' bits
                 lanes = np.nonzero(done)[0]
                 ids = frame_ids[lanes]
-                packed = _pack_bits_natural(
-                    bits[:, :, torch.from_numpy(lanes).to(dev)],
-                    self._block_perm, self.n_words)
+                packed = self._pack(bits[..., torch.from_numpy(lanes).to(dev)])
                 results[torch.from_numpy(ids).to(dev)] = packed
                 iters_out[ids] = iters_done[lanes]
 
@@ -314,9 +386,14 @@ class LDPCDecoder:
             if has_new.any():
                 lanes = torch.from_numpy(np.nonzero(has_new)[0]).to(dev)
                 ids = torch.from_numpy(frame_ids[has_new]).to(dev)
-                llr[:, :, lanes] = self._lane_llr(pool_values[:, ids])
-                syn[:, :, lanes] = pool_syn[:, ids].view(t.R, t.Z, -1)
-                fresh = torch.from_numpy(has_new).to(dev)
+                llr[..., lanes] = self._lane_llr(pool_values[:, ids])
+                syn[..., lanes] = pool_syn[:, ids].view(
+                    *self._node_shape[1], -1)
+                if self._lane_reset:
+                    fresh = torch.from_numpy(has_new).to(dev)
+                else:  # the refilled lanes' messages start afresh now
+                    msgs[0][:, lanes] = self._init_lanes(
+                        llr[:, lanes], t, self.msg_dtype, pre)
 
             if not active.any() and pool_next == n_pool:
                 break

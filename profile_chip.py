@@ -3,10 +3,11 @@
 
     python3 profile_chip.py      # from the repository root, one card
 
-For each path of ``chip_smoke.py`` (p41 at sigma 0.94 and reg36 at sigma
-0.87, 512 frames, bf16, B = 256, the same decoder settings) it decodes
-once to warm up, then profiles a second decode with ``torch.profiler``
-(CPU and CUDA activities) and prints:
+For three paths of ``chip_smoke.py`` with the same decoder settings (p41
+at sigma 0.94 and reg36 at sigma 0.87, 512 frames, bf16, B = 256; the
+general sum-product path on the random (3,6) 2^20 code at sigma 0.84, 768
+frames, bf16, B = 384) it decodes once to warm up, then profiles a second
+decode with ``torch.profiler`` (CPU and CUDA activities) and prints:
 
 - the decode's own clock (``DecodeStats.elapsed_seconds``) under the
   profiler, which covers ``decode_presorted`` on pools already on the
@@ -33,7 +34,9 @@ import chip_smoke as cs
 
 # kernel-name fragments of the hand-written kernels (csrc/)
 OWN = ("cn_kernel", "vn_kernel", "parity_kernel", "cn_regular_kernel",
-       "vn_regular_kernel", "parity_regular_kernel")
+       "vn_regular_kernel", "parity_regular_kernel", "cn_general_kernel",
+       "vn_general_kernel", "cn_general_minsum_kernel",
+       "vn_general_minsum_kernel")
 
 
 def device_time_us(evt):
@@ -142,6 +145,7 @@ def main():
                          "this script needs an NVIDIA GPU")
     from ldpc_decoder_tpu_torch import native
     from ldpc_decoder_tpu_torch.channels import BIAWGNChannel
+    from ldpc_decoder_tpu_torch.codes.generate import make_regular_code
     from ldpc_decoder_tpu_torch.ops import _kernels
     from ldpc_decoder_tpu_torch.runtime.datagen import create_data
     from ldpc_decoder_tpu_torch.runtime.decoder import LDPCDecoder
@@ -156,22 +160,29 @@ def main():
     backend = "native" if native.available() else "numpy"
     sp = StaticParams(max_log_parallel_factor_user=8,
                       message_dtype="bfloat16")
+    sp_general = StaticParams(parallel_factor_user=384,
+                              message_dtype="bfloat16", qc_autodetect=False)
+    k10 = DynamicParams(num_iter_max=120, num_iter_check_parity=10,
+                        num_iter_first_check=0, loading_factor=2)
+
+    def general_code():
+        return make_regular_code(2**20, 3, 6, seed=9), None, "built"
+
     paths = [
-        ("p41", cs.get_code, cs.SIGMA,
+        ("p41", cs.get_code, cs.SIGMA, sp, cs.N_FRAMES,
          DynamicParams(num_iter_max=120, num_iter_check_parity=14,
                        num_iter_first_check=70, loading_factor=2)),
-        ("reg36", cs.get_reg36_code, cs.REG36_SIGMA,
-         DynamicParams(num_iter_max=120, num_iter_check_parity=10,
-                       num_iter_first_check=0, loading_factor=2)),
+        ("reg36", cs.get_reg36_code, cs.REG36_SIGMA, sp, cs.N_FRAMES, k10),
+        ("general", general_code, cs.GENERAL_SIGMA, sp_general,
+         cs.N_GENERAL_FRAMES, k10),
     ]
     results = []
-    for label, get, sigma, dyn in paths:
+    for label, get, sigma, params, n, dyn in paths:
         code, s, _ = get()
         ch = BIAWGNChannel(sigma)
-        batch = create_data(code, ch, 0, cs.N_FRAMES, backend=backend)
-        dec = LDPCDecoder(code, ch, sp, qc=s)
-        results.append(profile_path(torch, label, dec, dyn, batch,
-                                    cs.N_FRAMES))
+        batch = create_data(code, ch, 0, n, backend=backend)
+        dec = LDPCDecoder(code, ch, params, qc=s)
+        results.append(profile_path(torch, label, dec, dyn, batch, n))
         del dec, batch
         torch.cuda.empty_cache()
     card = smi("name,power.limit,clocks.sm,power.draw")

@@ -8,8 +8,9 @@ host, which has no JAX; run it there with the repository's conftest
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 
 Tolerances: signs, hard bits, parity flags and decoded words are exact;
-messages are within one ulp of the storage dtype (the plain version's φ
-goes through torch's CUDA tanh/log, the kernel's through tanhf/logf).
+sum-product messages are within one ulp of the storage dtype (the plain
+version's φ goes through torch's CUDA tanh/log, the kernel's through
+tanhf/logf); min-sum messages are bitwise equal.
 """
 
 import numpy as np
@@ -18,11 +19,17 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from ldpc_decoder_tpu_torch.channels import BIAWGNChannel  # noqa: E402
+from ldpc_decoder_tpu_torch.codes.compiled import compile_code  # noqa: E402
+from ldpc_decoder_tpu_torch.codes.generate import (  # noqa: E402
+    make_irregular_code,
+    make_regular_code,
+)
 from ldpc_decoder_tpu_torch.codes.protographs import p41_code  # noqa: E402
 from ldpc_decoder_tpu_torch.codes.qc import (  # noqa: E402
     QCStructure,
     make_qc_code,
 )
+from ldpc_decoder_tpu_torch.ops import general as G  # noqa: E402
 from ldpc_decoder_tpu_torch.ops import qc_grouped as qg  # noqa: E402
 from ldpc_decoder_tpu_torch.ops import qc_regular as qr  # noqa: E402
 from ldpc_decoder_tpu_torch.ops.qc_decode import QCDecodeTables  # noqa: E402
@@ -203,3 +210,129 @@ def test_regular_decode_on_card_matches_cpu(cuda_device):
     np.testing.assert_array_equal(res_g, res_c)
     assert (res_g == batch.ref_bits_packed()).all()
     assert abs(st_g.avg_iter - st_c.avg_iter) <= 5
+
+
+# a multi-bucket code with degree-1 variables and degree-1 checks (540
+# edges on each side, so no degree is nudged)
+IRREGULAR = ((200, 100, {1: 0.1, 2: 0.3, 3: 0.4, 4: 0.2},
+              {1: 0.1, 5: 0.1, 6: 0.8}), dict(seed=5))
+B_GENERAL = 40  # not a multiple of 32: the last lane chunk is partial
+
+
+def _general_state(device, dtype, seed):
+    t = G.GeneralTables.from_compiled(compile_code(
+        make_irregular_code(*IRREGULAR[0], **IRREGULAR[1])), device)
+    rng = np.random.default_rng(seed)
+    nb = B_GENERAL
+
+    def rand(rows, scale, dt):
+        x = rng.standard_normal((rows, nb)).astype(np.float32) * scale
+        if dt == torch.int8:
+            x = np.clip(np.round(x * 2.5), -127, 127).astype(np.int8)
+            return torch.from_numpy(x).to(device)
+        return torch.from_numpy(x).to(device, dt)
+
+    return t, dict(
+        mv=rand(t.n_edges, 4, dtype), rc=rand(t.n_edges, 4, dtype),
+        llr=rand(t.n_vars, 12, G.llr_dtype(dtype)),
+        syn=torch.from_numpy((rng.random((t.n_checks, nb)) < 0.5).astype(
+            np.int8)).to(device))
+
+
+def _same_bits(a, b):
+    as_int = {torch.float32: torch.int32, torch.bfloat16: torch.int16,
+              torch.int8: torch.int8}[a.dtype]
+    return torch.equal(a.view(as_int), b.view(as_int))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_general_kernels_match_plain(cuda_device, dtype):
+    from ldpc_decoder_tpu_torch.ops import _kernels
+
+    t, st = _general_state(cuda_device, dtype, 7)
+    ulp = 2.0 ** -7 if dtype == torch.bfloat16 else 2.0 ** -22
+    before = dict(_kernels.launch_counts)
+    rk = G.cn_pass_general(st["mv"], st["syn"], torch.empty_like(st["rc"]), t)
+    rp = G.cn_pass_general_plain(st["mv"], st["syn"],
+                                 torch.empty_like(st["rc"]), t)
+    assert torch.equal(torch.signbit(rk), torch.signbit(rp))
+    torch.testing.assert_close(rk.float(), rp.float(), rtol=ulp, atol=0)
+    for emit in (False, True):
+        bk = torch.full((t.n_vars, B_GENERAL), -1, dtype=torch.int8,
+                        device=cuda_device)
+        bp = bk.clone()
+        mk = G.vn_pass_general(st["rc"], st["llr"], torch.empty_like(st["mv"]),
+                               t, bits=bk if emit else None)
+        mp = G.vn_pass_general_plain(st["rc"], st["llr"],
+                                     torch.empty_like(st["mv"]), t,
+                                     bits=bp if emit else None)
+        assert torch.equal(torch.signbit(mk), torch.signbit(mp))
+        torch.testing.assert_close(mk.float(), mp.float(), rtol=ulp, atol=0)
+        assert torch.equal(bk, bp)
+    torch.cuda.synchronize()
+    assert (_kernels.launch_counts["cn_general"] - before["cn_general"]
+            == len(t.cn_buckets))
+    assert (_kernels.launch_counts["vn_general"] - before["vn_general"]
+            == 2 * len(t.vn_buckets))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int8])
+def test_general_minsum_kernels_match_plain(cuda_device, dtype):
+    """Bitwise, with a per-degree α table (the degree-1 checks have their
+    own), an offset, and degree-1 variables and checks."""
+    from ldpc_decoder_tpu_torch.ops import _kernels
+
+    t, st = _general_state(cuda_device, dtype, 8)
+    alpha = ((1, 0.5), (5, 0.9), (0, 0.75))
+    before = dict(_kernels.launch_counts)
+    rk = G.cn_pass_general_minsum(st["mv"], st["syn"],
+                                  torch.empty_like(st["rc"]), t, alpha, 0.25)
+    rp = G.cn_pass_general_minsum_plain(st["mv"], st["syn"],
+                                        torch.empty_like(st["rc"]), t,
+                                        alpha, 0.25)
+    assert _same_bits(rk, rp)
+    for emit in (False, True):
+        bk = torch.full((t.n_vars, B_GENERAL), -1, dtype=torch.int8,
+                        device=cuda_device)
+        bp = bk.clone()
+        mk = G.vn_pass_general_minsum(st["rc"], st["llr"],
+                                      torch.empty_like(st["mv"]), t, 20.0,
+                                      bits=bk if emit else None)
+        mp = G.vn_pass_general_minsum_plain(st["rc"], st["llr"],
+                                            torch.empty_like(st["mv"]), t,
+                                            20.0, bits=bp if emit else None)
+        assert _same_bits(mk, mp)
+        assert torch.equal(bk, bp)
+    torch.cuda.synchronize()
+    counts = {n: _kernels.launch_counts[n] - before[n]
+              for n in ("cn_general_minsum", "vn_general_minsum")}
+    assert counts == {"cn_general_minsum": len(t.cn_buckets),
+                      "vn_general_minsum": 2 * len(t.vn_buckets)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kw", [
+    dict(message_dtype="float32"),
+    dict(message_dtype="int8", algorithm="min-sum", minsum_alpha=0.8,
+         minsum_offset=0.0),
+])
+def test_general_decode_on_card_matches_cpu(cuda_device, kw):
+    """The general path on a small (3,6) code: kernels on the card vs
+    plain passes on the CPU; equal words and per-frame iterations."""
+    code = make_regular_code(512, 3, 6, seed=21)
+    ch = BIAWGNChannel(0.72)
+    n = 3 * 32 + 8
+    batch = create_data(code, ch, 0, n, backend="numpy")
+    dyn = DynamicParams(num_iter_max=60, num_iter_check_parity=5)
+    out = {}
+    for dev in ("cpu", cuda_device):
+        dec = LDPCDecoder(code, ch, StaticParams(
+            parallel_factor_user=32, qc_autodetect=False, **kw), device=dev)
+        assert isinstance(dec.tables, G.GeneralTables)
+        out[str(dev)] = dec.decode(dyn, n, batch.values, batch.syndromes)
+    (res_c, st_c), (res_g, st_g) = out["cpu"], out[str(cuda_device)]
+    np.testing.assert_array_equal(res_g, res_c)
+    np.testing.assert_array_equal(st_g.iterations, st_c.iterations)
+    assert (res_g == batch.ref_bits_packed()).all()

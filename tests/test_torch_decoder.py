@@ -198,8 +198,6 @@ def test_lane_count_model(setup):
 
 
 @pytest.mark.parametrize("kw", [
-    dict(algorithm="min-sum"),
-    dict(message_dtype="int8"),
     dict(message_dtype="float8_e5m2"),
     dict(kernel_impl="xla"),
     dict(kernel_impl="pallas"),
@@ -207,6 +205,25 @@ def test_lane_count_model(setup):
 def test_options_not_ported_raise(kw):
     with pytest.raises(NotImplementedError):
         StaticParams(**kw)
+
+
+@pytest.mark.parametrize("kw", [
+    dict(algorithm="min-sum"),
+    dict(algorithm="min-sum", message_dtype="int8"),
+])
+def test_minsum_on_qc_codes_raises(setup, kw):
+    """Min-sum and int8 run on the general path only: the QC kernels'
+    min-sum and int8 branches are not ported."""
+    sp = StaticParams(parallel_factor_user=B, **kw)
+    with pytest.raises(NotImplementedError, match="general path"):
+        LDPCDecoder(setup["code"], BIAWGNChannel(SIGMA), sp, qc=setup["s"],
+                    device="cpu")
+
+
+def test_int8_needs_minsum():
+    """int8 is fixed-point min-sum storage, as in the JAX package."""
+    with pytest.raises(ValueError, match="min-sum"):
+        StaticParams(message_dtype="int8")
 
 
 def test_plain_alist_without_qc_raises(setup):

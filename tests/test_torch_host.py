@@ -196,6 +196,44 @@ def test_create_data_native_equals_numpy(codes):
     np.testing.assert_allclose(b.values, a.values, rtol=5e-5, atol=2e-5)
 
 
+GENERATED = {
+    "regular": ("make_regular_code", (512, 3, 6), dict(seed=9)),
+    "irregular": ("make_irregular_code",
+                  (400, 200, {1: 0.05, 2: 0.35, 3: 0.4, 4: 0.2},
+                   {5: 0.5, 6: 0.5}), dict(seed=3)),
+}
+
+
+@pytest.mark.parametrize("name", sorted(GENERATED))
+def test_generate_and_compile_identical(name):
+    """The same seed gives the identical adjacency, and compile_code the
+    identical tables, array by array."""
+    from ldpc_decoder_tpu.codes import compiled as jcompiled
+    from ldpc_decoder_tpu.codes import generate as jgenerate
+    from ldpc_decoder_tpu_torch.codes import compiled, generate
+
+    fn, args, kw = GENERATED[name]
+    jcode = getattr(jgenerate, fn)(*args, **kw)
+    code = getattr(generate, fn)(*args, **kw)
+    for f in ("in_bit_to_edge", "out_bit_to_edge", "in_edge_to_bit",
+              "out_edge_to_bit", "edge_in_to_out", "edge_out_to_in"):
+        np.testing.assert_array_equal(getattr(code, f), getattr(jcode, f))
+    jcc, cc = jcompiled.compile_code(jcode), compiled.compile_code(code)
+    for f in ("vn_order", "vn_pos", "cn_order", "cn_pos", "perm_v2c",
+              "perm_c2v", "cn_edge_vnrow"):
+        np.testing.assert_array_equal(getattr(cc, f), getattr(jcc, f))
+    for side in ("vn_buckets", "cn_buckets"):
+        assert ([vars(b) for b in getattr(cc, side)]
+                == [vars(b) for b in getattr(jcc, side)])
+
+
+def test_make_regular_code_rejects_bad_degrees():
+    from ldpc_decoder_tpu_torch.codes.generate import make_regular_code
+
+    with pytest.raises(ValueError, match="divisible"):
+        make_regular_code(10, 3, 7)
+
+
 def test_port_imports_no_jax():
     code = (
         "import sys\n"
@@ -203,6 +241,9 @@ def test_port_imports_no_jax():
         "import ldpc_decoder_tpu_torch.runtime.datagen\n"
         "import ldpc_decoder_tpu_torch.convert\n"
         "import ldpc_decoder_tpu_torch.ops.qc_regular\n"
+        "import ldpc_decoder_tpu_torch.ops.general\n"
+        "import ldpc_decoder_tpu_torch.codes.generate\n"
+        "import ldpc_decoder_tpu_torch.codes.compiled\n"
         "import ldpc_decoder_tpu_torch.channels.bsc\n"
         "import ldpc_decoder_tpu_torch.channels.erasure\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
