@@ -3,8 +3,8 @@
 
     python3 chip_smoke.py        # from the repository root, one card
 
-Four paths, each through ``LDPCDecoder.decode`` with frames generated on
-the host, at most 120 iterations. The QC paths run sum-product on bfloat16
+Six paths, each through ``LDPCDecoder.decode`` with frames generated on
+the host, at most 120 iterations. The QC sum-product paths run on bfloat16
 messages with B = 256 frames in flight:
 
 - p41 (the bench's flagship): the punctured p41 code (n = 1,032,192,
@@ -23,10 +23,18 @@ the general kernels (csrc/general.cu):
 - sum-product, bfloat16, B = 384 (two fills, so the refill runs);
 - int8 min-sum (alpha 0.8, offset 0, scale 4), B = 768 (one fill).
 
+The QC min-sum paths decode reg36 rebuilt as a plain code (no structure
+given: the decoder detects it) with offset min-sum at the defaults (alpha
+1, offset 0.5, clamp 64, scale 4), BI-AWGN at sigma = 0.84, 512 frames,
+B = 256, k = 10, through the min-sum kernels (csrc/qc_minsum.cu):
+
+- bfloat16, the regular family;
+- int8, the grouped family (every int8 decode takes it, as in JAX).
+
 Phases:
 
 1. device: the card's name and power limit (nvidia-smi);
-2. build: the three kernel libraries from ldpc_decoder_tpu_torch/csrc/,
+2. build: the four kernel libraries from ldpc_decoder_tpu_torch/csrc/,
    one nvcc each, started together;
 3. phi on the device, through a check-node launch, against float64;
 4. the p41 code (alist cache in codes_cache/) and 512 frames on the host;
@@ -50,7 +58,23 @@ Phases:
 15. a small multi-bucket irregular decode (degree-1 variables) on the card
     against the plain passes on the CPU, f32 sum-product and int8 min-sum;
 16. the general sum-product path, twice, counted like phase 7;
-17. the general int8 min-sum path, twice, counted the same way.
+17. the general int8 min-sum path, twice, counted the same way;
+18. the grouped min-sum kernels against their plain versions at p41 x
+    B = 256, int8, a per-degree alpha table and offset 0.5, every group
+    (the degree-1 one too), with and without fresh lanes, bitwise;
+19. reg36 rebuilt as a plain code, 512 frames at sigma = 0.84, and the
+    detection of its structure, timed (and of its interleaved renumbering);
+20. the QC min-sum kernels against their plain versions at reg36 x
+    B = 256: regular bf16 and grouped int8, bitwise, with both times;
+21. small QC min-sum decodes on the card against the plain passes on the
+    CPU: regular-base bf16, regular-base int8 (grouped), and a small p41
+    lift in int8 with the alpha table; words and per-frame iterations
+    equal;
+22. detection: a small aligned QC code and its interleaved renumbering
+    decode to the same words on the card; a random code takes the general
+    path;
+23. the reg36 bf16 min-sum path, twice, counted like phase 7;
+24. the reg36 int8 min-sum path, twice, counted the same way.
 
 Every phase must pass: any failure raises, and the script exits nonzero
 without its result line. The last line of stdout is the result object; the
@@ -90,6 +114,10 @@ GENERAL_SIGMA = 0.84
 N_GENERAL_FRAMES = 768
 GENERAL_AVG_ITERS = (20.0, 30.0)         # sum-product, k = 10
 GENERAL_MINSUM_AVG_ITERS = (20.0, 40.0)  # int8 min-sum, k = 10
+MINSUM_SIGMA = 0.84     # the README's offset min-sum point on reg36
+MINSUM_AVG_ITERS = (20.0, 40.0)  # reg36 offset min-sum, bf16 and int8
+# per-degree alpha of the p41 check degrees (3, 6, 7), with the fallback
+MINSUM_ALPHA_TABLE = {3: 0.8, 6: 0.75, 7: 0.75, 0: 0.8}
 # the card's datasheet peaks (H100 SXM, 700 W): HBM bytes/s and float32
 # operations/s outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
@@ -108,6 +136,7 @@ OPS_PER_MINSUM_MESSAGE = 12
 GROUPED_SOURCE = "ldpc_decoder_tpu_torch/csrc/qc_grouped.cu"
 REGULAR_SOURCE = "ldpc_decoder_tpu_torch/csrc/qc_regular.cu"
 GENERAL_SOURCE = "ldpc_decoder_tpu_torch/csrc/general.cu"
+MINSUM_SOURCE = "ldpc_decoder_tpu_torch/csrc/qc_minsum.cu"
 # (name in the kernels line and in launch_counts, source, TPU kernel)
 KERNELS = [
     ("cn", GROUPED_SOURCE,
@@ -130,11 +159,22 @@ KERNELS = [
      "ldpc_decoder_tpu/ops/general_pallas.py:308"),  # _cn_kernel_minsum
     ("vn_general_minsum", GENERAL_SOURCE,
      "ldpc_decoder_tpu/ops/general_pallas.py:350"),  # _vn_kernel_minsum
+    # the min-sum and int8 branches of kernels 1, 2, 4 and 5
+    ("cn_group_minsum", MINSUM_SOURCE,
+     "ldpc_decoder_tpu/ops/qc_pallas_grouped.py:332"),  # _cn_kernel_g
+    ("vn_group_minsum", MINSUM_SOURCE,
+     "ldpc_decoder_tpu/ops/qc_pallas_grouped.py:414"),  # _vn_kernel_g
+    ("cn_regular_minsum", MINSUM_SOURCE,
+     "ldpc_decoder_tpu/ops/qc_pallas.py:412"),  # _cn_kernel
+    ("vn_regular_minsum", MINSUM_SOURCE,
+     "ldpc_decoder_tpu/ops/qc_pallas.py:469"),  # _vn_kernel
 ]
 GROUPED = ("cn", "vn", "parity")
 REGULAR = ("cn_regular", "vn_regular", "parity_regular")
 GENERAL_SP = ("cn_general", "vn_general")
 GENERAL_MS = ("cn_general_minsum", "vn_general_minsum")
+QC_MS_REGULAR = ("cn_regular_minsum", "vn_regular_minsum", "parity_regular")
+QC_MS_GROUPED = ("cn_group_minsum", "vn_group_minsum", "parity")
 
 
 def log(msg):
@@ -798,6 +838,283 @@ def small_general_decode(np, dev):
             f"{bad} frames with bit errors")
 
 
+def minsum_kernels(torch, np, dev, family, t, llr, syn, B, dtype, alpha,
+                   label):
+    """One QC family's min-sum kernels against their plain versions on a
+    real decode state (four iterations in), offset 0.5, clamp 64, scale 4:
+    bitwise, with and without fresh lanes, every group (the grouped
+    family's emit and first-after-refill passes run its degree-1 group).
+    Returns {"cn": ..., "vn": ...} with the kernel, plain and bound times
+    of a non-emit pass."""
+    from ldpc_decoder_tpu_torch.ops import qc_grouped as qg
+    from ldpc_decoder_tpu_torch.ops import qc_regular as qr
+
+    beta, clamp, qscale = 0.5, 64.0, 4.0
+    ms = dict(alg="min-sum", beta=beta, clamp=clamp, alpha=alpha,
+              qscale=qscale)
+    if family == "grouped":
+        msgs = qg.init_messages_qc_grouped(llr, t, dtype, alg="min-sum",
+                                           clamp=clamp, qscale=qscale)
+        msgs, _, _ = qg.run_iterations_qc_grouped(msgs, llr, syn, t, 4, **ms)
+
+        def cn(impl, r):
+            return impl(mv, syn, r, t, alpha, beta, qscale)
+
+        def vn(impl, m, bits=None, fresh=None, d1=False):
+            return impl(rc, llr, m, t, clamp, qscale, bits=bits, fresh=fresh,
+                        include_d1=d1)
+
+        cnk, cnp = qg.cn_pass_grouped_minsum, qg.cn_pass_minsum_plain
+        vnk, vnp = qg.vn_pass_grouped_minsum, qg.vn_pass_minsum_plain
+        run = [g for g in t.col_groups if g.degree > 1]  # non-emit pass
+        run_blocks = sum(g.count * g.degree for g in run)
+        run_cols = sum(g.count for g in run)
+        table_bytes = 8 * t.nb
+    else:
+        msgs = qr.init_messages_qc_regular(llr, t, dtype, alg="min-sum")
+        msgs, _, _ = qr.run_iterations_qc_regular(msgs, llr, syn, t, 4, **ms)
+
+        def cn(impl, r):
+            return impl(mv, syn, r, t, alpha, beta)
+
+        def vn(impl, m, bits=None, fresh=None, d1=False):
+            return impl(rc, llr, m, t, clamp, bits=bits, fresh=fresh)
+
+        cnk, cnp = qr.cn_pass_regular_minsum, qr.cn_pass_minsum_plain
+        vnk, vnp = qr.vn_pass_regular_minsum, qr.vn_pass_minsum_plain
+        run_blocks, run_cols = t.n_edges // t.Z, t.C
+        table_bytes = 4 * t.cn_read.numel()
+    mv, rc = msgs
+    fresh = torch.zeros(B, dtype=torch.bool, device=dev)
+    fresh[::5] = True
+    Z, blocks = t.Z, t.n_edges // t.Z
+
+    rk, rp = torch.empty_like(rc), torch.empty_like(rc)
+    cn(cnk, rk)
+    cn(cnp, rp)
+    assert bit_identical(rk, rp), f"r_c ({label}): not bitwise"
+    err_cn = float((rk.float() - rp.float()).abs().max())
+    del rp
+    log("  r_c: bitwise equal")
+    mk, mp = mv.clone(), mv.clone()
+    for what, emit, fr, d1 in [("plain iteration", False, None, False),
+                               ("emit + fresh lanes", True, fresh, False),
+                               ("first after refill", False, fresh, True)]:
+        mk.copy_(mv)
+        mp.copy_(mv)
+        bk = torch.full((t.C, Z, B), -1, dtype=torch.int8, device=dev)
+        bp = bk.clone()
+        vn(vnk, mk, bk if emit else None, fr, d1)
+        vn(vnp, mp, bp if emit else None, fr, d1)
+        assert bit_identical(mk, mp), f"msgs_v ({label}, {what}): not bitwise"
+        assert torch.equal(bk, bp), f"hard bits differ ({label}, {what})"
+        log(f"  msgs_v ({what}): bitwise equal"
+            + ("; hard bits equal" if emit else ""))
+    err_vn = float((mk.float() - mp.float()).abs().max())
+    del mp
+    esize = mv.element_size()
+    out = {
+        "cn": dict(
+            max_abs_err=err_cn,
+            ms=cuda_ms(lambda: cn(cnk, rk), 10),
+            plain_ms=cuda_ms(lambda: cn(cnp, rk), 3),
+            bound=bound(2 * blocks * Z * B * esize + t.R * Z * B
+                        + table_bytes,
+                        OPS_PER_MINSUM_MESSAGE * blocks * Z * B)),
+        "vn": dict(
+            max_abs_err=err_vn,
+            ms=cuda_ms(lambda: vn(vnk, mk), 10),
+            plain_ms=cuda_ms(lambda: vn(vnp, mk), 3),
+            bound=bound(2 * run_blocks * Z * B * esize
+                        + run_cols * Z * B * llr.element_size()
+                        + table_bytes,
+                        OPS_PER_MINSUM_MESSAGE * run_blocks * Z * B)),
+    }
+    for name, r in out.items():
+        log(f"  {name}: kernel {r['ms']:.3f} ms per pass, plain "
+            f"{r['plain_ms']:.3f} ms, bound {r['bound'][0]:.3f} ms "
+            f"({r['bound'][1]}) ({label})")
+    return out
+
+
+def minsum_lane_state(torch, np, dev, t, ch, batch, B, dtype):
+    """lane_state with the llr in the LLR-state dtype of ``dtype``."""
+    from ldpc_decoder_tpu_torch.ops.qc_decode import llr_dtype
+
+    llr, syn = lane_state(torch, np, dev, t, ch, batch, B)
+    return llr.to(llr_dtype(dtype)), syn
+
+
+def phase_p41_minsum_kernels(torch, np, dev, code, s, batch):
+    from ldpc_decoder_tpu_torch.channels import BIAWGNChannel
+    from ldpc_decoder_tpu_torch.ops import qc_grouped as qg
+    from ldpc_decoder_tpu_torch.ops.qc_decode import QCDecodeTables
+
+    t = qg.GroupedQCTables.from_qc_tables(
+        QCDecodeTables.from_structure(s, code.n_erased_vars, dev))
+    assert t.col_groups[0].degree == 1
+    B = 256
+    llr, syn = minsum_lane_state(torch, np, dev, t, BIAWGNChannel(SIGMA),
+                                 batch, B, torch.int8)
+    return minsum_kernels(torch, np, dev, "grouped", t, llr, syn, B,
+                          torch.int8, tuple(MINSUM_ALPHA_TABLE.items()),
+                          "p41, B = 256, int8, alpha table")
+
+
+def phase_reg36_minsum_kernels(torch, np, dev, code, s, batch):
+    from ldpc_decoder_tpu_torch.channels import BIAWGNChannel
+    from ldpc_decoder_tpu_torch.ops import qc_grouped as qg
+    from ldpc_decoder_tpu_torch.ops import qc_regular as qr
+    from ldpc_decoder_tpu_torch.ops.qc_decode import QCDecodeTables
+
+    qct = QCDecodeTables.from_structure(s, code.n_erased_vars, dev)
+    ch, B, out = BIAWGNChannel(MINSUM_SIGMA), 256, {}
+    t = qr.QCRegularTables.from_qc_tables(qct)
+    log("  regular family, bf16:")
+    llr, syn = minsum_lane_state(torch, np, dev, t, ch, batch, B,
+                                 torch.bfloat16)
+    r = minsum_kernels(torch, np, dev, "regular", t, llr, syn, B,
+                       torch.bfloat16, 1.0, "reg36, B = 256, bf16")
+    out["cn_regular_minsum"], out["vn_regular_minsum"] = r["cn"], r["vn"]
+    del llr, syn, r
+    torch.cuda.empty_cache()
+    t = qg.GroupedQCTables.from_qc_tables(qct)
+    log("  grouped family, int8:")
+    llr, syn = minsum_lane_state(torch, np, dev, t, ch, batch, B, torch.int8)
+    r = minsum_kernels(torch, np, dev, "grouped", t, llr, syn, B, torch.int8,
+                       1.0, "reg36, B = 256, int8")
+    out["cn_group_minsum"], out["vn_group_minsum"] = r["cn"], r["vn"]
+    return out
+
+
+def small_qc_minsum_decodes(np, dev):
+    """QC min-sum from plain codes (detection on): kernels on the card vs
+    plain passes on the CPU, 104 frames at B = 32 (refills); equal words
+    and per-frame iterations."""
+    from ldpc_decoder_tpu_torch.channels import BIAWGNChannel
+    from ldpc_decoder_tpu_torch.codes.protographs import p41_code
+    from ldpc_decoder_tpu_torch.codes.qc import make_qc_code
+    from ldpc_decoder_tpu_torch.ops.qc_grouped import GroupedQCTables
+    from ldpc_decoder_tpu_torch.ops.qc_regular import QCRegularTables
+    from ldpc_decoder_tpu_torch.runtime.datagen import create_data
+    from ldpc_decoder_tpu_torch.runtime.decoder import LDPCDecoder
+    from ldpc_decoder_tpu_torch.runtime.params import (
+        DynamicParams,
+        StaticParams,
+    )
+
+    reg, _ = make_qc_code(np.ones((3, 6), np.int8), Z=128, seed=1)
+    p41, _ = p41_code(Z=128, m=4, coarse=64, fine_mod=16)
+    cases = [
+        ("regular (3,6), bf16", reg, 0.8, dict(message_dtype="bfloat16"),
+         QCRegularTables),
+        ("regular (3,6), int8", reg, 0.8, dict(message_dtype="int8"),
+         GroupedQCTables),
+        ("p41 Z = 128, int8, alpha table", p41, 0.7, dict(
+            message_dtype="int8", minsum_offset=0.0,
+            minsum_alpha=MINSUM_ALPHA_TABLE), GroupedQCTables),
+    ]
+    n = 104
+    dyn = DynamicParams(num_iter_max=60, num_iter_check_parity=5)
+    for label, code, sigma, kw, want in cases:
+        ch = BIAWGNChannel(sigma)
+        batch = create_data(code, ch, 0, n, backend="numpy")
+        got = {}
+        for d in ("cpu", dev):
+            dec = LDPCDecoder(code, ch, StaticParams(
+                parallel_factor_user=32, algorithm="min-sum", **kw), device=d)
+            assert isinstance(dec.tables, want), type(dec.tables)
+            got[str(d)] = dec.decode(dyn, n, batch.values, batch.syndromes)
+        (res_c, st_c), (res_g, st_g) = got["cpu"], got[str(dev)]
+        assert np.array_equal(res_g, res_c), f"{label}: words differ"
+        assert np.array_equal(st_g.iterations, st_c.iterations), \
+            f"{label}: per-frame iterations differ"
+        bad = int((popcount_rows(batch.ref_bits_packed() ^ res_g) > 0).sum())
+        log(f"  {label} ({want.__name__}): card == CPU words and per-frame "
+            f"iterations; avg iterations {st_g.avg_iter:.2f}, "
+            f"{st_g.total_supersteps} supersteps, {bad} of {n} frames with "
+            f"bit errors")
+
+
+def detection_decodes(np, dev):
+    """A small aligned QC code and its interleaved renumbering decode the
+    same frames to the same words on the card (sum-product f32 and int8
+    min-sum); a random code takes the general path."""
+    from ldpc_decoder_tpu_torch.channels import BIAWGNChannel
+    from ldpc_decoder_tpu_torch.codes.generate import make_regular_code
+    from ldpc_decoder_tpu_torch.codes.protographs import regular_base
+    from ldpc_decoder_tpu_torch.codes.qc import (
+        interleave_code_numbering,
+        make_qc_code,
+    )
+    from ldpc_decoder_tpu_torch.ops.general import GeneralTables
+    from ldpc_decoder_tpu_torch.runtime.datagen import create_data
+    from ldpc_decoder_tpu_torch.runtime.decoder import LDPCDecoder
+    from ldpc_decoder_tpu_torch.runtime.params import (
+        DynamicParams,
+        StaticParams,
+    )
+
+    Z = 256
+    code, _ = make_qc_code(regular_base(4, 8, 3, 6, seed=5), Z=Z, seed=2,
+                           coarse=64, fine_mod=16, min_girth=0)
+    icode, to_v, to_c = interleave_code_numbering(code, Z)
+    ch = BIAWGNChannel(0.72)
+    n = 104
+    batch = create_data(code, ch, 0, n, backend="numpy")
+    vals_i = np.empty_like(batch.values)
+    vals_i[to_v] = batch.values
+    syn_i = np.empty_like(batch.syndromes)
+    syn_i[to_c] = batch.syndromes
+    dyn = DynamicParams(num_iter_max=60, num_iter_check_parity=5)
+
+    def unpack(res):
+        return np.unpackbits(res.view(np.uint8), bitorder="little",
+                             axis=1)[:, :code.n_vars]
+
+    for kw in (dict(), dict(algorithm="min-sum", message_dtype="int8")):
+        sp = StaticParams(parallel_factor_user=32, **kw)
+        dec_a = LDPCDecoder(code, ch, sp)
+        dec_i = LDPCDecoder(icode, ch, sp)
+        assert dec_a.qc.Z == dec_i.qc.Z == Z
+        assert type(dec_a.tables) is type(dec_i.tables)
+        assert dec_i._block_perm is None  # packing gathers rows
+        res_a, st_a = dec_a.decode(dyn, n, batch.values, batch.syndromes)
+        res_i, st_i = dec_i.decode(dyn, n, vals_i, syn_i)
+        assert np.array_equal(unpack(res_i)[:, to_v], unpack(res_a)), \
+            "interleaved words differ"
+        assert np.array_equal(st_i.iterations, st_a.iterations)
+        bad = int((popcount_rows(batch.ref_bits_packed() ^ res_a) > 0).sum())
+        log(f"  {kw.get('message_dtype', 'float32')} "
+            f"{kw.get('algorithm', 'sum-product')} "
+            f"({type(dec_a.tables).__name__}): interleaved == aligned words "
+            f"and per-frame iterations ({bad} of {n} frames with bit "
+            f"errors); detection {dec_a.detect_seconds * 1e3:.1f} ms "
+            f"aligned, {dec_i.detect_seconds * 1e3:.1f} ms interleaved")
+    rnd = make_regular_code(4096, 3, 6, seed=3)
+    dec = LDPCDecoder(rnd, ch, StaticParams(parallel_factor_user=32))
+    assert dec.qc is None and isinstance(dec.tables, GeneralTables)
+    log(f"  random (3,6) n = 4096: general path; detection "
+        f"{dec.detect_seconds * 1e3:.1f} ms")
+
+
+def qc_minsum_path(dec, dyn, batch, n, kernels, label, s_expect, want, ref):
+    """A reg36 min-sum path from the plain code: the detected structure is
+    the construction's, the family ``want``; then run_path (``ref``: the
+    packed reference bits)."""
+    assert dec.device.type == "cuda" and dec.parallel_factor() == 256
+    assert isinstance(dec.tables, want), type(dec.tables)
+    for f in ("edge_row", "edge_col", "edge_shift"):
+        assert (getattr(dec.qc, f) == getattr(s_expect, f)).all(), f
+    log(f"  {label}: detected Z = {dec.qc.Z} ({dec.qc.n_base_rows} x "
+        f"{dec.qc.n_base_cols} base) in {dec.detect_seconds:.3f} s, "
+        f"{want.__name__}")
+    stats, launches = run_path(dec, dyn, batch, n, kernels, label, ref=ref)
+    lo, hi = MINSUM_AVG_ITERS
+    assert lo <= stats.avg_iter <= hi, stats.avg_iter
+    return stats, launches
+
+
 def main():
     import numpy as np
     import torch
@@ -873,7 +1190,7 @@ def main():
                         num_iter_first_check=70, loading_factor=2)
     stats, launches = run_path(dec, dyn, batch, N_FRAMES, GROUPED, "p41")
     assert AVG_ITERS[0] <= stats.avg_iter <= AVG_ITERS[1], stats.avg_iter
-    del dec, batch
+    del dec  # the frames stay for phase 18
     torch.cuda.empty_cache()
 
     phase(8, "reg36 code and frames")
@@ -975,13 +1292,77 @@ def main():
                                  GENERAL_MS, "general int8 min-sum", ref=gref)
     lo, hi = GENERAL_MINSUM_AVG_ITERS
     assert lo <= mstats.avg_iter <= hi, mstats.avg_iter
-    del mdec
+    del mdec, gbatch, gcc
+    torch.cuda.empty_cache()
+
+    phase(18, "grouped min-sum kernels vs plain at p41 x B = 256, int8")
+    phase_p41_minsum_kernels(torch, np, dev, code, s, batch)
+    del batch
+    torch.cuda.empty_cache()
+
+    phase(19, "reg36 as a plain code, frames and detection")
+    from ldpc_decoder_tpu_torch.codes.code import LDPCCode
+    from ldpc_decoder_tpu_torch.codes.qc import interleave_code_numbering
+
+    plain36 = LDPCCode.from_alist_data(code36.to_alist_data())
+    t0 = time.perf_counter()
+    ch84 = BIAWGNChannel(MINSUM_SIGMA)
+    batch84 = create_data(plain36, ch84, 0, N_FRAMES, backend=backend)
+    log(f"  create_data: {N_FRAMES} frames at sigma {MINSUM_SIGMA}, "
+        f"{backend} backend, {time.perf_counter() - t0:.1f} s")
+    sp_bf16 = StaticParams(max_log_parallel_factor_user=8,
+                           message_dtype="bfloat16", algorithm="min-sum")
+    sp_int8 = StaticParams(max_log_parallel_factor_user=8,
+                           message_dtype="int8", algorithm="min-sum")
+    ms_bf16 = LDPCDecoder(plain36, ch84, sp_bf16)
+    log(f"  reg36 plain: detected Z = {ms_bf16.qc.Z} in "
+        f"{ms_bf16.detect_seconds:.3f} s")
+    t0 = time.perf_counter()
+    icode36, _, _ = interleave_code_numbering(plain36, s36.Z)
+    log(f"  interleaved renumbering built in {time.perf_counter() - t0:.1f} s")
+    idec = LDPCDecoder(icode36, ch84, sp_int8)
+    assert idec.qc.Z == s36.Z and isinstance(idec.tables, GroupedQCTables)
+    log(f"  reg36 interleaved: detected Z = {idec.qc.Z} (aligned search, "
+        f"then the interleaved one) in {idec.detect_seconds:.3f} s")
+    del idec, icode36
+
+    phase(20, "QC min-sum kernels vs plain at reg36 x B = 256")
+    perf.update(phase_reg36_minsum_kernels(torch, np, dev, plain36, s36,
+                                           batch84))
+    torch.cuda.empty_cache()
+
+    phase(21, "small QC min-sum decodes: card vs CPU")
+    small_qc_minsum_decodes(np, dev)
+
+    phase(22, "detection: aligned vs interleaved, random code")
+    detection_decodes(np, dev)
+
+    phase(23, "reg36 bf16 min-sum path")
+    ms_dyn = DynamicParams(num_iter_max=120, num_iter_check_parity=10,
+                           num_iter_first_check=0, loading_factor=2)
+    ref84 = batch84.ref_bits_packed()
+    _, ms_reg_launches = qc_minsum_path(
+        ms_bf16, ms_dyn, batch84, N_FRAMES, QC_MS_REGULAR,
+        "reg36 bf16 min-sum", s36, QCRegularTables, ref84)
+    del ms_bf16
+    torch.cuda.empty_cache()
+
+    phase(24, "reg36 int8 min-sum path")
+    ms_int8 = LDPCDecoder(plain36, ch84, sp_int8)
+    _, ms_grp_launches = qc_minsum_path(
+        ms_int8, ms_dyn, batch84, N_FRAMES, QC_MS_GROUPED,
+        "reg36 int8 min-sum", s36, GroupedQCTables, ref84)
+    del ms_int8, batch84, ref84
     torch.cuda.empty_cache()
     log(f"  all phases passed in {time.perf_counter() - t_all:.1f} s")
 
     launches.update({name: launches36[name] for name in REGULAR})
     launches.update({name: glaunches[name] for name in GENERAL_SP})
     launches.update({name: mlaunches[name] for name in GENERAL_MS})
+    launches.update({name: ms_reg_launches[name]
+                     for name in QC_MS_REGULAR[:2]})
+    launches.update({name: ms_grp_launches[name]
+                     for name in QC_MS_GROUPED[:2]})
     kernels = []
     for name, source, rep in KERNELS:
         r = perf[name]

@@ -1,11 +1,12 @@
 """Quasi-cyclic (protograph-lifted) LDPC codes.
 
-JAX-free copy of the part of ``ldpc_decoder_tpu/codes/qc.py`` that builds,
-expands and caches QC codes: :class:`QCStructure`, the rejection lift
-(:func:`make_qc_structure`, :func:`make_qc_code`) and the girth repair
-lift, :func:`qc_to_code` and the alist cache helpers.
-``tests/test_torch_host.py`` holds the copies equal. QC detection on plain
-alists is not ported yet.
+JAX-free copy of ``ldpc_decoder_tpu/codes/qc.py``: :class:`QCStructure`,
+the rejection lift (:func:`make_qc_structure`, :func:`make_qc_code`) and
+the girth repair lift, :func:`qc_to_code`, the alist cache helpers, and QC
+detection on plain alists (:func:`detect_qc_structure`,
+:func:`detect_qc_structure_permuted`, :func:`qc_cover_stats`,
+:func:`interleave_code_numbering`). ``tests/test_torch_host.py`` and
+``tests/test_torch_qc_detect.py`` hold the copies equal.
 
 Conventions:
 - variable (j, z) has natural id j*Z + z; check (r, z) id r*Z + z;
@@ -15,6 +16,7 @@ Conventions:
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 
 import numpy as np
@@ -471,3 +473,160 @@ def load_qc_alist(path: str) -> tuple[LDPCCode, QCStructure | None]:
     with open(path) as f:
         text = f.read()
     return LDPCCode.from_alist(text), QCStructure.from_header(text)
+
+
+# ---- QC detection on plain alists (ldpc_decoder_tpu/codes/qc.py:515-739) ----
+
+def _edge_endpoints(code: LDPCCode) -> tuple[np.ndarray, np.ndarray]:
+    """(check, variable) of every edge, in check-major order."""
+    rows = np.repeat(
+        np.arange(code.n_checks, dtype=np.int64), np.diff(code.out_bit_to_edge))
+    cols = code.in_edge_to_bit[code.edge_out_to_in].astype(np.int64)
+    return rows, cols
+
+
+def _lift_candidates(code: LDPCCode, min_Z: int, require_tile: int):
+    """Candidate lifting sizes in the JAX search order: for the power-of-two
+    floor ``require_tile``, then 32, the divisors Z >= ``min_Z`` of
+    gcd(n_vars, n_checks), largest first, whose largest power-of-two
+    divisor reaches the floor. (The port's kernels take any Z; the search
+    is kept so that both packages pick the same structure.)"""
+    g = math.gcd(code.n_vars, code.n_checks)
+    divisors = sorted(
+        {d for i in range(1, int(math.isqrt(g)) + 1) if g % i == 0
+         for d in (i, g // i)},
+        reverse=True,
+    )
+
+    def pow2_div(z):
+        p = 1
+        while z % (p * 2) == 0:
+            p *= 2
+        return p
+
+    for want_pow2 in (require_tile, 32):
+        for Z in divisors:
+            if Z < min_Z or Z == 1 or pow2_div(Z) < want_pow2:
+                continue
+            yield Z
+
+
+def _try_qc_at(rows, cols, n_v, n_c, Z) -> QCStructure | None:
+    """One-Z circulant test over explicit (check, var) edge endpoints: the
+    code is QC at Z iff every (block row, block col, (c − r) mod Z) group
+    holds exactly Z edges (a full circulant)."""
+    br = rows // Z
+    bc = cols // Z
+    shift = (cols % Z - rows % Z) % Z
+    Cb = n_v // Z
+    key = (br * Cb + bc) * Z + shift
+    uk, counts = np.unique(key, return_counts=True)
+    if not (counts == Z).all():
+        return None
+    e_shift = (uk % Z).astype(np.int32)
+    e_bc = ((uk // Z) % Cb).astype(np.int32)
+    e_br = (uk // (Z * Cb)).astype(np.int32)
+    order = np.lexsort((e_bc, e_br))
+    return QCStructure(
+        Z=int(Z), n_base_rows=n_c // Z, n_base_cols=Cb,
+        edge_row=e_br[order], edge_col=e_bc[order],
+        edge_shift=e_shift[order],
+    )
+
+
+def detect_qc_structure(
+    code: LDPCCode, min_Z: int = 32, require_tile: int = 128
+) -> QCStructure | None:
+    """Recover circulant (QC) block structure from a plain code in the
+    aligned layout (variable (j, z) at j·Z + z, check (r, z) at r·Z + z):
+    the first candidate Z (see :func:`_lift_candidates`) at which every
+    block is a full circulant. Returns None when no usable Z exists (e.g.
+    random codes)."""
+    rows, cols = _edge_endpoints(code)
+    for Z in _lift_candidates(code, min_Z, require_tile):
+        s = _try_qc_at(rows, cols, code.n_vars, code.n_checks, Z)
+        if s is not None:
+            return s
+    return None
+
+
+def detect_qc_structure_permuted(
+    code: LDPCCode, min_Z: int = 32, require_tile: int = 128
+):
+    """Detect QC structure hidden by a block-INTERLEAVED node numbering
+    (node (b, j) at index j·n_blocks + b, the lift-index-first order many
+    tools emit), on variables and checks together or on one side only.
+
+    Returns ``(QCStructure, perm_v, perm_c)``, where perm_v[u] is the
+    aligned index of user variable u (identity arrays on a side that was
+    already aligned), or None. The aligned layout is
+    :func:`detect_qc_structure`'s job: run that first."""
+    n_v, n_c = code.n_vars, code.n_checks
+    rows, cols = _edge_endpoints(code)
+
+    def interleave_perm(n, Z):
+        # user index u = j*nb + b  ->  aligned b*Z + j
+        nb = n // Z
+        u = np.arange(n, dtype=np.int64)
+        return (u % nb) * Z + u // nb
+
+    for Z in _lift_candidates(code, min_Z, require_tile):
+        ident_v = np.arange(n_v, dtype=np.int64)
+        ident_c = np.arange(n_c, dtype=np.int64)
+        pv = interleave_perm(n_v, Z)
+        pc = interleave_perm(n_c, Z)
+        for perm_v, perm_c in ((pv, pc), (pv, ident_c), (ident_v, pc)):
+            s = _try_qc_at(perm_c[rows], perm_v[cols], n_v, n_c, Z)
+            if s is not None:
+                return s, perm_v.astype(np.int32), perm_c.astype(np.int32)
+    return None
+
+
+def qc_cover_stats(code: LDPCCode, max_candidates: int = 8,
+                   min_fill: float = 1.0):
+    """Rotatable circulant cover fraction per candidate Z: an edge is
+    covered iff its diagonal ((c − r) mod Z within its cell) carries at
+    least ``min_fill``·Z edges. A QC code scores 1.0, a random code ~0.
+    Returns [(Z, cover_fraction), ...] best-first."""
+    n_v, n_c = code.n_vars, code.n_checks
+    g = math.gcd(n_v, n_c)
+    divisors = [d for d in sorted(
+        {d for i in range(1, int(math.isqrt(g)) + 1) if g % i == 0
+         for d in (i, g // i)}, reverse=True) if 32 <= d < min(n_v, n_c)]
+    rows, cols = _edge_endpoints(code)
+    out = []
+    for Z in divisors[:max_candidates]:
+        Cb = n_v // Z
+        key = ((rows // Z) * Cb + cols // Z) * Z + (cols % Z - rows % Z) % Z
+        _, counts = np.unique(key, return_counts=True)
+        full = counts[counts >= min_fill * Z]
+        out.append((int(Z), float(full.sum() / rows.size)))
+    out.sort(key=lambda t: -t[1])
+    return out
+
+
+def interleave_code_numbering(code: LDPCCode, Z: int) -> tuple[
+        LDPCCode, np.ndarray, np.ndarray]:
+    """Renumber an aligned (b·Z + j) code to interleaved (j·nb + b), the
+    inverse of :func:`detect_qc_structure_permuted`'s renumbering. Returns
+    (new code, to_new_v, to_new_c) with to_new_*[aligned_index] =
+    new_index."""
+    nb_v = code.n_vars // Z
+    nb_c = code.n_checks // Z
+    a_v = np.arange(code.n_vars, dtype=np.int64)
+    a_c = np.arange(code.n_checks, dtype=np.int64)
+    to_new_v = (a_v % Z) * nb_v + a_v // Z
+    to_new_c = (a_c % Z) * nb_c + a_c // Z
+    rows, cols = _edge_endpoints(code)
+    nr = to_new_c[rows]
+    nc = to_new_v[cols]
+    order = np.lexsort((nc, nr))
+    data = AlistData(
+        n_checks=code.n_checks, n_vars=code.n_vars,
+        check_degrees=np.bincount(
+            nr, minlength=code.n_checks).astype(np.int32),
+        var_degrees=np.bincount(
+            nc, minlength=code.n_vars).astype(np.int32),
+        check_adjacency=nc[order].astype(np.int32),
+    )
+    return LDPCCode.from_alist_data(data), to_new_v, to_new_c

@@ -20,6 +20,8 @@ port's pass and the outputs compared:
   nodes) into the port's unpadded ones, and :func:`general_state_to_jax`
   maps back (pad rows zero).
 
+The maps only move blocks or rows, so they carry any message dtype (float32,
+bfloat16 widened to float32, int8) and any algorithm's state unchanged.
 The JAX tables are only read through their group or bucket metadata
 (``row_groups``/``col_groups`` with ``block_start``; ``vn_buckets``/
 ``cn_buckets`` with ``count_pad``, ``node_start``, ``edge_start``) and the

@@ -30,9 +30,10 @@
 // products and differences through __fmul_rn/__fsub_rn (never contracted
 // into an FMA), rintf (round half to even) for int8. phi and the storage
 // conversions come from common.cuh; this file is never built with
-// --use_fast_math. Kernels launch on the caller's stream, allocate nothing
-// and never synchronise; every C entry returns cudaGetLastError(), which
-// the Python wrapper turns into an exception.
+// --use_fast_math; the int8 load/store helpers are common.cuh's too.
+// Kernels launch on the caller's stream, allocate nothing and never
+// synchronise; every C entry returns cudaGetLastError(), which the Python
+// wrapper turns into an exception.
 
 #include <cstdint>
 
@@ -42,47 +43,16 @@ namespace {
 
 using ldpc::from_f32;
 using ldpc::kSignBit;
+using ldpc::Llr;
+using ldpc::load_msg;
 using ldpc::phi_abs;
+using ldpc::signed_f32;
+using ldpc::store_msg;
 using ldpc::to_f32;
 
 constexpr int kMaxDegree = 32;      // sign bits of a check fit a uint32
 constexpr int kLaneThreads = 128;   // threads per block, along B
 constexpr int kNodesPerBlock = 8;   // nodes walked per thread
-
-// Message storage: float, bfloat16, or int8 fixed point (min-sum only).
-// inv = 1/qscale dequantizes int8 exactly (qscale is a power of two).
-__device__ __forceinline__ float load_msg(float x, float) { return x; }
-__device__ __forceinline__ float load_msg(__nv_bfloat16 x, float) {
-  return to_f32(x);
-}
-__device__ __forceinline__ float load_msg(int8_t x, float inv) {
-  return __fmul_rn(static_cast<float>(x), inv);
-}
-
-template <typename T>
-__device__ __forceinline__ T store_msg(float v, float) {
-  return from_f32<T>(v);
-}
-template <>
-__device__ __forceinline__ int8_t store_msg<int8_t>(float v, float qscale) {
-  // round half to even, saturate at +-127; -0 becomes 0
-  const float q = fminf(fmaxf(rintf(__fmul_rn(v, qscale)), -127.0f), 127.0f);
-  return static_cast<int8_t>(q);
-}
-
-// LLR-state dtype for a message dtype: bfloat16 for int8 messages.
-template <typename T>
-struct Llr {
-  using type = T;
-};
-template <>
-struct Llr<int8_t> {
-  using type = __nv_bfloat16;
-};
-
-__device__ __forceinline__ float signed_f32(float mag, uint32_t sign) {
-  return __uint_as_float(__float_as_uint(mag) | sign);
-}
 
 dim3 grid_for(int count, int B) {
   return dim3((count + kNodesPerBlock - 1) / kNodesPerBlock,

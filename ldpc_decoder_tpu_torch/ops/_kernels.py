@@ -1,10 +1,12 @@
 """Build, load and launch the CUDA kernels of ``csrc/``.
 
-Three sources, one shared library each: ``qc_grouped.cu`` (the grouped
-family, one launch per degree group), ``qc_regular.cu`` (the regular
-family, one launch per pass) and ``general.cu`` (the general any-alist
-path, sum-product and min-sum, one launch per degree bucket); all include
-``common.cuh``. Each is compiled
+Four sources, one shared library each: ``qc_grouped.cu`` (the grouped
+family's sum-product and parity kernels, one launch per degree group),
+``qc_regular.cu`` (the regular family's, one launch per pass),
+``qc_minsum.cu`` (the min-sum check and variable kernels of both QC
+families, int8 messages in the grouped one) and ``general.cu`` (the
+general any-alist path, sum-product and min-sum, one launch per degree
+bucket); all include ``common.cuh``. Each is compiled
 by ``nvcc`` for ``sm_90a`` into a library with a plain ``extern "C"``
 interface (no PyTorch headers, so it builds in seconds) at first use, into
 the git-ignored ``ldpc_decoder_tpu_torch/build/``; a changed source or
@@ -35,22 +37,26 @@ from ldpc_decoder_tpu_torch._build import build_shared_library
 CSRC = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "csrc")
 SOURCES = {name: os.path.join(CSRC, f"{name}.cu")
-           for name in ("qc_grouped", "qc_regular", "general")}
+           for name in ("qc_grouped", "qc_regular", "qc_minsum", "general")}
 HEADERS = (os.path.join(CSRC, "common.cuh"),)
+# --split-compile=0: nvcc optimizes a source's template instantiations in
+# parallel, one thread per CPU. On an H100 host with 8 cores the four
+# libraries, built together, take 49.6 s with it on the three large
+# sources against 58.5-59.8 s with it on general.cu and qc_minsum.cu only
+# (qc_regular.cu 34.1 s against 58.5 s; PERF.md)
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
-# per-source extra flags: general.cu's 320 template instantiations take
-# 75 s in one thread and 46 s with nvcc optimizing them in parallel
-# (--split-compile=0: one thread per CPU; measured on an H100 host with 8
-# cores, PERF.md), which keeps it off the parallel build's critical path
-NVCC_EXTRA_FLAGS = {"general": ["--split-compile=0"]}
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+              "--split-compile=0"]
 # each source's kMaxDegree: degrees 1..max are instantiated
-MAX_DEGREES = {"qc_grouped": 16, "qc_regular": 32, "general": 32}
+MAX_DEGREES = {"qc_grouped": 16, "qc_regular": 32, "qc_minsum": 32,
+               "general": 32}
 
 launch_counts = {"cn": 0, "vn": 0, "parity": 0,
                  "cn_regular": 0, "vn_regular": 0, "parity_regular": 0,
                  "cn_general": 0, "vn_general": 0,
-                 "cn_general_minsum": 0, "vn_general_minsum": 0}
+                 "cn_general_minsum": 0, "vn_general_minsum": 0,
+                 "cn_group_minsum": 0, "vn_group_minsum": 0,
+                 "cn_regular_minsum": 0, "vn_regular_minsum": 0}
 
 _p, _i, _f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # per library: {launch function: argtypes}; each returns a CUDA error code.
@@ -70,6 +76,16 @@ _SIGNATURES = {
                             _i, _p],
         "ldpc_parity_regular": [_p, _p, _p, _p, _i, _i, _i, _i, _p],
     },
+    "qc_minsum": {
+        "ldpc_cn_group_minsum": [_p, _p, _p, _p, _p, _i, _i, _i, _i, _i, _i,
+                                 _f, _f, _f, _i, _p],
+        "ldpc_vn_group_minsum": [_p, _p, _p, _p, _p, _p, _p, _i, _i, _i, _i,
+                                 _i, _i, _f, _f, _i, _p],
+        "ldpc_cn_regular_minsum": [_p, _p, _p, _p, _i, _i, _i, _i, _i, _f,
+                                   _f, _i, _p],
+        "ldpc_vn_regular_minsum": [_p, _p, _p, _p, _p, _p, _i, _i, _i, _i,
+                                   _i, _f, _i, _p],
+    },
     "general": {
         "ldpc_cn_general": [_p, _p, _p, _p, _i, _i, _i, _i, _i, _f, _i, _p],
         "ldpc_vn_general": [_p, _p, _p, _p, _p, _i, _i, _i, _i, _i, _f, _i,
@@ -80,7 +96,7 @@ _SIGNATURES = {
                                    _f, _f, _i, _p],
     },
 }
-# message dtype codes of the general library
+# message dtype codes of the general and min-sum libraries
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 
 _lock = threading.Lock()
@@ -105,7 +121,7 @@ def library_path(name: str) -> str:
     :data:`SOURCES`); its ``.log`` beside it holds ptxas's register and
     spill report. Safe to call for all libraries from several threads at
     once: each nvcc runs in its own process."""
-    cmd = [_nvcc(), *NVCC_FLAGS, *NVCC_EXTRA_FLAGS.get(name, [])]
+    cmd = [_nvcc(), *NVCC_FLAGS]
     return build_shared_library(name, [SOURCES[name]], cmd, timeout=900,
                                 headers=HEADERS)
 
@@ -258,3 +274,55 @@ def vn_general_minsum(r_c, llr, msgs_v, bits, perm_c2v, bucket,
         r_c.shape[-1], clamp, qscale, _DTYPE_CODES[r_c.dtype], _stream(r_c))
     _check(lib, err, "general min-sum variable-node kernel")
     launch_counts["vn_general_minsum"] += 1
+
+
+def cn_group_minsum(msgs_v, syn, r_c, src, shift, g, Z: int, B: int,
+                    alpha: float, beta: float, qscale: float) -> None:
+    """Min-sum check-node kernel for one check-degree group ``g`` (``alpha``
+    for its degree)."""
+    lib = load("qc_minsum")
+    err = lib.ldpc_cn_group_minsum(
+        _ptr(msgs_v), _ptr(syn), _ptr(r_c), _ptr(src), _ptr(shift),
+        g.node_start, g.count, g.degree, g.block_start, Z, B, alpha, beta,
+        qscale, _DTYPE_CODES[msgs_v.dtype], _stream(msgs_v))
+    _check(lib, err, "grouped min-sum check-node kernel")
+    launch_counts["cn_group_minsum"] += 1
+
+
+def vn_group_minsum(r_c, llr, msgs_v, bits, fresh, src, shift, g, Z: int,
+                    B: int, clamp: float, qscale: float) -> None:
+    """Min-sum variable-node kernel for one variable-degree group ``g``;
+    ``bits`` and ``fresh`` may be None."""
+    lib = load("qc_minsum")
+    err = lib.ldpc_vn_group_minsum(
+        _ptr(r_c), _ptr(llr), _ptr(msgs_v), _ptr(bits), _ptr(fresh),
+        _ptr(src), _ptr(shift), g.node_start, g.count, g.degree,
+        g.block_start, Z, B, clamp, qscale, _DTYPE_CODES[r_c.dtype],
+        _stream(r_c))
+    _check(lib, err, "grouped min-sum variable-node kernel")
+    launch_counts["vn_group_minsum"] += 1
+
+
+def cn_regular_minsum(msgs_v, syn, r_c, tables, alpha: float,
+                      beta: float) -> None:
+    """Regular min-sum check-node kernel over all R checks (one launch)."""
+    lib = load("qc_minsum")
+    err = lib.ldpc_cn_regular_minsum(
+        _ptr(msgs_v), _ptr(syn), _ptr(r_c), _ptr(tables.cn_read), tables.R,
+        tables.d_c, tables.d_v, tables.Z, msgs_v.shape[-1], alpha, beta,
+        _DTYPE_CODES[msgs_v.dtype], _stream(msgs_v))
+    _check(lib, err, "regular min-sum check-node kernel")
+    launch_counts["cn_regular_minsum"] += 1
+
+
+def vn_regular_minsum(r_c, llr, msgs_v, bits, fresh, tables,
+                      clamp: float) -> None:
+    """Regular min-sum variable-node kernel over all C variables (one
+    launch); ``bits`` and ``fresh`` may be None."""
+    lib = load("qc_minsum")
+    err = lib.ldpc_vn_regular_minsum(
+        _ptr(r_c), _ptr(llr), _ptr(msgs_v), _ptr(bits), _ptr(fresh),
+        _ptr(tables.vn_read), tables.C, tables.d_v, tables.d_c, tables.Z,
+        r_c.shape[-1], clamp, _DTYPE_CODES[r_c.dtype], _stream(r_c))
+    _check(lib, err, "regular min-sum variable-node kernel")
+    launch_counts["vn_regular_minsum"] += 1

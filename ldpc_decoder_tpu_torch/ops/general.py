@@ -57,9 +57,13 @@ from ldpc_decoder_tpu_torch.ops import _kernels
 from ldpc_decoder_tpu_torch.ops._dispatch import backend, check
 from ldpc_decoder_tpu_torch.ops.phi import PRE_THRESHOLD, phi, phi_abs
 from ldpc_decoder_tpu_torch.ops.qc_decode import (
-    dequantize_msgs,
+    llr_dtype,
+    minsum_magnitudes,
+    msgs_to_f32,
     quantize_msgs,
     resolve_minsum_alpha,
+    signed_f32,
+    store_msgs,
 )
 
 _SP_DTYPES = (torch.float32, torch.bfloat16)
@@ -150,26 +154,6 @@ def _nodes(x: torch.Tensor, b: DegreeBucket) -> torch.Tensor:
     return x[b.row_start:b.row_start + b.count]
 
 
-def _load(x: torch.Tensor, qscale: float) -> torch.Tensor:
-    """Stored messages -> float32 (int8: dequantized)."""
-    if x.dtype == torch.int8:
-        return dequantize_msgs(x, qscale)
-    return x.to(torch.float32)
-
-
-def _store(out: torch.Tensor, vals: torch.Tensor, qscale: float) -> None:
-    if out.dtype == torch.int8:
-        out.copy_(quantize_msgs(vals, qscale))
-    else:
-        out.copy_(vals)
-
-
-def _signed(mag: torch.Tensor, sign: torch.Tensor) -> torch.Tensor:
-    """float32 magnitude with the sign bit ``sign`` (int32, 0 or _SIGN)
-    OR-ed in."""
-    return (mag.view(torch.int32) | sign).view(torch.float32)
-
-
 def _check_edges(msgs_v, syn, r_c, t: GeneralTables, dtypes):
     B = msgs_v.shape[-1]
     check(msgs_v, "msgs_v", (t.n_edges, B), dtypes)
@@ -188,12 +172,6 @@ def _check_vars(r_c, llr, msgs_v, bits, t: GeneralTables, dtypes):
         check(bits, "bits", (t.n_vars, B), (torch.int8,))
         tensors.append(bits)
     return _backend(t, *tensors)
-
-
-def llr_dtype(msg_dtype: torch.dtype) -> torch.dtype:
-    """LLR-state dtype for a message dtype: the message dtype, bfloat16 for
-    1-byte messages (``ldpc_decoder_tpu/runtime/decoder.py:327-329``)."""
-    return torch.bfloat16 if msg_dtype == torch.int8 else msg_dtype
 
 
 # ---- sum-product check pass ---------------------------------------------------
@@ -218,7 +196,7 @@ def cn_pass_general_plain(msgs_v, syn, r_c, tables: GeneralTables,
         for k in range(d):
             mk = m[k].to(torch.float32)
             res = phi_abs(ext - mk.abs(), pre)
-            out[k] = _signed(res, (mk.view(torch.int32) & _SIGN) ^ X)
+            out[k] = signed_f32(res, (mk.view(torch.int32) & _SIGN) ^ X)
     return r_c
 
 
@@ -283,36 +261,20 @@ def cn_pass_general_minsum_plain(msgs_v, syn, r_c, tables: GeneralTables,
     first minimum; m2 = 0 for a sole edge) and |out_k| = max(α_d·other −
     β, 0) with the sign-bit algebra; int8 quantized on write."""
     m_c = msgs_v.index_select(0, tables.perm_v2c)
-    f32 = torch.float32
     for b in tables.cn_buckets:
         d, m = b.degree, _planes(m_c, b)
         out = _planes(r_c, b)
         X = _nodes(syn, b).to(torch.int32) * _SIGN
         if d % 2:
             X = X ^ _SIGN
-        m1 = m2 = pos = None
+        mk = [msgs_to_f32(m[k], qscale) for k in range(d)]
+        sb = [x.view(torch.int32) & _SIGN for x in mk]
         for k in range(d):
-            mk = _load(m[k], qscale)
-            X = X ^ (mk.view(torch.int32) & _SIGN)
-            a = mk.abs()
-            if k == 0:
-                m1 = a
-                m2 = torch.full_like(a, float("inf"))
-                pos = torch.zeros(a.shape, dtype=torch.int8, device=a.device)
-                continue
-            new = a < m1
-            m2 = torch.where(new, m1, torch.minimum(m2, a))
-            m1 = torch.where(new, a, m1)
-            pos = torch.where(new, k, pos).to(torch.int8)
-        if d == 1:
-            m2 = torch.zeros_like(m1)
-        al = torch.tensor(resolve_minsum_alpha(alpha, d), dtype=f32)
-        be = torch.tensor(beta, dtype=f32)
+            X = X ^ sb[k]
+        res = minsum_magnitudes([x.abs() for x in mk],
+                                resolve_minsum_alpha(alpha, d), beta)
         for k in range(d):
-            sb = _load(m[k], qscale).view(torch.int32) & _SIGN
-            other = torch.where(pos == k, m2, m1)
-            res = torch.clamp_min(other * al - be, 0.0)
-            _store(out[k], _signed(res, sb ^ X), qscale)
+            store_msgs(out[k], signed_f32(res[k], sb[k] ^ X), qscale)
     return r_c
 
 
@@ -346,16 +308,16 @@ def vn_pass_general_minsum_plain(r_c, llr, msgs_v, tables: GeneralTables,
     for b in tables.vn_buckets:
         r = _planes(r_v, b)
         out = _planes(msgs_v, b)
-        s = _load(r[0], qscale)
+        s = msgs_to_f32(r[0], qscale)
         for k in range(1, b.degree):
-            s = s + _load(r[k], qscale)
+            s = s + msgs_to_f32(r[k], qscale)
         lv = _nodes(llr, b).to(torch.float32)
         tot = lv + s
         if bits is not None:
             _nodes(bits, b).copy_(~torch.signbit(tot))
         for k in range(b.degree):
-            p = lv if b.degree == 1 else tot - _load(r[k], qscale)
-            _store(out[k], p.clamp(-clamp, clamp), qscale)
+            p = lv if b.degree == 1 else tot - msgs_to_f32(r[k], qscale)
+            store_msgs(out[k], p.clamp(-clamp, clamp), qscale)
     return msgs_v
 
 

@@ -133,6 +133,12 @@ class QCDecodeTables:
 
 # ---- min-sum helpers (ldpc_decoder_tpu/ops/qc_decode.py:297-331) -------------
 
+def llr_dtype(msg_dtype: torch.dtype) -> torch.dtype:
+    """LLR-state dtype for a message dtype: the message dtype, bfloat16 for
+    1-byte messages (``ldpc_decoder_tpu/runtime/decoder.py:327-329``)."""
+    return torch.bfloat16 if msg_dtype == torch.int8 else msg_dtype
+
+
 def quantize_msgs(x: torch.Tensor, qscale: float) -> torch.Tensor:
     """float LLR messages -> int8 fixed point at ``qscale`` steps per unit:
     round half to even, saturate at ±127 (the hardware min-sum
@@ -147,6 +153,52 @@ def dequantize_msgs(m: torch.Tensor, qscale: float) -> torch.Tensor:
     a zero dequantizes to +0.0."""
     return m.to(torch.float32) * torch.tensor(1.0 / qscale,
                                               dtype=torch.float32)
+
+
+def msgs_to_f32(x: torch.Tensor, qscale: float) -> torch.Tensor:
+    """Stored messages -> float32 (int8: dequantized)."""
+    if x.dtype == torch.int8:
+        return dequantize_msgs(x, qscale)
+    return x.to(torch.float32)
+
+
+def store_msgs(out: torch.Tensor, vals: torch.Tensor, qscale: float) -> None:
+    """Write float32 messages into ``out`` in its dtype (int8: quantized,
+    else rounded to nearest even)."""
+    if out.dtype == torch.int8:
+        out.copy_(quantize_msgs(vals, qscale))
+    else:
+        out.copy_(vals)
+
+
+def signed_f32(mag: torch.Tensor, sign: torch.Tensor) -> torch.Tensor:
+    """float32 magnitude with the sign bit ``sign`` (int32, 0 or the sign
+    bit) OR-ed in."""
+    return (mag.view(torch.int32) | sign).view(torch.float32)
+
+
+def minsum_magnitudes(a, alpha: float, beta: float,
+                      sole_zero: bool = True) -> list[torch.Tensor]:
+    """The min-sum check rule on the magnitudes ``a`` (d float32 tensors,
+    one per slot): |out_k| = max(α·other_k − β, 0), other_k the smallest
+    |m_j| with j ≠ k. A two-minimum scan: ties keep the first minimum;
+    a sole edge has m2 = 0 when ``sole_zero`` (the grouped and general
+    kernels), +inf otherwise (the regular kernel). α·other − β is rounded
+    twice, as the CUDA kernels compute it."""
+    m1 = a[0]
+    m2 = torch.full_like(m1, float("inf"))
+    pos = torch.zeros(m1.shape, dtype=torch.int8, device=m1.device)
+    for k in range(1, len(a)):
+        new = a[k] < m1
+        m2 = torch.where(new, m1, torch.minimum(m2, a[k]))
+        m1 = torch.where(new, a[k], m1)
+        pos = torch.where(new, k, pos).to(torch.int8)
+    if sole_zero and len(a) == 1:
+        m2 = torch.zeros_like(m1)  # sole edge: empty leave-one-out
+    al = torch.tensor(alpha, dtype=torch.float32)
+    be = torch.tensor(beta, dtype=torch.float32)
+    return [torch.clamp_min(torch.where(pos == k, m2, m1) * al - be, 0.0)
+            for k in range(len(a))]
 
 
 def resolve_minsum_alpha(alpha, degree: int) -> float:

@@ -22,11 +22,19 @@ signed fine shifts, pair mode, ``LANE_BLOCK`` and ``LDPC_*`` knobs only
 serve Mosaic's windowed reads (``qc_pallas.py:64-79``, ``:272-326``) and
 are not carried over: the kernels take any shift.
 
+Two check rules, as in the JAX kernels: sum-product and normalized/offset
+min-sum (``qc_pallas.py:446-459``, ``:504-506``), both on float32 or
+bfloat16 messages (int8 decodes take the grouped family, as in the JAX
+decoder). The min-sum init is the unclipped llr (``qc_pallas.py:623-624``)
+while the variable pass writes clip(total − w_k, ±clamp) and fresh lanes
+clip(llr).
+
 Each pass has a plain PyTorch version (``*_plain``: gathers and
 elementwise ops in the kernel's summation order) and a kernel
-(csrc/qc_regular.cu via :mod:`._kernels`, one launch per pass). The pass
-functions dispatch on the tensors' device: CPU tensors take the plain
-version; CUDA tensors launch the kernel or raise — there is no fallback.
+(csrc/qc_regular.cu, min-sum csrc/qc_minsum.cu, via :mod:`._kernels`, one
+launch per pass). The pass functions dispatch on the tensors' device: CPU
+tensors take the plain version; CUDA tensors launch the kernel or raise —
+there is no fallback.
 """
 
 from __future__ import annotations
@@ -38,7 +46,12 @@ import torch
 from ldpc_decoder_tpu_torch.ops import _kernels
 from ldpc_decoder_tpu_torch.ops._dispatch import backend, check
 from ldpc_decoder_tpu_torch.ops.phi import PRE_THRESHOLD, phi, phi_abs
-from ldpc_decoder_tpu_torch.ops.qc_decode import QCDecodeTables
+from ldpc_decoder_tpu_torch.ops.qc_decode import (
+    QCDecodeTables,
+    minsum_magnitudes,
+    resolve_minsum_alpha,
+    signed_f32,
+)
 
 _MSG_DTYPES = (torch.float32, torch.bfloat16)
 _SIGN = -(1 << 31)  # the float32 sign bit as an int32
@@ -97,9 +110,33 @@ class QCRegularTables:
         )
 
 
-def _backend(tables: QCRegularTables, *tensors: torch.Tensor) -> str:
+def _backend(tables: QCRegularTables, *tensors: torch.Tensor,
+             lib: str = "qc_regular") -> str:
     return backend(tables.device, tables.max_degree,
-                   _kernels.MAX_DEGREES["qc_regular"], *tensors)
+                   _kernels.MAX_DEGREES[lib], *tensors)
+
+
+def _check_cn_args(msgs_v, syn, r_c, t: QCRegularTables) -> None:
+    B = msgs_v.shape[-1]
+    check(msgs_v, "msgs_v", (t.C, t.d_v, t.Z, B), _MSG_DTYPES)
+    check(r_c, "r_c", (t.R, t.d_c, t.Z, B), (msgs_v.dtype,))
+    check(syn, "syn", (t.R, t.Z, B), (torch.int8,))
+
+
+def _check_vn_args(r_c, llr, msgs_v, bits, fresh, t: QCRegularTables):
+    """The tensors to dispatch on, for a variable pass."""
+    B = r_c.shape[-1]
+    check(r_c, "r_c", (t.R, t.d_c, t.Z, B), _MSG_DTYPES)
+    check(msgs_v, "msgs_v", (t.C, t.d_v, t.Z, B), (r_c.dtype,))
+    check(llr, "llr", (t.C, t.Z, B), (r_c.dtype,))
+    tensors = [r_c, llr, msgs_v]
+    if bits is not None:
+        check(bits, "bits", (t.C, t.Z, B), (torch.int8,))
+        tensors.append(bits)
+    if fresh is not None:
+        check(fresh, "fresh", (B,), (torch.bool,))
+        tensors.append(fresh)
+    return tensors
 
 
 def _rows(read: torch.Tensor, Z: int) -> torch.Tensor:
@@ -146,10 +183,7 @@ def cn_pass_regular(msgs_v, syn, r_c, tables: QCRegularTables,
     """msgs_v [C, d_v, Z, B], syn [R, Z, B] int8 -> r_c [R, d_c, Z, B],
     rewritten in place; returns r_c."""
     t = tables
-    B = msgs_v.shape[-1]
-    check(msgs_v, "msgs_v", (t.C, t.d_v, t.Z, B), _MSG_DTYPES)
-    check(r_c, "r_c", (t.R, t.d_c, t.Z, B), (msgs_v.dtype,))
-    check(syn, "syn", (t.R, t.Z, B), (torch.int8,))
+    _check_cn_args(msgs_v, syn, r_c, t)
     if _backend(t, msgs_v, syn, r_c) == "cpu":
         return cn_pass_plain(msgs_v, syn, r_c, t, pre)
     with torch.cuda.device(msgs_v.device):
@@ -191,21 +225,89 @@ def vn_pass_regular(r_c, llr, msgs_v, tables: QCRegularTables,
     ``fresh`` ([B] bool or None): lane-reset refill — flagged lanes carry a
     retired frame's messages and emit the init values φ(llr) instead."""
     t = tables
-    B = r_c.shape[-1]
-    check(r_c, "r_c", (t.R, t.d_c, t.Z, B), _MSG_DTYPES)
-    check(msgs_v, "msgs_v", (t.C, t.d_v, t.Z, B), (r_c.dtype,))
-    check(llr, "llr", (t.C, t.Z, B), (r_c.dtype,))
-    tensors = [r_c, llr, msgs_v]
-    if bits is not None:
-        check(bits, "bits", (t.C, t.Z, B), (torch.int8,))
-        tensors.append(bits)
-    if fresh is not None:
-        check(fresh, "fresh", (B,), (torch.bool,))
-        tensors.append(fresh)
+    tensors = _check_vn_args(r_c, llr, msgs_v, bits, fresh, t)
     if _backend(t, *tensors) == "cpu":
         return vn_pass_plain(r_c, llr, msgs_v, t, pre, bits, fresh)
     with torch.cuda.device(r_c.device):
         _kernels.vn_regular(r_c, llr, msgs_v, bits, fresh, t, pre)
+    return msgs_v
+
+
+# ---- min-sum check and variable passes ----------------------------------------
+
+def cn_pass_minsum_plain(msgs_v, syn, r_c, tables: QCRegularTables,
+                         alpha=1.0, beta: float = 0.0) -> torch.Tensor:
+    """Plain PyTorch min-sum check pass (the counterpart of the CUDA
+    kernel): the two-minimum scan of |m| (ties to the first minimum),
+    |out_k| = max(α_{d_c}·other − β, 0) with the sign-bit algebra. As in
+    the Pallas kernel a sole edge (d_c = 1) keeps m2 = +inf."""
+    d = tables.d_c
+    m = _rotated(msgs_v, tables.cn_read, tables.Z).to(torch.float32)
+    sb = m.view(torch.int32) & _SIGN
+    a = m.abs()
+    X = syn.to(torch.int32) * _SIGN
+    if d % 2:
+        X = X ^ _SIGN
+    for k in range(d):
+        X = X ^ sb[:, k]
+    res = minsum_magnitudes([a[:, k] for k in range(d)],
+                            resolve_minsum_alpha(alpha, d), beta,
+                            sole_zero=False)
+    for k in range(d):
+        r_c[:, k] = signed_f32(res[k], sb[:, k] ^ X)
+    return r_c
+
+
+def cn_pass_regular_minsum(msgs_v, syn, r_c, tables: QCRegularTables,
+                           alpha=1.0, beta: float = 0.0) -> torch.Tensor:
+    """Min-sum check pass: msgs_v [C, d_v, Z, B] (f32 or bf16) -> r_c
+    [R, d_c, Z, B] in place; ``alpha`` a float or (degree, α) pairs,
+    resolved at d_c. Returns r_c."""
+    t = tables
+    _check_cn_args(msgs_v, syn, r_c, t)
+    if _backend(t, msgs_v, syn, r_c, lib="qc_minsum") == "cpu":
+        return cn_pass_minsum_plain(msgs_v, syn, r_c, t, alpha, beta)
+    with torch.cuda.device(msgs_v.device):
+        _kernels.cn_regular_minsum(msgs_v, syn, r_c, t,
+                                   resolve_minsum_alpha(alpha, t.d_c), beta)
+    return r_c
+
+
+def vn_pass_minsum_plain(r_c, llr, msgs_v, tables: QCRegularTables,
+                         clamp: float = 64.0, bits=None,
+                         fresh=None) -> torch.Tensor:
+    """Plain PyTorch min-sum variable pass (the counterpart of the CUDA
+    kernel): total = llr + Σ_k w_k in slot order; slot k gets
+    clip(total − w_k, ±clamp), or clip(llr) on a fresh lane; bits =
+    ¬signbit(total)."""
+    w = _rotated(r_c, tables.vn_read, tables.Z).to(torch.float32)
+    lv = llr.to(torch.float32)
+    total = lv
+    for k in range(tables.d_v):
+        total = total + w[:, k]
+    if bits is not None:
+        tb = total if fresh is None else torch.where(fresh, lv, total)
+        bits.copy_(~torch.signbit(tb))
+    for k in range(tables.d_v):
+        p = total - w[:, k]
+        if fresh is not None:
+            p = torch.where(fresh, lv, p)
+        msgs_v[:, k] = p.clamp(-clamp, clamp)
+    return msgs_v
+
+
+def vn_pass_regular_minsum(r_c, llr, msgs_v, tables: QCRegularTables,
+                           clamp: float = 64.0, bits=None,
+                           fresh=None) -> torch.Tensor:
+    """Min-sum variable pass: r_c [R, d_c, Z, B], llr [C, Z, B] (message
+    dtype) -> msgs_v [C, d_v, Z, B] in place; ``bits`` and ``fresh`` as in
+    :func:`vn_pass_regular`. Returns msgs_v."""
+    t = tables
+    tensors = _check_vn_args(r_c, llr, msgs_v, bits, fresh, t)
+    if _backend(t, *tensors, lib="qc_minsum") == "cpu":
+        return vn_pass_minsum_plain(r_c, llr, msgs_v, t, clamp, bits, fresh)
+    with torch.cuda.device(r_c.device):
+        _kernels.vn_regular_minsum(r_c, llr, msgs_v, bits, fresh, t, clamp)
     return msgs_v
 
 
@@ -241,23 +343,44 @@ def parity_pass_regular(bits, syn, tables: QCRegularTables) -> torch.Tensor:
 
 def init_messages_qc_regular(llr, tables: QCRegularTables,
                              dtype=torch.float32,
-                             pre: float = PRE_THRESHOLD):
+                             pre: float = PRE_THRESHOLD,
+                             alg: str = "sum-product", clamp: float = 64.0,
+                             qscale: float = 4.0):
     """(msgs_v, r_c) for sorted llr [C, Z, B]: every slot of a variable
-    gets φ(llr) in ``dtype``. r_c is left uninitialised: every check pass
-    rewrites all of it before any read."""
+    gets φ(llr) in ``dtype``, or for min-sum the llr itself, unclipped
+    (``qc_pallas.py:615-632``; ``clamp`` and ``qscale`` are taken for the
+    families' one signature and not read). r_c is left uninitialised:
+    every check pass rewrites all of it before any read."""
     t = tables
     B = llr.shape[-1]
-    p = phi(llr, pre).to(dtype)
+    if alg == "min-sum":
+        p = llr.to(torch.float32).to(dtype)
+    else:
+        p = phi(llr, pre).to(dtype)
     msgs_v = p[:, None].expand(t.C, t.d_v, t.Z, B).contiguous()
     r_c = torch.empty((t.R, t.d_c, t.Z, B), dtype=dtype, device=llr.device)
     return msgs_v, r_c
 
 
+def _iteration(msgs_v, r_c, llr, syn, tables, pre, alg, beta, clamp, alpha,
+               bits=None, fresh=None):
+    if alg == "min-sum":
+        cn_pass_regular_minsum(msgs_v, syn, r_c, tables, alpha, beta)
+        vn_pass_regular_minsum(r_c, llr, msgs_v, tables, clamp, bits, fresh)
+    else:
+        cn_pass_regular(msgs_v, syn, r_c, tables, pre)
+        vn_pass_regular(r_c, llr, msgs_v, tables, pre, bits, fresh)
+
+
 def run_iterations_qc_regular(msgs, llr, syn, tables: QCRegularTables,
                               k: int, pre: float = PRE_THRESHOLD,
-                              fresh=None):
+                              fresh=None, alg: str = "sum-product",
+                              beta: float = 0.0, clamp: float = 64.0,
+                              alpha=1.0, qscale: float = 4.0):
     """k flood iterations, the last one emitting hard decisions, then the
     parity check. ``msgs`` is the (msgs_v, r_c) pair, updated in place.
+    ``alg`` and the min-sum parameters select the check rule (``qscale``
+    is not read: this family has no int8).
 
     ``fresh`` ([B] bool or None): lanes refilled since the last call; the
     first iteration's VN pass emits init values for them (the emit
@@ -266,30 +389,31 @@ def run_iterations_qc_regular(msgs, llr, syn, tables: QCRegularTables,
     if k < 1:
         raise ValueError(f"k must be >= 1, got {k}")
     msgs_v, r_c = msgs
+    rule = (pre, alg, beta, clamp, alpha)
     lo = 0
     if fresh is not None and k > 1:
-        cn_pass_regular(msgs_v, syn, r_c, tables, pre)
-        vn_pass_regular(r_c, llr, msgs_v, tables, pre, fresh=fresh)
+        _iteration(msgs_v, r_c, llr, syn, tables, *rule, fresh=fresh)
         lo = 1
     for _ in range(lo, k - 1):
-        cn_pass_regular(msgs_v, syn, r_c, tables, pre)
-        vn_pass_regular(r_c, llr, msgs_v, tables, pre)
-    cn_pass_regular(msgs_v, syn, r_c, tables, pre)
+        _iteration(msgs_v, r_c, llr, syn, tables, *rule)
     bits = torch.empty((tables.C, tables.Z, llr.shape[-1]), dtype=torch.int8,
                        device=llr.device)
-    vn_pass_regular(r_c, llr, msgs_v, tables, pre, bits=bits,
-                    fresh=fresh if k == 1 else None)
+    _iteration(msgs_v, r_c, llr, syn, tables, *rule, bits=bits,
+               fresh=fresh if k == 1 else None)
     violated = parity_pass_regular(bits, syn, tables)
     return (msgs_v, r_c), bits, violated
 
 
 def burst_iterations_qc_regular(msgs, llr, syn, tables: QCRegularTables,
-                                b: int, pre: float = PRE_THRESHOLD):
+                                b: int, pre: float = PRE_THRESHOLD,
+                                alg: str = "sum-product", beta: float = 0.0,
+                                clamp: float = 64.0, alpha=1.0,
+                                qscale: float = 4.0):
     """``b`` plain iterations with no emit and no parity check — the
     delayed-first-check phase. burst(b) then run_iterations(k) equals
     run_iterations(b + k) bit for bit. Updates ``msgs`` in place."""
     msgs_v, r_c = msgs
     for _ in range(b):
-        cn_pass_regular(msgs_v, syn, r_c, tables, pre)
-        vn_pass_regular(r_c, llr, msgs_v, tables, pre)
+        _iteration(msgs_v, r_c, llr, syn, tables, pre, alg, beta, clamp,
+                   alpha)
     return msgs_v, r_c

@@ -3,11 +3,13 @@
 
     python3 profile_chip.py      # from the repository root, one card
 
-For three paths of ``chip_smoke.py`` with the same decoder settings (p41
+For four paths of ``chip_smoke.py`` with the same decoder settings (p41
 at sigma 0.94 and reg36 at sigma 0.87, 512 frames, bf16, B = 256; the
 general sum-product path on the random (3,6) 2^20 code at sigma 0.84, 768
-frames, bf16, B = 384) it decodes once to warm up, then profiles a second
-decode with ``torch.profiler`` (CPU and CUDA activities) and prints:
+frames, bf16, B = 384; reg36 as a plain code, its structure detected, in
+int8 offset min-sum at sigma 0.84, 512 frames, B = 256) it decodes once to
+warm up, then profiles a second decode with ``torch.profiler`` (CPU and
+CUDA activities) and prints:
 
 - the decode's own clock (``DecodeStats.elapsed_seconds``) under the
   profiler, which covers ``decode_presorted`` on pools already on the
@@ -36,7 +38,9 @@ import chip_smoke as cs
 OWN = ("cn_kernel", "vn_kernel", "parity_kernel", "cn_regular_kernel",
        "vn_regular_kernel", "parity_regular_kernel", "cn_general_kernel",
        "vn_general_kernel", "cn_general_minsum_kernel",
-       "vn_general_minsum_kernel")
+       "vn_general_minsum_kernel", "cn_group_minsum_kernel",
+       "vn_group_minsum_kernel", "cn_regular_minsum_kernel",
+       "vn_regular_minsum_kernel")
 
 
 def device_time_us(evt):
@@ -105,7 +109,8 @@ def profile_path(torch, label, dec, dyn, batch, n):
     busy_us, span_us = busy_and_span_us(prof.events())
     elapsed_ms = stats.elapsed_seconds * 1e3
     out = {
-        "path": label, "frames": n, "B": dec.parallel_factor(),
+        "path": label, "family": type(dec.tables).__name__,
+        "frames": n, "B": dec.parallel_factor(),
         "total_iterations": stats.total_iterations,
         "supersteps": stats.total_supersteps,
         "avg_iter": stats.avg_iter,
@@ -165,8 +170,14 @@ def main():
     k10 = DynamicParams(num_iter_max=120, num_iter_check_parity=10,
                         num_iter_first_check=0, loading_factor=2)
 
+    sp_int8 = StaticParams(max_log_parallel_factor_user=8,
+                           message_dtype="int8", algorithm="min-sum")
+
     def general_code():
         return make_regular_code(2**20, 3, 6, seed=9), None, "built"
+
+    def reg36_plain():  # no structure given: the decoder detects it
+        return cs.get_reg36_code()[0], None, "cache"
 
     paths = [
         ("p41", cs.get_code, cs.SIGMA, sp, cs.N_FRAMES,
@@ -175,6 +186,8 @@ def main():
         ("reg36", cs.get_reg36_code, cs.REG36_SIGMA, sp, cs.N_FRAMES, k10),
         ("general", general_code, cs.GENERAL_SIGMA, sp_general,
          cs.N_GENERAL_FRAMES, k10),
+        ("reg36 int8 min-sum", reg36_plain, cs.MINSUM_SIGMA, sp_int8,
+         cs.N_FRAMES, k10),
     ]
     results = []
     for label, get, sigma, params, n, dyn in paths:

@@ -10,7 +10,8 @@ host, which has no JAX; run it there with the repository's conftest
 Tolerances: signs, hard bits, parity flags and decoded words are exact;
 sum-product messages are within one ulp of the storage dtype (the plain
 version's φ goes through torch's CUDA tanh/log, the kernel's through
-tanhf/logf); min-sum messages are bitwise equal.
+tanhf/logf); min-sum messages (general and QC, f32, bf16 and int8) are
+bitwise equal, and min-sum decodes equal in per-frame iterations too.
 """
 
 import numpy as np
@@ -336,3 +337,145 @@ def test_general_decode_on_card_matches_cpu(cuda_device, kw):
     np.testing.assert_array_equal(res_g, res_c)
     np.testing.assert_array_equal(st_g.iterations, st_c.iterations)
     assert (res_g == batch.ref_bits_packed()).all()
+
+
+def _staircase_structure(D, Z, seed):
+    """A D x D base whose row r holds columns 0..r, so the check degrees
+    and the variable degrees are each 1..D, with random shifts."""
+    rows, cols = np.nonzero(np.tril(np.ones((D, D), np.int8)))
+    shifts = np.random.default_rng(seed).integers(0, Z, rows.size)
+    return QCStructure(Z=Z, n_base_rows=D, n_base_cols=D,
+                       edge_row=rows.astype(np.int32),
+                       edge_col=cols.astype(np.int32),
+                       edge_shift=shifts.astype(np.int32))
+
+
+def _msgs(rng, shape, dtype, device):
+    """Messages with ties and zeros of both signs: int8 in [-40, 40],
+    floats in quarter steps."""
+    if dtype == torch.int8:
+        return torch.from_numpy(rng.integers(-40, 41, shape).astype(
+            np.int8)).to(device)
+    x = np.round(rng.standard_normal(shape) * 40) / 4
+    return torch.from_numpy(x.astype(np.float32)).to(device, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int8])
+def test_grouped_minsum_kernels_match_plain(cuda_device, dtype):
+    """Every degree 1..32 on both sides (so degree 1 and 17-32 too), B = 40
+    (the last lane chunk guarded), an α table with an offset, fresh lanes
+    (for int8 the lane reset writes quantize(clip(llr))): bitwise."""
+    from ldpc_decoder_tpu_torch.ops import _kernels
+
+    t = qg.GroupedQCTables.from_qc_tables(QCDecodeTables.from_structure(
+        _staircase_structure(32, 16, 3), 0, cuda_device))
+    assert [g.degree for g in t.row_groups] == list(range(1, 33))
+    assert [g.degree for g in t.col_groups] == list(range(1, 33))
+    rng = np.random.default_rng(9)
+    nb = B_GENERAL
+    mv = _msgs(rng, (t.nb, t.Z, nb), dtype, cuda_device)
+    rc = _msgs(rng, (t.nb, t.Z, nb), dtype, cuda_device)
+    llr = torch.from_numpy((rng.standard_normal((t.C, t.Z, nb)) * 12).astype(
+        np.float32)).to(cuda_device, G.llr_dtype(dtype))
+    syn = torch.from_numpy((rng.random((t.R, t.Z, nb)) < 0.5).astype(
+        np.int8)).to(cuda_device)
+    fresh = torch.from_numpy(rng.random(nb) < 0.5).to(cuda_device)
+    alpha = ((1, 0.5), (17, 0.9), (32, 0.625), (0, 0.75))
+    before = dict(_kernels.launch_counts)
+    rk = qg.cn_pass_grouped_minsum(mv, syn, torch.empty_like(rc), t, alpha,
+                                   0.25)
+    rp = qg.cn_pass_minsum_plain(mv, syn, torch.empty_like(rc), t, alpha,
+                                 0.25)
+    assert _same_bits(rk, rp)
+    for emit, fr, d1 in [(False, None, False), (True, fresh, False),
+                         (False, fresh, True)]:
+        bk = torch.full((t.C, t.Z, nb), -1, dtype=torch.int8,
+                        device=cuda_device)
+        bp = bk.clone()
+        mk = qg.vn_pass_grouped_minsum(rc, llr, mv.clone(), t, 20.0,
+                                       bits=bk if emit else None, fresh=fr,
+                                       include_d1=d1)
+        mp = qg.vn_pass_minsum_plain(rc, llr, mv.clone(), t, 20.0,
+                                     bits=bp if emit else None, fresh=fr,
+                                     include_d1=d1)
+        assert _same_bits(mk, mp)
+        assert torch.equal(bk, bp)
+    torch.cuda.synchronize()
+    counts = {n: _kernels.launch_counts[n] - before[n]
+              for n in ("cn_group_minsum", "vn_group_minsum")}
+    # non-emit skips the degree-1 group; emit and include_d1 run it
+    assert counts == {"cn_group_minsum": 32, "vn_group_minsum": 3 * 32 - 1}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d_c", [6, 30])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_regular_minsum_kernels_match_plain(cuda_device, dtype, d_c):
+    from ldpc_decoder_tpu_torch.ops import _kernels
+
+    t = qr.QCRegularTables.from_qc_tables(QCDecodeTables.from_structure(
+        _regular_structure(d_c, 96, d_c), 0, cuda_device))
+    rng = np.random.default_rng(10)
+    nb = B_GENERAL
+    mv = _msgs(rng, (t.C, t.d_v, t.Z, nb), dtype, cuda_device)
+    rc = _msgs(rng, (t.R, t.d_c, t.Z, nb), dtype, cuda_device)
+    llr = torch.from_numpy((rng.standard_normal((t.C, t.Z, nb)) * 12).astype(
+        np.float32)).to(cuda_device, dtype)
+    syn = torch.from_numpy((rng.random((t.R, t.Z, nb)) < 0.5).astype(
+        np.int8)).to(cuda_device)
+    fresh = torch.from_numpy(rng.random(nb) < 0.5).to(cuda_device)
+    before = dict(_kernels.launch_counts)
+    rk = qr.cn_pass_regular_minsum(mv, syn, torch.empty_like(rc), t, 0.8125,
+                                   0.25)
+    rp = qr.cn_pass_minsum_plain(mv, syn, torch.empty_like(rc), t, 0.8125,
+                                 0.25)
+    assert _same_bits(rk, rp)
+    for emit, fr in [(False, None), (True, fresh), (False, fresh)]:
+        bk = torch.full((t.C, t.Z, nb), -1, dtype=torch.int8,
+                        device=cuda_device)
+        bp = bk.clone()
+        mk = qr.vn_pass_regular_minsum(rc, llr, mv.clone(), t, 20.0,
+                                       bits=bk if emit else None, fresh=fr)
+        mp = qr.vn_pass_minsum_plain(rc, llr, mv.clone(), t, 20.0,
+                                     bits=bp if emit else None, fresh=fr)
+        assert _same_bits(mk, mp)
+        assert torch.equal(bk, bp)
+    torch.cuda.synchronize()
+    for name, n in (("cn_regular_minsum", 1), ("vn_regular_minsum", 3)):
+        assert _kernels.launch_counts[name] - before[name] == n
+
+
+QC_MINSUM_DECODES = {
+    "regular-bf16": ("regular", dict(message_dtype="bfloat16")),
+    "regular-int8": ("regular", dict(message_dtype="int8")),
+    "p41-int8-alpha-table": ("p41", dict(
+        message_dtype="int8", minsum_offset=0.0,
+        minsum_alpha={3: 0.8, 6: 0.75, 7: 0.75, 0: 0.8})),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(QC_MINSUM_DECODES))
+def test_qc_minsum_decode_on_card_matches_cpu(small_code, cuda_device, case):
+    """QC min-sum from the plain code (detection on): kernels on the card
+    vs plain passes on the CPU, with refills; equal words and per-frame
+    iterations."""
+    name, kw = QC_MINSUM_DECODES[case]
+    if name == "regular":
+        code, _ = make_qc_code(np.ones((3, 6), np.int8), Z=128, seed=1)
+        ch = BIAWGNChannel(0.8)
+    else:
+        code, ch = small_code[0], BIAWGNChannel(0.7)
+    n = 3 * 32 + 8
+    batch = create_data(code, ch, 0, n, backend="numpy")
+    dyn = DynamicParams(num_iter_max=60, num_iter_check_parity=5)
+    out = {}
+    for dev in ("cpu", cuda_device):
+        dec = LDPCDecoder(code, ch, StaticParams(
+            parallel_factor_user=32, algorithm="min-sum", **kw), device=dev)
+        assert dec.qc is not None
+        out[str(dev)] = dec.decode(dyn, n, batch.values, batch.syndromes)
+    (res_c, st_c), (res_g, st_g) = out["cpu"], out[str(cuda_device)]
+    np.testing.assert_array_equal(res_g, res_c)
+    np.testing.assert_array_equal(st_g.iterations, st_c.iterations)

@@ -2,13 +2,16 @@
 on the small p41-shaped code (the grouped family) and on a small regular
 (3,6) code (the regular family, over BI-AWGN and the erasure channel).
 
-The JAX side runs ``kernel_impl="xla"``, the oracle the Pallas kernels are
-held bit-identical to. In float32 the decoded words and the per-frame
-iteration counts must be equal (φ differs by ulps between the two, far
-below what moves a hard decision at this noise level); in bfloat16 both
-decode every frame and their mean iterations agree within one check
-period k. B = 32 lanes, N = 3B + 8 frames (refills and a partial last
-fill), k = 5.
+Sum-product: the JAX side runs ``kernel_impl="xla"``, the oracle the Pallas
+kernels are held bit-identical to. In float32 the decoded words and the
+per-frame iteration counts must be equal (φ differs by ulps between the
+two, far below what moves a hard decision at this noise level); in
+bfloat16 both decode every frame and their mean iterations agree within
+one check period k. Min-sum: the JAX side runs its default kernels (the
+Pallas kernels in interpret mode, routed as on the TPU), and words and
+per-frame iterations must be equal in every dtype: no transcendental is
+involved, and the α tables run with β = 0 (ROADMAP Queue 3). B = 32 lanes,
+N = 3B + 8 frames (refills and a partial last fill), k = 5.
 """
 
 import numpy as np
@@ -207,26 +210,72 @@ def test_options_not_ported_raise(kw):
         StaticParams(**kw)
 
 
-@pytest.mark.parametrize("kw", [
-    dict(algorithm="min-sum"),
-    dict(algorithm="min-sum", message_dtype="int8"),
-])
-def test_minsum_on_qc_codes_raises(setup, kw):
-    """Min-sum and int8 run on the general path only: the QC kernels'
-    min-sum and int8 branches are not ported."""
-    sp = StaticParams(parallel_factor_user=B, **kw)
-    with pytest.raises(NotImplementedError, match="general path"):
-        LDPCDecoder(setup["code"], BIAWGNChannel(SIGMA), sp, qc=setup["s"],
-                    device="cpu")
-
-
 def test_int8_needs_minsum():
     """int8 is fixed-point min-sum storage, as in the JAX package."""
     with pytest.raises(ValueError, match="min-sum"):
         StaticParams(message_dtype="int8")
 
 
-def test_plain_alist_without_qc_raises(setup):
-    with pytest.raises(NotImplementedError, match="qc"):
-        LDPCDecoder(setup["code"], BIAWGNChannel(SIGMA),
-                    StaticParams(parallel_factor_user=B), device="cpu")
+# (fixture, StaticParams of both decoders, declared structure or detection)
+MINSUM_CASES = {
+    "regular-bf16-detected": ("regular", dict(message_dtype="bfloat16"),
+                              False),
+    "regular-int8": ("regular", dict(message_dtype="int8"), True),
+    "p41-int8-alpha-table-detected": (
+        "setup", dict(message_dtype="int8", minsum_offset=0.0,
+                      minsum_alpha={3: 0.8, 6: 0.75, 7: 0.75, 0: 0.8}),
+        False),
+    "p41-f32-alpha-table": (
+        "setup", dict(message_dtype="float32", minsum_offset=0.0,
+                      minsum_alpha={6: 0.8125, 0: 0.875}), True),
+}
+
+
+@pytest.mark.parametrize("case", sorted(MINSUM_CASES))
+def test_decode_minsum_matches_jax(setup, regular, case):
+    """QC min-sum end to end against the JAX decoder: regular-base bf16
+    (the regular family), int8 on a regular base (routed to the grouped
+    family, as in JAX), and the irregular p41 base with a per-degree α
+    table; built from the plain code by detection, or with ``qc=``."""
+    fixture, kw, declared = MINSUM_CASES[case]
+    st = setup if fixture == "setup" else regular
+    batch = st["batch"] if "batch" in st else st["batches"]["awgn"]
+    ch, jch = CHANNELS["awgn"]
+    dyn = dict(num_iter_max=40, num_iter_check_parity=K)
+    jdec = JaxLDPCDecoder(
+        st["jcode"], jch, jparams.StaticParams(
+            parallel_factor_user=B, algorithm="min-sum", **kw),
+        qc=st["js"] if declared else None)
+    jres, jst = jdec.decode(jparams.DynamicParams(**dyn), N, batch.values,
+                            batch.syndromes)
+    dec = LDPCDecoder(st["code"], ch, StaticParams(
+        parallel_factor_user=B, algorithm="min-sum", **kw),
+        qc=st["s"] if declared else None, device="cpu")
+    assert dec.qc is not None
+    want = (QCRegularTables if fixture == "regular"
+            and kw["message_dtype"] != "int8" else GroupedQCTables)
+    assert isinstance(dec.tables, want)
+    res, stats = dec.decode(DynamicParams(**dyn), N, batch.values,
+                            batch.syndromes)
+    np.testing.assert_array_equal(res, np.asarray(jres))
+    np.testing.assert_array_equal(stats.iterations, jst.iterations)
+    assert stats.total_iterations == jst.total_iterations
+    assert stats.total_supersteps > 3  # refills ran
+
+
+def test_lane_count_model_counts_message_bytes(regular):
+    """int8 messages take one byte each in the lane model, bf16 two and
+    float32 four: over a sweep of memory sizes the lane counts never fall
+    as the message shrinks, and each step gains lanes somewhere."""
+    code, ch = regular["code"], BIAWGNChannel(SIGMA)
+    lanes = {dt: [] for dt in ("float32", "bfloat16", "int8")}
+    for mem in np.geomspace(2**22, 2**30, 40).astype(np.int64):
+        for dt in lanes:
+            lanes[dt].append(LDPCDecoder(code, ch, StaticParams(
+                algorithm="min-sum", message_dtype=dt,
+                device_memory_bytes=int(mem),
+                max_log_parallel_factor_user=30), device="cpu"
+            ).parallel_factor())
+    f32, bf16, i8 = (np.array(lanes[dt]) for dt in lanes)
+    assert (f32 <= bf16).all() and (bf16 <= i8).all()
+    assert (f32 < bf16).any() and (bf16 < i8).any()

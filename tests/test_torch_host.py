@@ -241,6 +241,8 @@ def test_port_imports_no_jax():
         "import ldpc_decoder_tpu_torch.runtime.datagen\n"
         "import ldpc_decoder_tpu_torch.convert\n"
         "import ldpc_decoder_tpu_torch.ops.qc_regular\n"
+        "import ldpc_decoder_tpu_torch.ops.qc_grouped\n"
+        "import ldpc_decoder_tpu_torch.codes.qc\n"
         "import ldpc_decoder_tpu_torch.ops.general\n"
         "import ldpc_decoder_tpu_torch.codes.generate\n"
         "import ldpc_decoder_tpu_torch.codes.compiled\n"
