@@ -31,12 +31,27 @@ B = 256, k = 10, through the min-sum kernels (csrc/qc_minsum.cu):
 - bfloat16, the regular family;
 - int8, the grouped family (every int8 decode takes it, as in JAX).
 
+The float8_e5m2 paths decode with sum-product on float8_e5m2 messages and
+a bfloat16 LLR state, B = 256, through the sum-product kernels' float8
+instantiations (the regular family clamps phi's input at 10, the grouped
+one at 80, as the JAX kernels do):
+
+- reg36 at sigma = 0.87, 512 frames, k = 10 (the regular family);
+- p41 at sigma = 0.94, 512 frames, k = 14, first check 70 (the grouped
+  family); its FER, BER and iterations are recorded, not gated.
+
+The CLI (``python -m ldpc_decoder_tpu_torch.cli``, the JAX CLI's flags)
+decodes reg36 from its cached alist, 512 frames at sigma = 0.87 in
+bfloat16 at log level 2, in process, then a small QC code in a subprocess.
+
 Phases:
 
 1. device: the card's name and power limit (nvidia-smi);
 2. build: the four kernel libraries from ldpc_decoder_tpu_torch/csrc/,
    one nvcc each, started together;
-3. phi on the device, through a check-node launch, against float64;
+3. the numerics smoke (``runtime.smoke.cuda_numerics_smoke``): phi on the
+   device, through check-node launches, against float64, and phi(10) in
+   float8_e5m2;
 4. the p41 code (alist cache in codes_cache/) and 512 frames on the host;
 5. each grouped kernel against its plain PyTorch version on the card, at
    p41 x B = 256 on a real decode state, with both times;
@@ -74,7 +89,20 @@ Phases:
     decode to the same words on the card; a random code takes the general
     path;
 23. the reg36 bf16 min-sum path, twice, counted like phase 7;
-24. the reg36 int8 min-sum path, twice, counted the same way.
+24. the reg36 int8 min-sum path, twice, counted the same way;
+25. the float8_e5m2 kernels against their plain versions at full width on
+    real decode states (the frames of phases 4 and 8): the regular
+    sum-product and min-sum kernels at reg36 x B = 256, the grouped ones
+    at p41 x B = 256 (every group), with fresh lanes and emits;
+26. small float8_e5m2 decodes on the card against the plain passes on the
+    CPU (a regular base, p41 at Z = 128 in sum-product and min-sum); words
+    and per-frame iterations equal;
+27. the reg36 float8_e5m2 path, twice, counted like phase 7;
+28. the p41 float8_e5m2 path, twice, counted the same way, the two
+    decodes' words equal;
+29. the CLI: reg36 in process (BER 0, no frame in error, iterations in
+    phase 11's band, phase timings printed), and a subprocess on a small
+    QC code.
 
 Every phase must pass: any failure raises, and the script exits nonzero
 without its result line. The last line of stdout is the result object; the
@@ -102,11 +130,10 @@ REG36_SIGMA = 0.87
 EPSILON = 0.40
 N_FRAMES = 512
 N_ERASURE_FRAMES = 256
-# phi on the device vs float64: rel + abs bound (measured on an H100:
-# max rel 2.43e-6 near x = 5, so 1e-5 keeps a 4x margin)
-PHI_RTOL, PHI_ATOL = 1e-5, 1e-7
-# kernel vs plain bf16 messages: share allowed to differ, by one ulp only
+# kernel vs plain sum-product messages: share allowed to differ, by one
+# ulp (bf16) or one e5m2 step (float8_e5m2) only
 BF16_ULP_SHARE = 1e-4
+FP8_STEP_SHARE = 1e-4
 AVG_ITERS = (69.0, 76.0)         # p41 at sigma 0.94
 REG36_AVG_ITERS = (40.0, 45.0)   # reg36 at sigma 0.87, k = 10
 ERASURE_MAX_AVG_ITERS = 40.0     # reg36 at epsilon 0.40, k = 10
@@ -116,6 +143,11 @@ GENERAL_AVG_ITERS = (20.0, 30.0)         # sum-product, k = 10
 GENERAL_MINSUM_AVG_ITERS = (20.0, 40.0)  # int8 min-sum, k = 10
 MINSUM_SIGMA = 0.84     # the README's offset min-sum point on reg36
 MINSUM_AVG_ITERS = (20.0, 40.0)  # reg36 offset min-sum, bf16 and int8
+# reg36 float8_e5m2 sum-product at sigma 0.87, k = 10 (JAX, commit
+# cb2eb0c: FER 0 at about 3 iterations over bfloat16's 41.6)
+REG36_FP8_AVG_ITERS = (40.0, 50.0)
+# the small QC code of the CLI's subprocess run (git-ignored cache)
+CLI_SMALL_ALIST = os.path.join(REPO, "codes_cache", "cli_qc36_z128.alist")
 # per-degree alpha of the p41 check degrees (3, 6, 7), with the fallback
 MINSUM_ALPHA_TABLE = {3: 0.8, 6: 0.75, 7: 0.75, 0: 0.8}
 # the card's datasheet peaks (H100 SXM, 700 W): HBM bytes/s and float32
@@ -168,6 +200,15 @@ KERNELS = [
      "ldpc_decoder_tpu/ops/qc_pallas.py:412"),  # _cn_kernel
     ("vn_regular_minsum", MINSUM_SOURCE,
      "ldpc_decoder_tpu/ops/qc_pallas.py:469"),  # _vn_kernel
+    # the float8_e5m2 sum-product branches of kernels 1, 2, 4 and 5
+    ("cn_fp8", GROUPED_SOURCE,
+     "ldpc_decoder_tpu/ops/qc_pallas_grouped.py:332"),  # _cn_kernel_g
+    ("vn_fp8", GROUPED_SOURCE,
+     "ldpc_decoder_tpu/ops/qc_pallas_grouped.py:414"),  # _vn_kernel_g
+    ("cn_regular_fp8", REGULAR_SOURCE,
+     "ldpc_decoder_tpu/ops/qc_pallas.py:412"),  # _cn_kernel
+    ("vn_regular_fp8", REGULAR_SOURCE,
+     "ldpc_decoder_tpu/ops/qc_pallas.py:469"),  # _vn_kernel
 ]
 GROUPED = ("cn", "vn", "parity")
 REGULAR = ("cn_regular", "vn_regular", "parity_regular")
@@ -175,6 +216,8 @@ GENERAL_SP = ("cn_general", "vn_general")
 GENERAL_MS = ("cn_general_minsum", "vn_general_minsum")
 QC_MS_REGULAR = ("cn_regular_minsum", "vn_regular_minsum", "parity_regular")
 QC_MS_GROUPED = ("cn_group_minsum", "vn_group_minsum", "parity")
+FP8_GROUPED = ("cn_fp8", "vn_fp8", "parity")
+FP8_REGULAR = ("cn_regular_fp8", "vn_regular_fp8", "parity_regular")
 
 
 def log(msg):
@@ -263,13 +306,24 @@ def popcount_rows(x):
 
 def compare_msgs(name, k, p):
     """Kernel vs plain messages: signs exact; bf16 values equal except a
-    share <= BF16_ULP_SHARE one ulp apart (f32: one f32 ulp relative)."""
+    share <= BF16_ULP_SHARE one ulp apart, float8_e5m2 ones except a share
+    <= FP8_STEP_SHARE one step apart (f32: one f32 ulp relative)."""
     import torch
 
-    assert torch.equal(torch.signbit(k), torch.signbit(p)), \
-        f"{name}: sign bits differ"
     kf, pf = k.float(), p.float()
     max_abs = float((kf - pf).abs().max())
+    if k.dtype == torch.float8_e5m2:
+        ki, pi = k.view(torch.uint8).int(), p.view(torch.uint8).int()
+        assert torch.equal(ki >> 7, pi >> 7), f"{name}: sign bits differ"
+        steps = ((ki & 0x7F) - (pi & 0x7F)).abs()
+        share = float((steps != 0).float().mean())
+        assert int(steps.max()) <= 1, f"{name}: more than one step apart"
+        assert share <= FP8_STEP_SHARE, f"{name}: share {share} > limit"
+        log(f"  {name}: {share:.3e} of values differ (max |diff| "
+            f"{max_abs:.3e})")
+        return max_abs
+    assert torch.equal(torch.signbit(k), torch.signbit(p)), \
+        f"{name}: sign bits differ"
     if k.dtype == torch.bfloat16:
         ki, pi = k.view(torch.int16).int(), p.view(torch.int16).int()
         diff = (ki - pi).abs()
@@ -287,7 +341,8 @@ def bit_identical(a, b):
     import torch
 
     if a.dtype.is_floating_point:
-        as_int = torch.int16 if a.element_size() == 2 else torch.int32
+        as_int = {1: torch.uint8, 2: torch.int16, 4: torch.int32}[
+            a.element_size()]
         return torch.equal(a.reshape(-1).view(as_int),
                            b.reshape(-1).view(as_int))
     return torch.equal(a.reshape(-1), b.reshape(-1))
@@ -344,43 +399,6 @@ def phase_build():
                         f"spill bytes")
 
 
-def phase_phi(torch, np, dev):
-    """A degree-2 check whose slot 0 carries +0 and slot 1 carries x: the
-    kernel writes phi(x + 0 - 0) = phi(x) exactly at slot 0."""
-    from ldpc_decoder_tpu_torch.codes.qc import QCStructure
-    from ldpc_decoder_tpu_torch.ops import qc_grouped as qg
-    from ldpc_decoder_tpu_torch.ops.phi import phi_abs_np
-    from ldpc_decoder_tpu_torch.ops.qc_decode import QCDecodeTables
-
-    x = np.concatenate([
-        np.logspace(-5, np.log10(80.0), 60000),
-        np.linspace(4.99, 5.01, 4001),
-        [5.0, np.nextafter(np.float32(5), np.float32(0)),
-         np.nextafter(np.float32(5), np.float32(9)), 6.0, 12.0, 25.0,
-         50.0, 80.0],
-    ]).astype(np.float32)
-    Z = x.size
-    s = QCStructure(Z=Z, n_base_rows=1, n_base_cols=2,
-                    edge_row=np.array([0, 0], np.int32),
-                    edge_col=np.array([0, 1], np.int32),
-                    edge_shift=np.array([0, 0], np.int32))
-    t = qg.GroupedQCTables.from_qc_tables(
-        QCDecodeTables.from_structure(s, 0, dev))
-    msgs = torch.zeros((2, Z, 1), dtype=torch.float32, device=dev)
-    msgs[1, :, 0] = torch.from_numpy(x).to(dev)
-    syn = torch.zeros((1, Z, 1), dtype=torch.int8, device=dev)
-    r_c = qg.cn_pass_grouped(msgs, syn, torch.empty_like(msgs), t)
-    got = r_c[0, :, 0].double().cpu().numpy()
-    ref = phi_abs_np(x)
-    rel = np.abs(got - ref) / ref
-    assert (got > 0).all(), "phi <= 0 on the device"
-    ok = np.abs(got - ref) <= PHI_RTOL * ref + PHI_ATOL
-    log(f"  phi on the device vs float64 over {Z} points in [1e-5, 80]: "
-        f"max rel err {rel.max():.3e} at x={x[rel.argmax()]:.6g} "
-        f"(bound rel {PHI_RTOL} + abs {PHI_ATOL}); min phi {got.min():.3e}")
-    assert ok.all(), f"phi out of bound at x={x[~ok][:5]}"
-
-
 def lane_state(torch, np, dev, t, ch, batch, B):
     """The first B frames of ``batch`` as sorted bf16 llr [C, Z, B] and
     syndromes [R, Z, B] on the card."""
@@ -400,6 +418,7 @@ def phase_kernels(torch, np, dev, code, s, batch):
     from ldpc_decoder_tpu_torch.channels import BIAWGNChannel
     from ldpc_decoder_tpu_torch.ops import qc_grouped as qg
     from ldpc_decoder_tpu_torch.ops.qc_decode import QCDecodeTables
+    from ldpc_decoder_tpu_torch.runtime import perf
 
     t = qg.GroupedQCTables.from_qc_tables(
         QCDecodeTables.from_structure(s, code.n_erased_vars, dev))
@@ -418,13 +437,12 @@ def phase_kernels(torch, np, dev, code, s, batch):
     qg.cn_pass_plain(mv, syn, rp, t)
     err = compare_msgs("r_c", rk, rp)
     del rp
-    msg_bytes = t.nb * t.Z * B * 2
+    passes = perf.grouped_bytes(t, B, 2, 2)  # bf16 messages and llr
     out["cn"] = dict(
         max_abs_err=err,
         ms=cuda_ms(lambda: qg.cn_pass_grouped(mv, syn, rk, t), 10),
         plain_ms=cuda_ms(lambda: qg.cn_pass_plain(mv, syn, rk, t), 3),
-        bound=bound(2 * msg_bytes + t.R * t.Z * B + 8 * t.nb,
-                    OPS_PER_MESSAGE * t.nb * t.Z * B))
+        bound=bound(passes["cn"], OPS_PER_MESSAGE * t.nb * t.Z * B))
 
     log("  variable nodes:")
     errs = []
@@ -447,15 +465,12 @@ def phase_kernels(torch, np, dev, code, s, batch):
             log(f"  hard bits ({label}): equal")
     del mp
     # the timed pass is a plain iteration: the degree-1 group is skipped
-    run = [g for g in t.col_groups if g.degree > 1]
-    blocks = sum(g.count * g.degree for g in run)
-    cols = sum(g.count for g in run)
+    blocks = sum(g.count * g.degree for g in t.col_groups if g.degree > 1)
     out["vn"] = dict(
         max_abs_err=max(errs),
         ms=cuda_ms(lambda: qg.vn_pass_grouped(rk, llr, mk, t), 10),
         plain_ms=cuda_ms(lambda: qg.vn_pass_plain(rk, llr, mk, t), 3),
-        bound=bound((2 * blocks + cols) * t.Z * B * 2 + 8 * blocks,
-                    OPS_PER_MESSAGE * blocks * t.Z * B))
+        bound=bound(passes["vn"], OPS_PER_MESSAGE * blocks * t.Z * B))
 
     log("  parity:")
     ref = torch.from_numpy(np.ascontiguousarray(
@@ -479,8 +494,7 @@ def phase_kernels(torch, np, dev, code, s, batch):
         max_abs_err=0.0,
         ms=cuda_ms(lambda: qg.parity_pass_grouped(emitted, syn, t), 10),
         plain_ms=cuda_ms(lambda: qg.parity_pass_plain(emitted, syn, t), 3),
-        bound=bound((t.C + t.R) * t.Z * B + 4 * B + 8 * t.nb,
-                    OPS_PER_PARITY_READ * t.nb * t.Z * B))
+        bound=bound(passes["parity"], OPS_PER_PARITY_READ * t.nb * t.Z * B))
     for name, r in out.items():
         log(f"  {name}: kernel {r['ms']:.3f} ms per pass, plain "
             f"{r['plain_ms']:.3f} ms, bound {r['bound'][0]:.3f} ms "
@@ -495,6 +509,7 @@ def phase_regular_kernels(torch, np, dev, code, s, batch):
     from ldpc_decoder_tpu_torch.ops import qc_grouped as qg
     from ldpc_decoder_tpu_torch.ops import qc_regular as qr
     from ldpc_decoder_tpu_torch.ops.qc_decode import QCDecodeTables
+    from ldpc_decoder_tpu_torch.runtime import perf
 
     qct = QCDecodeTables.from_structure(s, code.n_erased_vars, dev)
     t = qr.QCRegularTables.from_qc_tables(qct)
@@ -519,15 +534,14 @@ def phase_regular_kernels(torch, np, dev, code, s, batch):
     err = compare_msgs("r_c", rk, rp)
     same["r_c"] = bit_identical(rk, rg)
     del rp
-    msg_bytes = t.n_edges * B * 2
+    passes = perf.regular_bytes(t, B, 2, 2)  # bf16 messages and llr
     out["cn_regular"] = dict(
         max_abs_err=err,
         ms=cuda_ms(lambda: qr.cn_pass_regular(mv, syn, rk, t), 10),
         plain_ms=cuda_ms(lambda: qr.cn_pass_plain(mv, syn, rk, t), 3),
         grouped_ms=cuda_ms(lambda: qg.cn_pass_grouped(
             mv.view(nb, Z, B), syn, rg, tg), 10),
-        bound=bound(2 * msg_bytes + t.n_checks * B + t.cn_read.numel() * 4,
-                    OPS_PER_MESSAGE * t.n_edges * B))
+        bound=bound(passes["cn"], OPS_PER_MESSAGE * t.n_edges * B))
 
     log("  variable nodes:")
     errs = []
@@ -562,9 +576,7 @@ def phase_regular_kernels(torch, np, dev, code, s, batch):
         plain_ms=cuda_ms(lambda: qr.vn_pass_plain(rk, llr, mk, t), 3),
         grouped_ms=cuda_ms(lambda: qg.vn_pass_grouped(
             rk.view(nb, Z, B), llr, mg, tg), 10),
-        bound=bound(2 * msg_bytes + t.n_vars * B * 2
-                    + t.vn_read.numel() * 4,
-                    OPS_PER_MESSAGE * t.n_edges * B))
+        bound=bound(passes["vn"], OPS_PER_MESSAGE * t.n_edges * B))
 
     log("  parity:")
     ref = torch.from_numpy(np.ascontiguousarray(
@@ -593,9 +605,7 @@ def phase_regular_kernels(torch, np, dev, code, s, batch):
         plain_ms=cuda_ms(lambda: qr.parity_pass_plain(emitted, syn, t), 3),
         grouped_ms=cuda_ms(lambda: qg.parity_pass_grouped(emitted, syn, tg),
                            10),
-        bound=bound((t.n_vars + t.n_checks) * B + 4 * B
-                    + t.cn_read.numel() * 4,
-                    OPS_PER_PARITY_READ * t.n_edges * B))
+        bound=bound(passes["parity"], OPS_PER_PARITY_READ * t.n_edges * B))
     log(f"  regular kernel vs grouped kernel on the same state, "
         f"bit-identical: {same}")
     for name, r in out.items():
@@ -634,22 +644,30 @@ def small_decode(np, dev, code, s, ch, n, expect_tables):
     assert abs(st_g.avg_iter - st_c.avg_iter) <= 5
 
 
-def run_path(dec, dyn, batch, n, kernels, label, repeat=True, ref=None):
-    """Decode ``n`` frames (twice when ``repeat``; the last is reported)
-    with the launch counts set to 0 just before the reported decode and
-    read just after; every kernel in ``kernels`` must have launched and
-    every other kernel not. ``ref``: the batch's packed reference bits,
-    when already computed. Returns (stats, launches)."""
+def run_path(dec, dyn, batch, n, kernels, label, repeat=True, ref=None,
+             gate=True):
+    """Decode ``n`` frames (twice when ``repeat``, to equal words; the last
+    is reported) with the launch counts set to 0 just before the reported
+    decode and read just after; every kernel in ``kernels`` must have
+    launched and every other kernel not. ``ref``: the batch's packed
+    reference bits, when already computed. ``gate``: FER 0 and BER 0 are
+    required (else only recorded). Returns (stats, launches)."""
+    import numpy as np
+
     from ldpc_decoder_tpu_torch.ops import _kernels
 
+    first = None
     if repeat:
         t0 = time.perf_counter()
-        dec.decode(dyn, n, batch.values, batch.syndromes)
+        first, _ = dec.decode(dyn, n, batch.values, batch.syndromes)
         log(f"  {label} decode 1: {time.perf_counter() - t0:.2f} s wall")
     _kernels.reset_launch_counts()
     results, stats = dec.decode(dyn, n, batch.values, batch.syndromes)
     launches = dict(_kernels.launch_counts)
     assert results.shape == (n, dec.n_words)
+    if first is not None:
+        assert np.array_equal(first, results), \
+            f"{label}: the two decodes' words differ"
     if ref is None:
         ref = batch.ref_bits_packed()
     errors = popcount_rows(ref ^ results)
@@ -672,7 +690,8 @@ def run_path(dec, dyn, batch, n, kernels, label, repeat=True, ref=None):
             assert count > 0, f"{name} kernel never launched"
         else:
             assert count == 0, f"{name} kernel launched off its path"
-    assert fer1 == 0.0 and ber == 0.0, f"FER(>0) = {fer1}, BER = {ber}"
+    if gate:
+        assert fer1 == 0.0 and ber == 0.0, f"FER(>0) = {fer1}, BER = {ber}"
     return stats, launches
 
 
@@ -699,11 +718,11 @@ def phase_general_kernels(torch, np, dev, cc, batch):
     bitwise; signs and hard bits exact."""
     from ldpc_decoder_tpu_torch.channels import BIAWGNChannel
     from ldpc_decoder_tpu_torch.ops import general as G
+    from ldpc_decoder_tpu_torch.runtime import perf
 
     t = G.GeneralTables.from_compiled(cc, dev)
     ch = BIAWGNChannel(GENERAL_SIGMA)
-    E, nv, nc = t.n_edges, t.n_vars, t.n_checks
-    index_bytes = 4 * E  # one slot index per edge
+    E, nv = t.n_edges, t.n_vars
     ms = dict(alpha=0.8, beta=0.0, clamp=64.0, qscale=4.0)
     out = {}
     for label, alg, dtype, B in [
@@ -765,21 +784,19 @@ def phase_general_kernels(torch, np, dev, cc, batch):
             assert torch.equal(bk, bp), f"hard bits differ ({tag})"
         log("  hard bits (emit): equal")
         del mp
-        msg_bytes = E * B * mv.element_size()
-        llr_bytes = nv * B * llr.element_size()
+        passes = perf.general_bytes(t, B, mv.element_size(),
+                                    llr.element_size())
         r = {
             "cn": dict(
                 max_abs_err=err_cn,
                 ms=cuda_ms(lambda: cn(cnk, rk), 10),
                 plain_ms=cuda_ms(lambda: cn(cnp, rk), 3),
-                bound=bound(2 * msg_bytes + nc * B + index_bytes,
-                            ops * E * B)),
+                bound=bound(passes["cn"], ops * E * B)),
             "vn": dict(
                 max_abs_err=max(errs),
                 ms=cuda_ms(lambda: vn(vnk, mk), 10),
                 plain_ms=cuda_ms(lambda: vn(vnp, mk), 3),
-                bound=bound(2 * msg_bytes + llr_bytes + index_bytes,
-                            ops * E * B)),
+                bound=bound(passes["vn"], ops * E * B)),
         }
         for name, v in r.items():
             log(f"  {name}: kernel {v['ms']:.3f} ms per pass, plain "
@@ -848,6 +865,7 @@ def minsum_kernels(torch, np, dev, family, t, llr, syn, B, dtype, alpha,
     of a non-emit pass."""
     from ldpc_decoder_tpu_torch.ops import qc_grouped as qg
     from ldpc_decoder_tpu_torch.ops import qc_regular as qr
+    from ldpc_decoder_tpu_torch.runtime import perf
 
     beta, clamp, qscale = 0.5, 64.0, 4.0
     ms = dict(alg="min-sum", beta=beta, clamp=clamp, alpha=alpha,
@@ -866,10 +884,9 @@ def minsum_kernels(torch, np, dev, family, t, llr, syn, B, dtype, alpha,
 
         cnk, cnp = qg.cn_pass_grouped_minsum, qg.cn_pass_minsum_plain
         vnk, vnp = qg.vn_pass_grouped_minsum, qg.vn_pass_minsum_plain
-        run = [g for g in t.col_groups if g.degree > 1]  # non-emit pass
-        run_blocks = sum(g.count * g.degree for g in run)
-        run_cols = sum(g.count for g in run)
-        table_bytes = 8 * t.nb
+        run_blocks = sum(g.count * g.degree for g in t.col_groups
+                         if g.degree > 1)  # non-emit pass
+        count = perf.grouped_bytes
     else:
         msgs = qr.init_messages_qc_regular(llr, t, dtype, alg="min-sum")
         msgs, _, _ = qr.run_iterations_qc_regular(msgs, llr, syn, t, 4, **ms)
@@ -882,8 +899,8 @@ def minsum_kernels(torch, np, dev, family, t, llr, syn, B, dtype, alpha,
 
         cnk, cnp = qr.cn_pass_regular_minsum, qr.cn_pass_minsum_plain
         vnk, vnp = qr.vn_pass_regular_minsum, qr.vn_pass_minsum_plain
-        run_blocks, run_cols = t.n_edges // t.Z, t.C
-        table_bytes = 4 * t.cn_read.numel()
+        run_blocks = t.n_edges // t.Z
+        count = perf.regular_bytes
     mv, rc = msgs
     fresh = torch.zeros(B, dtype=torch.bool, device=dev)
     fresh[::5] = True
@@ -912,22 +929,19 @@ def minsum_kernels(torch, np, dev, family, t, llr, syn, B, dtype, alpha,
             + ("; hard bits equal" if emit else ""))
     err_vn = float((mk.float() - mp.float()).abs().max())
     del mp
-    esize = mv.element_size()
+    passes = count(t, B, mv.element_size(), llr.element_size())
     out = {
         "cn": dict(
             max_abs_err=err_cn,
             ms=cuda_ms(lambda: cn(cnk, rk), 10),
             plain_ms=cuda_ms(lambda: cn(cnp, rk), 3),
-            bound=bound(2 * blocks * Z * B * esize + t.R * Z * B
-                        + table_bytes,
+            bound=bound(passes["cn"],
                         OPS_PER_MINSUM_MESSAGE * blocks * Z * B)),
         "vn": dict(
             max_abs_err=err_vn,
             ms=cuda_ms(lambda: vn(vnk, mk), 10),
             plain_ms=cuda_ms(lambda: vn(vnp, mk), 3),
-            bound=bound(2 * run_blocks * Z * B * esize
-                        + run_cols * Z * B * llr.element_size()
-                        + table_bytes,
+            bound=bound(passes["vn"],
                         OPS_PER_MINSUM_MESSAGE * run_blocks * Z * B)),
     }
     for name, r in out.items():
@@ -987,15 +1001,11 @@ def phase_reg36_minsum_kernels(torch, np, dev, code, s, batch):
     return out
 
 
-def small_qc_minsum_decodes(np, dev):
-    """QC min-sum from plain codes (detection on): kernels on the card vs
-    plain passes on the CPU, 104 frames at B = 32 (refills); equal words
-    and per-frame iterations."""
+def card_vs_cpu_decodes(np, dev, cases):
+    """Kernels on the card vs plain passes on the CPU, 104 frames at B = 32
+    (refills) per case (label, code, sigma, StaticParams fields, tables
+    class); equal words and per-frame iterations."""
     from ldpc_decoder_tpu_torch.channels import BIAWGNChannel
-    from ldpc_decoder_tpu_torch.codes.protographs import p41_code
-    from ldpc_decoder_tpu_torch.codes.qc import make_qc_code
-    from ldpc_decoder_tpu_torch.ops.qc_grouped import GroupedQCTables
-    from ldpc_decoder_tpu_torch.ops.qc_regular import QCRegularTables
     from ldpc_decoder_tpu_torch.runtime.datagen import create_data
     from ldpc_decoder_tpu_torch.runtime.decoder import LDPCDecoder
     from ldpc_decoder_tpu_torch.runtime.params import (
@@ -1003,17 +1013,6 @@ def small_qc_minsum_decodes(np, dev):
         StaticParams,
     )
 
-    reg, _ = make_qc_code(np.ones((3, 6), np.int8), Z=128, seed=1)
-    p41, _ = p41_code(Z=128, m=4, coarse=64, fine_mod=16)
-    cases = [
-        ("regular (3,6), bf16", reg, 0.8, dict(message_dtype="bfloat16"),
-         QCRegularTables),
-        ("regular (3,6), int8", reg, 0.8, dict(message_dtype="int8"),
-         GroupedQCTables),
-        ("p41 Z = 128, int8, alpha table", p41, 0.7, dict(
-            message_dtype="int8", minsum_offset=0.0,
-            minsum_alpha=MINSUM_ALPHA_TABLE), GroupedQCTables),
-    ]
     n = 104
     dyn = DynamicParams(num_iter_max=60, num_iter_check_parity=5)
     for label, code, sigma, kw, want in cases:
@@ -1022,7 +1021,7 @@ def small_qc_minsum_decodes(np, dev):
         got = {}
         for d in ("cpu", dev):
             dec = LDPCDecoder(code, ch, StaticParams(
-                parallel_factor_user=32, algorithm="min-sum", **kw), device=d)
+                parallel_factor_user=32, **kw), device=d)
             assert isinstance(dec.tables, want), type(dec.tables)
             got[str(d)] = dec.decode(dyn, n, batch.values, batch.syndromes)
         (res_c, st_c), (res_g, st_g) = got["cpu"], got[str(dev)]
@@ -1034,6 +1033,27 @@ def small_qc_minsum_decodes(np, dev):
             f"iterations; avg iterations {st_g.avg_iter:.2f}, "
             f"{st_g.total_supersteps} supersteps, {bad} of {n} frames with "
             f"bit errors")
+
+
+def small_qc_minsum_decodes(np, dev):
+    """QC min-sum from plain codes (detection on), card vs CPU."""
+    from ldpc_decoder_tpu_torch.codes.protographs import p41_code
+    from ldpc_decoder_tpu_torch.codes.qc import make_qc_code
+    from ldpc_decoder_tpu_torch.ops.qc_grouped import GroupedQCTables
+    from ldpc_decoder_tpu_torch.ops.qc_regular import QCRegularTables
+
+    reg, _ = make_qc_code(np.ones((3, 6), np.int8), Z=128, seed=1)
+    p41, _ = p41_code(Z=128, m=4, coarse=64, fine_mod=16)
+    ms = dict(algorithm="min-sum")
+    card_vs_cpu_decodes(np, dev, [
+        ("regular (3,6), bf16", reg, 0.8, dict(ms, message_dtype="bfloat16"),
+         QCRegularTables),
+        ("regular (3,6), int8", reg, 0.8, dict(ms, message_dtype="int8"),
+         GroupedQCTables),
+        ("p41 Z = 128, int8, alpha table", p41, 0.7, dict(
+            ms, message_dtype="int8", minsum_offset=0.0,
+            minsum_alpha=MINSUM_ALPHA_TABLE), GroupedQCTables),
+    ])
 
 
 def detection_decodes(np, dev):
@@ -1115,6 +1135,187 @@ def qc_minsum_path(dec, dyn, batch, n, kernels, label, s_expect, want, ref):
     return stats, launches
 
 
+def fp8_sum_product_kernels(torch, np, dev, family, t, llr, syn, B, label):
+    """One QC family's float8_e5m2 sum-product kernels against their plain
+    versions on a real decode state (four iterations in): every group,
+    with and without fresh lanes and emits; messages within
+    FP8_STEP_SHARE, hard bits exact. Returns {"cn": ..., "vn": ...} with
+    the kernel, plain and bound times of a non-emit pass."""
+    from ldpc_decoder_tpu_torch.ops import qc_grouped as qg
+    from ldpc_decoder_tpu_torch.ops import qc_regular as qr
+    from ldpc_decoder_tpu_torch.runtime import perf
+
+    fp8 = torch.float8_e5m2
+    if family == "grouped":
+        mod, cnk, vnk = qg, qg.cn_pass_grouped, qg.vn_pass_grouped
+        msgs = qg.init_messages_qc_grouped(llr, t, fp8)
+        msgs, _, _ = qg.run_iterations_qc_grouped(msgs, llr, syn, t, 4)
+        run_blocks = sum(g.count * g.degree for g in t.col_groups
+                         if g.degree > 1)  # non-emit pass
+        passes = perf.grouped_bytes(t, B, 1, 2)  # e5m2 messages, bf16 llr
+        after_refill = {"include_d1": True}
+    else:
+        mod, cnk, vnk = qr, qr.cn_pass_regular, qr.vn_pass_regular
+        msgs = qr.init_messages_qc_regular(llr, t, fp8)
+        msgs, _, _ = qr.run_iterations_qc_regular(msgs, llr, syn, t, 4)
+        run_blocks = t.n_edges // t.Z
+        passes = perf.regular_bytes(t, B, 1, 2)
+        after_refill = {}
+    mv, rc = msgs
+    Z, blocks = t.Z, t.n_edges // t.Z
+    fresh = torch.zeros(B, dtype=torch.bool, device=dev)
+    fresh[::5] = True
+
+    rk, rp = torch.empty_like(rc), torch.empty_like(rc)
+    cnk(mv, syn, rk, t)
+    mod.cn_pass_plain(mv, syn, rp, t)
+    err_cn = compare_msgs("r_c", rk, rp)
+    del rp
+    errs = []
+    mk, mp = mv.clone(), mv.clone()
+    for what, emit, fr, kw in [("plain iteration", False, None, {}),
+                               ("emit + fresh lanes", True, fresh, {}),
+                               ("first after refill", False, fresh,
+                                after_refill)]:
+        mk.copy_(mv)
+        mp.copy_(mv)
+        bk = torch.full((t.C, Z, B), -1, dtype=torch.int8, device=dev)
+        bp = bk.clone()
+        vnk(rk, llr, mk, t, bits=bk if emit else None, fresh=fr, **kw)
+        mod.vn_pass_plain(rk, llr, mp, t, bits=bp if emit else None,
+                          fresh=fr, **kw)
+        errs.append(compare_msgs(f"msgs_v ({what})", mk, mp))
+        assert torch.equal(bk, bp), f"hard bits differ ({label}, {what})"
+    del mp
+    out = {
+        "cn": dict(
+            max_abs_err=err_cn,
+            ms=cuda_ms(lambda: cnk(mv, syn, rk, t), 10),
+            plain_ms=cuda_ms(lambda: mod.cn_pass_plain(mv, syn, rk, t), 3),
+            bound=bound(passes["cn"], OPS_PER_MESSAGE * blocks * Z * B)),
+        "vn": dict(
+            max_abs_err=max(errs),
+            ms=cuda_ms(lambda: vnk(rk, llr, mk, t), 10),
+            plain_ms=cuda_ms(lambda: mod.vn_pass_plain(rk, llr, mk, t), 3),
+            bound=bound(passes["vn"], OPS_PER_MESSAGE * run_blocks * Z * B)),
+    }
+    for name, r in out.items():
+        log(f"  {name}: kernel {r['ms']:.3f} ms per pass, plain "
+            f"{r['plain_ms']:.3f} ms, bound {r['bound'][0]:.3f} ms "
+            f"({r['bound'][1]}) ({label})")
+    return out
+
+
+def phase_fp8_kernels(torch, np, dev, code, s, batch, code36, s36, batch36):
+    """The float8_e5m2 kernels of both QC families against their plain
+    versions at full width: sum-product and min-sum (offset 0.5; the
+    p41 one with the alpha table) at reg36 and p41 x B = 256."""
+    from ldpc_decoder_tpu_torch.channels import BIAWGNChannel
+    from ldpc_decoder_tpu_torch.ops import qc_grouped as qg
+    from ldpc_decoder_tpu_torch.ops import qc_regular as qr
+    from ldpc_decoder_tpu_torch.ops.qc_decode import QCDecodeTables
+
+    fp8, B, out = torch.float8_e5m2, 256, {}
+    t = qr.QCRegularTables.from_qc_tables(
+        QCDecodeTables.from_structure(s36, code36.n_erased_vars, dev))
+    llr, syn = minsum_lane_state(torch, np, dev, t,
+                                 BIAWGNChannel(REG36_SIGMA), batch36, B, fp8)
+    log("  regular family, sum-product:")
+    r = fp8_sum_product_kernels(torch, np, dev, "regular", t, llr, syn, B,
+                                "reg36, B = 256, fp8")
+    out["cn_regular_fp8"], out["vn_regular_fp8"] = r["cn"], r["vn"]
+    torch.cuda.empty_cache()
+    log("  regular family, min-sum:")
+    minsum_kernels(torch, np, dev, "regular", t, llr, syn, B, fp8, 1.0,
+                   "reg36, B = 256, fp8 min-sum")
+    del t, llr, syn
+    torch.cuda.empty_cache()
+    t = qg.GroupedQCTables.from_qc_tables(
+        QCDecodeTables.from_structure(s, code.n_erased_vars, dev))
+    llr, syn = minsum_lane_state(torch, np, dev, t, BIAWGNChannel(SIGMA),
+                                 batch, B, fp8)
+    log("  grouped family, sum-product:")
+    r = fp8_sum_product_kernels(torch, np, dev, "grouped", t, llr, syn, B,
+                                "p41, B = 256, fp8")
+    out["cn_fp8"], out["vn_fp8"] = r["cn"], r["vn"]
+    torch.cuda.empty_cache()
+    log("  grouped family, min-sum:")
+    minsum_kernels(torch, np, dev, "grouped", t, llr, syn, B, fp8,
+                   tuple(MINSUM_ALPHA_TABLE.items()),
+                   "p41, B = 256, fp8 min-sum, alpha table")
+    return out
+
+
+def small_fp8_decodes(np, dev):
+    """float8_e5m2 decodes from plain codes (detection on), card vs CPU."""
+    from ldpc_decoder_tpu_torch.codes.protographs import p41_code
+    from ldpc_decoder_tpu_torch.codes.qc import make_qc_code
+    from ldpc_decoder_tpu_torch.ops.qc_grouped import GroupedQCTables
+    from ldpc_decoder_tpu_torch.ops.qc_regular import QCRegularTables
+
+    reg, _ = make_qc_code(np.ones((3, 6), np.int8), Z=128, seed=1)
+    p41, _ = p41_code(Z=128, m=4, coarse=64, fine_mod=16)
+    fp8 = dict(message_dtype="float8_e5m2")
+    card_vs_cpu_decodes(np, dev, [
+        ("regular (3,6), fp8 sum-product", reg, 0.7, fp8, QCRegularTables),
+        ("p41 Z = 128, fp8 sum-product", p41, 0.7, fp8, GroupedQCTables),
+        ("p41 Z = 128, fp8 min-sum", p41, 0.7,
+         dict(fp8, algorithm="min-sum"), GroupedQCTables),
+    ])
+
+
+def phase_cli(np):
+    """The CLI on reg36 in process (bf16, log level 2), then as a module in
+    a subprocess on a small QC code. Returns the reg36 run's figures."""
+    import contextlib
+    import io
+
+    from ldpc_decoder_tpu_torch import cli
+    from ldpc_decoder_tpu_torch.codes.qc import make_qc_code, write_qc_alist
+
+    argv = ["-f", REG36_ALIST, "-c", "1", "-n", str(REG36_SIGMA), "-p", "8",
+            "-m", "2", "-e", "15", "-i", "120", "--check-period", "10",
+            "--dtype", "bfloat16", "-l", "2"]
+    log(f"  cli.main({' '.join(argv)})")
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(argv)
+    wall = time.perf_counter() - t0
+    text = buf.getvalue()
+    keep = ("Number of vectors", " Test vector", "  bp_", "  parity_",
+            "  superstep", "  retire", "  refill", "Iterations (",
+            "  total =", "# of frames", "Total # of", "Bit error",
+            "Frames with", "Elapsed", "Throughput", "Max/min",
+            "Iteration time", "Decoding throughput")
+    for line in text.splitlines():
+        if line.startswith(keep):
+            log(f"  | {line}")
+    log(f"  in-process CLI: exit {rc}, {wall:.1f} s wall")
+    assert rc == 0, text[-2000:]
+    assert "Bit error rate (BER):             0\n" in text
+    assert "Frames with at least one error:   0 (" in text
+    assert "Phase timings (per call):" in text
+    m = re.search(r"Max/min/average number of iterations per vector: "
+                  r"(\d+)/(\d+)/([\d.e+-]+)", text)
+    avg = float(m.group(3))
+    assert REG36_AVG_ITERS[0] <= avg <= REG36_AVG_ITERS[1], avg
+
+    code, s = make_qc_code(np.ones((3, 6), np.int8), Z=128, seed=1)
+    write_qc_alist(code, s, CLI_SMALL_ALIST)
+    cmd = [sys.executable, "-m", "ldpc_decoder_tpu_torch.cli", "-f",
+           CLI_SMALL_ALIST, "-c", "1", "-n", "0.7", "-p", "5", "-m", "2",
+           "-e", "15", "-i", "60"]
+    t0 = time.perf_counter()
+    r = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True,
+                       timeout=300)
+    log(f"  python3 -m ldpc_decoder_tpu_torch.cli on a (3,6) Z = 128 code: "
+        f"exit {r.returncode}, {time.perf_counter() - t0:.1f} s wall")
+    assert r.returncode == 0, r.stderr[-2000:]
+    assert "Bit error rate (BER):             0\n" in r.stdout
+    return {"avg_iter": avg, "wall_s": wall}
+
+
 def main():
     import numpy as np
     import torch
@@ -1139,8 +1340,10 @@ def main():
     phase(2, "build")
     phase_build()
 
-    phase(3, "phi on the device")
-    phase_phi(torch, np, dev)
+    phase(3, "numerics smoke: phi on the device")
+    from ldpc_decoder_tpu_torch.runtime.smoke import cuda_numerics_smoke
+
+    cuda_numerics_smoke(dev, verbose=lambda m: log(f"  {m}"))
 
     phase(4, "code and frames")
     from ldpc_decoder_tpu_torch import native
@@ -1170,7 +1373,7 @@ def main():
         f"backend, {time.perf_counter() - t0:.1f} s")
 
     phase(5, "grouped kernels vs plain at p41 x B = 256")
-    perf = phase_kernels(torch, np, dev, code, s, batch)
+    timings = phase_kernels(torch, np, dev, code, s, batch)
     torch.cuda.empty_cache()
 
     phase(6, "small p41 decode: card vs CPU")
@@ -1212,7 +1415,7 @@ def main():
         f"numpy backend, {time.perf_counter() - t0:.1f} s")
 
     phase(9, "regular kernels vs plain and grouped at reg36 x B = 256")
-    perf.update(phase_regular_kernels(torch, np, dev, code36, s36, batch36))
+    timings.update(phase_regular_kernels(torch, np, dev, code36, s36, batch36))
     torch.cuda.empty_cache()
 
     phase(10, "small regular decode: card vs CPU")
@@ -1232,7 +1435,7 @@ def main():
                                    "reg36")
     assert REG36_AVG_ITERS[0] <= stats36.avg_iter <= REG36_AVG_ITERS[1], \
         stats36.avg_iter
-    del dec36, batch36
+    del dec36  # the frames stay for phases 25 and 27
     torch.cuda.empty_cache()
 
     phase(12, "reg36 erasure decode")
@@ -1264,7 +1467,7 @@ def main():
         f"{time.perf_counter() - t0:.1f} s")
 
     phase(14, "general kernels vs plain at full width")
-    perf.update(phase_general_kernels(torch, np, dev, gcc, gbatch))
+    timings.update(phase_general_kernels(torch, np, dev, gcc, gbatch))
 
     phase(15, "small general decode: card vs CPU")
     small_general_decode(np, dev)
@@ -1297,7 +1500,6 @@ def main():
 
     phase(18, "grouped min-sum kernels vs plain at p41 x B = 256, int8")
     phase_p41_minsum_kernels(torch, np, dev, code, s, batch)
-    del batch
     torch.cuda.empty_cache()
 
     phase(19, "reg36 as a plain code, frames and detection")
@@ -1327,7 +1529,7 @@ def main():
     del idec, icode36
 
     phase(20, "QC min-sum kernels vs plain at reg36 x B = 256")
-    perf.update(phase_reg36_minsum_kernels(torch, np, dev, plain36, s36,
+    timings.update(phase_reg36_minsum_kernels(torch, np, dev, plain36, s36,
                                            batch84))
     torch.cuda.empty_cache()
 
@@ -1354,6 +1556,39 @@ def main():
         "reg36 int8 min-sum", s36, GroupedQCTables, ref84)
     del ms_int8, batch84, ref84
     torch.cuda.empty_cache()
+
+    phase(25, "float8_e5m2 kernels vs plain at reg36 and p41 x B = 256")
+    timings.update(phase_fp8_kernels(torch, np, dev, code, s, batch, code36,
+                                  s36, batch36))
+    torch.cuda.empty_cache()
+
+    phase(26, "small float8_e5m2 decodes: card vs CPU")
+    small_fp8_decodes(np, dev)
+
+    phase(27, "reg36 float8_e5m2 path")
+    sp_fp8 = StaticParams(max_log_parallel_factor_user=8,
+                          message_dtype="float8_e5m2")
+    dec_fp8 = LDPCDecoder(code36, ch36, sp_fp8, qc=s36)
+    assert dec_fp8.parallel_factor() == 256
+    assert isinstance(dec_fp8.tables, QCRegularTables)
+    stats_fp8, fp8_reg_launches = run_path(dec_fp8, dyn36, batch36, N_FRAMES,
+                                           FP8_REGULAR, "reg36 fp8")
+    lo, hi = REG36_FP8_AVG_ITERS
+    assert lo <= stats_fp8.avg_iter <= hi, stats_fp8.avg_iter
+    del dec_fp8, batch36
+    torch.cuda.empty_cache()
+
+    phase(28, "p41 float8_e5m2 path (recorded, not gated)")
+    dec_fp8 = LDPCDecoder(code, ch, sp_fp8, qc=s)
+    assert dec_fp8.parallel_factor() == 256
+    assert isinstance(dec_fp8.tables, GroupedQCTables)
+    _, fp8_grp_launches = run_path(dec_fp8, dyn, batch, N_FRAMES, FP8_GROUPED,
+                                   "p41 fp8", gate=False)
+    del dec_fp8, batch
+    torch.cuda.empty_cache()
+
+    phase(29, "the CLI")
+    phase_cli(np)
     log(f"  all phases passed in {time.perf_counter() - t_all:.1f} s")
 
     launches.update({name: launches36[name] for name in REGULAR})
@@ -1363,9 +1598,13 @@ def main():
                      for name in QC_MS_REGULAR[:2]})
     launches.update({name: ms_grp_launches[name]
                      for name in QC_MS_GROUPED[:2]})
+    launches.update({name: fp8_reg_launches[name]
+                     for name in FP8_REGULAR[:2]})
+    launches.update({name: fp8_grp_launches[name]
+                     for name in FP8_GROUPED[:2]})
     kernels = []
     for name, source, rep in KERNELS:
-        r = perf[name]
+        r = timings[name]
         entry = {"name": name, "route": "cuda", "source": source,
                  "replaces": rep, "launches": launches[name],
                  "max_abs_err": r["max_abs_err"], "ms": r["ms"],

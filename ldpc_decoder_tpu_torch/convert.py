@@ -21,7 +21,11 @@ port's pass and the outputs compared:
   maps back (pad rows zero).
 
 The maps only move blocks or rows, so they carry any message dtype (float32,
-bfloat16 widened to float32, int8) and any algorithm's state unchanged.
+bfloat16 widened to float32, int8, float8_e5m2) and any algorithm's state
+unchanged. numpy has no float8 type of its own: :func:`fp8_bits` gives the
+uint8 bit patterns of a float8_e5m2 torch tensor or numpy (ml_dtypes) array,
+which the maps carry and the tests compare, and :func:`fp8_from_bits` makes
+the tensor back.
 The JAX tables are only read through their group or bucket metadata
 (``row_groups``/``col_groups`` with ``block_start``; ``vn_buckets``/
 ``cn_buckets`` with ``count_pad``, ``node_start``, ``edge_start``) and the
@@ -32,6 +36,7 @@ neither JAX nor the JAX package.
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from ldpc_decoder_tpu_torch.codes.qc import QCStructure
 
@@ -44,6 +49,25 @@ def structure_from_numpy(Z, n_base_rows, n_base_cols, edge_row, edge_col,
         edge_col=np.asarray(edge_col, np.int32),
         edge_shift=np.asarray(edge_shift, np.int32),
     )
+
+
+def fp8_bits(x) -> np.ndarray:
+    """float8_e5m2 values -> their uint8 bit patterns: a torch tensor (any
+    device) or an array numpy can view, such as a JAX array's."""
+    if isinstance(x, torch.Tensor):
+        if x.dtype != torch.float8_e5m2:
+            raise ValueError(f"expected float8_e5m2, got {x.dtype}")
+        return x.detach().cpu().view(torch.uint8).numpy()
+    x = np.asarray(x)
+    if x.dtype.itemsize != 1:
+        raise ValueError(f"expected a 1-byte dtype, got {x.dtype}")
+    return x.view(np.uint8)
+
+
+def fp8_from_bits(bits) -> torch.Tensor:
+    """uint8 bit patterns -> a float8_e5m2 tensor on the CPU."""
+    return torch.from_numpy(np.ascontiguousarray(bits, np.uint8)).view(
+        torch.float8_e5m2)
 
 
 def block_map(jax_groups, port_groups) -> np.ndarray:

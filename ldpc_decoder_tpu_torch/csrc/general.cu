@@ -42,6 +42,7 @@
 namespace {
 
 using ldpc::from_f32;
+using ldpc::kPhiHigh;
 using ldpc::kSignBit;
 using ldpc::Llr;
 using ldpc::load_msg;
@@ -106,7 +107,7 @@ cn_general_kernel(const T* __restrict__ msgs_v,
     for (int k = 1; k < D; ++k) ext = __fadd_rn(ext, a[k]);
 #pragma unroll
     for (int k = 0; k < D; ++k) {
-      const float res = phi_abs(__fsub_rn(ext, a[k]), pre);
+      const float res = phi_abs(__fsub_rn(ext, a[k]), pre, kPhiHigh);
       const uint32_t sign = (((signs >> k) ^ x) & 1u) << 31;
       r_c[row[k] * B + b] = from_f32<T>(signed_f32(res, sign));
     }
@@ -156,7 +157,7 @@ vn_general_kernel(const T* __restrict__ r_c, const T* __restrict__ llr,
 #pragma unroll
     for (int k = 0; k < D; ++k) {
       const float p = __fsub_rn(tq, r[k]);
-      const float mag = phi_abs(fabsf(p), pre);
+      const float mag = phi_abs(fabsf(p), pre, kPhiHigh);
       msgs_v[row[k] * B + b] =
           from_f32<T>(signed_f32(mag, __float_as_uint(p) & kSignBit));
     }

@@ -11,7 +11,14 @@
 // order, r_c in check order; a degree-d group of `count` nodes owns the
 // contiguous blocks [block_start, block_start + count*d), node i slot k at
 // block_start + i*d + k. Node-sized arrays (llr, bits [C, Z, B]; syn
-// [R, Z, B]) are indexed by sorted node node_start + i. Each slot reads a
+// [R, Z, B]) are indexed by sorted node node_start + i. Messages are
+// float32, bfloat16 or float8_e5m2; the llr is the message dtype, bfloat16
+// for float8_e5m2. phi's input is clamped to [pre, high] with high = 80 for
+// every dtype, as the Pallas kernels do (qc_pallas_grouped.py:410-411,
+// :457-459): in float8_e5m2 a small phi value rounds to a subnormal or to
+// +-0, and the stored -0 keeps its sign bit for the check kernel's sign
+// algebra (to_f32 widens it to -0.0f: nothing flushes to zero). Each slot
+// reads a
 // rotated source block through a per-slot table (source block, shift s):
 // out[z] = src[(z + s) mod Z], for CN slots (msgs_v, shift s), VN slots
 // (r_c, shift -s mod Z) and parity slots (bits, shift s) alike.
@@ -33,6 +40,7 @@ namespace {
 
 using ldpc::from_f32;
 using ldpc::kSignBit;
+using ldpc::Llr;
 using ldpc::phi_abs;
 using ldpc::rotate;
 using ldpc::to_f32;
@@ -45,7 +53,8 @@ constexpr int kParityRowsPerBlock = 32; // parity rows walked per thread
 // ---- check-node update ------------------------------------------------------
 //
 // Replaces _cn_kernel_g (ldpc_decoder_tpu/ops/qc_pallas_grouped.py:332),
-// sum-product branch. For check row z of node i and lane b:
+// sum-product branch, float8_e5m2 included. For check row z of node i and
+// lane b:
 //   a_k = |m_k|, m_k = msgs_v[src_k][(z + s_k) mod Z]
 //   ext = a_0 + a_1 + ... (left to right, the Pallas order)
 //   X   = (syn ^ d) << 31 ^ (XOR of the sign bits of m_k)
@@ -60,7 +69,7 @@ __global__ void __launch_bounds__(kLaneThreads)
 cn_kernel(const T* __restrict__ msgs_v, const int8_t* __restrict__ syn,
           T* __restrict__ r_c, const int* __restrict__ slot_src,
           const int* __restrict__ slot_shift, int node_start,
-          int block_start, int Z, int B, float pre) {
+          int block_start, int Z, int B, float pre, float high) {
   const int b = blockIdx.x * kLaneThreads + threadIdx.x;
   if (b >= B) return;
   const int node = blockIdx.z;
@@ -95,7 +104,7 @@ cn_kernel(const T* __restrict__ msgs_v, const int8_t* __restrict__ syn,
     for (int k = 1; k < D; ++k) ext = ext + a[k];
 #pragma unroll
     for (int k = 0; k < D; ++k) {
-      const float res = phi_abs(ext - a[k], pre);
+      const float res = phi_abs(ext - a[k], pre, high);
       out[static_cast<size_t>(k) * ZB + static_cast<size_t>(z) * B] =
           from_f32<T>(__uint_as_float(__float_as_uint(res) | (sb[k] ^ X)));
     }
@@ -105,7 +114,8 @@ cn_kernel(const T* __restrict__ msgs_v, const int8_t* __restrict__ syn,
 // ---- variable-node update -------------------------------------------------
 //
 // Replaces _vn_kernel_g (ldpc_decoder_tpu/ops/qc_pallas_grouped.py:414),
-// sum-product branch. For column z of node i and lane b:
+// sum-product branch, float8_e5m2 included (bfloat16 llr, :758-762). For
+// column z of node i and lane b:
 //   w_k   = r_c[src_k][(z + s_k) mod Z]  (s_k = -shift mod Z)
 //   total = llr + w_0 + w_1 + ...        (slot order)
 //   pre_k = llr if d == 1 or the lane is fresh, else total - w_k
@@ -118,11 +128,12 @@ cn_kernel(const T* __restrict__ msgs_v, const int8_t* __restrict__ syn,
 // lane. Same simple design as the check kernel.
 template <typename T, int D>
 __global__ void __launch_bounds__(kLaneThreads)
-vn_kernel(const T* __restrict__ r_c, const T* __restrict__ llr,
+vn_kernel(const T* __restrict__ r_c,
+          const typename Llr<T>::type* __restrict__ llr,
           T* __restrict__ msgs_v, int8_t* __restrict__ bits,
           const uint8_t* __restrict__ fresh, const int* __restrict__ slot_src,
           const int* __restrict__ slot_shift, int node_start,
-          int block_start, int Z, int B, float pre) {
+          int block_start, int Z, int B, float pre, float high) {
   const int b = blockIdx.x * kLaneThreads + threadIdx.x;
   if (b >= B) return;
   const int node = blockIdx.z;
@@ -157,7 +168,7 @@ vn_kernel(const T* __restrict__ r_c, const T* __restrict__ llr,
 #pragma unroll
     for (int k = 0; k < D; ++k) {
       const float p = (D == 1 || fr) ? l : total - w[k];
-      const float mag = phi_abs(fabsf(p), pre);
+      const float mag = phi_abs(fabsf(p), pre, high);
       out[static_cast<size_t>(k) * ZB + row] = from_f32<T>(
           __uint_as_float(__float_as_uint(mag) | (__float_as_uint(p) & kSignBit)));
     }
@@ -213,25 +224,26 @@ dim3 grid_for(int B, int Z, int rows, int count) {
 template <typename T, int D>
 void launch_cn(const void* msgs_v, const void* syn, void* r_c,
                const int* src, const int* shift, int node_start, int count,
-               int block_start, int Z, int B, float pre, cudaStream_t s) {
+               int block_start, int Z, int B, float pre, float high,
+               cudaStream_t s) {
   cn_kernel<T, D><<<grid_for(B, Z, kRowsPerBlock, count), kLaneThreads, 0,
                     s>>>(static_cast<const T*>(msgs_v),
                          static_cast<const int8_t*>(syn),
                          static_cast<T*>(r_c), src, shift, node_start,
-                         block_start, Z, B, pre);
+                         block_start, Z, B, pre, high);
 }
 
 template <typename T, int D>
 void launch_vn(const void* r_c, const void* llr, void* msgs_v, void* bits,
                const void* fresh, const int* src, const int* shift,
                int node_start, int count, int block_start, int Z, int B,
-               float pre, cudaStream_t s) {
+               float pre, float high, cudaStream_t s) {
   vn_kernel<T, D><<<grid_for(B, Z, kRowsPerBlock, count), kLaneThreads, 0,
                     s>>>(static_cast<const T*>(r_c),
-                         static_cast<const T*>(llr),
+                         static_cast<const typename Llr<T>::type*>(llr),
                          static_cast<T*>(msgs_v), static_cast<int8_t*>(bits),
                          static_cast<const uint8_t*>(fresh), src, shift,
-                         node_start, block_start, Z, B, pre);
+                         node_start, block_start, Z, B, pre, high);
 }
 
 template <int D>
@@ -250,6 +262,20 @@ void launch_parity(const void* bits, const void* syn, void* flags,
   F(1) F(2) F(3) F(4) F(5) F(6) F(7) F(8) \
   F(9) F(10) F(11) F(12) F(13) F(14) F(15) F(16)
 
+// dtype codes of the message C entries: 0 float32, 1 bfloat16, 3 float8_e5m2
+// (ops/_kernels.py DTYPE_CODES); any other code is refused.
+#define LDPC_DTYPE_CASE(D)                                                  \
+  case D:                                                                   \
+    if (dtype == 0)                                                         \
+      LDPC_LAUNCH(float, D);                                                \
+    else if (dtype == 1)                                                    \
+      LDPC_LAUNCH(__nv_bfloat16, D);                                        \
+    else if (dtype == 3)                                                    \
+      LDPC_LAUNCH(__nv_fp8_e5m2, D);                                        \
+    else                                                                    \
+      return static_cast<int>(cudaErrorInvalidValue);                       \
+    break;
+
 extern "C" {
 
 int ldpc_max_degree() { return kMaxDegree; }
@@ -259,56 +285,45 @@ const char* ldpc_cuda_error_string(int err) {
 }
 
 // One check-degree group: r_c blocks [block_start, block_start+count*degree)
-// from msgs_v. bf16 != 0: bfloat16 messages, else float32.
+// from msgs_v; phi's input in [pre, high].
 int ldpc_cn_group(const void* msgs_v, const void* syn, void* r_c,
                   const void* slot_src, const void* slot_shift,
                   int node_start, int count, int degree, int block_start,
-                  int Z, int B, float pre, int bf16, void* stream) {
+                  int Z, int B, float pre, float high, int dtype,
+                  void* stream) {
   const int* src = static_cast<const int*>(slot_src);
   const int* shift = static_cast<const int*>(slot_shift);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (degree) {
-#define LDPC_CN_CASE(D)                                                     \
-  case D:                                                                   \
-    if (bf16)                                                               \
-      launch_cn<__nv_bfloat16, D>(msgs_v, syn, r_c, src, shift, node_start, \
-                                  count, block_start, Z, B, pre, s);        \
-    else                                                                    \
-      launch_cn<float, D>(msgs_v, syn, r_c, src, shift, node_start, count,  \
-                          block_start, Z, B, pre, s);                       \
-    break;
-    LDPC_FOR_EACH_DEGREE(LDPC_CN_CASE)
-#undef LDPC_CN_CASE
+#define LDPC_LAUNCH(T, D)                                                   \
+  launch_cn<T, D>(msgs_v, syn, r_c, src, shift, node_start, count,          \
+                  block_start, Z, B, pre, high, s)
+    LDPC_FOR_EACH_DEGREE(LDPC_DTYPE_CASE)
+#undef LDPC_LAUNCH
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
-// One variable-degree group: msgs_v blocks from r_c. bits (nullable): write
-// hard decisions [C, Z, B] int8. fresh (nullable): [B] bytes, nonzero =
-// lane refilled since the last superstep.
+// One variable-degree group: msgs_v blocks from r_c; llr in the message
+// dtype, bfloat16 for float8_e5m2. bits (nullable): write hard decisions
+// [C, Z, B] int8. fresh (nullable): [B] bytes, nonzero = lane refilled
+// since the last superstep.
 int ldpc_vn_group(const void* r_c, const void* llr, void* msgs_v, void* bits,
                   const void* fresh, const void* slot_src,
                   const void* slot_shift, int node_start, int count,
                   int degree, int block_start, int Z, int B, float pre,
-                  int bf16, void* stream) {
+                  float high, int dtype, void* stream) {
   const int* src = static_cast<const int*>(slot_src);
   const int* shift = static_cast<const int*>(slot_shift);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (degree) {
-#define LDPC_VN_CASE(D)                                                      \
-  case D:                                                                    \
-    if (bf16)                                                                \
-      launch_vn<__nv_bfloat16, D>(r_c, llr, msgs_v, bits, fresh, src, shift, \
-                                  node_start, count, block_start, Z, B, pre, \
-                                  s);                                        \
-    else                                                                     \
-      launch_vn<float, D>(r_c, llr, msgs_v, bits, fresh, src, shift,         \
-                          node_start, count, block_start, Z, B, pre, s);     \
-    break;
-    LDPC_FOR_EACH_DEGREE(LDPC_VN_CASE)
-#undef LDPC_VN_CASE
+#define LDPC_LAUNCH(T, D)                                                   \
+  launch_vn<T, D>(r_c, llr, msgs_v, bits, fresh, src, shift, node_start,    \
+                  count, block_start, Z, B, pre, high, s)
+    LDPC_FOR_EACH_DEGREE(LDPC_DTYPE_CASE)
+#undef LDPC_LAUNCH
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

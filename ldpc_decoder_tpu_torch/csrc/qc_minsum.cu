@@ -11,11 +11,12 @@
 // ([R, d_c, Z, B] / [C, d_v, Z, B], read tables [nodes, D, 3] of (source
 // node, source slot, shift)); a rotated read is out[z] = src[(z + s) mod Z].
 //
-// Messages are float32, bfloat16 or (grouped only) int8 fixed point at
-// qscale steps per unit: dequantized on read by x * (1/qscale), exact for a
-// power of two, and quantized on write (round half to even, saturated at
-// +-127; common.cuh). The llr is bfloat16 for int8 messages, else the
-// message dtype.
+// Messages are float32, bfloat16, float8_e5m2 (widened exactly on read,
+// rounded to nearest even on write, as torch and XLA convert) or (grouped
+// only) int8 fixed point at qscale steps per unit: dequantized on read by
+// x * (1/qscale), exact for a power of two, and quantized on write (round
+// half to even, saturated at +-127; common.cuh). The llr is bfloat16 for
+// the 1-byte dtypes, else the message dtype.
 //
 // Threads. A thread owns one lane b of one node and walks a few rows z, so
 // every row read and write is one coalesced run along B; blocks cover
@@ -245,7 +246,8 @@ vn_group_minsum_kernel(const T* __restrict__ r_c,
 //
 // Replaces _cn_kernel (ldpc_decoder_tpu/ops/qc_pallas.py:412), min-sum
 // branch (:446-459). One launch over all R checks: r_c [R, d_c, Z, B] from
-// msgs_v [C, d_v, Z, B] through cn_read [R, d_c, 3]; float32 or bfloat16.
+// msgs_v [C, d_v, Z, B] through cn_read [R, d_c, 3]; float32, bfloat16 or
+// float8_e5m2.
 // Bound on this card: bytes, as the grouped min-sum check kernel.
 template <typename T, int D>
 __global__ void __launch_bounds__(kLaneThreads)
@@ -280,7 +282,8 @@ cn_regular_minsum_kernel(const T* __restrict__ msgs_v,
 // the grouped kernel. Bound on this card: bytes, as the grouped kernel.
 template <typename T, int D>
 __global__ void __launch_bounds__(kLaneThreads)
-vn_regular_minsum_kernel(const T* __restrict__ r_c, const T* __restrict__ llr,
+vn_regular_minsum_kernel(const T* __restrict__ r_c,
+                         const typename Llr<T>::type* __restrict__ llr,
                          T* __restrict__ msgs_v, int8_t* __restrict__ bits,
                          const uint8_t* __restrict__ fresh,
                          const int* __restrict__ vn_read, int d_c, int Z,
@@ -312,7 +315,8 @@ vn_regular_minsum_kernel(const T* __restrict__ r_c, const T* __restrict__ llr,
   F(13) F(14) F(15) F(16) F(17) F(18) F(19) F(20) F(21) F(22)      \
   F(23) F(24) F(25) F(26) F(27) F(28) F(29) F(30) F(31) F(32)
 
-// dtype codes of the C entries: 0 float32, 1 bfloat16, 2 int8 (grouped only)
+// dtype codes of the C entries (ops/_kernels.py DTYPE_CODES): 0 float32,
+// 1 bfloat16, 2 int8 (grouped only), 3 float8_e5m2
 
 extern "C" {
 
@@ -348,6 +352,8 @@ int ldpc_cn_group_minsum(const void* msgs_v, const void* syn, void* r_c,
       LDPC_LAUNCH(__nv_bfloat16, D);                                        \
     else if (dtype == 2)                                                    \
       LDPC_LAUNCH(int8_t, D);                                               \
+    else if (dtype == 3)                                                    \
+      LDPC_LAUNCH(__nv_fp8_e5m2, D);                                        \
     else                                                                    \
       return static_cast<int>(cudaErrorInvalidValue);                       \
     break;
@@ -391,6 +397,8 @@ int ldpc_vn_group_minsum(const void* r_c, const void* llr, void* msgs_v,
       LDPC_LAUNCH(__nv_bfloat16, D);                                        \
     else if (dtype == 2)                                                    \
       LDPC_LAUNCH(int8_t, D);                                               \
+    else if (dtype == 3)                                                    \
+      LDPC_LAUNCH(__nv_fp8_e5m2, D);                                        \
     else                                                                    \
       return static_cast<int>(cudaErrorInvalidValue);                       \
     break;
@@ -403,8 +411,8 @@ int ldpc_vn_group_minsum(const void* r_c, const void* llr, void* msgs_v,
   return static_cast<int>(cudaGetLastError());
 }
 
-// Min-sum check pass over all R checks of a regular base. dtype 0 (float32)
-// or 1 (bfloat16).
+// Min-sum check pass over all R checks of a regular base. dtype 0
+// (float32), 1 (bfloat16) or 3 (float8_e5m2).
 int ldpc_cn_regular_minsum(const void* msgs_v, const void* syn, void* r_c,
                            const void* cn_read, int R, int d_c, int d_v,
                            int Z, int B, float alpha, float beta, int dtype,
@@ -424,6 +432,8 @@ int ldpc_cn_regular_minsum(const void* msgs_v, const void* syn, void* r_c,
       LDPC_LAUNCH(float, D);                                                \
     else if (dtype == 1)                                                    \
       LDPC_LAUNCH(__nv_bfloat16, D);                                        \
+    else if (dtype == 3)                                                    \
+      LDPC_LAUNCH(__nv_fp8_e5m2, D);                                        \
     else                                                                    \
       return static_cast<int>(cudaErrorInvalidValue);                       \
     break;
@@ -437,8 +447,9 @@ int ldpc_cn_regular_minsum(const void* msgs_v, const void* syn, void* r_c,
 }
 
 // Min-sum variable pass over all C variables of a regular base; bits and
-// fresh (nullable) as in ldpc_vn_group_minsum. dtype 0 (float32) or 1
-// (bfloat16); llr in the message dtype.
+// fresh (nullable) as in ldpc_vn_group_minsum. dtype 0 (float32), 1
+// (bfloat16) or 3 (float8_e5m2); llr in the message dtype, bfloat16 for
+// float8_e5m2.
 int ldpc_vn_regular_minsum(const void* r_c, const void* llr, void* msgs_v,
                            void* bits, const void* fresh, const void* vn_read,
                            int C, int d_v, int d_c, int Z, int B, float clamp,
@@ -451,7 +462,8 @@ int ldpc_vn_regular_minsum(const void* r_c, const void* llr, void* msgs_v,
   switch (d_v) {
 #define LDPC_LAUNCH(T, D)                                                   \
   vn_regular_minsum_kernel<T, D><<<grid, kLaneThreads, 0, s>>>(             \
-      static_cast<const T*>(r_c), static_cast<const T*>(llr),               \
+      static_cast<const T*>(r_c),                                           \
+      static_cast<const typename Llr<T>::type*>(llr),                       \
       static_cast<T*>(msgs_v), hb, fr, tab, d_c, Z, B, clamp)
 #define LDPC_CASE(D)                                                        \
   case D:                                                                   \
@@ -459,6 +471,8 @@ int ldpc_vn_regular_minsum(const void* r_c, const void* llr, void* msgs_v,
       LDPC_LAUNCH(float, D);                                                \
     else if (dtype == 1)                                                    \
       LDPC_LAUNCH(__nv_bfloat16, D);                                        \
+    else if (dtype == 3)                                                    \
+      LDPC_LAUNCH(__nv_fp8_e5m2, D);                                        \
     else                                                                    \
       return static_cast<int>(cudaErrorInvalidValue);                       \
     break;

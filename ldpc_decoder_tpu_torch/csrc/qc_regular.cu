@@ -10,7 +10,10 @@
 // Layout (the JAX package's regular layout, ops/qc_pallas.py): frames
 // (lanes) on the last, fastest axis; msgs_v [C, d_v, Z, B] in variable
 // order, r_c [R, d_c, Z, B] in check order, llr and bits [C, Z, B], syn
-// [R, Z, B] int8. Read tables [nodes, D, 3] int32 hold (source node,
+// [R, Z, B] int8. Messages are float32, bfloat16 or float8_e5m2; the llr
+// is the message dtype, bfloat16 for float8_e5m2. phi's input is clamped
+// to [pre, high]: high = 10 for float8_e5m2 (qc_pallas.py:77-84), so every
+// phi value the kernels store stays a normal e5m2, else 80. Read tables [nodes, D, 3] int32 hold (source node,
 // source slot, shift s) per slot: slot k of a node reads the circulant
 // row out[z] = src[(z + s) mod Z] of block src_node * d_src + src_slot —
 // msgs_v with the block's shift for a CN slot, r_c with (-s) mod Z for a
@@ -34,6 +37,7 @@ namespace {
 
 using ldpc::from_f32;
 using ldpc::kSignBit;
+using ldpc::Llr;
 using ldpc::phi_abs;
 using ldpc::rotate;
 using ldpc::to_f32;
@@ -67,11 +71,12 @@ dim3 grid_for(int B, int Z, int rows, int nodes) {
 // ---- check-node update ------------------------------------------------------
 //
 // Replaces _cn_kernel (ldpc_decoder_tpu/ops/qc_pallas.py:412), sum-product
-// branch. For check row z of check node r and lane b:
+// branch, float8_e5m2 included (:539-541). For check row z of check node r
+// and lane b:
 //   a_k = |m_k|, m_k = msgs_v[blk_k][(z + s_k) mod Z]
 //   ext = a_0 + a_1 + ... (left to right, the Pallas order)
 //   x   = syn ^ (d_c odd) ^ (parity of the sign bits of m)   (one bit)
-//   r_c[r, k] = phi_abs(ext - a_k) | ((signbit(m_k) ^ x) << 31)
+//   r_c[r, k] = phi_abs(ext - a_k; pre, high) | ((signbit(m_k) ^ x) << 31)
 // which is the Pallas kernel's X = (syn << 31) ^ (d odd ? sign : 0) ^ XOR_j
 // sb_j algebra with the d_c sign bits packed into one register.
 // Bound on this card: bytes (d_c reads + d_c writes of the message dtype
@@ -85,7 +90,7 @@ __global__ void __launch_bounds__(kLaneThreads)
 cn_regular_kernel(const T* __restrict__ msgs_v,
                   const int8_t* __restrict__ syn, T* __restrict__ r_c,
                   const int* __restrict__ cn_read, int d_v, int Z, int B,
-                  float pre) {
+                  float pre, float high) {
   __shared__ int blk[D];
   __shared__ int sh[D];
   const int node = blockIdx.z;
@@ -116,7 +121,7 @@ cn_regular_kernel(const T* __restrict__ msgs_v,
     for (int k = 1; k < D; ++k) ext = ext + a[k];
 #pragma unroll
     for (int k = 0; k < D; ++k) {
-      const float res = phi_abs(ext - a[k], pre);
+      const float res = phi_abs(ext - a[k], pre, high);
       const uint32_t sign = (((signs >> k) ^ x) & 1u) << 31;
       out[static_cast<size_t>(k) * ZB + static_cast<size_t>(z) * B] =
           from_f32<T>(__uint_as_float(__float_as_uint(res) | sign));
@@ -127,11 +132,12 @@ cn_regular_kernel(const T* __restrict__ msgs_v,
 // ---- variable-node update -------------------------------------------------
 //
 // Replaces _vn_kernel (ldpc_decoder_tpu/ops/qc_pallas.py:469), sum-product
-// branch. For column z of variable node c and lane b:
+// branch, float8_e5m2 included (:602-605, bfloat16 llr :660-662). For
+// column z of variable node c and lane b:
 //   w_k   = r_c[blk_k][(z + s_k) mod Z]   (s_k = -shift mod Z)
 //   total = llr + w_0 + w_1 + ...         (slot order)
 //   pre_k = llr if the lane is fresh, else total - w_k
-//   msgs_v[c, k] = phi_abs(|pre_k|) | signbit(pre_k)
+//   msgs_v[c, k] = phi_abs(|pre_k|; pre, high) | signbit(pre_k)
 //   bits (emit only) = !signbit(fresh ? llr : total)   (-0 decodes as 1)
 // A fresh lane was just refilled: its messages are a retired frame's, so it
 // emits the init message phi(llr) instead (the lane-reset refill).
@@ -140,11 +146,12 @@ cn_regular_kernel(const T* __restrict__ msgs_v,
 // kernel.
 template <typename T, int D>
 __global__ void __launch_bounds__(kLaneThreads)
-vn_regular_kernel(const T* __restrict__ r_c, const T* __restrict__ llr,
+vn_regular_kernel(const T* __restrict__ r_c,
+                  const typename Llr<T>::type* __restrict__ llr,
                   T* __restrict__ msgs_v, int8_t* __restrict__ bits,
                   const uint8_t* __restrict__ fresh,
                   const int* __restrict__ vn_read, int d_c, int Z, int B,
-                  float pre) {
+                  float pre, float high) {
   __shared__ int blk[D];
   __shared__ int sh[D];
   const int node = blockIdx.z;
@@ -176,7 +183,7 @@ vn_regular_kernel(const T* __restrict__ r_c, const T* __restrict__ llr,
 #pragma unroll
     for (int k = 0; k < D; ++k) {
       const float p = fr ? l : total - w[k];
-      const float mag = phi_abs(fabsf(p), pre);
+      const float mag = phi_abs(fabsf(p), pre, high);
       out[static_cast<size_t>(k) * ZB + row] = from_f32<T>(__uint_as_float(
           __float_as_uint(mag) | (__float_as_uint(p) & kSignBit)));
     }
@@ -228,6 +235,20 @@ parity_regular_kernel(const int8_t* __restrict__ bits,
   F(13) F(14) F(15) F(16) F(17) F(18) F(19) F(20) F(21) F(22)      \
   F(23) F(24) F(25) F(26) F(27) F(28) F(29) F(30) F(31) F(32)
 
+// dtype codes of the message C entries: 0 float32, 1 bfloat16, 3 float8_e5m2
+// (ops/_kernels.py DTYPE_CODES); any other code is refused.
+#define LDPC_DTYPE_CASE(D)                                                  \
+  case D:                                                                   \
+    if (dtype == 0)                                                         \
+      LDPC_LAUNCH(float, D);                                                \
+    else if (dtype == 1)                                                    \
+      LDPC_LAUNCH(__nv_bfloat16, D);                                        \
+    else if (dtype == 3)                                                    \
+      LDPC_LAUNCH(__nv_fp8_e5m2, D);                                        \
+    else                                                                    \
+      return static_cast<int>(cudaErrorInvalidValue);                       \
+    break;
+
 extern "C" {
 
 int ldpc_max_degree() { return kMaxDegree; }
@@ -237,29 +258,21 @@ const char* ldpc_cuda_error_string(int err) {
 }
 
 // Check-node pass over all R checks: r_c [R, d_c, Z, B] from msgs_v
-// [C, d_v, Z, B] through cn_read [R, d_c, 3]. bf16 != 0: bfloat16
-// messages, else float32.
+// [C, d_v, Z, B] through cn_read [R, d_c, 3]; phi's input in [pre, high].
 int ldpc_cn_regular(const void* msgs_v, const void* syn, void* r_c,
                     const void* cn_read, int R, int d_c, int d_v, int Z,
-                    int B, float pre, int bf16, void* stream) {
+                    int B, float pre, float high, int dtype, void* stream) {
   const dim3 grid = grid_for(B, Z, kRowsPerBlock, R);
   const int* tab = static_cast<const int*>(cn_read);
   const int8_t* sy = static_cast<const int8_t*>(syn);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (d_c) {
-#define LDPC_CN_CASE(D)                                                      \
-  case D:                                                                    \
-    if (bf16)                                                                \
-      cn_regular_kernel<__nv_bfloat16, D><<<grid, kLaneThreads, 0, s>>>(     \
-          static_cast<const __nv_bfloat16*>(msgs_v), sy,                     \
-          static_cast<__nv_bfloat16*>(r_c), tab, d_v, Z, B, pre);            \
-    else                                                                     \
-      cn_regular_kernel<float, D><<<grid, kLaneThreads, 0, s>>>(             \
-          static_cast<const float*>(msgs_v), sy, static_cast<float*>(r_c),   \
-          tab, d_v, Z, B, pre);                                              \
-    break;
-    LDPC_FOR_EACH_DEGREE(LDPC_CN_CASE)
-#undef LDPC_CN_CASE
+#define LDPC_LAUNCH(T, D)                                                   \
+  cn_regular_kernel<T, D><<<grid, kLaneThreads, 0, s>>>(                    \
+      static_cast<const T*>(msgs_v), sy, static_cast<T*>(r_c), tab, d_v, Z, \
+      B, pre, high)
+    LDPC_FOR_EACH_DEGREE(LDPC_DTYPE_CASE)
+#undef LDPC_LAUNCH
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -267,33 +280,27 @@ int ldpc_cn_regular(const void* msgs_v, const void* syn, void* r_c,
 }
 
 // Variable-node pass over all C variables: msgs_v [C, d_v, Z, B] from r_c
-// [R, d_c, Z, B] through vn_read [C, d_v, 3]. bits (nullable): write hard
-// decisions [C, Z, B] int8. fresh (nullable): [B] bytes, nonzero = lane
-// refilled since the last superstep.
+// [R, d_c, Z, B] through vn_read [C, d_v, 3]. llr [C, Z, B] in the message
+// dtype, bfloat16 for float8_e5m2. bits (nullable): write hard decisions
+// [C, Z, B] int8. fresh (nullable): [B] bytes, nonzero = lane refilled
+// since the last superstep.
 int ldpc_vn_regular(const void* r_c, const void* llr, void* msgs_v,
                     void* bits, const void* fresh, const void* vn_read,
                     int C, int d_v, int d_c, int Z, int B, float pre,
-                    int bf16, void* stream) {
+                    float high, int dtype, void* stream) {
   const dim3 grid = grid_for(B, Z, kRowsPerBlock, C);
   const int* tab = static_cast<const int*>(vn_read);
   int8_t* hb = static_cast<int8_t*>(bits);
   const uint8_t* fr = static_cast<const uint8_t*>(fresh);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (d_v) {
-#define LDPC_VN_CASE(D)                                                      \
-  case D:                                                                    \
-    if (bf16)                                                                \
-      vn_regular_kernel<__nv_bfloat16, D><<<grid, kLaneThreads, 0, s>>>(     \
-          static_cast<const __nv_bfloat16*>(r_c),                            \
-          static_cast<const __nv_bfloat16*>(llr),                            \
-          static_cast<__nv_bfloat16*>(msgs_v), hb, fr, tab, d_c, Z, B, pre); \
-    else                                                                     \
-      vn_regular_kernel<float, D><<<grid, kLaneThreads, 0, s>>>(             \
-          static_cast<const float*>(r_c), static_cast<const float*>(llr),    \
-          static_cast<float*>(msgs_v), hb, fr, tab, d_c, Z, B, pre);         \
-    break;
-    LDPC_FOR_EACH_DEGREE(LDPC_VN_CASE)
-#undef LDPC_VN_CASE
+#define LDPC_LAUNCH(T, D)                                                   \
+  vn_regular_kernel<T, D><<<grid, kLaneThreads, 0, s>>>(                    \
+      static_cast<const T*>(r_c),                                           \
+      static_cast<const typename Llr<T>::type*>(llr),                       \
+      static_cast<T*>(msgs_v), hb, fr, tab, d_c, Z, B, pre, high)
+    LDPC_FOR_EACH_DEGREE(LDPC_DTYPE_CASE)
+#undef LDPC_LAUNCH
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

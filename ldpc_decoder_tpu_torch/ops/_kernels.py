@@ -16,7 +16,10 @@ carries the decoder.
 Each launch function below launches one kernel on the current torch
 stream and adds one to its entry of :data:`launch_counts` (the port's only
 global state), so a run can show that its main path went through the
-kernels. Argument checking is the callers' job
+kernels. The QC sum-product kernels count their float8_e5m2 launches
+apart (``cn_fp8``, ``vn_fp8``, ``cn_regular_fp8``, ``vn_regular_fp8``),
+since those are the float8 branches of other TPU kernels' rows; the
+min-sum kernels count every message dtype under one name. Argument checking is the callers' job
 (:mod:`ldpc_decoder_tpu_torch.ops.qc_grouped`,
 :mod:`ldpc_decoder_tpu_torch.ops.qc_regular`,
 :mod:`ldpc_decoder_tpu_torch.ops.general`); a nonzero CUDA error from a
@@ -53,6 +56,8 @@ MAX_DEGREES = {"qc_grouped": 16, "qc_regular": 32, "qc_minsum": 32,
 
 launch_counts = {"cn": 0, "vn": 0, "parity": 0,
                  "cn_regular": 0, "vn_regular": 0, "parity_regular": 0,
+                 "cn_fp8": 0, "vn_fp8": 0,
+                 "cn_regular_fp8": 0, "vn_regular_fp8": 0,
                  "cn_general": 0, "vn_general": 0,
                  "cn_general_minsum": 0, "vn_general_minsum": 0,
                  "cn_group_minsum": 0, "vn_group_minsum": 0,
@@ -63,17 +68,18 @@ _p, _i, _f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # Every library also exports ldpc_max_degree() and ldpc_cuda_error_string.
 _SIGNATURES = {
     "qc_grouped": {
-        "ldpc_cn_group": [_p, _p, _p, _p, _p, _i, _i, _i, _i, _i, _i, _f, _i,
-                          _p],
+        "ldpc_cn_group": [_p, _p, _p, _p, _p, _i, _i, _i, _i, _i, _i, _f, _f,
+                          _i, _p],
         "ldpc_vn_group": [_p, _p, _p, _p, _p, _p, _p, _i, _i, _i, _i, _i, _i,
-                          _f, _i, _p],
+                          _f, _f, _i, _p],
         "ldpc_parity_group": [_p, _p, _p, _p, _p, _i, _i, _i, _i, _i, _i,
                               _p],
     },
     "qc_regular": {
-        "ldpc_cn_regular": [_p, _p, _p, _p, _i, _i, _i, _i, _i, _f, _i, _p],
+        "ldpc_cn_regular": [_p, _p, _p, _p, _i, _i, _i, _i, _i, _f, _f, _i,
+                            _p],
         "ldpc_vn_regular": [_p, _p, _p, _p, _p, _p, _i, _i, _i, _i, _i, _f,
-                            _i, _p],
+                            _f, _i, _p],
         "ldpc_parity_regular": [_p, _p, _p, _p, _i, _i, _i, _i, _p],
     },
     "qc_minsum": {
@@ -96,8 +102,10 @@ _SIGNATURES = {
                                    _f, _f, _i, _p],
     },
 }
-# message dtype codes of the general and min-sum libraries
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+# message dtype codes of every library's C entries (each takes the ones
+# its kernels are instantiated for and refuses the others)
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2,
+               torch.float8_e5m2: 3}
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
@@ -158,30 +166,36 @@ def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+def _fp8(name: str, dtype: torch.dtype) -> str:
+    """The launch-count name of a sum-product kernel for ``dtype``."""
+    return f"{name}_fp8" if dtype == torch.float8_e5m2 else name
+
+
 def cn_group(msgs_v, syn, r_c, src, shift, g, Z: int, B: int,
-             pre: float) -> None:
-    """Check-node kernel for one check-degree group ``g``."""
+             pre: float, high: float) -> None:
+    """Check-node kernel for one check-degree group ``g``; φ's input in
+    [pre, high]."""
     lib = load("qc_grouped")
     err = lib.ldpc_cn_group(
         _ptr(msgs_v), _ptr(syn), _ptr(r_c), _ptr(src), _ptr(shift),
-        g.node_start, g.count, g.degree, g.block_start, Z, B, pre,
-        int(msgs_v.dtype == torch.bfloat16), _stream(msgs_v))
+        g.node_start, g.count, g.degree, g.block_start, Z, B, pre, high,
+        DTYPE_CODES[msgs_v.dtype], _stream(msgs_v))
     _check(lib, err, "check-node kernel")
-    launch_counts["cn"] += 1
+    launch_counts[_fp8("cn", msgs_v.dtype)] += 1
 
 
 def vn_group(r_c, llr, msgs_v, bits, fresh, src, shift, g, Z: int, B: int,
-             pre: float) -> None:
+             pre: float, high: float) -> None:
     """Variable-node kernel for one variable-degree group ``g``; ``bits``
     and ``fresh`` may be None."""
     lib = load("qc_grouped")
     err = lib.ldpc_vn_group(
         _ptr(r_c), _ptr(llr), _ptr(msgs_v), _ptr(bits), _ptr(fresh),
         _ptr(src), _ptr(shift), g.node_start, g.count, g.degree,
-        g.block_start, Z, B, pre, int(r_c.dtype == torch.bfloat16),
+        g.block_start, Z, B, pre, high, DTYPE_CODES[r_c.dtype],
         _stream(r_c))
     _check(lib, err, "variable-node kernel")
-    launch_counts["vn"] += 1
+    launch_counts[_fp8("vn", r_c.dtype)] += 1
 
 
 def parity_group(bits, syn, flags, src, shift, g, Z: int, B: int) -> None:
@@ -194,27 +208,29 @@ def parity_group(bits, syn, flags, src, shift, g, Z: int, B: int) -> None:
     launch_counts["parity"] += 1
 
 
-def cn_regular(msgs_v, syn, r_c, tables, pre: float) -> None:
-    """Regular check-node kernel over all R checks (one launch)."""
+def cn_regular(msgs_v, syn, r_c, tables, pre: float, high: float) -> None:
+    """Regular check-node kernel over all R checks (one launch); φ's input
+    in [pre, high]."""
     lib = load("qc_regular")
     err = lib.ldpc_cn_regular(
         _ptr(msgs_v), _ptr(syn), _ptr(r_c), _ptr(tables.cn_read), tables.R,
-        tables.d_c, tables.d_v, tables.Z, msgs_v.shape[-1], pre,
-        int(msgs_v.dtype == torch.bfloat16), _stream(msgs_v))
+        tables.d_c, tables.d_v, tables.Z, msgs_v.shape[-1], pre, high,
+        DTYPE_CODES[msgs_v.dtype], _stream(msgs_v))
     _check(lib, err, "regular check-node kernel")
-    launch_counts["cn_regular"] += 1
+    launch_counts[_fp8("cn_regular", msgs_v.dtype)] += 1
 
 
-def vn_regular(r_c, llr, msgs_v, bits, fresh, tables, pre: float) -> None:
+def vn_regular(r_c, llr, msgs_v, bits, fresh, tables, pre: float,
+               high: float) -> None:
     """Regular variable-node kernel over all C variables (one launch);
     ``bits`` and ``fresh`` may be None."""
     lib = load("qc_regular")
     err = lib.ldpc_vn_regular(
         _ptr(r_c), _ptr(llr), _ptr(msgs_v), _ptr(bits), _ptr(fresh),
         _ptr(tables.vn_read), tables.C, tables.d_v, tables.d_c, tables.Z,
-        r_c.shape[-1], pre, int(r_c.dtype == torch.bfloat16), _stream(r_c))
+        r_c.shape[-1], pre, high, DTYPE_CODES[r_c.dtype], _stream(r_c))
     _check(lib, err, "regular variable-node kernel")
-    launch_counts["vn_regular"] += 1
+    launch_counts[_fp8("vn_regular", r_c.dtype)] += 1
 
 
 def parity_regular(bits, syn, flags, tables) -> None:
@@ -233,7 +249,7 @@ def cn_general(msgs_v, syn, r_c, perm_v2c, bucket, pre: float) -> None:
     err = lib.ldpc_cn_general(
         _ptr(msgs_v), _ptr(syn), _ptr(r_c), _ptr(perm_v2c), bucket.row_start,
         bucket.count, bucket.degree, bucket.edge_start, msgs_v.shape[-1], pre,
-        _DTYPE_CODES[msgs_v.dtype], _stream(msgs_v))
+        DTYPE_CODES[msgs_v.dtype], _stream(msgs_v))
     _check(lib, err, "general check-node kernel")
     launch_counts["cn_general"] += 1
 
@@ -245,7 +261,7 @@ def vn_general(r_c, llr, msgs_v, bits, perm_c2v, bucket, pre: float) -> None:
     err = lib.ldpc_vn_general(
         _ptr(r_c), _ptr(llr), _ptr(msgs_v), _ptr(bits), _ptr(perm_c2v),
         bucket.row_start, bucket.count, bucket.degree, bucket.edge_start,
-        r_c.shape[-1], pre, _DTYPE_CODES[r_c.dtype], _stream(r_c))
+        r_c.shape[-1], pre, DTYPE_CODES[r_c.dtype], _stream(r_c))
     _check(lib, err, "general variable-node kernel")
     launch_counts["vn_general"] += 1
 
@@ -258,7 +274,7 @@ def cn_general_minsum(msgs_v, syn, r_c, perm_v2c, bucket, alpha: float,
     err = lib.ldpc_cn_general_minsum(
         _ptr(msgs_v), _ptr(syn), _ptr(r_c), _ptr(perm_v2c), bucket.row_start,
         bucket.count, bucket.degree, bucket.edge_start, msgs_v.shape[-1],
-        alpha, beta, qscale, _DTYPE_CODES[msgs_v.dtype], _stream(msgs_v))
+        alpha, beta, qscale, DTYPE_CODES[msgs_v.dtype], _stream(msgs_v))
     _check(lib, err, "general min-sum check-node kernel")
     launch_counts["cn_general_minsum"] += 1
 
@@ -271,7 +287,7 @@ def vn_general_minsum(r_c, llr, msgs_v, bits, perm_c2v, bucket,
     err = lib.ldpc_vn_general_minsum(
         _ptr(r_c), _ptr(llr), _ptr(msgs_v), _ptr(bits), _ptr(perm_c2v),
         bucket.row_start, bucket.count, bucket.degree, bucket.edge_start,
-        r_c.shape[-1], clamp, qscale, _DTYPE_CODES[r_c.dtype], _stream(r_c))
+        r_c.shape[-1], clamp, qscale, DTYPE_CODES[r_c.dtype], _stream(r_c))
     _check(lib, err, "general min-sum variable-node kernel")
     launch_counts["vn_general_minsum"] += 1
 
@@ -284,7 +300,7 @@ def cn_group_minsum(msgs_v, syn, r_c, src, shift, g, Z: int, B: int,
     err = lib.ldpc_cn_group_minsum(
         _ptr(msgs_v), _ptr(syn), _ptr(r_c), _ptr(src), _ptr(shift),
         g.node_start, g.count, g.degree, g.block_start, Z, B, alpha, beta,
-        qscale, _DTYPE_CODES[msgs_v.dtype], _stream(msgs_v))
+        qscale, DTYPE_CODES[msgs_v.dtype], _stream(msgs_v))
     _check(lib, err, "grouped min-sum check-node kernel")
     launch_counts["cn_group_minsum"] += 1
 
@@ -297,7 +313,7 @@ def vn_group_minsum(r_c, llr, msgs_v, bits, fresh, src, shift, g, Z: int,
     err = lib.ldpc_vn_group_minsum(
         _ptr(r_c), _ptr(llr), _ptr(msgs_v), _ptr(bits), _ptr(fresh),
         _ptr(src), _ptr(shift), g.node_start, g.count, g.degree,
-        g.block_start, Z, B, clamp, qscale, _DTYPE_CODES[r_c.dtype],
+        g.block_start, Z, B, clamp, qscale, DTYPE_CODES[r_c.dtype],
         _stream(r_c))
     _check(lib, err, "grouped min-sum variable-node kernel")
     launch_counts["vn_group_minsum"] += 1
@@ -310,7 +326,7 @@ def cn_regular_minsum(msgs_v, syn, r_c, tables, alpha: float,
     err = lib.ldpc_cn_regular_minsum(
         _ptr(msgs_v), _ptr(syn), _ptr(r_c), _ptr(tables.cn_read), tables.R,
         tables.d_c, tables.d_v, tables.Z, msgs_v.shape[-1], alpha, beta,
-        _DTYPE_CODES[msgs_v.dtype], _stream(msgs_v))
+        DTYPE_CODES[msgs_v.dtype], _stream(msgs_v))
     _check(lib, err, "regular min-sum check-node kernel")
     launch_counts["cn_regular_minsum"] += 1
 
@@ -323,6 +339,6 @@ def vn_regular_minsum(r_c, llr, msgs_v, bits, fresh, tables,
     err = lib.ldpc_vn_regular_minsum(
         _ptr(r_c), _ptr(llr), _ptr(msgs_v), _ptr(bits), _ptr(fresh),
         _ptr(tables.vn_read), tables.C, tables.d_v, tables.d_c, tables.Z,
-        r_c.shape[-1], clamp, _DTYPE_CODES[r_c.dtype], _stream(r_c))
+        r_c.shape[-1], clamp, DTYPE_CODES[r_c.dtype], _stream(r_c))
     _check(lib, err, "regular min-sum variable-node kernel")
     launch_counts["vn_regular_minsum"] += 1

@@ -110,7 +110,7 @@ class GeneralTables:
 
     @staticmethod
     def from_compiled(cc: CompiledCode,
-                      device: torch.device | str = "cpu") -> "GeneralTables":
+                      device: torch.device | str) -> "GeneralTables":
         code = cc.code
         vedge = _edge_map(cc.vn_buckets, code.n_edges)
         cedge = _edge_map(cc.cn_buckets, code.n_edges)

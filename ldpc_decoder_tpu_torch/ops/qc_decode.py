@@ -54,8 +54,8 @@ class QCDecodeTables:
     erased_mask_sorted: torch.Tensor  # [n_vars, 1] bool
 
     @staticmethod
-    def from_structure(s: QCStructure, n_erased_vars: int = 0,
-                       device: torch.device | str = "cpu") -> "QCDecodeTables":
+    def from_structure(s: QCStructure, n_erased_vars: int,
+                       device: torch.device | str) -> "QCDecodeTables":
         Z = s.Z
         row_deg = s.row_degrees()
         col_deg = s.col_degrees()
@@ -135,8 +135,9 @@ class QCDecodeTables:
 
 def llr_dtype(msg_dtype: torch.dtype) -> torch.dtype:
     """LLR-state dtype for a message dtype: the message dtype, bfloat16 for
-    1-byte messages (``ldpc_decoder_tpu/runtime/decoder.py:327-329``)."""
-    return torch.bfloat16 if msg_dtype == torch.int8 else msg_dtype
+    1-byte messages, int8 and float8_e5m2
+    (``ldpc_decoder_tpu/runtime/decoder.py:327-329``)."""
+    return torch.bfloat16 if msg_dtype.itemsize == 1 else msg_dtype
 
 
 def quantize_msgs(x: torch.Tensor, qscale: float) -> torch.Tensor:
@@ -156,7 +157,8 @@ def dequantize_msgs(m: torch.Tensor, qscale: float) -> torch.Tensor:
 
 
 def msgs_to_f32(x: torch.Tensor, qscale: float) -> torch.Tensor:
-    """Stored messages -> float32 (int8: dequantized)."""
+    """Stored messages -> float32 (int8: dequantized; float dtypes,
+    float8_e5m2 included, exactly)."""
     if x.dtype == torch.int8:
         return dequantize_msgs(x, qscale)
     return x.to(torch.float32)
@@ -164,7 +166,8 @@ def msgs_to_f32(x: torch.Tensor, qscale: float) -> torch.Tensor:
 
 def store_msgs(out: torch.Tensor, vals: torch.Tensor, qscale: float) -> None:
     """Write float32 messages into ``out`` in its dtype (int8: quantized,
-    else rounded to nearest even)."""
+    else rounded to nearest even; float8_e5m2 overflows to ±inf, as torch
+    and XLA convert)."""
     if out.dtype == torch.int8:
         out.copy_(quantize_msgs(vals, qscale))
     else:

@@ -19,14 +19,19 @@ Every pass writes its output in place, group by group: ``cn_pass_grouped``
 rewrites all of ``r_c`` and ``vn_pass_grouped`` its groups of ``msgs_v``, so
 an iteration allocates no edge-sized buffer.
 
-Two check rules, as in the JAX kernels: sum-product (φ, float32 or
-bfloat16 messages) and normalized/offset min-sum (float32, bfloat16 or
-int8 fixed-point messages; ``qc_pallas_grouped.py:385-400``,
+Two check rules, as in the JAX kernels: sum-product (φ, float32, bfloat16
+or float8_e5m2 messages) and normalized/offset min-sum (float32, bfloat16,
+float8_e5m2 or int8 fixed-point messages; ``qc_pallas_grouped.py:385-400``,
 ``:443-455``): |out_k| = max(α_d·(min over j ≠ k of |m_j|) − β, 0) with
 ties to the first minimum and m2 = 0 for a sole edge, and the variable
 messages clip(total − w_k, ±clamp), the llr itself for d = 1. int8
-messages are dequantized on read and quantized on write; their llr is
-bfloat16.
+messages are dequantized on read and quantized on write; float8_e5m2 ones
+are converted exactly on read and rounded to nearest even on write. Both
+1-byte dtypes keep a bfloat16 llr. Unlike the regular family, this one
+clamps φ's input at 80 for every dtype, as its JAX kernels do
+(``qc_pallas_grouped.py:410-411``, ``:457-459``): in float8_e5m2 a small φ
+underflows to a subnormal or to ±0, and the stored −0 keeps its sign bit,
+which the check pass's sign algebra reads.
 
 Each pass has a plain PyTorch version (``*_plain``: a per-group loop of
 gathers and elementwise ops, same summation order) and a kernel
@@ -44,7 +49,12 @@ import torch
 
 from ldpc_decoder_tpu_torch.ops import _kernels
 from ldpc_decoder_tpu_torch.ops._dispatch import backend, check
-from ldpc_decoder_tpu_torch.ops.phi import PRE_THRESHOLD, phi, phi_abs
+from ldpc_decoder_tpu_torch.ops.phi import (
+    HIGH_THRESHOLD,
+    PRE_THRESHOLD,
+    phi,
+    phi_abs,
+)
 from ldpc_decoder_tpu_torch.ops.qc_decode import (
     QCDecodeTables,
     llr_dtype,
@@ -56,8 +66,8 @@ from ldpc_decoder_tpu_torch.ops.qc_decode import (
     store_msgs,
 )
 
-_MSG_DTYPES = (torch.float32, torch.bfloat16)
-_MS_DTYPES = (torch.float32, torch.bfloat16, torch.int8)
+_MSG_DTYPES = (torch.float32, torch.bfloat16, torch.float8_e5m2)
+_MS_DTYPES = _MSG_DTYPES + (torch.int8,)
 _SIGN = -(1 << 31)  # the float32 sign bit as an int32
 
 
@@ -213,7 +223,8 @@ def cn_pass_grouped(msgs_v, syn, r_c, tables: GroupedQCTables,
     with torch.cuda.device(msgs_v.device):
         for g in tables.row_groups:
             _kernels.cn_group(msgs_v, syn, r_c, tables.cn_src,
-                              tables.cn_shift, g, tables.Z, B, pre)
+                              tables.cn_shift, g, tables.Z, B, pre,
+                              HIGH_THRESHOLD)
     return r_c
 
 
@@ -263,8 +274,9 @@ def vn_pass_plain(r_c, llr, msgs_v, tables: GroupedQCTables,
 def vn_pass_grouped(r_c, llr, msgs_v, tables: GroupedQCTables,
                     pre: float = PRE_THRESHOLD, bits=None, fresh=None,
                     include_d1: bool = False) -> torch.Tensor:
-    """r_c [nb, Z, B] (check order), llr [C, Z, B] (message dtype) ->
-    msgs_v [nb, Z, B] in place; returns msgs_v.
+    """r_c [nb, Z, B] (check order), llr [C, Z, B] (the message dtype;
+    bfloat16 for float8_e5m2) -> msgs_v [nb, Z, B] in place; returns
+    msgs_v.
 
     ``bits`` ([C, Z, B] int8 or None): emit hard decisions into it.
     ``fresh`` ([B] bool or None): lane-reset refill — flagged lanes carry a
@@ -279,7 +291,8 @@ def vn_pass_grouped(r_c, llr, msgs_v, tables: GroupedQCTables,
     with torch.cuda.device(r_c.device):
         for g in _vn_groups(tables, bits is not None, include_d1):
             _kernels.vn_group(r_c, llr, msgs_v, bits, fresh, tables.vn_src,
-                              tables.vn_shift, g, tables.Z, B, pre)
+                              tables.vn_shift, g, tables.Z, B, pre,
+                              HIGH_THRESHOLD)
     return msgs_v
 
 
@@ -317,7 +330,7 @@ def cn_pass_minsum_plain(msgs_v, syn, r_c, tables: GroupedQCTables,
 def cn_pass_grouped_minsum(msgs_v, syn, r_c, tables: GroupedQCTables,
                            alpha=1.0, beta: float = 0.0,
                            qscale: float = 4.0) -> torch.Tensor:
-    """Min-sum check pass: msgs_v [nb, Z, B] (f32, bf16 or int8) -> r_c
+    """Min-sum check pass: msgs_v [nb, Z, B] (f32, bf16, fp8 or int8) -> r_c
     in place; ``alpha`` a float or (degree, α) pairs, resolved per group;
     ``qscale`` is read for int8 messages only. Returns r_c."""
     B = _check_msgs(tables, msgs_v, "msgs_v", r_c, "r_c", _MS_DTYPES)
@@ -373,8 +386,9 @@ def vn_pass_grouped_minsum(r_c, llr, msgs_v, tables: GroupedQCTables,
                            clamp: float = 64.0, qscale: float = 4.0,
                            bits=None, fresh=None,
                            include_d1: bool = False) -> torch.Tensor:
-    """Min-sum variable pass: r_c [nb, Z, B] (f32, bf16 or int8), llr
-    [C, Z, B] (the message dtype; bfloat16 for int8) -> msgs_v in place;
+    """Min-sum variable pass: r_c [nb, Z, B] (f32, bf16, fp8 or int8), llr
+    [C, Z, B] (the message dtype; bfloat16 for int8 and fp8) -> msgs_v in
+    place;
     ``bits``, ``fresh`` and ``include_d1`` as in :func:`vn_pass_grouped`.
     Returns msgs_v."""
     B, tensors = _check_vn_args(tables, r_c, llr, msgs_v, bits, fresh,

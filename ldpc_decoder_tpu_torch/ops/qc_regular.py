@@ -23,11 +23,14 @@ serve Mosaic's windowed reads (``qc_pallas.py:64-79``, ``:272-326``) and
 are not carried over: the kernels take any shift.
 
 Two check rules, as in the JAX kernels: sum-product and normalized/offset
-min-sum (``qc_pallas.py:446-459``, ``:504-506``), both on float32 or
-bfloat16 messages (int8 decodes take the grouped family, as in the JAX
-decoder). The min-sum init is the unclipped llr (``qc_pallas.py:623-624``)
-while the variable pass writes clip(total − w_k, ±clamp) and fresh lanes
-clip(llr).
+min-sum (``qc_pallas.py:446-459``, ``:504-506``), both on float32,
+bfloat16 or float8_e5m2 messages (int8 decodes take the grouped family, as
+in the JAX decoder). float8_e5m2 messages keep a bfloat16 llr
+(``qc_pallas.py:660-662``) and clamp φ's input at 10
+(:func:`~ldpc_decoder_tpu_torch.ops.phi.phi_high`), so every φ value stays
+a normal e5m2. The min-sum init is the unclipped llr
+(``qc_pallas.py:623-624``) while the variable pass writes clip(total − w_k,
+±clamp) and fresh lanes clip(llr).
 
 Each pass has a plain PyTorch version (``*_plain``: gathers and
 elementwise ops in the kernel's summation order) and a kernel
@@ -45,15 +48,21 @@ import torch
 
 from ldpc_decoder_tpu_torch.ops import _kernels
 from ldpc_decoder_tpu_torch.ops._dispatch import backend, check
-from ldpc_decoder_tpu_torch.ops.phi import PRE_THRESHOLD, phi, phi_abs
+from ldpc_decoder_tpu_torch.ops.phi import (
+    PRE_THRESHOLD,
+    phi,
+    phi_abs,
+    phi_high,
+)
 from ldpc_decoder_tpu_torch.ops.qc_decode import (
     QCDecodeTables,
+    llr_dtype,
     minsum_magnitudes,
     resolve_minsum_alpha,
     signed_f32,
 )
 
-_MSG_DTYPES = (torch.float32, torch.bfloat16)
+_MSG_DTYPES = (torch.float32, torch.bfloat16, torch.float8_e5m2)
 _SIGN = -(1 << 31)  # the float32 sign bit as an int32
 
 
@@ -128,7 +137,7 @@ def _check_vn_args(r_c, llr, msgs_v, bits, fresh, t: QCRegularTables):
     B = r_c.shape[-1]
     check(r_c, "r_c", (t.R, t.d_c, t.Z, B), _MSG_DTYPES)
     check(msgs_v, "msgs_v", (t.C, t.d_v, t.Z, B), (r_c.dtype,))
-    check(llr, "llr", (t.C, t.Z, B), (r_c.dtype,))
+    check(llr, "llr", (t.C, t.Z, B), (llr_dtype(r_c.dtype),))
     tensors = [r_c, llr, msgs_v]
     if bits is not None:
         check(bits, "bits", (t.C, t.Z, B), (torch.int8,))
@@ -158,8 +167,9 @@ def cn_pass_plain(msgs_v, syn, r_c, tables: QCRegularTables,
                   pre: float = PRE_THRESHOLD) -> torch.Tensor:
     """Plain PyTorch check-node pass (the counterpart of the CUDA kernel):
     r_c[r, k] = φ_abs(Σ_j |m_j| − |m_k|) with the sign from the sign-bit
-    algebra X = (syn ⊕ d_c)<<31 ⊕ (⊕_j sb_j), sign_k = sb_k ⊕ X."""
-    d = tables.d_c
+    algebra X = (syn ⊕ d_c)<<31 ⊕ (⊕_j sb_j), sign_k = sb_k ⊕ X; φ's input
+    clamped at :func:`phi_high` of the message dtype."""
+    d, high = tables.d_c, phi_high(r_c.dtype)
     m = _rotated(msgs_v, tables.cn_read, tables.Z).to(torch.float32)
     sb = m.view(torch.int32) & _SIGN
     a = m.abs()
@@ -172,7 +182,7 @@ def cn_pass_plain(msgs_v, syn, r_c, tables: QCRegularTables,
     for k in range(1, d):  # left to right, as the kernel sums
         ext = ext + a[:, k]
     for k in range(d):
-        res = phi_abs(ext - a[:, k], pre)
+        res = phi_abs(ext - a[:, k], pre, high)
         r_c[:, k] = (res.view(torch.int32) | (sb[:, k] ^ X)).view(
             torch.float32)
     return r_c
@@ -187,7 +197,7 @@ def cn_pass_regular(msgs_v, syn, r_c, tables: QCRegularTables,
     if _backend(t, msgs_v, syn, r_c) == "cpu":
         return cn_pass_plain(msgs_v, syn, r_c, t, pre)
     with torch.cuda.device(msgs_v.device):
-        _kernels.cn_regular(msgs_v, syn, r_c, t, pre)
+        _kernels.cn_regular(msgs_v, syn, r_c, t, pre, phi_high(r_c.dtype))
     return r_c
 
 
@@ -199,6 +209,7 @@ def vn_pass_plain(r_c, llr, msgs_v, tables: QCRegularTables,
     """Plain PyTorch variable-node pass (the counterpart of the CUDA
     kernel): total = llr + Σ_k w_k in slot order; slot k gets
     φ(total − w_k), or φ(llr) on a fresh lane; bits = ¬signbit(total)."""
+    high = phi_high(msgs_v.dtype)
     w = _rotated(r_c, tables.vn_read, tables.Z).to(torch.float32)
     lv = llr.to(torch.float32)
     total = lv
@@ -211,15 +222,15 @@ def vn_pass_plain(r_c, llr, msgs_v, tables: QCRegularTables,
         p = total - w[:, k]
         if fresh is not None:
             p = torch.where(fresh, lv, p)
-        msgs_v[:, k] = phi(p, pre)
+        msgs_v[:, k] = phi(p, pre, high)
     return msgs_v
 
 
 def vn_pass_regular(r_c, llr, msgs_v, tables: QCRegularTables,
                     pre: float = PRE_THRESHOLD, bits=None,
                     fresh=None) -> torch.Tensor:
-    """r_c [R, d_c, Z, B], llr [C, Z, B] (message dtype) -> msgs_v
-    [C, d_v, Z, B] in place; returns msgs_v.
+    """r_c [R, d_c, Z, B], llr [C, Z, B] (the message dtype; bfloat16 for
+    float8_e5m2) -> msgs_v [C, d_v, Z, B] in place; returns msgs_v.
 
     ``bits`` ([C, Z, B] int8 or None): emit hard decisions into it.
     ``fresh`` ([B] bool or None): lane-reset refill — flagged lanes carry a
@@ -229,7 +240,8 @@ def vn_pass_regular(r_c, llr, msgs_v, tables: QCRegularTables,
     if _backend(t, *tensors) == "cpu":
         return vn_pass_plain(r_c, llr, msgs_v, t, pre, bits, fresh)
     with torch.cuda.device(r_c.device):
-        _kernels.vn_regular(r_c, llr, msgs_v, bits, fresh, t, pre)
+        _kernels.vn_regular(r_c, llr, msgs_v, bits, fresh, t, pre,
+                            phi_high(r_c.dtype))
     return msgs_v
 
 
@@ -260,7 +272,7 @@ def cn_pass_minsum_plain(msgs_v, syn, r_c, tables: QCRegularTables,
 
 def cn_pass_regular_minsum(msgs_v, syn, r_c, tables: QCRegularTables,
                            alpha=1.0, beta: float = 0.0) -> torch.Tensor:
-    """Min-sum check pass: msgs_v [C, d_v, Z, B] (f32 or bf16) -> r_c
+    """Min-sum check pass: msgs_v [C, d_v, Z, B] (f32, bf16 or fp8) -> r_c
     [R, d_c, Z, B] in place; ``alpha`` a float or (degree, α) pairs,
     resolved at d_c. Returns r_c."""
     t = tables
@@ -300,7 +312,8 @@ def vn_pass_regular_minsum(r_c, llr, msgs_v, tables: QCRegularTables,
                            clamp: float = 64.0, bits=None,
                            fresh=None) -> torch.Tensor:
     """Min-sum variable pass: r_c [R, d_c, Z, B], llr [C, Z, B] (message
-    dtype) -> msgs_v [C, d_v, Z, B] in place; ``bits`` and ``fresh`` as in
+    dtype; bfloat16 for fp8) -> msgs_v [C, d_v, Z, B] in place; ``bits``
+    and ``fresh`` as in
     :func:`vn_pass_regular`. Returns msgs_v."""
     t = tables
     tensors = _check_vn_args(r_c, llr, msgs_v, bits, fresh, t)
@@ -347,7 +360,8 @@ def init_messages_qc_regular(llr, tables: QCRegularTables,
                              alg: str = "sum-product", clamp: float = 64.0,
                              qscale: float = 4.0):
     """(msgs_v, r_c) for sorted llr [C, Z, B]: every slot of a variable
-    gets φ(llr) in ``dtype``, or for min-sum the llr itself, unclipped
+    gets φ(llr) in ``dtype`` (φ clamped at :func:`phi_high` of ``dtype``),
+    or for min-sum the llr itself, unclipped
     (``qc_pallas.py:615-632``; ``clamp`` and ``qscale`` are taken for the
     families' one signature and not read). r_c is left uninitialised:
     every check pass rewrites all of it before any read."""
@@ -356,7 +370,7 @@ def init_messages_qc_regular(llr, tables: QCRegularTables,
     if alg == "min-sum":
         p = llr.to(torch.float32).to(dtype)
     else:
-        p = phi(llr, pre).to(dtype)
+        p = phi(llr, pre, phi_high(dtype)).to(dtype)
     msgs_v = p[:, None].expand(t.C, t.d_v, t.Z, B).contiguous()
     r_c = torch.empty((t.R, t.d_c, t.Z, B), dtype=dtype, device=llr.device)
     return msgs_v, r_c

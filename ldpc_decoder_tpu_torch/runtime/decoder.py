@@ -11,10 +11,12 @@ kernel family the way the JAX decoder does (``decoder.py:162-269``):
   composed into the I/O order tables so the user's natural-order arrays
   decode unchanged;
 - a QC code with a regular base (one check degree, one variable degree)
-  takes the regular family (:mod:`..ops.qc_regular`), any other base, and
-  every int8 decode, the grouped one (:mod:`..ops.qc_grouped`);
+  takes the regular family (:mod:`..ops.qc_regular`), float8_e5m2
+  messages included, any other base, and every int8 decode, the grouped
+  one (:mod:`..ops.qc_grouped`);
 - a code without QC structure takes the general path
-  (:mod:`..ops.general`).
+  (:mod:`..ops.general`); float8_e5m2 messages are refused there (the JAX
+  package sends them to its XLA path, which is not ported).
 
 Every family runs sum-product and min-sum and exposes the same init, burst
 and superstep functions. A pool of all frames of a run lives on the device
@@ -95,7 +97,7 @@ from ldpc_decoder_tpu_torch.ops.qc_regular import (
 from ldpc_decoder_tpu_torch.runtime.params import DynamicParams, StaticParams
 
 _TORCH_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
-                 "int8": torch.int8}
+                 "float8_e5m2": torch.float8_e5m2, "int8": torch.int8}
 _log = logging.getLogger(__name__)
 
 
@@ -170,6 +172,34 @@ def _detect_qc(code: LDPCCode):
     return None, None, None
 
 
+def _sync(dev: torch.device) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+@dataclass
+class _Lanes:
+    """The decode loop's state: B lanes in flight over a pool of frames.
+    The tensors live on the decoder's device, the bookkeeping on the host."""
+
+    msgs: tuple
+    llr: torch.Tensor       # [*node shape, B], LLR-state dtype
+    syn: torch.Tensor       # [*check shape, B] int8
+    frame_ids: np.ndarray   # [B] pool frame of each lane
+    active: np.ndarray      # [B] bool
+    iters_done: np.ndarray  # [B] iterations of the lane's frame so far
+    iters_out: np.ndarray   # [n_pool] per-frame iteration counts
+    pool_next: int          # next pool frame to load
+    results: torch.Tensor   # [n_pool, n_words] int32
+    fresh: torch.Tensor | None = None  # lanes refilled since the last step
+
+    @property
+    def n_remaining(self) -> int:
+        """Frames not yet retired: active lanes plus the pool's rest."""
+        return int(self.active.sum()) + (self.iters_out.size
+                                         - self.pool_next)
+
+
 def _inverse(perm: np.ndarray) -> np.ndarray:
     inv = np.empty_like(perm)
     inv[perm] = np.arange(perm.size, dtype=perm.dtype)
@@ -205,7 +235,8 @@ class LDPCDecoder:
     searched for QC structure (``StaticParams.qc_autodetect``, on by
     default) and takes the general path when it has none. Sum-product and
     min-sum run on every family; int8 messages take the grouped QC family
-    or the general path. ``detect_seconds`` is the detection's time.
+    or the general path; float8_e5m2 messages need QC structure.
+    ``detect_seconds`` is the detection's time.
     """
 
     def __init__(self, code: LDPCCode | CompiledCode, channel: Channel,
@@ -244,6 +275,11 @@ class LDPCDecoder:
         # the general runner re-initialises refilled lanes at once; the QC
         # runners reset them in-kernel (the ``fresh`` flags)
         self._lane_reset = qc is not None
+        if qc is None and self.msg_dtype == torch.float8_e5m2:
+            raise NotImplementedError(
+                "message_dtype='float8_e5m2' needs a QC code: the general "
+                "(any-alist) path has no float8_e5m2 kernels yet (ROADMAP "
+                "Queue 1 item 15); use bfloat16 or int8 here")
         if qc is None:
             self._init_general(cc or compile_code(self.code))
         else:
@@ -271,7 +307,8 @@ class LDPCDecoder:
                     _inverse(perm_c)[qct.cn_order.cpu().numpy()]).to(dev))
         regular = len(qct.row_groups) == 1 and len(qct.col_groups) == 1
         # int8 fixed-point min-sum lives in the grouped kernels (a regular
-        # base is their one-group special case), as in the JAX decoder
+        # base is their one-group special case), as in the JAX decoder;
+        # float8_e5m2 keeps the regular family (decoder.py:227-235)
         if regular and self.msg_dtype != torch.int8:
             self.tables = QCRegularTables.from_qc_tables(qct)
             init, run, burst = (init_messages_qc_regular,
@@ -372,55 +409,46 @@ class LDPCDecoder:
         n_vecs: int,
         values: np.ndarray,      # [n_vars, n_vecs] float32, natural order
         syndromes: np.ndarray,   # [n_checks, n_vecs] 0/1, natural order
+        host_poll: bool = False,
+        progress=None,
     ) -> tuple[np.ndarray, DecodeStats]:
         """Decode ``n_vecs`` frames; returns (packed bits [n_vecs, n_words]
         uint32 in natural per-frame layout, stats). ``values[i, v]`` is the
         i-th channel value of frame v (h/ldpc_decoder_gpu.h:94 transposed).
-        The pools are uploaded in sorted layouts before the timed region."""
+        The pools are uploaded in sorted layouts before the timed region.
+
+        ``progress``: called with the number of frames not yet retired
+        after every superstep. ``host_poll`` is taken for the JAX
+        decoder's signature: this decoder always polls the host once per
+        superstep."""
         if values.shape != (self.code.n_vars, n_vecs):
             raise ValueError(f"values must be [{self.code.n_vars}, {n_vecs}]")
         if syndromes.shape != (self.code.n_checks, n_vecs):
             raise ValueError(
                 f"syndromes must be [{self.code.n_checks}, {n_vecs}]")
+        pool_values, pool_syn = self.upload_pools(values, syndromes)
+        return self.decode_presorted(dyn_params, n_vecs, pool_values,
+                                     pool_syn, progress=progress)
+
+    def upload_pools(self, values: np.ndarray, syndromes: np.ndarray):
+        """Natural-order host arrays -> the device pools in the decoder's
+        sorted layouts, as :meth:`decode_presorted` and
+        :meth:`profile_phases` take them."""
         pool_values = torch.from_numpy(np.ascontiguousarray(
             values[self._vn_order_io], dtype=np.float32)).to(self.device)
         pool_syn = torch.from_numpy(np.ascontiguousarray(
             syndromes[self._cn_order_io], dtype=np.int8)).to(self.device)
-        return self.decode_presorted(dyn_params, n_vecs, pool_values,
-                                     pool_syn)
+        return pool_values, pool_syn
 
-    def decode_presorted(
-        self,
-        dyn_params: DynamicParams,
-        n_vecs: int,
-        pool_values: torch.Tensor,  # [n_vars, n_vecs] f32, SORTED vn order
-        pool_syn: torch.Tensor,     # [n_checks, n_vecs] int8, SORTED cn order
-    ) -> tuple[np.ndarray, DecodeStats]:
-        """Device-pool entry point: pools already on ``self.device`` in the
-        decoder's sorted layouts. Returns what :meth:`decode` returns; times
-        from the pools being on the device to the results being ready."""
-        k = dyn_params.num_iter_check_parity
-        if k < 1:
-            raise ValueError(f"num_iter_check_parity must be >= 1, got {k}")
-        max_iter = dyn_params.num_iter_max
-        pre = pre_from_infinity_threshold(dyn_params.infinity_threshold)
-        burst = max(0, dyn_params.num_iter_first_check - k)
+    def _start(self, pool_values, pool_syn, n_pool: int,
+               pre: float) -> _Lanes:
+        """Load the first B frames of the pool into the lanes and
+        initialise their messages."""
         t, dev, B = self.tables, self.device, self._parallel_factor
-        n_pool = n_vecs
         if pool_values.shape != (t.n_vars, n_pool) or pool_syn.shape != (
                 t.n_checks, n_pool):
             raise ValueError("pool shapes do not match the code and n_vecs")
-
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
-        t0 = time.perf_counter()
         frame_ids = np.arange(B)
-        active = frame_ids < n_pool
-        iters_done = np.zeros(B, np.int64)
-        iters_out = np.zeros(n_pool, np.int32)
-        pool_next = min(B, n_pool)
-        results = torch.zeros((n_pool, self.n_words), dtype=torch.int32,
-                              device=dev)
         if n_pool == B:  # single fill: the lane -> pool map is the identity
             vals = pool_values
             syn = pool_syn.clone()
@@ -429,62 +457,147 @@ class LDPCDecoder:
             vals = pool_values[:, safe]
             syn = pool_syn[:, safe]
         llr = self._lane_llr(vals)
-        syn = syn.view(*self._node_shape[1], B)
-        msgs = self._init_messages(llr, t, self.msg_dtype, pre)
-        if burst:
-            self._run_burst(msgs, llr, syn, t, burst, pre)
-            iters_done += burst
+        return _Lanes(
+            msgs=self._init_messages(llr, t, self.msg_dtype, pre),
+            llr=llr, syn=syn.view(*self._node_shape[1], B),
+            frame_ids=frame_ids, active=frame_ids < n_pool,
+            iters_done=np.zeros(B, np.int64),
+            iters_out=np.zeros(n_pool, np.int32),
+            pool_next=min(B, n_pool),
+            results=torch.zeros((n_pool, self.n_words), dtype=torch.int32,
+                                device=dev))
 
-        fresh = None
+    def _superstep(self, st: _Lanes, pool_values, pool_syn, k: int,
+                   max_iter: int, pre: float) -> None:
+        """k iterations, the parity flags' one host read, then retire the
+        finished lanes (packing their bits into the results) and refill
+        them from the pool; updates ``st`` in place."""
+        t, dev = self.tables, self.device
+        n_pool = st.iters_out.size
+        extra = {"fresh": st.fresh} if self._lane_reset else {}
+        st.msgs, bits, violated = self._run_iterations(
+            st.msgs, st.llr, st.syn, t, k, pre, **extra)
+        st.iters_done += k
+        viol = violated.cpu().numpy()  # the superstep's one host read
+        done = st.active & (~viol | (st.iters_done >= max_iter))
+
+        if done.any():  # retire: pack the finished lanes' bits
+            lanes = np.nonzero(done)[0]
+            ids = st.frame_ids[lanes]
+            packed = self._pack(bits[..., torch.from_numpy(lanes).to(dev)])
+            st.results[torch.from_numpy(ids).to(dev)] = packed
+            st.iters_out[ids] = st.iters_done[lanes]
+
+        # refill from the pool (flood_refill analog)
+        order = np.cumsum(done) - done
+        new_ids = st.pool_next + order
+        has_new = done & (new_ids < n_pool)
+        st.frame_ids = np.where(has_new, new_ids, st.frame_ids)
+        st.active = np.where(done, has_new, st.active)
+        st.pool_next = min(st.pool_next + int(done.sum()), n_pool)
+        st.iters_done[done] = 0
+        st.fresh = None
+        if has_new.any():
+            lanes = torch.from_numpy(np.nonzero(has_new)[0]).to(dev)
+            ids = torch.from_numpy(st.frame_ids[has_new]).to(dev)
+            st.llr[..., lanes] = self._lane_llr(pool_values[:, ids])
+            st.syn[..., lanes] = pool_syn[:, ids].view(
+                *self._node_shape[1], -1)
+            if self._lane_reset:
+                st.fresh = torch.from_numpy(has_new).to(dev)
+            else:  # the refilled lanes' messages start afresh now
+                st.msgs[0][:, lanes] = self._init_lanes(
+                    st.llr[:, lanes], t, self.msg_dtype, pre)
+
+    def decode_presorted(
+        self,
+        dyn_params: DynamicParams,
+        n_vecs: int,
+        pool_values: torch.Tensor,  # [n_vars, n_vecs] f32, SORTED vn order
+        pool_syn: torch.Tensor,     # [n_checks, n_vecs] int8, SORTED cn order
+        progress=None,
+    ) -> tuple[np.ndarray, DecodeStats]:
+        """Device-pool entry point: pools already on ``self.device`` in the
+        decoder's sorted layouts. Returns what :meth:`decode` returns; times
+        from the pools being on the device to the results being ready."""
+        k = dyn_params.num_iter_check_parity
+        if k < 1:
+            raise ValueError(f"num_iter_check_parity must be >= 1, got {k}")
+        pre = pre_from_infinity_threshold(dyn_params.infinity_threshold)
+        burst = max(0, dyn_params.num_iter_first_check - k)
+
+        _sync(self.device)
+        t0 = time.perf_counter()
+        st = self._start(pool_values, pool_syn, n_vecs, pre)
+        if burst:
+            self._run_burst(st.msgs, st.llr, st.syn, self.tables, burst, pre)
+            st.iters_done += burst
         supersteps = 0
         while True:
-            extra = {"fresh": fresh} if self._lane_reset else {}
-            msgs, bits, violated = self._run_iterations(
-                msgs, llr, syn, t, k, pre, **extra)
+            self._superstep(st, pool_values, pool_syn, k,
+                            dyn_params.num_iter_max, pre)
             supersteps += 1
-            iters_done += k
-            viol = violated.cpu().numpy()  # the superstep's one host read
-            done = active & (~viol | (iters_done >= max_iter))
-
-            if done.any():  # retire: pack the finished lanes' bits
-                lanes = np.nonzero(done)[0]
-                ids = frame_ids[lanes]
-                packed = self._pack(bits[..., torch.from_numpy(lanes).to(dev)])
-                results[torch.from_numpy(ids).to(dev)] = packed
-                iters_out[ids] = iters_done[lanes]
-
-            # refill from the pool (flood_refill analog)
-            order = np.cumsum(done) - done
-            new_ids = pool_next + order
-            has_new = done & (new_ids < n_pool)
-            frame_ids = np.where(has_new, new_ids, frame_ids)
-            active = np.where(done, has_new, active)
-            pool_next = min(pool_next + int(done.sum()), n_pool)
-            iters_done[done] = 0
-            fresh = None
-            if has_new.any():
-                lanes = torch.from_numpy(np.nonzero(has_new)[0]).to(dev)
-                ids = torch.from_numpy(frame_ids[has_new]).to(dev)
-                llr[..., lanes] = self._lane_llr(pool_values[:, ids])
-                syn[..., lanes] = pool_syn[:, ids].view(
-                    *self._node_shape[1], -1)
-                if self._lane_reset:
-                    fresh = torch.from_numpy(has_new).to(dev)
-                else:  # the refilled lanes' messages start afresh now
-                    msgs[0][:, lanes] = self._init_lanes(
-                        llr[:, lanes], t, self.msg_dtype, pre)
-
-            if not active.any() and pool_next == n_pool:
+            n_remaining = st.n_remaining
+            if progress is not None:
+                progress(n_remaining)
+            if n_remaining == 0:
                 break
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
+        _sync(self.device)
         elapsed = time.perf_counter() - t0
 
         stats = DecodeStats(
-            iterations=iters_out,
+            iterations=st.iters_out,
             total_supersteps=supersteps,
             total_iterations=supersteps * k + burst,
             elapsed_seconds=elapsed,
-            batch_size=B,
+            batch_size=self._parallel_factor,
         )
-        return results.cpu().numpy().view(np.uint32), stats
+        return st.results.cpu().numpy().view(np.uint32), stats
+
+    def profile_phases(self, pool_values, pool_syn,
+                       dyn_params: DynamicParams, n_vecs: int,
+                       repeats: int = 3) -> dict[str, float]:
+        """Per-phase step timing in seconds (the reference's print_time
+        instrumentation of its refill steps, ldpc_decoder_gpu.cu:275-281,
+        517-601; ``decoder.py:836-910`` of the JAX package), on device
+        pools as :meth:`upload_pools` makes them: one BP iteration, the
+        parity and hard-decision overhead of a superstep's last iteration,
+        the whole superstep with its retire and refill, and the message
+        init that a refill runs. Each is the mean of ``repeats`` calls
+        after one warm-up call, between device synchronisations. A
+        superstep that runs out of device memory reads NaN."""
+        k = dyn_params.num_iter_check_parity
+        pre = pre_from_infinity_threshold(dyn_params.infinity_threshold)
+        t = self.tables
+        st = self._start(pool_values, pool_syn, n_vecs, pre)
+
+        def timeit(fn):
+            fn()  # warm
+            _sync(self.device)
+            t0 = time.perf_counter()
+            for _ in range(repeats):
+                fn()
+            _sync(self.device)
+            return (time.perf_counter() - t0) / repeats
+
+        def run_k(kk):
+            return timeit(lambda: self._run_iterations(
+                st.msgs, st.llr, st.syn, t, kk, pre))
+
+        t1 = run_k(1)
+        tk = run_k(k) if k > 1 else t1
+        per_iter = (tk - t1) / (k - 1) if k > 1 else t1
+        t_init = timeit(lambda: self._init_messages(st.llr, t,
+                                                    self.msg_dtype, pre))
+        try:
+            t_super = timeit(lambda: self._superstep(
+                st, pool_values, pool_syn, k, dyn_params.num_iter_max, pre))
+        except torch.cuda.OutOfMemoryError:
+            t_super = float("nan")
+        return {
+            "bp_iteration": per_iter,
+            "parity_and_bits": max(t1 - per_iter, 0.0),
+            "superstep_total": t_super,
+            "retire_refill_pack": max(t_super - tk, 0.0),
+            "refill_message_init": t_init,
+        }

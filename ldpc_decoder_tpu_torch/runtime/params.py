@@ -2,10 +2,10 @@
 
 Mirror of ``ldpc_decoder_tpu/runtime/params.py`` (the reference's
 static/dynamic split, h/ldpc_decoder_gpu_common.h:7-54), with the same
-fields, defaults and checks for what the port runs: sum-product on float32
-or bfloat16 messages, min-sum on float32, bfloat16 or int8 messages. The
-options it does not run yet raise ``NotImplementedError`` instead of being
-ignored.
+fields, defaults and checks for what the port runs: sum-product on float32,
+bfloat16 or float8_e5m2 messages, min-sum on float32, bfloat16,
+float8_e5m2 or int8 messages. The options it does not run raise
+``NotImplementedError`` instead of being ignored.
 """
 
 from __future__ import annotations
@@ -13,8 +13,7 @@ from __future__ import annotations
 import math
 from dataclasses import dataclass
 
-_MESSAGE_DTYPES = ("float32", "bfloat16", "int8")
-_NOT_PORTED_DTYPES = ("float8_e5m2",)
+_MESSAGE_DTYPES = ("float32", "bfloat16", "float8_e5m2", "int8")
 _ALGORITHMS = ("sum-product", "min-sum")
 
 
@@ -28,8 +27,9 @@ class StaticParams:
     # exact lane count (None = memory model chooses a power of two capped
     # by max_log_parallel_factor_user); bypasses the memory model
     parallel_factor_user: int | None = None
-    # message storage dtype: "float32", "bfloat16", or "int8" (fixed-point
-    # min-sum messages, see minsum_qscale)
+    # message storage dtype: "float32", "bfloat16", "float8_e5m2" (QC codes
+    # only; bfloat16 LLR state), or "int8" (fixed-point min-sum messages,
+    # see minsum_qscale)
     message_dtype: str = "float32"
     # fraction of device memory kept free (ldpc_decoder_gpu.cu:84-88)
     memory_headroom: float = 0.10
@@ -70,10 +70,6 @@ class StaticParams:
             raise ValueError(
                 f"parallel_factor_user must be positive, got "
                 f"{self.parallel_factor_user}")
-        if self.message_dtype in _NOT_PORTED_DTYPES:
-            raise NotImplementedError(
-                f"message_dtype={self.message_dtype!r} is not ported yet "
-                f"(ported: {_MESSAGE_DTYPES})")
         if self.message_dtype not in _MESSAGE_DTYPES:
             raise ValueError(
                 f"message_dtype must be one of {_MESSAGE_DTYPES}, "
@@ -119,3 +115,7 @@ class DynamicParams:
     num_iter_first_check: int = 0
     # frames per run = parallel_factor * loading_factor (main.cpp:320)
     loading_factor: int = 4
+    # bit errors above which a frame counts as errored (the report's FER
+    # line; main.cpp -e / -b)
+    target_errors: int = 0
+    num_vectors_per_run: int = 0  # filled by the harness

@@ -3,13 +3,14 @@
 
     python3 profile_chip.py      # from the repository root, one card
 
-For four paths of ``chip_smoke.py`` with the same decoder settings (p41
+For six paths of ``chip_smoke.py`` with the same decoder settings (p41
 at sigma 0.94 and reg36 at sigma 0.87, 512 frames, bf16, B = 256; the
 general sum-product path on the random (3,6) 2^20 code at sigma 0.84, 768
 frames, bf16, B = 384; reg36 as a plain code, its structure detected, in
-int8 offset min-sum at sigma 0.84, 512 frames, B = 256) it decodes once to
-warm up, then profiles a second decode with ``torch.profiler`` (CPU and
-CUDA activities) and prints:
+int8 offset min-sum at sigma 0.84, 512 frames, B = 256; reg36 and p41 in
+float8_e5m2 sum-product at their bf16 settings) it decodes once to warm
+up, then profiles a second decode with ``torch.profiler`` (CPU and CUDA
+activities) and prints:
 
 - the decode's own clock (``DecodeStats.elapsed_seconds``) under the
   profiler, which covers ``decode_presorted`` on pools already on the
@@ -79,15 +80,8 @@ def smi(query):
 def profile_path(torch, label, dec, dyn, batch, n):
     from torch.profiler import ProfilerActivity, profile
 
-    import numpy as np
-
     dec.decode(dyn, n, batch.values, batch.syndromes)  # warm
-    # the pools in the decoder's sorted layouts, as decode() uploads them
-    t = dec.tables
-    pool_values = torch.from_numpy(np.ascontiguousarray(
-        batch.values[t.vn_order.cpu().numpy()])).to(dec.device)
-    pool_syn = torch.from_numpy(np.ascontiguousarray(
-        batch.syndromes[t.cn_order.cpu().numpy()])).to(dec.device)
+    pool_values, pool_syn = dec.upload_pools(batch.values, batch.syndromes)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     with profile(activities=[ProfilerActivity.CPU,
@@ -172,6 +166,10 @@ def main():
 
     sp_int8 = StaticParams(max_log_parallel_factor_user=8,
                            message_dtype="int8", algorithm="min-sum")
+    sp_fp8 = StaticParams(max_log_parallel_factor_user=8,
+                          message_dtype="float8_e5m2")
+    p41_dyn = DynamicParams(num_iter_max=120, num_iter_check_parity=14,
+                            num_iter_first_check=70, loading_factor=2)
 
     def general_code():
         return make_regular_code(2**20, 3, 6, seed=9), None, "built"
@@ -180,14 +178,15 @@ def main():
         return cs.get_reg36_code()[0], None, "cache"
 
     paths = [
-        ("p41", cs.get_code, cs.SIGMA, sp, cs.N_FRAMES,
-         DynamicParams(num_iter_max=120, num_iter_check_parity=14,
-                       num_iter_first_check=70, loading_factor=2)),
+        ("p41", cs.get_code, cs.SIGMA, sp, cs.N_FRAMES, p41_dyn),
         ("reg36", cs.get_reg36_code, cs.REG36_SIGMA, sp, cs.N_FRAMES, k10),
         ("general", general_code, cs.GENERAL_SIGMA, sp_general,
          cs.N_GENERAL_FRAMES, k10),
         ("reg36 int8 min-sum", reg36_plain, cs.MINSUM_SIGMA, sp_int8,
          cs.N_FRAMES, k10),
+        ("reg36 fp8", cs.get_reg36_code, cs.REG36_SIGMA, sp_fp8, cs.N_FRAMES,
+         k10),
+        ("p41 fp8", cs.get_code, cs.SIGMA, sp_fp8, cs.N_FRAMES, p41_dyn),
     ]
     results = []
     for label, get, sigma, params, n, dyn in paths:

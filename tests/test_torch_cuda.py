@@ -10,8 +10,11 @@ host, which has no JAX; run it there with the repository's conftest
 Tolerances: signs, hard bits, parity flags and decoded words are exact;
 sum-product messages are within one ulp of the storage dtype (the plain
 version's φ goes through torch's CUDA tanh/log, the kernel's through
-tanhf/logf); min-sum messages (general and QC, f32, bf16 and int8) are
-bitwise equal, and min-sum decodes equal in per-frame iterations too.
+tanhf/logf; float8_e5m2: one e5m2 step on a share of at most 1e-3);
+min-sum messages (general and QC, f32, bf16, float8_e5m2 and int8) are
+bitwise equal, and min-sum decodes equal in per-frame iterations too. The
+kernels' float8_e5m2 store equals torch's conversion on the card and on
+the CPU for every bfloat16 input.
 """
 
 import numpy as np
@@ -242,7 +245,7 @@ def _general_state(device, dtype, seed):
 
 def _same_bits(a, b):
     as_int = {torch.float32: torch.int32, torch.bfloat16: torch.int16,
-              torch.int8: torch.int8}[a.dtype]
+              torch.int8: torch.int8, torch.float8_e5m2: torch.uint8}[a.dtype]
     return torch.equal(a.view(as_int), b.view(as_int))
 
 
@@ -361,7 +364,8 @@ def _msgs(rng, shape, dtype, device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int8])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int8,
+                                   torch.float8_e5m2])
 def test_grouped_minsum_kernels_match_plain(cuda_device, dtype):
     """Every degree 1..32 on both sides (so degree 1 and 17-32 too), B = 40
     (the last lane chunk guarded), an α table with an offset, fresh lanes
@@ -410,7 +414,8 @@ def test_grouped_minsum_kernels_match_plain(cuda_device, dtype):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("d_c", [6, 30])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float8_e5m2])
 def test_regular_minsum_kernels_match_plain(cuda_device, dtype, d_c):
     from ldpc_decoder_tpu_torch.ops import _kernels
 
@@ -421,7 +426,7 @@ def test_regular_minsum_kernels_match_plain(cuda_device, dtype, d_c):
     mv = _msgs(rng, (t.C, t.d_v, t.Z, nb), dtype, cuda_device)
     rc = _msgs(rng, (t.R, t.d_c, t.Z, nb), dtype, cuda_device)
     llr = torch.from_numpy((rng.standard_normal((t.C, t.Z, nb)) * 12).astype(
-        np.float32)).to(cuda_device, dtype)
+        np.float32)).to(cuda_device, G.llr_dtype(dtype))
     syn = torch.from_numpy((rng.random((t.R, t.Z, nb)) < 0.5).astype(
         np.int8)).to(cuda_device)
     fresh = torch.from_numpy(rng.random(nb) < 0.5).to(cuda_device)
@@ -479,3 +484,167 @@ def test_qc_minsum_decode_on_card_matches_cpu(small_code, cuda_device, case):
     (res_c, st_c), (res_g, st_g) = out["cpu"], out[str(cuda_device)]
     np.testing.assert_array_equal(res_g, res_c)
     np.testing.assert_array_equal(st_g.iterations, st_c.iterations)
+
+
+# ---- float8_e5m2 ------------------------------------------------------------
+
+FP8 = torch.float8_e5m2
+
+
+def _fp8_close(k, p, share=1e-3):
+    """float8_e5m2 kernel vs plain sum-product messages: signs exact, at
+    most one e5m2 step apart, on a share of at most ``share``."""
+    a, b = k.view(torch.uint8).int(), p.view(torch.uint8).int()
+    assert torch.equal(a >> 7, b >> 7), "signs differ"
+    assert int(((a & 0x7F) - (b & 0x7F)).abs().max()) <= 1
+    assert float((a != b).float().mean()) <= share
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family", ["grouped", "regular-6", "regular-30"])
+def test_fp8_kernels_match_plain(small_code, cuda_device, family):
+    """The float8_e5m2 sum-product kernels (φ clamped at 80 in the grouped
+    family, at 10 in the regular one) against their plain versions, with
+    fresh lanes and emits; their launches counted apart."""
+    from ldpc_decoder_tpu_torch.ops import _kernels
+
+    if family == "grouped":
+        code, s = small_code
+        t = qg.GroupedQCTables.from_qc_tables(QCDecodeTables.from_structure(
+            s, code.n_erased_vars, cuda_device))
+        mod, cn_name, vn_name = qg, "cn_fp8", "vn_fp8"
+        mv_shape = rc_shape = (t.nb, t.Z, B)
+        runs = [(False, None, False), (True, True, False), (False, True, True)]
+    else:
+        d_c = int(family.split("-")[1])
+        t = qr.QCRegularTables.from_qc_tables(QCDecodeTables.from_structure(
+            _regular_structure(d_c, 96, d_c), 0, cuda_device))
+        mod, cn_name, vn_name = qr, "cn_regular_fp8", "vn_regular_fp8"
+        mv_shape, rc_shape = (t.C, t.d_v, t.Z, B), (t.R, t.d_c, t.Z, B)
+        runs = [(False, None, None), (True, True, None), (False, True, None)]
+    rng = np.random.default_rng(11)
+
+    def rand(shape, scale, dtype):
+        x = rng.standard_normal(shape).astype(np.float32) * scale
+        return torch.from_numpy(x).to(cuda_device, dtype)
+
+    mv, rc = rand(mv_shape, 6, FP8), rand(rc_shape, 6, FP8)
+    llr = rand((t.C, t.Z, B), 8, torch.bfloat16)
+    syn = torch.from_numpy((rng.random((t.R, t.Z, B)) < 0.5).astype(
+        np.int8)).to(cuda_device)
+    fresh = torch.from_numpy(rng.random(B) < 0.5).to(cuda_device)
+    cn_k = qg.cn_pass_grouped if mod is qg else qr.cn_pass_regular
+    vn_k = qg.vn_pass_grouped if mod is qg else qr.vn_pass_regular
+    before = dict(_kernels.launch_counts)
+    rk = cn_k(mv, syn, torch.empty_like(rc), t)
+    rp = mod.cn_pass_plain(mv, syn, torch.empty_like(rc), t)
+    _fp8_close(rk, rp)
+    for emit, fr, d1 in runs:
+        bk = torch.full((t.C, t.Z, B), -1, dtype=torch.int8,
+                        device=cuda_device)
+        bp = bk.clone()
+        kw = dict(fresh=fresh if fr else None)
+        if d1 is not None:
+            kw["include_d1"] = d1
+        mk = vn_k(rc, llr, mv.clone(), t, bits=bk if emit else None, **kw)
+        mp = mod.vn_pass_plain(rc, llr, mv.clone(), t,
+                               bits=bp if emit else None, **kw)
+        _fp8_close(mk, mp)
+        assert torch.equal(bk, bp)
+    torch.cuda.synchronize()
+    n_cn = len(t.row_groups) if mod is qg else 1
+    n_vn = 3 * len(t.col_groups) - 1 if mod is qg else 3
+    assert _kernels.launch_counts[cn_name] - before[cn_name] == n_cn
+    assert _kernels.launch_counts[vn_name] - before[vn_name] == n_vn
+    for name in ("cn", "vn", "cn_regular", "vn_regular"):
+        assert _kernels.launch_counts[name] == before[name]
+
+
+@pytest.mark.cuda
+def test_fp8_store_matches_torch(cuda_device):
+    """The kernels' float8_e5m2 store against torch's conversion on the card
+    and on the CPU, for every bfloat16 value but NaN: ties, subnormals, ±0,
+    57344, the overflow to ±inf. The stored values go through a regular
+    min-sum variable pass whose lanes are all fresh and whose clamp is
+    infinite, so each slot stores its llr as it is."""
+    t = qr.QCRegularTables.from_qc_tables(QCDecodeTables.from_structure(
+        _regular_structure(6, 64, 1), 0, cuda_device))
+    every = torch.arange(1 << 16, dtype=torch.int32).to(torch.int16)
+    vals = every.view(torch.bfloat16)
+    vals = vals[~torch.isnan(vals)]
+    n = t.C * t.Z
+    B_store = -(-vals.numel() // n)
+    llr = torch.zeros(n * B_store, dtype=torch.bfloat16)
+    llr[:vals.numel()] = vals
+    llr = llr.view(t.C, t.Z, B_store).to(cuda_device)
+    rc = torch.zeros((t.R, t.d_c, t.Z, B_store), dtype=FP8,
+                     device=cuda_device)
+    mv = torch.empty((t.C, t.d_v, t.Z, B_store), dtype=FP8,
+                     device=cuda_device)
+    qr.vn_pass_regular_minsum(rc, llr, mv, t, float("inf"),
+                              fresh=torch.ones(B_store, dtype=torch.bool,
+                                               device=cuda_device))
+    kernel = mv[:, 0].reshape(-1)[:vals.numel()].view(torch.uint8).cpu()
+    on_card = llr.reshape(-1)[:vals.numel()].to(FP8).view(torch.uint8).cpu()
+    on_cpu = vals.to(FP8).view(torch.uint8)
+    assert torch.equal(on_card, on_cpu)
+    assert torch.equal(kernel, on_cpu)
+    for k in range(1, t.d_v):
+        assert _same_bits(mv[:, k], mv[:, 0])
+    picks = torch.tensor([0.0, -0.0, 1.125, 1.375, 2.0 ** -16, 3 * 2.0 ** -17,
+                          57344.0, 61440.0, -1e6], dtype=torch.bfloat16)
+    assert torch.isin(picks.view(torch.int16), vals.view(torch.int16)).all()
+
+
+@pytest.mark.cuda
+def test_cuda_numerics_smoke(cuda_device):
+    from ldpc_decoder_tpu_torch.runtime.smoke import cuda_numerics_smoke
+
+    out = cuda_numerics_smoke(cuda_device, verbose=lambda _: None)
+    assert out["phi_max_rel_err"] < 1e-5
+    assert out["phi10_e5m2"] == 1.5 * 2.0 ** -14
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["regular-sum-product", "p41-sum-product",
+                                  "p41-min-sum"])
+def test_fp8_decode_on_card_matches_cpu(small_code, cuda_device, case):
+    """float8_e5m2 decodes with refills: kernels on the card vs plain passes
+    on the CPU; equal words and per-frame iterations."""
+    family, alg = case.split("-", 1)
+    if family == "regular":
+        code, s = make_qc_code(np.ones((3, 6), np.int8), Z=128, seed=1)
+        ch, want = BIAWGNChannel(0.7), qr.QCRegularTables
+    else:
+        (code, s), ch, want = small_code, BIAWGNChannel(0.7), \
+            qg.GroupedQCTables
+    n = 3 * 32 + 8
+    batch = create_data(code, ch, 0, n, backend="numpy")
+    dyn = DynamicParams(num_iter_max=60, num_iter_check_parity=5)
+    out = {}
+    for dev in ("cpu", cuda_device):
+        dec = LDPCDecoder(code, ch, StaticParams(
+            parallel_factor_user=32, message_dtype="float8_e5m2",
+            algorithm=alg), qc=s, device=dev)
+        assert isinstance(dec.tables, want)
+        out[str(dev)] = dec.decode(dyn, n, batch.values, batch.syndromes)
+    (res_c, st_c), (res_g, st_g) = out["cpu"], out[str(cuda_device)]
+    np.testing.assert_array_equal(res_g, res_c)
+    np.testing.assert_array_equal(st_g.iterations, st_c.iterations)
+
+
+@pytest.mark.cuda
+def test_cli_on_card(cuda_device, tmp_path, capsys):
+    """The CLI's default device is the card: a small QC code decodes with
+    no bit error, the phase timings printed at log level 2."""
+    from ldpc_decoder_tpu_torch.cli import main
+    from ldpc_decoder_tpu_torch.codes.qc import write_qc_alist
+
+    code, s = make_qc_code(np.ones((3, 6), np.int8), Z=128, seed=1)
+    path = tmp_path / "qc36.alist"
+    write_qc_alist(code, s, str(path))
+    assert main(["-f", str(path), "-c", "1", "-n", "0.7", "-p", "5", "-m",
+                 "2", "-e", "15", "-i", "60", "-l", "2"]) == 0
+    out = capsys.readouterr().out
+    assert "Bit error rate (BER):             0\n" in out
+    assert "Phase timings (per call):" in out

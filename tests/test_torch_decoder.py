@@ -201,7 +201,6 @@ def test_lane_count_model(setup):
 
 
 @pytest.mark.parametrize("kw", [
-    dict(message_dtype="float8_e5m2"),
     dict(kernel_impl="xla"),
     dict(kernel_impl="pallas"),
 ])

@@ -84,7 +84,7 @@ def _make(name):
 def code(request):
     jcode, pcode = _make(request.param)
     tp = GP.GeneralPallasTables.from_compiled(jcompile(jcode))
-    t = G.GeneralTables.from_compiled(compile_code(pcode))
+    t = G.GeneralTables.from_compiled(compile_code(pcode), "cpu")
     return dict(name=request.param, jcode=jcode, pcode=pcode, tp=tp, t=t)
 
 
@@ -92,7 +92,7 @@ def code(request):
 def irregular():
     jcode, pcode = _make("irregular")
     tp = GP.GeneralPallasTables.from_compiled(jcompile(jcode))
-    t = G.GeneralTables.from_compiled(compile_code(pcode))
+    t = G.GeneralTables.from_compiled(compile_code(pcode), "cpu")
     return dict(name="irregular", jcode=jcode, pcode=pcode, tp=tp, t=t)
 
 

@@ -248,6 +248,11 @@ def test_port_imports_no_jax():
         "import ldpc_decoder_tpu_torch.codes.compiled\n"
         "import ldpc_decoder_tpu_torch.channels.bsc\n"
         "import ldpc_decoder_tpu_torch.channels.erasure\n"
+        "import ldpc_decoder_tpu_torch.cli\n"
+        "import ldpc_decoder_tpu_torch.runtime.harness\n"
+        "import ldpc_decoder_tpu_torch.runtime.report\n"
+        "import ldpc_decoder_tpu_torch.runtime.smoke\n"
+        "import ldpc_decoder_tpu_torch.runtime.perf\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'ldpc_decoder_tpu' or m.startswith('ldpc_decoder_tpu.')]\n"
         "assert not bad, bad\n"

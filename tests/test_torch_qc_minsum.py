@@ -69,7 +69,7 @@ TORCH_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
 def _port_qct(js, n_erased=0):
     s = structure_from_numpy(js.Z, js.n_base_rows, js.n_base_cols,
                              js.edge_row, js.edge_col, js.edge_shift)
-    return QCDecodeTables.from_structure(s, n_erased)
+    return QCDecodeTables.from_structure(s, n_erased, "cpu")
 
 
 @pytest.fixture(scope="module")

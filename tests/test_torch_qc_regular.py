@@ -49,7 +49,7 @@ B = 8
 def _port_qct(js):
     s = structure_from_numpy(js.Z, js.n_base_rows, js.n_base_cols,
                              js.edge_row, js.edge_col, js.edge_shift)
-    return QCDecodeTables.from_structure(s, 0)
+    return QCDecodeTables.from_structure(s, 0, "cpu")
 
 
 @pytest.fixture(scope="module")
@@ -114,7 +114,8 @@ def test_tables_match_jax(Z, kw, mode):
 def test_tables_reject_irregular_base():
     _, s = p41_code(Z=128, m=4, coarse=64, fine_mod=16)
     with pytest.raises(ValueError, match="regular base"):
-        qr.QCRegularTables.from_qc_tables(QCDecodeTables.from_structure(s))
+        qr.QCRegularTables.from_qc_tables(QCDecodeTables.from_structure(
+            s, 0, "cpu"))
 
 
 def test_state_conversion_round_trip(small):
