@@ -13,7 +13,7 @@
 // block_start + i*d + k. Node-sized arrays (llr, bits [C, Z, B]; syn
 // [R, Z, B]) are indexed by sorted node node_start + i. Messages are
 // float32, bfloat16 or float8_e5m2; the llr is the message dtype, bfloat16
-// for float8_e5m2. phi's input is clamped to [pre, high] with high = 80 for
+// for float8_e5m2. phi's input is clamped to [pre, kPhiHigh = 80] for
 // every dtype, as the Pallas kernels do (qc_pallas_grouped.py:410-411,
 // :457-459): in float8_e5m2 a small phi value rounds to a subnormal or to
 // +-0, and the stored -0 keeps its sign bit for the check kernel's sign
@@ -39,6 +39,7 @@
 namespace {
 
 using ldpc::from_f32;
+using ldpc::kPhiHigh;
 using ldpc::kSignBit;
 using ldpc::Llr;
 using ldpc::phi_abs;
@@ -69,7 +70,7 @@ __global__ void __launch_bounds__(kLaneThreads)
 cn_kernel(const T* __restrict__ msgs_v, const int8_t* __restrict__ syn,
           T* __restrict__ r_c, const int* __restrict__ slot_src,
           const int* __restrict__ slot_shift, int node_start,
-          int block_start, int Z, int B, float pre, float high) {
+          int block_start, int Z, int B, float pre) {
   const int b = blockIdx.x * kLaneThreads + threadIdx.x;
   if (b >= B) return;
   const int node = blockIdx.z;
@@ -104,7 +105,7 @@ cn_kernel(const T* __restrict__ msgs_v, const int8_t* __restrict__ syn,
     for (int k = 1; k < D; ++k) ext = ext + a[k];
 #pragma unroll
     for (int k = 0; k < D; ++k) {
-      const float res = phi_abs(ext - a[k], pre, high);
+      const float res = phi_abs(ext - a[k], pre, kPhiHigh);
       out[static_cast<size_t>(k) * ZB + static_cast<size_t>(z) * B] =
           from_f32<T>(__uint_as_float(__float_as_uint(res) | (sb[k] ^ X)));
     }
@@ -133,7 +134,7 @@ vn_kernel(const T* __restrict__ r_c,
           T* __restrict__ msgs_v, int8_t* __restrict__ bits,
           const uint8_t* __restrict__ fresh, const int* __restrict__ slot_src,
           const int* __restrict__ slot_shift, int node_start,
-          int block_start, int Z, int B, float pre, float high) {
+          int block_start, int Z, int B, float pre) {
   const int b = blockIdx.x * kLaneThreads + threadIdx.x;
   if (b >= B) return;
   const int node = blockIdx.z;
@@ -168,7 +169,7 @@ vn_kernel(const T* __restrict__ r_c,
 #pragma unroll
     for (int k = 0; k < D; ++k) {
       const float p = (D == 1 || fr) ? l : total - w[k];
-      const float mag = phi_abs(fabsf(p), pre, high);
+      const float mag = phi_abs(fabsf(p), pre, kPhiHigh);
       out[static_cast<size_t>(k) * ZB + row] = from_f32<T>(
           __uint_as_float(__float_as_uint(mag) | (__float_as_uint(p) & kSignBit)));
     }
@@ -224,26 +225,25 @@ dim3 grid_for(int B, int Z, int rows, int count) {
 template <typename T, int D>
 void launch_cn(const void* msgs_v, const void* syn, void* r_c,
                const int* src, const int* shift, int node_start, int count,
-               int block_start, int Z, int B, float pre, float high,
-               cudaStream_t s) {
+               int block_start, int Z, int B, float pre, cudaStream_t s) {
   cn_kernel<T, D><<<grid_for(B, Z, kRowsPerBlock, count), kLaneThreads, 0,
                     s>>>(static_cast<const T*>(msgs_v),
                          static_cast<const int8_t*>(syn),
                          static_cast<T*>(r_c), src, shift, node_start,
-                         block_start, Z, B, pre, high);
+                         block_start, Z, B, pre);
 }
 
 template <typename T, int D>
 void launch_vn(const void* r_c, const void* llr, void* msgs_v, void* bits,
                const void* fresh, const int* src, const int* shift,
                int node_start, int count, int block_start, int Z, int B,
-               float pre, float high, cudaStream_t s) {
+               float pre, cudaStream_t s) {
   vn_kernel<T, D><<<grid_for(B, Z, kRowsPerBlock, count), kLaneThreads, 0,
                     s>>>(static_cast<const T*>(r_c),
                          static_cast<const typename Llr<T>::type*>(llr),
                          static_cast<T*>(msgs_v), static_cast<int8_t*>(bits),
                          static_cast<const uint8_t*>(fresh), src, shift,
-                         node_start, block_start, Z, B, pre, high);
+                         node_start, block_start, Z, B, pre);
 }
 
 template <int D>
@@ -285,19 +285,18 @@ const char* ldpc_cuda_error_string(int err) {
 }
 
 // One check-degree group: r_c blocks [block_start, block_start+count*degree)
-// from msgs_v; phi's input in [pre, high].
+// from msgs_v; phi's input in [pre, kPhiHigh].
 int ldpc_cn_group(const void* msgs_v, const void* syn, void* r_c,
                   const void* slot_src, const void* slot_shift,
                   int node_start, int count, int degree, int block_start,
-                  int Z, int B, float pre, float high, int dtype,
-                  void* stream) {
+                  int Z, int B, float pre, int dtype, void* stream) {
   const int* src = static_cast<const int*>(slot_src);
   const int* shift = static_cast<const int*>(slot_shift);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (degree) {
 #define LDPC_LAUNCH(T, D)                                                   \
   launch_cn<T, D>(msgs_v, syn, r_c, src, shift, node_start, count,          \
-                  block_start, Z, B, pre, high, s)
+                  block_start, Z, B, pre, s)
     LDPC_FOR_EACH_DEGREE(LDPC_DTYPE_CASE)
 #undef LDPC_LAUNCH
     default:
@@ -314,14 +313,14 @@ int ldpc_vn_group(const void* r_c, const void* llr, void* msgs_v, void* bits,
                   const void* fresh, const void* slot_src,
                   const void* slot_shift, int node_start, int count,
                   int degree, int block_start, int Z, int B, float pre,
-                  float high, int dtype, void* stream) {
+                  int dtype, void* stream) {
   const int* src = static_cast<const int*>(slot_src);
   const int* shift = static_cast<const int*>(slot_shift);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (degree) {
 #define LDPC_LAUNCH(T, D)                                                   \
   launch_vn<T, D>(r_c, llr, msgs_v, bits, fresh, src, shift, node_start,    \
-                  count, block_start, Z, B, pre, high, s)
+                  count, block_start, Z, B, pre, s)
     LDPC_FOR_EACH_DEGREE(LDPC_DTYPE_CASE)
 #undef LDPC_LAUNCH
     default:

@@ -12,9 +12,10 @@
 // order, r_c [R, d_c, Z, B] in check order, llr and bits [C, Z, B], syn
 // [R, Z, B] int8. Messages are float32, bfloat16 or float8_e5m2; the llr
 // is the message dtype, bfloat16 for float8_e5m2. phi's input is clamped
-// to [pre, high]: high = 10 for float8_e5m2 (qc_pallas.py:77-84), so every
-// phi value the kernels store stays a normal e5m2, else 80. Read tables [nodes, D, 3] int32 hold (source node,
-// source slot, shift s) per slot: slot k of a node reads the circulant
+// to [pre, phi_high<T>()]: 10 for float8_e5m2 (qc_pallas.py:77-84), so
+// every phi value the kernels store stays a normal e5m2, else 80. Read
+// tables [nodes, D, 3] int32 hold (source node, source slot, shift s) per
+// slot: slot k of a node reads the circulant
 // row out[z] = src[(z + s) mod Z] of block src_node * d_src + src_slot —
 // msgs_v with the block's shift for a CN slot, r_c with (-s) mod Z for a
 // VN slot, and the hard bits of column src_node with s for a parity slot.
@@ -36,6 +37,7 @@
 namespace {
 
 using ldpc::from_f32;
+using ldpc::kPhiHigh;
 using ldpc::kSignBit;
 using ldpc::Llr;
 using ldpc::phi_abs;
@@ -46,6 +48,13 @@ constexpr int kMaxDegree = 32;          // sign bits of a check fit a uint32
 constexpr int kLaneThreads = 128;       // threads per block, along B
 constexpr int kRowsPerBlock = 8;        // CN/VN rows walked per thread
 constexpr int kParityRowsPerBlock = 32; // parity rows walked per thread
+
+// phi's input clamp for message dtype T (ops/phi.py phi_high): float8_e5m2
+// clamps at 10, so phi >= 9.1e-5 stays a normal e5m2.
+template <typename T>
+__device__ constexpr float phi_high() { return kPhiHigh; }
+template <>
+__device__ constexpr float phi_high<__nv_fp8_e5m2>() { return 10.0f; }
 
 // The node's D (flat source block, shift) pairs into shared memory. The
 // block is src_node * d_src + src_slot for a message source and src_node
@@ -76,7 +85,8 @@ dim3 grid_for(int B, int Z, int rows, int nodes) {
 //   a_k = |m_k|, m_k = msgs_v[blk_k][(z + s_k) mod Z]
 //   ext = a_0 + a_1 + ... (left to right, the Pallas order)
 //   x   = syn ^ (d_c odd) ^ (parity of the sign bits of m)   (one bit)
-//   r_c[r, k] = phi_abs(ext - a_k; pre, high) | ((signbit(m_k) ^ x) << 31)
+//   r_c[r, k] = phi_abs(ext - a_k; pre, phi_high<T>())
+//               | ((signbit(m_k) ^ x) << 31)
 // which is the Pallas kernel's X = (syn << 31) ^ (d odd ? sign : 0) ^ XOR_j
 // sb_j algebra with the d_c sign bits packed into one register.
 // Bound on this card: bytes (d_c reads + d_c writes of the message dtype
@@ -90,7 +100,7 @@ __global__ void __launch_bounds__(kLaneThreads)
 cn_regular_kernel(const T* __restrict__ msgs_v,
                   const int8_t* __restrict__ syn, T* __restrict__ r_c,
                   const int* __restrict__ cn_read, int d_v, int Z, int B,
-                  float pre, float high) {
+                  float pre) {
   __shared__ int blk[D];
   __shared__ int sh[D];
   const int node = blockIdx.z;
@@ -121,7 +131,7 @@ cn_regular_kernel(const T* __restrict__ msgs_v,
     for (int k = 1; k < D; ++k) ext = ext + a[k];
 #pragma unroll
     for (int k = 0; k < D; ++k) {
-      const float res = phi_abs(ext - a[k], pre, high);
+      const float res = phi_abs(ext - a[k], pre, phi_high<T>());
       const uint32_t sign = (((signs >> k) ^ x) & 1u) << 31;
       out[static_cast<size_t>(k) * ZB + static_cast<size_t>(z) * B] =
           from_f32<T>(__uint_as_float(__float_as_uint(res) | sign));
@@ -137,7 +147,7 @@ cn_regular_kernel(const T* __restrict__ msgs_v,
 //   w_k   = r_c[blk_k][(z + s_k) mod Z]   (s_k = -shift mod Z)
 //   total = llr + w_0 + w_1 + ...         (slot order)
 //   pre_k = llr if the lane is fresh, else total - w_k
-//   msgs_v[c, k] = phi_abs(|pre_k|; pre, high) | signbit(pre_k)
+//   msgs_v[c, k] = phi_abs(|pre_k|; pre, phi_high<T>()) | signbit(pre_k)
 //   bits (emit only) = !signbit(fresh ? llr : total)   (-0 decodes as 1)
 // A fresh lane was just refilled: its messages are a retired frame's, so it
 // emits the init message phi(llr) instead (the lane-reset refill).
@@ -151,7 +161,7 @@ vn_regular_kernel(const T* __restrict__ r_c,
                   T* __restrict__ msgs_v, int8_t* __restrict__ bits,
                   const uint8_t* __restrict__ fresh,
                   const int* __restrict__ vn_read, int d_c, int Z, int B,
-                  float pre, float high) {
+                  float pre) {
   __shared__ int blk[D];
   __shared__ int sh[D];
   const int node = blockIdx.z;
@@ -183,7 +193,7 @@ vn_regular_kernel(const T* __restrict__ r_c,
 #pragma unroll
     for (int k = 0; k < D; ++k) {
       const float p = fr ? l : total - w[k];
-      const float mag = phi_abs(fabsf(p), pre, high);
+      const float mag = phi_abs(fabsf(p), pre, phi_high<T>());
       out[static_cast<size_t>(k) * ZB + row] = from_f32<T>(__uint_as_float(
           __float_as_uint(mag) | (__float_as_uint(p) & kSignBit)));
     }
@@ -258,10 +268,11 @@ const char* ldpc_cuda_error_string(int err) {
 }
 
 // Check-node pass over all R checks: r_c [R, d_c, Z, B] from msgs_v
-// [C, d_v, Z, B] through cn_read [R, d_c, 3]; phi's input in [pre, high].
+// [C, d_v, Z, B] through cn_read [R, d_c, 3]; phi's input in
+// [pre, phi_high<T>()].
 int ldpc_cn_regular(const void* msgs_v, const void* syn, void* r_c,
                     const void* cn_read, int R, int d_c, int d_v, int Z,
-                    int B, float pre, float high, int dtype, void* stream) {
+                    int B, float pre, int dtype, void* stream) {
   const dim3 grid = grid_for(B, Z, kRowsPerBlock, R);
   const int* tab = static_cast<const int*>(cn_read);
   const int8_t* sy = static_cast<const int8_t*>(syn);
@@ -270,7 +281,7 @@ int ldpc_cn_regular(const void* msgs_v, const void* syn, void* r_c,
 #define LDPC_LAUNCH(T, D)                                                   \
   cn_regular_kernel<T, D><<<grid, kLaneThreads, 0, s>>>(                    \
       static_cast<const T*>(msgs_v), sy, static_cast<T*>(r_c), tab, d_v, Z, \
-      B, pre, high)
+      B, pre)
     LDPC_FOR_EACH_DEGREE(LDPC_DTYPE_CASE)
 #undef LDPC_LAUNCH
     default:
@@ -287,7 +298,7 @@ int ldpc_cn_regular(const void* msgs_v, const void* syn, void* r_c,
 int ldpc_vn_regular(const void* r_c, const void* llr, void* msgs_v,
                     void* bits, const void* fresh, const void* vn_read,
                     int C, int d_v, int d_c, int Z, int B, float pre,
-                    float high, int dtype, void* stream) {
+                    int dtype, void* stream) {
   const dim3 grid = grid_for(B, Z, kRowsPerBlock, C);
   const int* tab = static_cast<const int*>(vn_read);
   int8_t* hb = static_cast<int8_t*>(bits);
@@ -298,7 +309,7 @@ int ldpc_vn_regular(const void* r_c, const void* llr, void* msgs_v,
   vn_regular_kernel<T, D><<<grid, kLaneThreads, 0, s>>>(                    \
       static_cast<const T*>(r_c),                                           \
       static_cast<const typename Llr<T>::type*>(llr),                       \
-      static_cast<T*>(msgs_v), hb, fr, tab, d_c, Z, B, pre, high)
+      static_cast<T*>(msgs_v), hb, fr, tab, d_c, Z, B, pre)
     LDPC_FOR_EACH_DEGREE(LDPC_DTYPE_CASE)
 #undef LDPC_LAUNCH
     default:

@@ -68,18 +68,17 @@ _p, _i, _f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # Every library also exports ldpc_max_degree() and ldpc_cuda_error_string.
 _SIGNATURES = {
     "qc_grouped": {
-        "ldpc_cn_group": [_p, _p, _p, _p, _p, _i, _i, _i, _i, _i, _i, _f, _f,
-                          _i, _p],
+        "ldpc_cn_group": [_p, _p, _p, _p, _p, _i, _i, _i, _i, _i, _i, _f, _i,
+                          _p],
         "ldpc_vn_group": [_p, _p, _p, _p, _p, _p, _p, _i, _i, _i, _i, _i, _i,
-                          _f, _f, _i, _p],
+                          _f, _i, _p],
         "ldpc_parity_group": [_p, _p, _p, _p, _p, _i, _i, _i, _i, _i, _i,
                               _p],
     },
     "qc_regular": {
-        "ldpc_cn_regular": [_p, _p, _p, _p, _i, _i, _i, _i, _i, _f, _f, _i,
-                            _p],
+        "ldpc_cn_regular": [_p, _p, _p, _p, _i, _i, _i, _i, _i, _f, _i, _p],
         "ldpc_vn_regular": [_p, _p, _p, _p, _p, _p, _i, _i, _i, _i, _i, _f,
-                            _f, _i, _p],
+                            _i, _p],
         "ldpc_parity_regular": [_p, _p, _p, _p, _i, _i, _i, _i, _p],
     },
     "qc_minsum": {
@@ -172,27 +171,26 @@ def _fp8(name: str, dtype: torch.dtype) -> str:
 
 
 def cn_group(msgs_v, syn, r_c, src, shift, g, Z: int, B: int,
-             pre: float, high: float) -> None:
-    """Check-node kernel for one check-degree group ``g``; φ's input in
-    [pre, high]."""
+             pre: float) -> None:
+    """Check-node kernel for one check-degree group ``g``."""
     lib = load("qc_grouped")
     err = lib.ldpc_cn_group(
         _ptr(msgs_v), _ptr(syn), _ptr(r_c), _ptr(src), _ptr(shift),
-        g.node_start, g.count, g.degree, g.block_start, Z, B, pre, high,
+        g.node_start, g.count, g.degree, g.block_start, Z, B, pre,
         DTYPE_CODES[msgs_v.dtype], _stream(msgs_v))
     _check(lib, err, "check-node kernel")
     launch_counts[_fp8("cn", msgs_v.dtype)] += 1
 
 
 def vn_group(r_c, llr, msgs_v, bits, fresh, src, shift, g, Z: int, B: int,
-             pre: float, high: float) -> None:
+             pre: float) -> None:
     """Variable-node kernel for one variable-degree group ``g``; ``bits``
     and ``fresh`` may be None."""
     lib = load("qc_grouped")
     err = lib.ldpc_vn_group(
         _ptr(r_c), _ptr(llr), _ptr(msgs_v), _ptr(bits), _ptr(fresh),
         _ptr(src), _ptr(shift), g.node_start, g.count, g.degree,
-        g.block_start, Z, B, pre, high, DTYPE_CODES[r_c.dtype],
+        g.block_start, Z, B, pre, DTYPE_CODES[r_c.dtype],
         _stream(r_c))
     _check(lib, err, "variable-node kernel")
     launch_counts[_fp8("vn", r_c.dtype)] += 1
@@ -208,27 +206,27 @@ def parity_group(bits, syn, flags, src, shift, g, Z: int, B: int) -> None:
     launch_counts["parity"] += 1
 
 
-def cn_regular(msgs_v, syn, r_c, tables, pre: float, high: float) -> None:
-    """Regular check-node kernel over all R checks (one launch); φ's input
-    in [pre, high]."""
+def cn_regular(msgs_v, syn, r_c, tables, pre: float) -> None:
+    """Regular check-node kernel over all R checks (one launch); φ's clamp
+    is :func:`~ldpc_decoder_tpu_torch.ops.phi.phi_high` of the message
+    dtype, compiled into the kernel."""
     lib = load("qc_regular")
     err = lib.ldpc_cn_regular(
         _ptr(msgs_v), _ptr(syn), _ptr(r_c), _ptr(tables.cn_read), tables.R,
-        tables.d_c, tables.d_v, tables.Z, msgs_v.shape[-1], pre, high,
+        tables.d_c, tables.d_v, tables.Z, msgs_v.shape[-1], pre,
         DTYPE_CODES[msgs_v.dtype], _stream(msgs_v))
     _check(lib, err, "regular check-node kernel")
     launch_counts[_fp8("cn_regular", msgs_v.dtype)] += 1
 
 
-def vn_regular(r_c, llr, msgs_v, bits, fresh, tables, pre: float,
-               high: float) -> None:
+def vn_regular(r_c, llr, msgs_v, bits, fresh, tables, pre: float) -> None:
     """Regular variable-node kernel over all C variables (one launch);
     ``bits`` and ``fresh`` may be None."""
     lib = load("qc_regular")
     err = lib.ldpc_vn_regular(
         _ptr(r_c), _ptr(llr), _ptr(msgs_v), _ptr(bits), _ptr(fresh),
         _ptr(tables.vn_read), tables.C, tables.d_v, tables.d_c, tables.Z,
-        r_c.shape[-1], pre, high, DTYPE_CODES[r_c.dtype], _stream(r_c))
+        r_c.shape[-1], pre, DTYPE_CODES[r_c.dtype], _stream(r_c))
     _check(lib, err, "regular variable-node kernel")
     launch_counts[_fp8("vn_regular", r_c.dtype)] += 1
 

@@ -49,12 +49,7 @@ import torch
 
 from ldpc_decoder_tpu_torch.ops import _kernels
 from ldpc_decoder_tpu_torch.ops._dispatch import backend, check
-from ldpc_decoder_tpu_torch.ops.phi import (
-    HIGH_THRESHOLD,
-    PRE_THRESHOLD,
-    phi,
-    phi_abs,
-)
+from ldpc_decoder_tpu_torch.ops.phi import PRE_THRESHOLD, phi, phi_abs
 from ldpc_decoder_tpu_torch.ops.qc_decode import (
     QCDecodeTables,
     llr_dtype,
@@ -223,8 +218,7 @@ def cn_pass_grouped(msgs_v, syn, r_c, tables: GroupedQCTables,
     with torch.cuda.device(msgs_v.device):
         for g in tables.row_groups:
             _kernels.cn_group(msgs_v, syn, r_c, tables.cn_src,
-                              tables.cn_shift, g, tables.Z, B, pre,
-                              HIGH_THRESHOLD)
+                              tables.cn_shift, g, tables.Z, B, pre)
     return r_c
 
 
@@ -291,8 +285,7 @@ def vn_pass_grouped(r_c, llr, msgs_v, tables: GroupedQCTables,
     with torch.cuda.device(r_c.device):
         for g in _vn_groups(tables, bits is not None, include_d1):
             _kernels.vn_group(r_c, llr, msgs_v, bits, fresh, tables.vn_src,
-                              tables.vn_shift, g, tables.Z, B, pre,
-                              HIGH_THRESHOLD)
+                              tables.vn_shift, g, tables.Z, B, pre)
     return msgs_v
 
 

@@ -197,7 +197,7 @@ def cn_pass_regular(msgs_v, syn, r_c, tables: QCRegularTables,
     if _backend(t, msgs_v, syn, r_c) == "cpu":
         return cn_pass_plain(msgs_v, syn, r_c, t, pre)
     with torch.cuda.device(msgs_v.device):
-        _kernels.cn_regular(msgs_v, syn, r_c, t, pre, phi_high(r_c.dtype))
+        _kernels.cn_regular(msgs_v, syn, r_c, t, pre)
     return r_c
 
 
@@ -240,8 +240,7 @@ def vn_pass_regular(r_c, llr, msgs_v, tables: QCRegularTables,
     if _backend(t, *tensors) == "cpu":
         return vn_pass_plain(r_c, llr, msgs_v, t, pre, bits, fresh)
     with torch.cuda.device(r_c.device):
-        _kernels.vn_regular(r_c, llr, msgs_v, bits, fresh, t, pre,
-                            phi_high(r_c.dtype))
+        _kernels.vn_regular(r_c, llr, msgs_v, bits, fresh, t, pre)
     return msgs_v
 
 

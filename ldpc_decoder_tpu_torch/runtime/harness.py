@@ -47,7 +47,6 @@ def do_test(
     out = out or sys.stdout
     dec = decoder or LDPCDecoder(code, channel, static_params)
     n_vec_per_run = dec.parallel_factor() * dyn_params.loading_factor
-    dyn_params.num_vectors_per_run = n_vec_per_run
     frame_size = code.n_vars
 
     report = TestReport(

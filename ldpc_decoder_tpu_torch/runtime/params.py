@@ -118,4 +118,3 @@ class DynamicParams:
     # bit errors above which a frame counts as errored (the report's FER
     # line; main.cpp -e / -b)
     target_errors: int = 0
-    num_vectors_per_run: int = 0  # filled by the harness

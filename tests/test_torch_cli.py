@@ -276,14 +276,11 @@ def test_perf_bytes(small_decoder):
         dec.qc, 0, "cpu"))
     B, nb = 256, t.n_edges // t.Z
     for mb, lb in ((2, 2), (1, 2), (4, 4)):
-        r = perf.regular_bytes(t, B, mb, lb, emit=True)
-        g = perf.grouped_bytes(tg, B, mb, lb, emit=True)
+        r = perf.regular_bytes(t, B, mb, lb)
+        g = perf.grouped_bytes(tg, B, mb, lb)
         assert r["cn"] == 2 * t.n_edges * B * mb + t.n_checks * B + 12 * nb
         assert {k: r[k] - g[k] for k in r} == {
             "cn": 4 * nb, "vn": 4 * nb, "parity": 4 * nb}
-    plain = perf.regular_bytes(t, B, 1, 2)
-    assert (perf.regular_bytes(t, B, 1, 2, emit=True)["vn"] - plain["vn"]
-            == t.n_vars * B)
 
 
 def test_module_runs_as_script(small_alist):

@@ -597,6 +597,55 @@ def test_fp8_store_matches_torch(cuda_device):
 
 
 @pytest.mark.cuda
+def test_fp8_store_float32_matches_torch(cuda_device):
+    """The kernels' float8_e5m2 store of float32 values with nonzero low
+    mantissa bits (every sum-product φ store has them) against torch's
+    conversion on the card and on the CPU: random values, and the values
+    one float32 ulp either side of every tie between adjacent e5m2 values
+    (subnormal ties and the overflow tie 61440 included). A regular min-sum
+    check pass with β = 0 makes them: the messages of a lane all equal m
+    (an e5m2 value), so every slot stores α·m, rounded once to float32 and
+    then to e5m2."""
+    t = qr.QCRegularTables.from_qc_tables(QCDecodeTables.from_structure(
+        _regular_structure(6, 64, 1), 0, cuda_device))
+    rng = np.random.default_rng(5)
+    pow2 = torch.tensor(2.0 ** np.arange(-16, 16), dtype=torch.float32)
+    finite = torch.arange(1, 0x7C, dtype=torch.uint8).view(FP8).float()
+    rand_m = finite[torch.from_numpy(rng.integers(0, finite.numel(), 64))]
+    rand_m = rand_m * torch.from_numpy(rng.choice([-1.0, 1.0], 64)).float()
+    m = torch.cat([pow2, -pow2, rand_m])  # [B] one message value per lane
+    B = m.numel()
+    mv = m.to(FP8).view(1, 1, 1, B).expand(t.C, t.d_v, t.Z, B).contiguous()
+    mv = mv.to(cuda_device)
+    syn = torch.zeros((t.R, t.Z, B), dtype=torch.int8, device=cuda_device)
+    rc = torch.empty((t.R, t.d_c, t.Z, B), dtype=FP8, device=cuda_device)
+    # α·2^j spans every tie: normal ones at 1.125..1.875 · 2^j, subnormal
+    # ones at 0.5, 1.5, 2.5, 3.5 · 2^-16
+    ties = np.array([0.5, 1.125, 1.25, 1.375, 1.5, 1.625, 1.75, 1.875],
+                    np.float32)
+    alphas = np.concatenate([
+        np.nextafter(ties, np.float32(0)), ties,
+        np.nextafter(ties, np.float32(np.inf)),
+        rng.uniform(0.5, 2.0, 8).astype(np.float32)])
+    seen = []
+    for a in alphas:
+        qr.cn_pass_regular_minsum(mv, syn, rc, t, float(a), 0.0)
+        # the kernel's float32 product α·|m| (__fmul_rn), with m's sign
+        want = torch.tensor(a, dtype=torch.float32) * m
+        seen.append(want)
+        kernel = rc.view(torch.uint8).cpu()
+        on_cpu = want.to(FP8).view(torch.uint8)
+        on_card = want.to(cuda_device).to(FP8).view(torch.uint8).cpu()
+        assert torch.equal(on_card, on_cpu), a
+        assert torch.equal(kernel, on_cpu.expand_as(kernel)), a
+    seen = torch.cat(seen)
+    for tie in (61440.0, 1.5 * 2.0 ** -16, 1.125 * 2.0 ** -14):
+        below, above = np.nextafter(np.float32([tie, tie]),
+                                    np.float32([0, np.inf]))
+        assert (seen == float(below)).any() and (seen == float(above)).any()
+
+
+@pytest.mark.cuda
 def test_cuda_numerics_smoke(cuda_device):
     from ldpc_decoder_tpu_torch.runtime.smoke import cuda_numerics_smoke
 
