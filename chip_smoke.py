@@ -44,10 +44,17 @@ The CLI (``python -m ldpc_decoder_tpu_torch.cli``, the JAX CLI's flags)
 decodes reg36 from its cached alist, 512 frames at sigma = 0.87 in
 bfloat16 at log level 2, in process, then a small QC code in a subprocess.
 
+The probes (``python -m ldpc_decoder_tpu_torch.probes``, the counterparts
+of the TPU measurement kernels in scripts/) run one headline point each at
+full size: the grouped kernels writing fresh outputs at p41 x B = 256
+(row 11), and the two probe kernels of csrc/probes.cu, the row copy
+(rotated reg36 copy, row width, gather: rows 12, 13, 15) and the window
+stream (phi under traffic, rotated window reads: rows 14, 16).
+
 Phases:
 
 1. device: the card's name and power limit (nvidia-smi);
-2. build: the four kernel libraries from ldpc_decoder_tpu_torch/csrc/,
+2. build: the five kernel libraries from ldpc_decoder_tpu_torch/csrc/,
    one nvcc each, started together;
 3. the numerics smoke (``runtime.smoke.cuda_numerics_smoke``): phi on the
    device, through check-node launches, against float64, and phi(10) in
@@ -103,6 +110,11 @@ Phases:
 29. the CLI: reg36 in process (BER 0, no frame in error, iterations in
     phase 11's band, phase timings printed), and a subprocess on a small
     QC code.
+30. the probes: every mode of both probe kernels against its plain version
+    at full size, then each probe's headline point through the probe
+    entry point's functions, its records printed, its launches counted
+    like a path's (row 11: the grouped kernels' fresh outputs bit-identical
+    to the in-place run over 14 iterations).
 
 Every phase must pass: any failure raises, and the script exits nonzero
 without its result line. The last line of stdout is the result object; the
@@ -116,6 +128,11 @@ import subprocess
 import sys
 import threading
 import time
+
+# the median of CUDA-event runs after a warm-up; the least time of a piece
+# of work at the card's data-sheet rates (H100 SXM, 700 W)
+from ldpc_decoder_tpu_torch.probes._common import cuda_ms
+from ldpc_decoder_tpu_torch.runtime.perf import bound
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 P41_ALIST = os.path.join(REPO, "codes_cache",
@@ -150,10 +167,6 @@ REG36_FP8_AVG_ITERS = (40.0, 50.0)
 CLI_SMALL_ALIST = os.path.join(REPO, "codes_cache", "cli_qc36_z128.alist")
 # per-degree alpha of the p41 check degrees (3, 6, 7), with the fallback
 MINSUM_ALPHA_TABLE = {3: 0.8, 6: 0.75, 7: 0.75, 0: 0.8}
-# the card's datasheet peaks (H100 SXM, 700 W): HBM bytes/s and float32
-# operations/s outside the tensor cores
-HBM_BYTES_PER_S = 3.35e12
-F32_OPS_PER_S = 67e12
 # float32 operations per CN/VN message: |m|, the running sum, the
 # leave-one-out subtract, two clamps, x/2, tanh, log, negate (or exp and
 # a multiply past 5), the branch select and the sign OR; a parity read is
@@ -169,6 +182,7 @@ GROUPED_SOURCE = "ldpc_decoder_tpu_torch/csrc/qc_grouped.cu"
 REGULAR_SOURCE = "ldpc_decoder_tpu_torch/csrc/qc_regular.cu"
 GENERAL_SOURCE = "ldpc_decoder_tpu_torch/csrc/general.cu"
 MINSUM_SOURCE = "ldpc_decoder_tpu_torch/csrc/qc_minsum.cu"
+PROBES_SOURCE = "ldpc_decoder_tpu_torch/csrc/probes.cu"
 # (name in the kernels line and in launch_counts, source, TPU kernel)
 KERNELS = [
     ("cn", GROUPED_SOURCE,
@@ -218,6 +232,20 @@ QC_MS_REGULAR = ("cn_regular_minsum", "vn_regular_minsum", "parity_regular")
 QC_MS_GROUPED = ("cn_group_minsum", "vn_group_minsum", "parity")
 FP8_GROUPED = ("cn_fp8", "vn_fp8", "parity")
 FP8_REGULAR = ("cn_regular_fp8", "vn_regular_fp8", "parity_regular")
+# the probes of rows 11-16: (name in the kernels line, probe of
+# ldpc_decoder_tpu_torch.probes.PROBES, source, launch counters)
+PROBE_ROWS = [
+    ("probe_noalias", "noalias", GROUPED_SOURCE, ("cn", "vn", "parity")),
+    ("probe_rotated_copy", "rotated_copy", PROBES_SOURCE,
+     ("probe_row_copy",)),
+    ("probe_row_width", "row_width", PROBES_SOURCE, ("probe_row_copy",)),
+    ("probe_overlap2", "overlap2", PROBES_SOURCE, ("probe_window",)),
+    ("probe_overlap3", "overlap3", PROBES_SOURCE, ("probe_window",)),
+    ("probe_overlap4", "overlap4", PROBES_SOURCE, ("probe_window",)),
+    ("probe_overlap6", "overlap6", PROBES_SOURCE, ("probe_window",)),
+    ("probe_gather", "gather", PROBES_SOURCE, ("probe_row_copy",)),
+    ("probe_window_read", "window_read", PROBES_SOURCE, ("probe_window",)),
+]
 
 
 def log(msg):
@@ -271,30 +299,6 @@ def get_reg36_code():
                             seed=1, coarse=1024, fine_mod=64, min_girth=8)
 
     return cached_code(REG36_ALIST, REG36_PARAMS, build)
-
-
-def cuda_ms(fn, reps):
-    """Median milliseconds of ``fn()`` over ``reps`` runs (CUDA events)."""
-    import torch
-
-    fn()  # warm
-    times = []
-    for _ in range(reps):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b))
-    return sorted(times)[len(times) // 2]
-
-
-def bound(n_bytes, n_ops):
-    """The least time the card could take: (ms, "bytes" or "operations")."""
-    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n_ops / F32_OPS_PER_S * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def popcount_rows(x):
@@ -1316,6 +1320,53 @@ def phase_cli(np):
     return {"avg_iter": avg, "wall_s": wall}
 
 
+def phase_probes(torch, dev, code, s, batch, s36):
+    """Every probe kernel mode against its plain version at full size, then
+    each probe's headline point with the launch counts set to 0 just before
+    it and read just after. Returns the kernels-line entries of rows
+    11-16."""
+    from ldpc_decoder_tpu_torch import probes
+    from ldpc_decoder_tpu_torch.ops import _kernels
+
+    t0 = time.perf_counter()
+    errs = probes.check_template_modes(dev)
+    torch.cuda.synchronize()
+    log(f"  {len(errs)} kernel modes equal their plain versions (max |diff| "
+        f"{max(errs.values()):.3e}) in {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    card = probes.card(dev)
+    extra = {"noalias": dict(code=code, structure=s, batch=batch),
+             "rotated_copy": dict(structure=s36)}
+    entries = []
+    for name, probe, source, counters in PROBE_ROWS:
+        t0 = time.perf_counter()
+        _kernels.reset_launch_counts()
+        recs = probes.PROBES[probe](dev, headline=True, card=card,
+                                    **extra.get(probe, {}))
+        torch.cuda.synchronize()
+        launches = dict(_kernels.launch_counts)
+        for rec in recs:
+            log(json.dumps(rec))
+        for counter, n in launches.items():
+            if counter in counters:
+                assert n > 0, f"{probe}: {counter} kernel never launched"
+            else:
+                assert n == 0, f"{probe}: {counter} launched off its path"
+        head = recs[0]
+        entries.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": head["replaces"],
+            "launches": sum(launches[c] for c in counters),
+            "max_abs_err": head["max_abs_err"], "ms": head["ms"],
+            "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
+            "bound_by": head["bound_by"], "library_ms": head["library_ms"]})
+        log(f"  {probe}: {head['ms']:.3f} ms, bound {head['bound_ms']:.3f} "
+            f"ms ({head['bound_by']}), {entries[-1]['launches']} launches, "
+            f"{time.perf_counter() - t0:.1f} s")
+        torch.cuda.empty_cache()
+    return entries
+
+
 def main():
     import numpy as np
     import torch
@@ -1584,11 +1635,15 @@ def main():
     assert isinstance(dec_fp8.tables, GroupedQCTables)
     _, fp8_grp_launches = run_path(dec_fp8, dyn, batch, N_FRAMES, FP8_GROUPED,
                                    "p41 fp8", gate=False)
-    del dec_fp8, batch
+    del dec_fp8  # the frames stay for phase 30
     torch.cuda.empty_cache()
 
     phase(29, "the CLI")
     phase_cli(np)
+
+    phase(30, "probes (rows 11-16)")
+    probe_entries = phase_probes(torch, dev, code, s, batch, s36)
+    del batch
     log(f"  all phases passed in {time.perf_counter() - t_all:.1f} s")
 
     launches.update({name: launches36[name] for name in REGULAR})
@@ -1613,6 +1668,7 @@ def main():
         if "grouped_ms" in r:
             entry["grouped_ms"] = r["grouped_ms"]
         kernels.append(entry)
+    kernels += probe_entries
     log(json.dumps({"kernels": kernels}))
     assert "jax" not in sys.modules
     print(json.dumps({"ok": True, "device": {

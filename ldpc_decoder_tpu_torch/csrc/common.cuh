@@ -1,5 +1,5 @@
 // Device helpers shared by the kernel sources (qc_grouped.cu, qc_regular.cu,
-// qc_minsum.cu, general.cu): storage conversions (float32, bfloat16,
+// qc_minsum.cu, general.cu, probes.cu): storage conversions (float32, bfloat16,
 // float8_e5m2), the int8 fixed-point message storage of min-sum, phi and
 // the circulant rotation.
 //

@@ -1,4 +1,5 @@
-"""Argument checks and device dispatch shared by the QC pass modules.
+"""Argument checks and device dispatch shared by the QC pass modules and
+the probe kernels (:mod:`ldpc_decoder_tpu_torch.probes.kernels`).
 
 Every pass of :mod:`.qc_grouped` and :mod:`.qc_regular` checks its
 tensors' shapes and dtypes, then takes its plain PyTorch version on CPU

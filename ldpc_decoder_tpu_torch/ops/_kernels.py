@@ -1,12 +1,14 @@
 """Build, load and launch the CUDA kernels of ``csrc/``.
 
-Four sources, one shared library each: ``qc_grouped.cu`` (the grouped
+Five sources, one shared library each: ``qc_grouped.cu`` (the grouped
 family's sum-product and parity kernels, one launch per degree group),
 ``qc_regular.cu`` (the regular family's, one launch per pass),
 ``qc_minsum.cu`` (the min-sum check and variable kernels of both QC
-families, int8 messages in the grouped one) and ``general.cu`` (the
+families, int8 messages in the grouped one), ``general.cu`` (the
 general any-alist path, sum-product and min-sum, one launch per degree
-bucket); all include ``common.cuh``. Each is compiled
+bucket) and ``probes.cu`` (the measurement probes of
+:mod:`ldpc_decoder_tpu_torch.probes`, which no decode runs); all include
+``common.cuh``. Each is compiled
 by ``nvcc`` for ``sm_90a`` into a library with a plain ``extern "C"``
 interface (no PyTorch headers, so it builds in seconds) at first use, into
 the git-ignored ``ldpc_decoder_tpu_torch/build/``; a changed source or
@@ -19,10 +21,12 @@ global state), so a run can show that its main path went through the
 kernels. The QC sum-product kernels count their float8_e5m2 launches
 apart (``cn_fp8``, ``vn_fp8``, ``cn_regular_fp8``, ``vn_regular_fp8``),
 since those are the float8 branches of other TPU kernels' rows; the
-min-sum kernels count every message dtype under one name. Argument checking is the callers' job
-(:mod:`ldpc_decoder_tpu_torch.ops.qc_grouped`,
+min-sum kernels count every message dtype under one name; the probes
+count ``probe_row_copy`` and ``probe_window``. Argument checking is the
+callers' job (:mod:`ldpc_decoder_tpu_torch.ops.qc_grouped`,
 :mod:`ldpc_decoder_tpu_torch.ops.qc_regular`,
-:mod:`ldpc_decoder_tpu_torch.ops.general`); a nonzero CUDA error from a
+:mod:`ldpc_decoder_tpu_torch.ops.general`,
+:mod:`ldpc_decoder_tpu_torch.probes.kernels`); a nonzero CUDA error from a
 launch raises.
 """
 
@@ -40,7 +44,8 @@ from ldpc_decoder_tpu_torch._build import build_shared_library
 CSRC = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "csrc")
 SOURCES = {name: os.path.join(CSRC, f"{name}.cu")
-           for name in ("qc_grouped", "qc_regular", "qc_minsum", "general")}
+           for name in ("qc_grouped", "qc_regular", "qc_minsum", "general",
+                        "probes")}
 HEADERS = (os.path.join(CSRC, "common.cuh"),)
 # --split-compile=0: nvcc optimizes a source's template instantiations in
 # parallel, one thread per CPU. On an H100 host with 8 cores the four
@@ -50,9 +55,10 @@ HEADERS = (os.path.join(CSRC, "common.cuh"),)
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
               "--split-compile=0"]
-# each source's kMaxDegree: degrees 1..max are instantiated
+# each source's kMaxDegree: degrees 1..max are instantiated (probes: the
+# most windows per output node)
 MAX_DEGREES = {"qc_grouped": 16, "qc_regular": 32, "qc_minsum": 32,
-               "general": 32}
+               "general": 32, "probes": 6}
 
 launch_counts = {"cn": 0, "vn": 0, "parity": 0,
                  "cn_regular": 0, "vn_regular": 0, "parity_regular": 0,
@@ -61,9 +67,11 @@ launch_counts = {"cn": 0, "vn": 0, "parity": 0,
                  "cn_general": 0, "vn_general": 0,
                  "cn_general_minsum": 0, "vn_general_minsum": 0,
                  "cn_group_minsum": 0, "vn_group_minsum": 0,
-                 "cn_regular_minsum": 0, "vn_regular_minsum": 0}
+                 "cn_regular_minsum": 0, "vn_regular_minsum": 0,
+                 "probe_row_copy": 0, "probe_window": 0}
 
 _p, _i, _f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_ll = ctypes.c_longlong
 # per library: {launch function: argtypes}; each returns a CUDA error code.
 # Every library also exports ldpc_max_degree() and ldpc_cuda_error_string.
 _SIGNATURES = {
@@ -99,6 +107,11 @@ _SIGNATURES = {
                                    _f, _f, _i, _p],
         "ldpc_vn_general_minsum": [_p, _p, _p, _p, _p, _i, _i, _i, _i, _i,
                                    _f, _f, _i, _p],
+    },
+    "probes": {
+        "ldpc_probe_row_copy": [_p, _p, _p, _p, _p, _i, _ll, _i, _i, _i, _p],
+        "ldpc_probe_window": [_p, _p, _p, _p, _p, _i, _i, _i, _i, _i, _i, _i,
+                              _i, _i, _f, _i, _p],
     },
 }
 # message dtype codes of every library's C entries (each takes the ones
@@ -340,3 +353,32 @@ def vn_regular_minsum(r_c, llr, msgs_v, bits, fresh, tables,
         r_c.shape[-1], clamp, DTYPE_CODES[r_c.dtype], _stream(r_c))
     _check(lib, err, "regular min-sum variable-node kernel")
     launch_counts["vn_regular_minsum"] += 1
+
+
+def probe_row_copy(src, out, blocks, shifts, index, n_rows: int, Z: int,
+                   row_bytes: int, bytes_per_thread: int) -> None:
+    """The row-copy probe over ``n_rows`` output rows: from the (block,
+    shift) table when ``index`` is None, else from the int32 or int64
+    ``index``."""
+    lib = load("probes")
+    mode = 0 if index is None else 1 if index.dtype == torch.int32 else 2
+    err = lib.ldpc_probe_row_copy(
+        _ptr(src), _ptr(out), _ptr(blocks), _ptr(shifts), _ptr(index), mode,
+        n_rows, Z, row_bytes, bytes_per_thread, _stream(src))
+    _check(lib, err, "row-copy probe")
+    launch_counts["probe_row_copy"] += 1
+
+
+def probe_window(src, syn, out, blocks, shifts, degree: int, k: int,
+                 mode: int, out_mode: int, phi_live: bool, rows: int,
+                 pre: float) -> None:
+    """The window-stream probe over ``blocks.numel() // degree`` output
+    nodes of src [NB, Z, W]; ``syn`` may be None."""
+    lib = load("probes")
+    _, Z, W = src.shape
+    err = lib.ldpc_probe_window(
+        _ptr(src), _ptr(syn), _ptr(out), _ptr(blocks), _ptr(shifts),
+        blocks.numel() // degree, degree, k, mode, out_mode, int(phi_live),
+        Z, W, rows, pre, DTYPE_CODES[src.dtype], _stream(src))
+    _check(lib, err, "window-stream probe")
+    launch_counts["probe_window"] += 1

@@ -191,6 +191,7 @@ class _Lanes:
     iters_out: np.ndarray   # [n_pool] per-frame iteration counts
     pool_next: int          # next pool frame to load
     results: torch.Tensor   # [n_pool, n_words] int32
+    input_is_llr: bool = False  # the pool holds LLRs, not channel values
     fresh: torch.Tensor | None = None  # lanes refilled since the last step
 
     @property
@@ -394,13 +395,20 @@ class LDPCDecoder:
     def parallel_factor(self) -> int:
         return self._parallel_factor
 
+    def decoding_input_is_llr(self) -> bool:
+        """Raw channel values are expected: every built-in channel converts
+        them to LLRs on the device (h/ldpc_decoder_gpu_cuda.h:118-122).
+        LLRs computed elsewhere go through ``input_is_llr=True``."""
+        return False
+
     # ------------------------------------------------------------------
-    def _lane_llr(self, vals: torch.Tensor):
+    def _lane_llr(self, vals: torch.Tensor, input_is_llr: bool = False):
         """Pool values [n_vars, n] -> LLR state [*node shape, n] in the
         kernels' consumption dtype (the message dtype; bfloat16 for int8
-        messages), erased rows zeroed."""
-        llr = self.channel.llr_from_channel(vals).masked_fill(
-            self.tables.erased_mask_sorted, 0.0)
+        messages), erased rows zeroed. ``input_is_llr``: the values are
+        LLRs already and skip the channel's conversion."""
+        llr = vals if input_is_llr else self.channel.llr_from_channel(vals)
+        llr = llr.masked_fill(self.tables.erased_mask_sorted, 0.0)
         return llr.to(self._llr_dtype).view(*self._node_shape[0], -1)
 
     def decode(
@@ -409,18 +417,17 @@ class LDPCDecoder:
         n_vecs: int,
         values: np.ndarray,      # [n_vars, n_vecs] float32, natural order
         syndromes: np.ndarray,   # [n_checks, n_vecs] 0/1, natural order
+        input_is_llr: bool = False,
         host_poll: bool = False,
         progress=None,
     ) -> tuple[np.ndarray, DecodeStats]:
         """Decode ``n_vecs`` frames; returns (packed bits [n_vecs, n_words]
         uint32 in natural per-frame layout, stats). ``values[i, v]`` is the
-        i-th channel value of frame v (h/ldpc_decoder_gpu.h:94 transposed).
-        The pools are uploaded in sorted layouts before the timed region.
-
-        ``progress``: called with the number of frames not yet retired
-        after every superstep. ``host_poll`` is taken for the JAX
-        decoder's signature: this decoder always polls the host once per
-        superstep."""
+        i-th channel value of frame v (h/ldpc_decoder_gpu.h:94 transposed),
+        or its LLR with ``input_is_llr``. The pools are uploaded in sorted
+        layouts before the timed region. The arguments are the JAX
+        decoder's, in its order; ``host_poll`` and ``progress`` as in
+        :meth:`decode_presorted`."""
         if values.shape != (self.code.n_vars, n_vecs):
             raise ValueError(f"values must be [{self.code.n_vars}, {n_vecs}]")
         if syndromes.shape != (self.code.n_checks, n_vecs):
@@ -428,7 +435,9 @@ class LDPCDecoder:
                 f"syndromes must be [{self.code.n_checks}, {n_vecs}]")
         pool_values, pool_syn = self.upload_pools(values, syndromes)
         return self.decode_presorted(dyn_params, n_vecs, pool_values,
-                                     pool_syn, progress=progress)
+                                     pool_syn, host_poll=host_poll,
+                                     progress=progress,
+                                     input_is_llr=input_is_llr)
 
     def upload_pools(self, values: np.ndarray, syndromes: np.ndarray):
         """Natural-order host arrays -> the device pools in the decoder's
@@ -440,8 +449,8 @@ class LDPCDecoder:
             syndromes[self._cn_order_io], dtype=np.int8)).to(self.device)
         return pool_values, pool_syn
 
-    def _start(self, pool_values, pool_syn, n_pool: int,
-               pre: float) -> _Lanes:
+    def _start(self, pool_values, pool_syn, n_pool: int, pre: float,
+               input_is_llr: bool = False) -> _Lanes:
         """Load the first B frames of the pool into the lanes and
         initialise their messages."""
         t, dev, B = self.tables, self.device, self._parallel_factor
@@ -456,7 +465,7 @@ class LDPCDecoder:
             safe = torch.from_numpy(np.minimum(frame_ids, n_pool - 1)).to(dev)
             vals = pool_values[:, safe]
             syn = pool_syn[:, safe]
-        llr = self._lane_llr(vals)
+        llr = self._lane_llr(vals, input_is_llr)
         return _Lanes(
             msgs=self._init_messages(llr, t, self.msg_dtype, pre),
             llr=llr, syn=syn.view(*self._node_shape[1], B),
@@ -465,7 +474,8 @@ class LDPCDecoder:
             iters_out=np.zeros(n_pool, np.int32),
             pool_next=min(B, n_pool),
             results=torch.zeros((n_pool, self.n_words), dtype=torch.int32,
-                                device=dev))
+                                device=dev),
+            input_is_llr=input_is_llr)
 
     def _superstep(self, st: _Lanes, pool_values, pool_syn, k: int,
                    max_iter: int, pre: float) -> None:
@@ -500,7 +510,8 @@ class LDPCDecoder:
         if has_new.any():
             lanes = torch.from_numpy(np.nonzero(has_new)[0]).to(dev)
             ids = torch.from_numpy(st.frame_ids[has_new]).to(dev)
-            st.llr[..., lanes] = self._lane_llr(pool_values[:, ids])
+            st.llr[..., lanes] = self._lane_llr(pool_values[:, ids],
+                                                st.input_is_llr)
             st.syn[..., lanes] = pool_syn[:, ids].view(
                 *self._node_shape[1], -1)
             if self._lane_reset:
@@ -515,11 +526,25 @@ class LDPCDecoder:
         n_vecs: int,
         pool_values: torch.Tensor,  # [n_vars, n_vecs] f32, SORTED vn order
         pool_syn: torch.Tensor,     # [n_checks, n_vecs] int8, SORTED cn order
+        host_poll: bool = False,
         progress=None,
-    ) -> tuple[np.ndarray, DecodeStats]:
+        fetch_results: bool = True,
+        input_is_llr: bool = False,
+    ):
         """Device-pool entry point: pools already on ``self.device`` in the
-        decoder's sorted layouts. Returns what :meth:`decode` returns; times
-        from the pools being on the device to the results being ready."""
+        decoder's sorted layouts; the arguments are the JAX decoder's, in
+        its order. Returns what :meth:`decode` returns, or with
+        ``fetch_results=False`` the results left on the device: an int32
+        tensor [n_vecs, n_words] holding the uint32 words' bit patterns.
+
+        This decoder always reads one [B] flag vector per superstep, in
+        both modes. The clock follows the JAX decoder's two modes: with
+        ``host_poll`` it starts after the lanes' first load and message
+        init (its host-polled loop), otherwise before them (its fused
+        loop, which includes the init); it stops when the results are
+        ready. ``progress``: called with the number of frames not yet
+        retired after every superstep. ``input_is_llr``: the pool holds
+        LLRs, not channel values (:meth:`decoding_input_is_llr`)."""
         k = dyn_params.num_iter_check_parity
         if k < 1:
             raise ValueError(f"num_iter_check_parity must be >= 1, got {k}")
@@ -528,7 +553,10 @@ class LDPCDecoder:
 
         _sync(self.device)
         t0 = time.perf_counter()
-        st = self._start(pool_values, pool_syn, n_vecs, pre)
+        st = self._start(pool_values, pool_syn, n_vecs, pre, input_is_llr)
+        if host_poll:
+            _sync(self.device)
+            t0 = time.perf_counter()
         if burst:
             self._run_burst(st.msgs, st.llr, st.syn, self.tables, burst, pre)
             st.iters_done += burst
@@ -552,6 +580,8 @@ class LDPCDecoder:
             elapsed_seconds=elapsed,
             batch_size=self._parallel_factor,
         )
+        if not fetch_results:
+            return st.results, stats
         return st.results.cpu().numpy().view(np.uint32), stats
 
     def profile_phases(self, pool_values, pool_syn,

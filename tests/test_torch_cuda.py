@@ -697,3 +697,59 @@ def test_cli_on_card(cuda_device, tmp_path, capsys):
     out = capsys.readouterr().out
     assert "Bit error rate (BER):             0\n" in out
     assert "Phase timings (per call):" in out
+
+
+@pytest.mark.cuda
+def test_probe_kernels_match_plain(cuda_device):
+    """Every mode of both probe kernels (csrc/probes.cu) against its plain
+    version: the row copy by table and int32/int64 index at every bytes per
+    thread, the window stream's sums and leave-one-out, aligned, direct and
+    staged (the leave-one-out stages 96 KB of shared memory). Copies, sums
+    and stubbed φ bit for bit, live φ by the one-ulp share rule."""
+    from ldpc_decoder_tpu_torch import probes
+    from ldpc_decoder_tpu_torch.ops import _kernels
+
+    before = dict(_kernels.launch_counts)
+    errs = probes.check_template_modes(cuda_device, small=True)
+    torch.cuda.synchronize()
+    assert len(errs) == 84
+    assert _kernels.launch_counts["probe_row_copy"] - before[
+        "probe_row_copy"] == 15
+    assert _kernels.launch_counts["probe_window"] - before[
+        "probe_window"] == 69
+
+
+@pytest.mark.cuda
+def test_probe_window_ragged_lanes(cuda_device):
+    """A lane count that fills neither a 128-lane nor a 64-lane block, and
+    more rows per thread than a block needs."""
+    from ldpc_decoder_tpu_torch.probes import _common as C
+    from ldpc_decoder_tpu_torch.probes.kernels import (
+        window_stream,
+        window_stream_plain,
+    )
+
+    src = C.randn((16, 256, 200), torch.bfloat16, cuda_device, seed=1)
+    blocks = C.permutation(16, cuda_device, seed=2)[:12].contiguous()
+    shifts = C.integers(12, 256, cuda_device, seed=3)
+    syn = C.randn((2, 256, 200), torch.int8, cuda_device,
+                  seed=4).bitwise_and_(1)
+    for mode, rows in (("aligned", 3), ("direct", 256), ("staged", 8)):
+        for out, s in (("sum", None), ("loo", syn)):
+            res = window_stream(src, blocks, shifts, 6, 1, mode, out, False,
+                                s, rows=rows)
+            ref = window_stream_plain(src, blocks, shifts, 6, 1, out, False,
+                                      s)
+            C.assert_bit_equal(res, ref, f"{mode} {out}")
+
+
+@pytest.mark.cuda
+def test_probe_headlines_on_card(cuda_device):
+    """The probe entry point's one-point runs, held against their plain
+    versions inside each probe: every probe returns a timed record."""
+    from ldpc_decoder_tpu_torch import probes
+
+    for name in ("rotated_copy", "overlap2", "window_read"):
+        recs = probes.PROBES[name](cuda_device, small=True, headline=True)
+        assert recs and recs[0]["ms"] > 0 and recs[0]["plain_ms"] > 0
+        assert recs[0]["max_abs_err"] is not None

@@ -14,6 +14,8 @@ involved, and the α tables run with β = 0 (ROADMAP Queue 3). B = 32 lanes,
 N = 3B + 8 frames (refills and a partial last fill), k = 5.
 """
 
+import time
+
 import numpy as np
 import pytest
 
@@ -278,3 +280,99 @@ def test_lane_count_model_counts_message_bytes(regular):
     f32, bf16, i8 = (np.array(lanes[dt]) for dt in lanes)
     assert (f32 <= bf16).all() and (bf16 <= i8).all()
     assert (f32 < bf16).any() and (bf16 < i8).any()
+
+
+# ---- the JAX decoder's signatures and host-poll clock -------------------------
+
+def _general_codes():
+    """tests/test_runtime.py's small_code, from both packages."""
+    from ldpc_decoder_tpu.codes.generate import make_regular_code as jmake
+    from ldpc_decoder_tpu_torch.codes.generate import make_regular_code
+
+    return jmake(512, 3, 6, seed=21), make_regular_code(512, 3, 6, seed=21)
+
+
+@pytest.mark.parametrize("family", ["general", "regular"])
+def test_decode_input_is_llr_positional_matches_jax(regular, family):
+    """The fifth argument is input_is_llr, as in JAX (tests/test_runtime.py:
+    207): a positional True decodes LLRs to the raw values' words, on the
+    port as on the JAX decoder; 3B frames, so refilled lanes take LLRs
+    too."""
+    n_lanes = 8 if family == "general" else B
+    n = 3 * n_lanes
+    dyn = dict(num_iter_max=60, num_iter_check_parity=5)
+    if family == "general":
+        jcode, code = _general_codes()
+        ch, jch = BIAWGNChannel(0.65), JaxBIAWGN(0.65)
+        batch = create_data(jcode, jch, 0, n, backend="numpy")
+        kw, jkw = dict(qc_autodetect=False), {}
+    else:
+        jcode, code = regular["jcode"], regular["code"]
+        ch, jch = CHANNELS["awgn"]
+        batch = create_data(jcode, jch, 0, n, backend="numpy")
+        kw, jkw = dict(message_dtype="float32"), dict(
+            message_dtype="float32", kernel_impl="xla")
+    llrs = jch.llr_np(batch.values)
+    jdec = JaxLDPCDecoder(jcode, jch, jparams.StaticParams(
+        parallel_factor_user=n_lanes, **jkw),
+        qc=regular["js"] if family == "regular" else None)
+    jres, _ = jdec.decode(jparams.DynamicParams(**dyn), n, llrs,
+                          batch.syndromes, True)
+    dec = LDPCDecoder(code, ch, StaticParams(parallel_factor_user=n_lanes,
+                                             **kw),
+                      qc=regular["s"] if family == "regular" else None,
+                      device="cpu")
+    assert not dec.decoding_input_is_llr()
+    res_raw, _ = dec.decode(DynamicParams(**dyn), n, batch.values,
+                            batch.syndromes)
+    res_llr, st = dec.decode(DynamicParams(**dyn), n, llrs, batch.syndromes,
+                             True)
+    assert st.total_supersteps >= 3  # two refills ran
+    np.testing.assert_array_equal(res_llr, res_raw)
+    np.testing.assert_array_equal(res_llr, np.asarray(jres))
+    assert np.bitwise_count(batch.ref_bits_packed() ^ res_llr).sum() == 0
+
+
+SLOW_START = 0.5  # seconds the patched _start sleeps
+
+
+@pytest.mark.parametrize("host_poll", [True, False])
+def test_decode_clock_follows_host_poll(regular, monkeypatch, host_poll):
+    """decode_presorted's fifth argument is host_poll and its sixth
+    progress, as in JAX; the host-poll clock starts after the lanes' first
+    load and init (JAX's host-polled loop), the other one before them
+    (JAX's fused loop)."""
+    ch = CHANNELS["awgn"][0]
+    dec = LDPCDecoder(regular["code"], ch, StaticParams(
+        parallel_factor_user=B, message_dtype="float32"), qc=regular["s"],
+        device="cpu")
+    batch = regular["batches"]["awgn"]
+    pv, ps = dec.upload_pools(batch.values[:, :B], batch.syndromes[:, :B])
+    start = dec._start
+
+    def slow_start(*args, **kw):
+        time.sleep(SLOW_START)
+        return start(*args, **kw)
+
+    monkeypatch.setattr(dec, "_start", slow_start)
+    seen = []
+    res, st = dec.decode_presorted(
+        DynamicParams(num_iter_max=40, num_iter_check_parity=K), B, pv, ps,
+        host_poll, seen.append)
+    assert seen and seen[-1] == 0
+    assert (st.elapsed_seconds < SLOW_START) == host_poll, st.elapsed_seconds
+    assert np.bitwise_count(batch.ref_bits_packed()[:B] ^ res).sum() == 0
+
+
+def test_fetch_results_false_leaves_results_on_the_device(regular):
+    ch = CHANNELS["awgn"][0]
+    dec = LDPCDecoder(regular["code"], ch, StaticParams(
+        parallel_factor_user=B), qc=regular["s"], device="cpu")
+    batch = regular["batches"]["awgn"]
+    pv, ps = dec.upload_pools(batch.values, batch.syndromes)
+    dyn = DynamicParams(num_iter_max=40, num_iter_check_parity=K)
+    on_dev, st = dec.decode_presorted(dyn, N, pv, ps, fetch_results=False)
+    assert isinstance(on_dev, torch.Tensor) and on_dev.device == dec.device
+    assert on_dev.shape == (N, dec.n_words) and on_dev.dtype == torch.int32
+    res, _ = dec.decode_presorted(dyn, N, pv, ps)
+    np.testing.assert_array_equal(on_dev.numpy().view(np.uint32), res)

@@ -253,6 +253,8 @@ def test_port_imports_no_jax():
         "import ldpc_decoder_tpu_torch.runtime.report\n"
         "import ldpc_decoder_tpu_torch.runtime.smoke\n"
         "import ldpc_decoder_tpu_torch.runtime.perf\n"
+        "import ldpc_decoder_tpu_torch.probes\n"
+        "import ldpc_decoder_tpu_torch.probes.__main__\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'ldpc_decoder_tpu' or m.startswith('ldpc_decoder_tpu.')]\n"
         "assert not bad, bad\n"
