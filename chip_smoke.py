@@ -130,9 +130,16 @@ import threading
 import time
 
 # the median of CUDA-event runs after a warm-up; the least time of a piece
-# of work at the card's data-sheet rates (H100 SXM, 700 W)
-from ldpc_decoder_tpu_torch.probes._common import cuda_ms
-from ldpc_decoder_tpu_torch.runtime.perf import bound
+# of work at the card's data-sheet rates (H100 SXM, 700 W); the rules a
+# kernel is held to against its plain version, and the float32 operations
+# per sum-product message
+from ldpc_decoder_tpu_torch.runtime import perf
+from ldpc_decoder_tpu_torch.runtime.perf import (
+    OPS_PER_MESSAGE,
+    bit_identical,
+    bound,
+    cuda_ms,
+)
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 P41_ALIST = os.path.join(REPO, "codes_cache",
@@ -147,10 +154,6 @@ REG36_SIGMA = 0.87
 EPSILON = 0.40
 N_FRAMES = 512
 N_ERASURE_FRAMES = 256
-# kernel vs plain sum-product messages: share allowed to differ, by one
-# ulp (bf16) or one e5m2 step (float8_e5m2) only
-BF16_ULP_SHARE = 1e-4
-FP8_STEP_SHARE = 1e-4
 AVG_ITERS = (69.0, 76.0)         # p41 at sigma 0.94
 REG36_AVG_ITERS = (40.0, 45.0)   # reg36 at sigma 0.87, k = 10
 ERASURE_MAX_AVG_ITERS = 40.0     # reg36 at epsilon 0.40, k = 10
@@ -167,11 +170,7 @@ REG36_FP8_AVG_ITERS = (40.0, 50.0)
 CLI_SMALL_ALIST = os.path.join(REPO, "codes_cache", "cli_qc36_z128.alist")
 # per-degree alpha of the p41 check degrees (3, 6, 7), with the fallback
 MINSUM_ALPHA_TABLE = {3: 0.8, 6: 0.75, 7: 0.75, 0: 0.8}
-# float32 operations per CN/VN message: |m|, the running sum, the
-# leave-one-out subtract, two clamps, x/2, tanh, log, negate (or exp and
-# a multiply past 5), the branch select and the sign OR; a parity read is
-# one add and one AND
-OPS_PER_MESSAGE = 12
+# float32 operations per parity read: one add and one AND
 OPS_PER_PARITY_READ = 2
 # min-sum: |m|, a compare and two selects for the two minima, the leave-
 # one-out select, a multiply, a subtract, a max, the sign OR, and the int8
@@ -309,47 +308,12 @@ def popcount_rows(x):
 
 
 def compare_msgs(name, k, p):
-    """Kernel vs plain messages: signs exact; bf16 values equal except a
-    share <= BF16_ULP_SHARE one ulp apart, float8_e5m2 ones except a share
-    <= FP8_STEP_SHARE one step apart (f32: one f32 ulp relative)."""
-    import torch
-
-    kf, pf = k.float(), p.float()
-    max_abs = float((kf - pf).abs().max())
-    if k.dtype == torch.float8_e5m2:
-        ki, pi = k.view(torch.uint8).int(), p.view(torch.uint8).int()
-        assert torch.equal(ki >> 7, pi >> 7), f"{name}: sign bits differ"
-        steps = ((ki & 0x7F) - (pi & 0x7F)).abs()
-        share = float((steps != 0).float().mean())
-        assert int(steps.max()) <= 1, f"{name}: more than one step apart"
-        assert share <= FP8_STEP_SHARE, f"{name}: share {share} > limit"
-        log(f"  {name}: {share:.3e} of values differ (max |diff| "
-            f"{max_abs:.3e})")
-        return max_abs
-    assert torch.equal(torch.signbit(k), torch.signbit(p)), \
-        f"{name}: sign bits differ"
-    if k.dtype == torch.bfloat16:
-        ki, pi = k.view(torch.int16).int(), p.view(torch.int16).int()
-        diff = (ki - pi).abs()
-        share = float((diff != 0).float().mean())
-        assert int(diff.max()) <= 1, f"{name}: differs by more than 1 ulp"
-        assert share <= BF16_ULP_SHARE, f"{name}: share {share} > limit"
-    else:
-        share = float((kf != pf).float().mean())
-        torch.testing.assert_close(kf, pf, rtol=2.0 ** -22, atol=0)
+    """Kernel vs plain messages by ``runtime.perf.compare_msgs``'s rule
+    (signs exact; bf16 one ulp, float8_e5m2 one step, on a share of at most
+    1e-4); logs the share. Returns the max absolute difference."""
+    max_abs, share = perf.compare_msgs(name, k, p)
     log(f"  {name}: {share:.3e} of values differ (max |diff| {max_abs:.3e})")
     return max_abs
-
-
-def bit_identical(a, b):
-    import torch
-
-    if a.dtype.is_floating_point:
-        as_int = {1: torch.uint8, 2: torch.int16, 4: torch.int32}[
-            a.element_size()]
-        return torch.equal(a.reshape(-1).view(as_int),
-                           b.reshape(-1).view(as_int))
-    return torch.equal(a.reshape(-1), b.reshape(-1))
 
 
 def ptxas_entries(text):
@@ -1143,7 +1107,7 @@ def fp8_sum_product_kernels(torch, np, dev, family, t, llr, syn, B, label):
     """One QC family's float8_e5m2 sum-product kernels against their plain
     versions on a real decode state (four iterations in): every group,
     with and without fresh lanes and emits; messages within
-    FP8_STEP_SHARE, hard bits exact. Returns {"cn": ..., "vn": ...} with
+    perf.FP8_STEP_SHARE, hard bits exact. Returns {"cn": ..., "vn": ...} with
     the kernel, plain and bound times of a non-emit pass."""
     from ldpc_decoder_tpu_torch.ops import qc_grouped as qg
     from ldpc_decoder_tpu_torch.ops import qc_regular as qr

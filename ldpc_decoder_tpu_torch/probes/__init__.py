@@ -1,7 +1,7 @@
 """Measurement probes on the card: the counterparts of the TPU kernels in
 ``scripts/`` (PERF.md section 6, rows 11-16), which no decode runs.
 
-    python -m ldpc_decoder_tpu_torch.probes [name ...] [--headline]
+    python -m ldpc_decoder_tpu_torch.probes [name ...]
     python -m ldpc_decoder_tpu_torch.probes --device cpu   # plain, small
 
 Each probe is a function ``(dev, small=False, headline=False, card=None)

@@ -4,9 +4,8 @@ Runs every probe of :data:`ldpc_decoder_tpu_torch.probes.PROBES` (or the
 named ones) on the card and prints one JSON line per measurement: the
 probe, its parameters, the kernel's ms, the unique bytes and their rate,
 the bound, the plain and library times where measured, and the card's name
-and power limit. ``--headline`` runs one point per probe. Without a card it
-exits 1; ``--device cpu`` runs the plain versions at a small size, with no
-times (the tests' path).
+and power limit. Without a card it exits 1; ``--device cpu`` runs the plain
+versions at a small size, with no times (the tests' path).
 """
 
 from __future__ import annotations
@@ -28,8 +27,6 @@ def main(argv=None) -> int:
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu: the plain versions at a "
                     "small size")
-    ap.add_argument("--headline", action="store_true",
-                    help="one point per probe")
     args = ap.parse_args(argv)
     unknown = sorted(set(args.names) - set(PROBES))
     if unknown:
@@ -41,8 +38,7 @@ def main(argv=None) -> int:
         return 1
     dev_card = card(dev)
     for name in args.names or PROBES:
-        for rec in PROBES[name](dev, small=dev.type == "cpu",
-                                headline=args.headline, card=dev_card):
+        for rec in PROBES[name](dev, small=dev.type == "cpu", card=dev_card):
             print(json.dumps(rec), flush=True)
         if dev.type == "cuda":
             torch.cuda.empty_cache()

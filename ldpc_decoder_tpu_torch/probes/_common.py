@@ -1,17 +1,21 @@
-"""Helpers shared by the probes: timing, byte and operation bounds, inputs,
-checks and the JSON record.
+"""Helpers shared by the probes: timing, inputs, checks, the card and the
+JSON record.
 
-A probe times its kernel on the card with CUDA events (the median of
-:data:`REPS` runs after one warm-up, as ``chip_smoke.py``'s ``cuda_ms``).
-On the CPU, where the probes run their plain versions at a small size for
-the tests, no time is taken: a CPU number is no device metric, so the
-record's times are null there.
+A probe times its kernel on the card with CUDA events
+(:func:`ldpc_decoder_tpu_torch.runtime.perf.cuda_ms`, the median of ten
+runs after one warm-up, as ``chip_smoke.py`` times the decode kernels). On
+the CPU, where the probes run their plain versions at a small size for the
+tests, no time is taken: a CPU number is no device metric, so the record's
+times are null there.
 
 The bound is the least time the card could take for the probe's work: the
 larger of its unique bytes (each input byte read once, each output byte
 written once) over the H100's 3.35 TB/s and its float32 operations over
 67 TFLOP/s (:func:`ldpc_decoder_tpu_torch.runtime.perf.bound`, the
-decode kernels' bound).
+decode kernels' bound). A kernel is held to its plain version by the
+decode kernels' rules (:func:`~ldpc_decoder_tpu_torch.runtime.perf.
+compare_msgs` and :func:`~ldpc_decoder_tpu_torch.runtime.perf.
+bit_identical`).
 """
 
 from __future__ import annotations
@@ -20,55 +24,40 @@ import subprocess
 
 import torch
 
-from ldpc_decoder_tpu_torch.runtime.perf import bound
-# float32 operations per phi step (|v| + 0.125, two clamps, x/2, tanh, log,
-# negate or exp and a multiply past 5, the branch select), as chip_smoke.py
-# counts a sum-product message
-OPS_PER_PHI = 12
-REPS = 10
-# compare_msgs of chip_smoke.py: bfloat16 values one ulp apart on at most
-# this share of the elements (phi through tanhf/logf in the kernel, torch's
-# tanh/log in the plain version)
-BF16_ULP_SHARE = 1e-4
+from ldpc_decoder_tpu_torch.runtime import perf
 
 
 def card(dev: torch.device) -> dict:
     """The device's name and power limit, as nvidia-smi gives them
-    (``--query-gpu=name,power.limit``); ``{"name": "cpu"}`` on the CPU."""
+    (``--query-gpu=name,power.limit``); ``{"name": "cpu"}`` on the CPU.
+    nvidia-smi numbers every card of the host whatever the process sees,
+    so the card's line is found by its UUID, and its name must be the one
+    torch reports."""
     if dev.type != "cuda":
         return {"name": "cpu", "power_limit": None}
     out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
+        ["nvidia-smi", "--query-gpu=uuid,name,power.limit",
          "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True).stdout
-    line = out.strip().splitlines()[dev.index or 0]
-    name, limit = (part.strip() for part in line.rsplit(",", 1))
+    rows = [[part.strip() for part in line.split(",")]
+            for line in out.strip().splitlines()]
+    uuid = str(torch.cuda.get_device_properties(dev).uuid)
+    found = [row for row in rows if row[0].removeprefix("GPU-") == uuid]
+    if len(found) != 1:
+        raise RuntimeError(f"nvidia-smi lists no card with UUID {uuid}: "
+                           f"{out!r}")
+    _, name, limit = found[0]
+    if name != torch.cuda.get_device_name(dev):
+        raise RuntimeError(f"nvidia-smi names card {uuid} {name!r}, torch "
+                           f"{torch.cuda.get_device_name(dev)!r}")
     return {"name": name, "power_limit": limit}
 
 
-def cuda_ms(fn, reps: int = REPS, setup=None) -> float:
-    """Median milliseconds of ``fn()`` over ``reps`` runs (CUDA events),
-    after one warm-up run; ``setup()``, when given, runs before each run,
-    outside the timed region."""
-    fn()
-    times = []
-    for _ in range(reps):
-        if setup is not None:
-            setup()
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b))
-    return sorted(times)[len(times) // 2]
-
-
-def timed(dev: torch.device, fn, reps: int = REPS,
+def timed(dev: torch.device, fn, reps: int = 10,
           setup=None) -> float | None:
-    """:func:`cuda_ms` on the card; None on the CPU."""
-    return cuda_ms(fn, reps, setup) if dev.type == "cuda" else None
+    """:func:`~ldpc_decoder_tpu_torch.runtime.perf.cuda_ms` on the card;
+    None on the CPU."""
+    return perf.cuda_ms(fn, reps, setup) if dev.type == "cuda" else None
 
 
 def record(probe: str, replaces: str, params: dict, n_bytes: int,
@@ -76,7 +65,7 @@ def record(probe: str, replaces: str, params: dict, n_bytes: int,
            library_ms: float | None = None, plain_ms: float | None = None,
            max_abs_err: float | None = None, **extra) -> dict:
     """One measurement as the JSON object the entry point prints."""
-    b_ms, b_by = bound(n_bytes, n_ops)
+    b_ms, b_by = perf.bound(n_bytes, n_ops)
     return {"probe": probe, "replaces": replaces, "params": params,
             "ms": ms, "bytes": int(n_bytes),
             "gbps": None if ms is None else n_bytes / ms / 1e6,
@@ -114,39 +103,19 @@ def integers(n: int, high: int, dev: torch.device, seed: int) -> torch.Tensor:
                          device=dev, dtype=torch.int64).to(torch.int32)
 
 
-def bits_of(t: torch.Tensor) -> torch.Tensor:
-    """The tensor's storage as integers of its element size."""
-    as_int = {1: torch.uint8, 2: torch.int16, 4: torch.int32,
-              8: torch.int64}[t.element_size()]
-    return t.contiguous().view(as_int)
-
-
 def assert_bit_equal(a: torch.Tensor, b: torch.Tensor, what: str) -> float:
-    """Bit-identical (±0 and NaN payloads included); returns 0.0, the max
-    absolute error."""
+    """The same shape, dtype and bits (±0 and NaN payloads included);
+    returns 0.0, the max absolute error."""
     if a.shape != b.shape or a.dtype != b.dtype:
         raise AssertionError(f"{what}: {a.shape} {a.dtype} against "
                              f"{b.shape} {b.dtype}")
-    if not torch.equal(bits_of(a), bits_of(b)):
+    if not perf.bit_identical(a, b):
         raise AssertionError(f"{what}: not bit-identical")
     return 0.0
 
 
 def assert_msgs_match(k: torch.Tensor, p: torch.Tensor, what: str) -> float:
-    """Kernel against plain phi outputs (chip_smoke.py's compare_msgs rule):
-    sign bits exact; bfloat16 values equal except a share of at most
-    :data:`BF16_ULP_SHARE` one ulp apart; float32 within 2^-22 relative.
-    Returns the max absolute difference."""
-    kf, pf = k.float(), p.float()
-    max_abs = float((kf - pf).abs().max()) if k.numel() else 0.0
-    if not torch.equal(torch.signbit(k), torch.signbit(p)):
-        raise AssertionError(f"{what}: sign bits differ")
-    if k.dtype == torch.bfloat16:
-        diff = (bits_of(k).int() - bits_of(p).int()).abs()
-        share = float((diff != 0).float().mean())
-        if int(diff.max()) > 1 or share > BF16_ULP_SHARE:
-            raise AssertionError(f"{what}: {share:.3e} of values differ, "
-                                 f"by up to {int(diff.max())} ulps")
-    else:
-        torch.testing.assert_close(kf, pf, rtol=2.0 ** -22, atol=0)
-    return max_abs
+    """Kernel against plain φ outputs by
+    :func:`~ldpc_decoder_tpu_torch.runtime.perf.compare_msgs`; returns the
+    max absolute difference."""
+    return perf.compare_msgs(what, k, p)[0]

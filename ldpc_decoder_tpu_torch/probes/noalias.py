@@ -164,7 +164,7 @@ def run(dev: torch.device, small: bool = False, headline: bool = False,
         dev, lambda: qg.run_iterations_qc_grouped(state, llr, syn, t, k),
         setup=lambda: [x.copy_(y) for x, y in zip(state, msgs)])
     blocks = sum(g.count * g.degree for g in t.col_groups if g.degree > 1)
-    n_ops = C.OPS_PER_PHI * (k * t.nb + (k - 1) * blocks + t.nb) * t.Z * B
+    n_ops = perf.OPS_PER_MESSAGE * (k * t.nb + (k - 1) * blocks + t.nb) * t.Z * B
     records = []
     for assemble in (False,) if headline else (False, True):
         records.append(C.record(

@@ -36,6 +36,10 @@ mode, a tile pair in shared memory; unstaged reads are the aligned mode.
 
 Every window table reads distinct source blocks (a permutation), except
 overlap3's same-block windows, so the bytes moved are the unique bytes.
+Where the function is a plain copy (one window per block, every block in
+order, no shift, k = 0: overlap2's and overlap3's k = 0 points), the
+record's ``library_ms`` is ``Tensor.copy_`` of the source into the output,
+a yardstick only.
 """
 
 from __future__ import annotations
@@ -47,6 +51,7 @@ from ldpc_decoder_tpu_torch.probes.kernels import (
     window_stream,
     window_stream_plain,
 )
+from ldpc_decoder_tpu_torch.runtime import perf
 
 OVERLAP2 = "scripts/micro_overlap2.py:52"
 OVERLAP3 = "scripts/micro_overlap3.py:41"
@@ -60,13 +65,23 @@ def _check(res, ref, exact: bool, what: str) -> float:
     return C.assert_msgs_match(res, ref, what)
 
 
+def _is_copy(src, blocks, shifts, degree: int, k: int, out: str) -> bool:
+    """Whether the window stream computes a plain copy of ``src``."""
+    return (out == "sum" and degree == 1 and k == 0
+            and blocks.numel() == src.shape[0]
+            and torch.equal(blocks.cpu(), torch.arange(blocks.numel(),
+                                                       dtype=blocks.dtype))
+            and not bool(shifts.any()))
+
+
 def measure(probe: str, replaces: str, params: dict, dev, card, src, blocks,
             shifts, degree: int, k: int, mode: str, out: str = "sum",
             phi_live: bool = True, syn=None, rows: int = 8,
             recycle: bool = True, plain: bool = False) -> dict:
     """One window-stream configuration: the kernel held against its plain
     version (bit-exact with φ stubbed or k = 0, else the compare_msgs
-    rule), timed, and recorded with its unique bytes and operations.
+    rule), timed, and recorded with its unique bytes and operations, and
+    with the time of ``Tensor.copy_`` where the function is a copy.
     ``recycle``: time into one output tensor (else a fresh one per call);
     ``plain``: time the plain version too."""
     kw = dict(degree=degree, k=k, out=out, phi_live=phi_live, syn=syn)
@@ -80,7 +95,7 @@ def measure(probe: str, replaces: str, params: dict, dev, card, src, blocks,
     n_src = torch.unique(blocks).numel()
     n_bytes = (n_src * Z * W + res.numel()) * src.element_size() \
         + 8 * blocks.numel() + (0 if syn is None else syn.numel())
-    step = C.OPS_PER_PHI if phi_live else 1
+    step = perf.OPS_PER_MESSAGE if phi_live else 1
     n_ops = (elems * (degree + k * step) if out == "sum"
              else elems * degree * (5 + step))
     target = res if recycle else None
@@ -88,14 +103,18 @@ def measure(probe: str, replaces: str, params: dict, dev, card, src, blocks,
                                             rows=rows, result=target, **kw))
     plain_ms = C.timed(dev, lambda: window_stream_plain(
         src, blocks, shifts, **kw), reps=3) if plain else None
+    library_ms = None
+    if _is_copy(src, blocks, shifts, degree, k, out):
+        C.assert_bit_equal(res, src, f"{probe} {params} {mode}: the copy")
+        library_ms = C.timed(dev, lambda: res.copy_(src))
     return C.record(probe, replaces,
                     {**params, "degree": degree, "k": k, "mode": mode,
                      "out": out, "phi": None if k == 0 and out == "sum"
                      else "live" if phi_live else "stub",
                      "rows_per_thread": rows if mode != "staged" else None,
                      "recycled_output": recycle},
-                    n_bytes, n_ops, card, ms=ms, plain_ms=plain_ms,
-                    max_abs_err=err)
+                    n_bytes, n_ops, card, ms=ms, library_ms=library_ms,
+                    plain_ms=plain_ms, max_abs_err=err)
 
 
 def _sizes(small: bool):

@@ -58,7 +58,9 @@ from ldpc_decoder_tpu_torch.convert import (  # noqa: E402
 from ldpc_decoder_tpu_torch.ops import qc_grouped as qg  # noqa: E402
 from ldpc_decoder_tpu_torch.ops.phi import phi_abs_np  # noqa: E402
 from ldpc_decoder_tpu_torch.ops.qc_decode import QCDecodeTables  # noqa: E402
+from ldpc_decoder_tpu_torch.probes import _common as C  # noqa: E402
 from ldpc_decoder_tpu_torch.probes import noalias  # noqa: E402
+from ldpc_decoder_tpu_torch.probes import phi_overlap  # noqa: E402
 from ldpc_decoder_tpu_torch.probes.__main__ import main  # noqa: E402
 from ldpc_decoder_tpu_torch.probes.kernels import (  # noqa: E402
     BYTES_PER_THREAD,
@@ -67,6 +69,7 @@ from ldpc_decoder_tpu_torch.probes.kernels import (  # noqa: E402
     window_stream,
     window_stream_plain,
 )
+from ldpc_decoder_tpu_torch.runtime import perf  # noqa: E402
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PHI_RTOL = 1.74e-5  # XLA's φ against torch's, per evaluation (PERF.md)
@@ -397,3 +400,84 @@ def test_wrappers_check_their_arguments():
                       torch.zeros(6, dtype=torch.int32), 6, 1, out="sum",
                       syn=torch.zeros((1, 64, 8), dtype=torch.int8))
     assert torch.equal(row_copy_plain(src, tab, tab), src[tab.long()])
+
+
+@pytest.mark.parametrize("probe, k", [("overlap2", 0), ("overlap3", 0),
+                                      ("overlap2", 1)])
+def test_copy_points_are_found(probe, k):
+    """A window stream of one window per block, every block in order, no
+    shift and k = 0 is a copy (the points whose library_ms is copy_'s);
+    a shift, a permutation or a φ step is not."""
+    src = C.randn((4, 64, 8), torch.bfloat16, torch.device("cpu"), seed=1)
+    ident = torch.arange(4, dtype=torch.int32)
+    zero = torch.zeros_like(ident)
+    assert phi_overlap._is_copy(src, ident, zero, 1, k, "sum") == (k == 0)
+    assert not phi_overlap._is_copy(src, ident.flip(0), zero, 1, 0, "sum")
+    assert not phi_overlap._is_copy(src, ident, zero + 1, 1, 0, "sum")
+    rec = phi_overlap.measure(probe, "x:1", {}, torch.device("cpu"),
+                              {"name": "cpu", "power_limit": None}, src,
+                              ident, zero, 1, k, "aligned")
+    assert rec["library_ms"] is None and rec["max_abs_err"] == 0.0
+
+
+def test_compare_msgs_rule():
+    """The one rule chip_smoke.py and the probes hold φ outputs to: signs
+    exact; bf16 one ulp on a share <= 1e-4; float8_e5m2 one step on a share
+    <= 1e-4; float32 one ulp relative."""
+    p = torch.linspace(0.5, 4.0, 20000).to(torch.bfloat16)
+    k = p.clone()
+    k.view(torch.int16)[0] += 1
+    assert perf.compare_msgs("x", k, p)[1] == pytest.approx(1 / 20000)
+    k.view(torch.int16)[1:3] += 1
+    with pytest.raises(AssertionError, match="share"):
+        perf.compare_msgs("x", k, p)
+    k = p.clone()
+    k.view(torch.int16)[0] += 2
+    with pytest.raises(AssertionError, match="more than 1 ulp"):
+        perf.compare_msgs("x", k, p)
+    with pytest.raises(AssertionError, match="sign"):
+        perf.compare_msgs("x", -p, p)
+    p8 = p.to(torch.float8_e5m2)
+    k8 = p8.clone()
+    k8.view(torch.uint8)[0] += 1
+    assert perf.compare_msgs("x", k8, p8)[1] == pytest.approx(1 / 20000)
+    k8.view(torch.uint8)[0] += 1
+    with pytest.raises(AssertionError, match="step"):
+        perf.compare_msgs("x", k8, p8)
+    f = p.float()
+    assert perf.compare_msgs("x", f, f.clone()) == (0.0, 0.0)
+
+
+def test_bit_identical():
+    a = torch.tensor([0.0, 1.0, float("nan")])
+    assert perf.bit_identical(a, a.clone().view(3, 1))
+    assert not perf.bit_identical(a, torch.tensor([-0.0, 1.0, float("nan")]))
+    assert perf.bit_identical(a.double(), a.double().clone())
+    assert not perf.bit_identical(torch.arange(3), torch.arange(1, 4))
+    with pytest.raises(AssertionError, match="shape|Size"):
+        C.assert_bit_equal(a, a.view(3, 1), "x")
+
+
+def test_card_is_found_by_uuid(monkeypatch):
+    """nvidia-smi lists every card of the host; the record takes the line
+    of the card torch sees, by UUID, and its name must be torch's."""
+    class Props:
+        uuid = "bbbb-2"
+
+    class Done:
+        stdout = ("GPU-aaaa-1, NVIDIA H100 80GB HBM3, 700.00 W\n"
+                  "GPU-bbbb-2, NVIDIA H100 80GB HBM3, 500.00 W\n")
+
+    monkeypatch.setattr(C.subprocess, "run", lambda *a, **kw: Done)
+    monkeypatch.setattr(torch.cuda, "get_device_properties",
+                        lambda dev: Props)
+    monkeypatch.setattr(torch.cuda, "get_device_name",
+                        lambda dev: "NVIDIA H100 80GB HBM3")
+    assert C.card(torch.device("cuda", 0)) == {
+        "name": "NVIDIA H100 80GB HBM3", "power_limit": "500.00 W"}
+    monkeypatch.setattr(torch.cuda, "get_device_name", lambda dev: "other")
+    with pytest.raises(RuntimeError, match="names card"):
+        C.card(torch.device("cuda", 0))
+    Props.uuid = "cccc-3"
+    with pytest.raises(RuntimeError, match="no card"):
+        C.card(torch.device("cuda", 0))
