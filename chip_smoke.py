@@ -55,21 +55,27 @@ Phases:
 
 1. device: the card's name and power limit (nvidia-smi);
 2. build: the five kernel libraries from ldpc_decoder_tpu_torch/csrc/,
-   one nvcc each, started together;
+   one nvcc each, started together; the grouped check and variable
+   kernels' registers and spills by (kernel, dtype, lanes per thread, phi
+   policy), none spilling, and the fast phi's SASS instructions (cuobjdump);
 3. the numerics smoke (``runtime.smoke.cuda_numerics_smoke``): phi on the
-   device, through check-node launches, against float64, and phi(10) in
-   float8_e5m2;
+   device, through check-node launches of the grouped kernels' fast and
+   accurate phi, against float64 (max relative error and worst x of each;
+   the fast one within 2.5e-6), and phi(10) in float8_e5m2;
 4. the p41 code (alist cache in codes_cache/) and 512 frames on the host;
 5. each grouped kernel against its plain PyTorch version on the card, at
-   p41 x B = 256 on a real decode state, with both times;
+   p41 x B = 256 on a real decode state: the check and variable kernels'
+   accurate-phi instantiation by today's rule, their fast one (the
+   decoder's) by the fast rule, fast against accurate too; both policies'
+   times beside the bound and its share, and the plain time;
 6. a small p41 decode on the card against the plain passes on the CPU;
 7. the p41 path, twice; the second decode is reported, and the kernels'
    launch counts are read around it;
 8. the reg36 code (alist cache) and its frames: 512 at sigma = 0.87, 256
    over the erasure channel;
 9. each regular kernel against its plain version at reg36 x B = 256 on a
-   real decode state, and against the grouped kernel on the same state,
-   with the three times;
+   real decode state, and against the grouped kernel (accurate phi: the
+   same phi_abs) on the same state, with the three times;
 10. a small regular decode on the card against the plain passes on the CPU;
 11. the reg36 path, twice, reported and counted like phase 7;
 12. the reg36 erasure decode, counted the same way;
@@ -100,7 +106,8 @@ Phases:
 25. the float8_e5m2 kernels against their plain versions at full width on
     real decode states (the frames of phases 4 and 8): the regular
     sum-product and min-sum kernels at reg36 x B = 256, the grouped ones
-    at p41 x B = 256 (every group), with fresh lanes and emits;
+    at p41 x B = 256 (every group; sum-product with both phi policies, as
+    in phase 5), with fresh lanes and emits;
 26. small float8_e5m2 decodes on the card against the plain passes on the
     CPU (a regular base, p41 at Z = 128 in sum-product and min-sum); words
     and per-frame iterations equal;
@@ -114,11 +121,14 @@ Phases:
     at full size, then each probe's headline point through the probe
     entry point's functions, its records printed, its launches counted
     like a path's (row 11: the grouped kernels' fresh outputs bit-identical
-    to the in-place run over 14 iterations).
+    to the in-place run over 14 iterations; its one-iteration check against
+    the plain passes runs their accurate phi).
 
 Every phase must pass: any failure raises, and the script exits nonzero
 without its result line. The last line of stdout is the result object; the
-line before it lists the kernels. Imports nothing of JAX.
+line before it lists the kernels (the grouped check and variable entries
+with their fast-phi time as ``ms`` and the accurate one as
+``accurate_ms``). Imports nothing of JAX.
 """
 
 import json
@@ -178,15 +188,17 @@ OPS_PER_PARITY_READ = 2
 OPS_PER_MINSUM_MESSAGE = 12
 
 GROUPED_SOURCE = "ldpc_decoder_tpu_torch/csrc/qc_grouped.cu"
+# the grouped check and variable kernels (qc_grouped.cu dispatches them)
+GROUPED_CN_VN_SOURCE = "ldpc_decoder_tpu_torch/csrc/qc_grouped.cuh"
 REGULAR_SOURCE = "ldpc_decoder_tpu_torch/csrc/qc_regular.cu"
 GENERAL_SOURCE = "ldpc_decoder_tpu_torch/csrc/general.cu"
 MINSUM_SOURCE = "ldpc_decoder_tpu_torch/csrc/qc_minsum.cu"
 PROBES_SOURCE = "ldpc_decoder_tpu_torch/csrc/probes.cu"
 # (name in the kernels line and in launch_counts, source, TPU kernel)
 KERNELS = [
-    ("cn", GROUPED_SOURCE,
+    ("cn", GROUPED_CN_VN_SOURCE,
      "ldpc_decoder_tpu/ops/qc_pallas_grouped.py:332"),  # _cn_kernel_g
-    ("vn", GROUPED_SOURCE,
+    ("vn", GROUPED_CN_VN_SOURCE,
      "ldpc_decoder_tpu/ops/qc_pallas_grouped.py:414"),  # _vn_kernel_g
     ("parity", GROUPED_SOURCE,
      "ldpc_decoder_tpu/ops/qc_pallas_grouped.py:462"),  # _parity_kernel_g
@@ -214,9 +226,9 @@ KERNELS = [
     ("vn_regular_minsum", MINSUM_SOURCE,
      "ldpc_decoder_tpu/ops/qc_pallas.py:469"),  # _vn_kernel
     # the float8_e5m2 sum-product branches of kernels 1, 2, 4 and 5
-    ("cn_fp8", GROUPED_SOURCE,
+    ("cn_fp8", GROUPED_CN_VN_SOURCE,
      "ldpc_decoder_tpu/ops/qc_pallas_grouped.py:332"),  # _cn_kernel_g
-    ("vn_fp8", GROUPED_SOURCE,
+    ("vn_fp8", GROUPED_CN_VN_SOURCE,
      "ldpc_decoder_tpu/ops/qc_pallas_grouped.py:414"),  # _vn_kernel_g
     ("cn_regular_fp8", REGULAR_SOURCE,
      "ldpc_decoder_tpu/ops/qc_pallas.py:412"),  # _cn_kernel
@@ -234,7 +246,8 @@ FP8_REGULAR = ("cn_regular_fp8", "vn_regular_fp8", "parity_regular")
 # the probes of rows 11-16: (name in the kernels line, probe of
 # ldpc_decoder_tpu_torch.probes.PROBES, source, launch counters)
 PROBE_ROWS = [
-    ("probe_noalias", "noalias", GROUPED_SOURCE, ("cn", "vn", "parity")),
+    ("probe_noalias", "noalias", GROUPED_CN_VN_SOURCE,
+     ("cn", "vn", "parity")),
     ("probe_rotated_copy", "rotated_copy", PROBES_SOURCE,
      ("probe_row_copy",)),
     ("probe_row_width", "row_width", PROBES_SOURCE, ("probe_row_copy",)),
@@ -316,6 +329,17 @@ def compare_msgs(name, k, p):
     return max_abs
 
 
+def compare_fast(name, k, p):
+    """A fast-phi kernel's messages vs plain (or accurate) ones by
+    ``runtime.perf.compare_msgs_fast``'s rule (signs exact; f32 within
+    2 x 2.5e-6 + 2^-22 relative; bf16 one ulp, float8_e5m2 one step, on a
+    share of at most 1e-3); logs the share. Returns the max absolute
+    difference."""
+    max_abs, share = perf.compare_msgs_fast(name, k, p)
+    log(f"  {name}: {share:.3e} of values differ (max |diff| {max_abs:.3e})")
+    return max_abs
+
+
 def ptxas_entries(text):
     """[(kernel, registers, spill bytes)] from an nvcc -Xptxas -v log."""
     out = []
@@ -356,7 +380,7 @@ def phase_build():
         _kernels.load(name)
         with open(path + ".log") as f:
             entries = ptxas_entries(f.read())
-        log(f"  {name}.cu -> {os.path.relpath(path, REPO)} in "
+        log(f"  {name} -> {os.path.relpath(path, REPO)} in "
             f"{secs[name]:.1f} s; {len(entries)} kernels, max "
             f"{max((r for _, r, _ in entries), default=0)} registers, "
             f"{sum(max(s, 0) for _, _, s in entries)} spill bytes")
@@ -365,6 +389,58 @@ def phase_build():
                 if "Li30E" in kname and "vn_" not in kname:
                     log(f"    d = 30: {kname}: {regs} registers, {spill} "
                         f"spill bytes")
+        if name == "qc_grouped":
+            grouped_kernel_report(path, entries)
+
+
+# (kernel, element type, lanes per thread, phi policy) in a mangled name
+GROUPED_ENTRY = re.compile(r"(cn|vn)_kernelI(\w+?)Li(\d+)ELi(\d+)E\w*?"
+                           r"(PhiFast|PhiAccurate)E")
+
+
+def grouped_kernel_report(path, entries):
+    """The grouped check and variable kernels' registers and spills by
+    (kernel, dtype, lanes per thread, phi), asserting none spills; and the
+    SASS instructions of the fast phi, counted with cuobjdump in the
+    float32 degree-1 one-lane check kernel (its only floating-point work
+    besides phi is ext - a and the hoisted input floor)."""
+    rows = {}
+    for kname, regs, spill in entries:
+        m = GROUPED_ENTRY.search(kname)
+        if m is None:
+            continue
+        kernel, dtype, degree, lanes, phi = m.groups()
+        dtype = {"f": "f32", "13__nv_bfloat16": "bf16",
+                 "13__nv_fp8_e5m2": "fp8"}[dtype]
+        r = rows.setdefault((kernel, dtype, int(lanes), phi), [0, 0, []])
+        r[0] = max(r[0], regs)
+        r[1] += max(spill, 0)
+        r[2].append(int(degree))
+    for (kernel, dtype, lanes, phi), (regs, spill, degrees) in sorted(
+            rows.items()):
+        log(f"    {kernel} {dtype} V = {lanes} {phi}: degrees "
+            f"{min(degrees)}-{max(degrees)}, max {regs} registers, {spill} "
+            f"spill bytes")
+    spilled = [k for k, _, s in entries if s != 0]
+    assert not spilled, f"qc_grouped kernels spill: {spilled[:4]}"
+    from ldpc_decoder_tpu_torch.ops import _kernels
+
+    cuobjdump = os.path.join(os.path.dirname(_kernels._nvcc()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", path], capture_output=True,
+                          text=True, timeout=300, check=True).stdout
+    for phi in ("PhiFast", "PhiAccurate"):
+        fn = [f for f in sass.split("Function : ")[1:]
+              if re.match(rf"\S*cn_kernelIfLi1ELi1E\w*?{phi}E", f)]
+        if not fn:
+            log(f"    SASS of cn_kernel<float, 1, 1, {phi}>: not found")
+            continue
+        ops = re.findall(r"/\*[0-9a-f]{4}\*/\s+([A-Z][A-Z0-9_.]*)", fn[0])
+        fp = [op for op in ops if op.split(".")[0] in (
+            "FADD", "FMUL", "FFMA", "FMNMX", "FSETP", "FSEL", "MUFU")]
+        log(f"    SASS of cn_kernel<float, 1, 1, {phi}>: {len(ops)} "
+            f"instructions, {len(fp)} floating-point or MUFU"
+            + (f"; the fast phi: {len(fp) - 2} ({' '.join(fp)})"
+               if phi == "PhiFast" else ""))
 
 
 def lane_state(torch, np, dev, t, ch, batch, B):
@@ -380,9 +456,80 @@ def lane_state(torch, np, dev, t, ch, batch, B):
     return llr, syn
 
 
+def grouped_policies(torch, qg, mv, rc, llr, syn, t, fresh, label,
+                     d1_kw=True):
+    """The grouped sum-product kernels of both phi policies against their
+    plain versions on one state (check pass, then the variable pass plain,
+    with emit and fresh lanes, first after a refill), and the fast ones
+    against the accurate ones: the accurate instantiation by
+    ``compare_msgs`` (the plain version's phi: today's rule), the fast one
+    by ``perf.compare_msgs_fast``; hard bits exact. Returns (r_c of the
+    accurate check kernel, the last emitted bits, {"cn", "vn"}: max
+    absolute error against plain of the fast kernels)."""
+    rp = torch.empty_like(rc)
+    qg.cn_pass_plain(mv, syn, rp, t)
+    rk = {phi: torch.empty_like(rc) for phi in ("accurate", "fast")}
+    err = {}
+    log("  check nodes:")
+    for phi, rk_phi in rk.items():
+        qg.cn_pass_grouped(mv, syn, rk_phi, t, _phi=phi)
+    compare_msgs(f"r_c accurate vs plain ({label})", rk["accurate"], rp)
+    err["cn"] = compare_fast(f"r_c fast vs plain ({label})", rk["fast"], rp)
+    compare_fast(f"r_c fast vs accurate ({label})", rk["fast"],
+                 rk["accurate"])
+    del rp
+    log("  variable nodes:")
+    r_in = rk["accurate"]
+    errs = []
+    mp = mv.clone()
+    mk = {phi: mv.clone() for phi in rk}
+    for what, emit, fr, d1 in [("plain iteration", False, None, False),
+                               ("emit + fresh lanes", True, fresh, False),
+                               ("first after refill", False, fresh, True)]:
+        kw = dict(fresh=fr, include_d1=d1) if d1_kw else dict(fresh=fr)
+        mp.copy_(mv)
+        bp = torch.full((t.C, t.Z, llr.shape[-1]), -1, dtype=torch.int8,
+                        device=mv.device)
+        qg.vn_pass_plain(r_in, llr, mp, t, bits=bp if emit else None, **kw)
+        for phi, m in mk.items():
+            m.copy_(mv)
+            bk = torch.full_like(bp, -1)
+            qg.vn_pass_grouped(r_in, llr, m, t, bits=bk if emit else None,
+                               **kw, _phi=phi)
+            assert torch.equal(bk, bp), f"hard bits differ ({phi}, {what})"
+            if emit:
+                emitted = bk
+        compare_msgs(f"msgs_v accurate vs plain ({what})", mk["accurate"],
+                     mp)
+        errs.append(compare_fast(f"msgs_v fast vs plain ({what})",
+                                 mk["fast"], mp))
+        compare_fast(f"msgs_v fast vs accurate ({what})", mk["fast"],
+                     mk["accurate"])
+        if emit:
+            log(f"  hard bits ({what}): equal, both policies")
+    err["vn"] = max(errs)
+    return r_in, emitted, err
+
+
+def time_policies(out, name, fn, plain_fn, n_bytes, n_ops, label):
+    """Times of ``fn(phi)`` for both policies and of ``plain_fn()`` into
+    ``out[name]``, with the bound, and logs each time beside the bound and
+    its share."""
+    r = out[name]
+    r["ms"] = cuda_ms(lambda: fn("fast"), 10)
+    r["accurate_ms"] = cuda_ms(lambda: fn("accurate"), 10)
+    r["plain_ms"] = cuda_ms(plain_fn, 3)
+    r["bound"] = bound(n_bytes, n_ops)
+    b = r["bound"][0]
+    log(f"  {name}: fast {r['ms']:.3f} ms ({b / r['ms']:.1%} of the bound), "
+        f"accurate {r['accurate_ms']:.3f} ms ({b / r['accurate_ms']:.1%}), "
+        f"plain {r['plain_ms']:.3f} ms, bound {b:.3f} ms ({r['bound'][1]}) "
+        f"({label})")
+
+
 def phase_kernels(torch, np, dev, code, s, batch):
-    """Grouped kernel vs plain at the p41 path's shapes on a real decode
-    state."""
+    """Grouped kernels (both phi policies) vs plain at the p41 path's
+    shapes on a real decode state."""
     from ldpc_decoder_tpu_torch.channels import BIAWGNChannel
     from ldpc_decoder_tpu_torch.ops import qc_grouped as qg
     from ldpc_decoder_tpu_torch.ops.qc_decode import QCDecodeTables
@@ -397,48 +544,22 @@ def phase_kernels(torch, np, dev, code, s, batch):
     mv, rc = msgs
     fresh = torch.zeros(B, dtype=torch.bool, device=dev)
     fresh[::5] = True
-    out = {}
-
-    log("  check nodes:")
-    rk, rp = torch.empty_like(rc), torch.empty_like(rc)
-    qg.cn_pass_grouped(mv, syn, rk, t)
-    qg.cn_pass_plain(mv, syn, rp, t)
-    err = compare_msgs("r_c", rk, rp)
-    del rp
+    rk, emitted, err = grouped_policies(torch, qg, mv, rc, llr, syn, t,
+                                        fresh, "p41, bf16")
+    out = {"cn": dict(max_abs_err=err["cn"]), "vn": dict(
+        max_abs_err=err["vn"])}
     passes = perf.grouped_bytes(t, B, 2, 2)  # bf16 messages and llr
-    out["cn"] = dict(
-        max_abs_err=err,
-        ms=cuda_ms(lambda: qg.cn_pass_grouped(mv, syn, rk, t), 10),
-        plain_ms=cuda_ms(lambda: qg.cn_pass_plain(mv, syn, rk, t), 3),
-        bound=bound(passes["cn"], OPS_PER_MESSAGE * t.nb * t.Z * B))
-
-    log("  variable nodes:")
-    errs = []
-    mk, mp = mv.clone(), mv.clone()
-    for label, emit, fr, d1 in [("plain iteration", False, None, False),
-                                ("emit + fresh lanes", True, fresh, False),
-                                ("first after refill", False, fresh, True)]:
-        mk.copy_(mv)
-        mp.copy_(mv)
-        bk = torch.full((t.C, t.Z, B), -1, dtype=torch.int8, device=dev)
-        bp = bk.clone()
-        qg.vn_pass_grouped(rk, llr, mk, t, bits=bk if emit else None,
-                           fresh=fr, include_d1=d1)
-        qg.vn_pass_plain(rk, llr, mp, t, bits=bp if emit else None,
-                         fresh=fr, include_d1=d1)
-        errs.append(compare_msgs(f"msgs_v ({label})", mk, mp))
-        assert torch.equal(bk, bp), f"hard bits differ ({label})"
-        if emit:
-            emitted = bk
-            log(f"  hard bits ({label}): equal")
-    del mp
-    # the timed pass is a plain iteration: the degree-1 group is skipped
+    # the timed variable pass is a plain iteration: the degree-1 group is
+    # skipped
     blocks = sum(g.count * g.degree for g in t.col_groups if g.degree > 1)
-    out["vn"] = dict(
-        max_abs_err=max(errs),
-        ms=cuda_ms(lambda: qg.vn_pass_grouped(rk, llr, mk, t), 10),
-        plain_ms=cuda_ms(lambda: qg.vn_pass_plain(rk, llr, mk, t), 3),
-        bound=bound(passes["vn"], OPS_PER_MESSAGE * blocks * t.Z * B))
+    mk = mv.clone()
+    label = f"p41, B = {B}, bf16"
+    time_policies(out, "cn", lambda phi: qg.cn_pass_grouped(
+        mv, syn, rk, t, _phi=phi), lambda: qg.cn_pass_plain(mv, syn, rk, t),
+        passes["cn"], OPS_PER_MESSAGE * t.nb * t.Z * B, label)
+    time_policies(out, "vn", lambda phi: qg.vn_pass_grouped(
+        rk, llr, mk, t, _phi=phi), lambda: qg.vn_pass_plain(rk, llr, mk, t),
+        passes["vn"], OPS_PER_MESSAGE * blocks * t.Z * B, label)
 
     log("  parity:")
     ref = torch.from_numpy(np.ascontiguousarray(
@@ -447,26 +568,26 @@ def phase_kernels(torch, np, dev, code, s, batch):
     syn_bad = syn.clone()
     bad = [3, 77, 200]
     syn_bad[t.R - 1, t.Z - 1, bad] ^= 1
-    for label, bits, sy, want in [
+    for what, bits, sy, want in [
             ("decode state", emitted, syn, None),
             ("codewords", ref, syn, []),
             ("codewords, 3 checks flipped", ref, syn_bad, bad)]:
         fk = qg.parity_pass_grouped(bits, sy, t)
         fp = qg.parity_pass_plain(bits, sy, t)
-        assert torch.equal(fk, fp), f"parity flags differ ({label})"
+        assert torch.equal(fk, fp), f"parity flags differ ({what})"
         lanes = torch.nonzero(fk).flatten().tolist()
         if want is not None:
-            assert lanes == want, f"parity ({label}): {lanes} != {want}"
-        log(f"  flags ({label}): equal, {len(lanes)} of {B} lanes violated")
+            assert lanes == want, f"parity ({what}): {lanes} != {want}"
+        log(f"  flags ({what}): equal, {len(lanes)} of {B} lanes violated")
     out["parity"] = dict(
         max_abs_err=0.0,
         ms=cuda_ms(lambda: qg.parity_pass_grouped(emitted, syn, t), 10),
         plain_ms=cuda_ms(lambda: qg.parity_pass_plain(emitted, syn, t), 3),
         bound=bound(passes["parity"], OPS_PER_PARITY_READ * t.nb * t.Z * B))
-    for name, r in out.items():
-        log(f"  {name}: kernel {r['ms']:.3f} ms per pass, plain "
-            f"{r['plain_ms']:.3f} ms, bound {r['bound'][0]:.3f} ms "
-            f"({r['bound'][1]}) (p41, B = {B}, bf16)")
+    r = out["parity"]
+    log(f"  parity: kernel {r['ms']:.3f} ms per pass, plain "
+        f"{r['plain_ms']:.3f} ms, bound {r['bound'][0]:.3f} ms "
+        f"({r['bound'][1]}) ({label})")
     return out
 
 
@@ -498,7 +619,8 @@ def phase_regular_kernels(torch, np, dev, code, s, batch):
     rg = torch.empty((nb, Z, B), dtype=rc.dtype, device=dev)
     qr.cn_pass_regular(mv, syn, rk, t)
     qr.cn_pass_plain(mv, syn, rp, t)
-    qg.cn_pass_grouped(mv.view(nb, Z, B), syn, rg, tg)
+    # the grouped kernels' accurate phi is the regular kernels' phi_abs
+    qg.cn_pass_grouped(mv.view(nb, Z, B), syn, rg, tg, _phi="accurate")
     err = compare_msgs("r_c", rk, rp)
     same["r_c"] = bit_identical(rk, rg)
     del rp
@@ -529,7 +651,7 @@ def phase_regular_kernels(torch, np, dev, code, s, batch):
                          fresh=fr)
         qg.vn_pass_grouped(rk.view(nb, Z, B), llr, mg, tg,
                            bits=bg if emit else None, fresh=fr,
-                           include_d1=fr is not None)
+                           include_d1=fr is not None, _phi="accurate")
         errs.append(compare_msgs(f"msgs_v ({label})", mk, mp))
         assert torch.equal(bk, bp), f"hard bits differ ({label})"
         same[f"msgs_v ({label})"] = bit_identical(mk, mg)
@@ -1107,64 +1229,73 @@ def fp8_sum_product_kernels(torch, np, dev, family, t, llr, syn, B, label):
     """One QC family's float8_e5m2 sum-product kernels against their plain
     versions on a real decode state (four iterations in): every group,
     with and without fresh lanes and emits; messages within
-    perf.FP8_STEP_SHARE, hard bits exact. Returns {"cn": ..., "vn": ...} with
-    the kernel, plain and bound times of a non-emit pass."""
+    perf.FP8_STEP_SHARE (the grouped family: its accurate-phi kernels so,
+    its fast ones by perf.compare_msgs_fast), hard bits exact. Returns
+    {"cn": ..., "vn": ...} with the kernel, plain and bound times of a
+    non-emit pass (grouped: both policies)."""
     from ldpc_decoder_tpu_torch.ops import qc_grouped as qg
     from ldpc_decoder_tpu_torch.ops import qc_regular as qr
     from ldpc_decoder_tpu_torch.runtime import perf
 
     fp8 = torch.float8_e5m2
-    if family == "grouped":
-        mod, cnk, vnk = qg, qg.cn_pass_grouped, qg.vn_pass_grouped
-        msgs = qg.init_messages_qc_grouped(llr, t, fp8)
-        msgs, _, _ = qg.run_iterations_qc_grouped(msgs, llr, syn, t, 4)
-        run_blocks = sum(g.count * g.degree for g in t.col_groups
-                         if g.degree > 1)  # non-emit pass
-        passes = perf.grouped_bytes(t, B, 1, 2)  # e5m2 messages, bf16 llr
-        after_refill = {"include_d1": True}
-    else:
-        mod, cnk, vnk = qr, qr.cn_pass_regular, qr.vn_pass_regular
-        msgs = qr.init_messages_qc_regular(llr, t, fp8)
-        msgs, _, _ = qr.run_iterations_qc_regular(msgs, llr, syn, t, 4)
-        run_blocks = t.n_edges // t.Z
-        passes = perf.regular_bytes(t, B, 1, 2)
-        after_refill = {}
-    mv, rc = msgs
     Z, blocks = t.Z, t.n_edges // t.Z
     fresh = torch.zeros(B, dtype=torch.bool, device=dev)
     fresh[::5] = True
+    if family == "grouped":
+        msgs = qg.init_messages_qc_grouped(llr, t, fp8)
+        mv, rc = qg.run_iterations_qc_grouped(msgs, llr, syn, t, 4)[0]
+        run_blocks = sum(g.count * g.degree for g in t.col_groups
+                         if g.degree > 1)  # non-emit pass
+        passes = perf.grouped_bytes(t, B, 1, 2)  # e5m2 messages, bf16 llr
+        rk, _, err = grouped_policies(torch, qg, mv, rc, llr, syn, t, fresh,
+                                      label)
+        out = {"cn": dict(max_abs_err=err["cn"]),
+               "vn": dict(max_abs_err=err["vn"])}
+        mk = mv.clone()
+        time_policies(out, "cn", lambda phi: qg.cn_pass_grouped(
+            mv, syn, rk, t, _phi=phi), lambda: qg.cn_pass_plain(
+            mv, syn, rk, t), passes["cn"], OPS_PER_MESSAGE * blocks * Z * B,
+            label)
+        time_policies(out, "vn", lambda phi: qg.vn_pass_grouped(
+            rk, llr, mk, t, _phi=phi), lambda: qg.vn_pass_plain(
+            rk, llr, mk, t), passes["vn"],
+            OPS_PER_MESSAGE * run_blocks * Z * B, label)
+        return out
 
+    msgs = qr.init_messages_qc_regular(llr, t, fp8)
+    mv, rc = qr.run_iterations_qc_regular(msgs, llr, syn, t, 4)[0]
+    run_blocks = t.n_edges // t.Z
+    passes = perf.regular_bytes(t, B, 1, 2)
     rk, rp = torch.empty_like(rc), torch.empty_like(rc)
-    cnk(mv, syn, rk, t)
-    mod.cn_pass_plain(mv, syn, rp, t)
+    qr.cn_pass_regular(mv, syn, rk, t)
+    qr.cn_pass_plain(mv, syn, rp, t)
     err_cn = compare_msgs("r_c", rk, rp)
     del rp
     errs = []
     mk, mp = mv.clone(), mv.clone()
-    for what, emit, fr, kw in [("plain iteration", False, None, {}),
-                               ("emit + fresh lanes", True, fresh, {}),
-                               ("first after refill", False, fresh,
-                                after_refill)]:
+    for what, emit, fr in [("plain iteration", False, None),
+                           ("emit + fresh lanes", True, fresh),
+                           ("first after refill", False, fresh)]:
         mk.copy_(mv)
         mp.copy_(mv)
         bk = torch.full((t.C, Z, B), -1, dtype=torch.int8, device=dev)
         bp = bk.clone()
-        vnk(rk, llr, mk, t, bits=bk if emit else None, fresh=fr, **kw)
-        mod.vn_pass_plain(rk, llr, mp, t, bits=bp if emit else None,
-                          fresh=fr, **kw)
+        qr.vn_pass_regular(rk, llr, mk, t, bits=bk if emit else None,
+                           fresh=fr)
+        qr.vn_pass_plain(rk, llr, mp, t, bits=bp if emit else None, fresh=fr)
         errs.append(compare_msgs(f"msgs_v ({what})", mk, mp))
         assert torch.equal(bk, bp), f"hard bits differ ({label}, {what})"
     del mp
     out = {
         "cn": dict(
             max_abs_err=err_cn,
-            ms=cuda_ms(lambda: cnk(mv, syn, rk, t), 10),
-            plain_ms=cuda_ms(lambda: mod.cn_pass_plain(mv, syn, rk, t), 3),
+            ms=cuda_ms(lambda: qr.cn_pass_regular(mv, syn, rk, t), 10),
+            plain_ms=cuda_ms(lambda: qr.cn_pass_plain(mv, syn, rk, t), 3),
             bound=bound(passes["cn"], OPS_PER_MESSAGE * blocks * Z * B)),
         "vn": dict(
             max_abs_err=max(errs),
-            ms=cuda_ms(lambda: vnk(rk, llr, mk, t), 10),
-            plain_ms=cuda_ms(lambda: mod.vn_pass_plain(rk, llr, mk, t), 3),
+            ms=cuda_ms(lambda: qr.vn_pass_regular(rk, llr, mk, t), 10),
+            plain_ms=cuda_ms(lambda: qr.vn_pass_plain(rk, llr, mk, t), 3),
             bound=bound(passes["vn"], OPS_PER_MESSAGE * run_blocks * Z * B)),
     }
     for name, r in out.items():
@@ -1314,7 +1445,9 @@ def phase_probes(torch, dev, code, s, batch, s36):
         for counter, n in launches.items():
             if counter in counters:
                 assert n > 0, f"{probe}: {counter} kernel never launched"
-            else:
+            elif not (counter == "phi_accurate" and probe == "noalias"):
+                # (row 11 holds the kernels to the plain passes on their
+                # accurate-phi instantiation)
                 assert n == 0, f"{probe}: {counter} launched off its path"
         head = recs[0]
         entries.append({
@@ -1629,8 +1762,9 @@ def main():
                  "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                  "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
                  "bound_by": r["bound"][1], "library_ms": None}
-        if "grouped_ms" in r:
-            entry["grouped_ms"] = r["grouped_ms"]
+        for extra in ("grouped_ms", "accurate_ms"):
+            if extra in r:
+                entry[extra] = r[extra]
         kernels.append(entry)
     kernels += probe_entries
     log(json.dumps({"kernels": kernels}))

@@ -1,7 +1,9 @@
 """Build, load and launch the CUDA kernels of ``csrc/``.
 
-Five sources, one shared library each: ``qc_grouped.cu`` (the grouped
-family's sum-product and parity kernels, one launch per degree group),
+Five libraries: ``qc_grouped`` (the grouped family's sum-product and
+parity kernels, one launch per degree group; ``qc_grouped.cu`` and
+``qc_grouped_accurate.cu``, which compile in parallel, and the kernels'
+header ``qc_grouped.cuh``),
 ``qc_regular.cu`` (the regular family's, one launch per pass),
 ``qc_minsum.cu`` (the min-sum check and variable kernels of both QC
 families, int8 messages in the grouped one), ``general.cu`` (the
@@ -43,10 +45,13 @@ from ldpc_decoder_tpu_torch._build import build_shared_library
 
 CSRC = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "csrc")
-SOURCES = {name: os.path.join(CSRC, f"{name}.cu")
+# the sources of each library (compiled in parallel when several)
+SOURCES = {name: [os.path.join(CSRC, f"{name}.cu")]
            for name in ("qc_grouped", "qc_regular", "qc_minsum", "general",
                         "probes")}
-HEADERS = (os.path.join(CSRC, "common.cuh"),)
+SOURCES["qc_grouped"].append(os.path.join(CSRC, "qc_grouped_accurate.cu"))
+HEADERS = (os.path.join(CSRC, "common.cuh"),
+           os.path.join(CSRC, "qc_grouped.cuh"))
 # --split-compile=0: nvcc optimizes a source's template instantiations in
 # parallel, one thread per CPU. On an H100 host with 8 cores the four
 # libraries, built together, take 49.6 s with it on the three large
@@ -68,7 +73,8 @@ launch_counts = {"cn": 0, "vn": 0, "parity": 0,
                  "cn_general_minsum": 0, "vn_general_minsum": 0,
                  "cn_group_minsum": 0, "vn_group_minsum": 0,
                  "cn_regular_minsum": 0, "vn_regular_minsum": 0,
-                 "probe_row_copy": 0, "probe_window": 0}
+                 "probe_row_copy": 0, "probe_window": 0,
+                 "phi_accurate": 0}
 
 _p, _i, _f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _ll = ctypes.c_longlong
@@ -77,9 +83,10 @@ _ll = ctypes.c_longlong
 _SIGNATURES = {
     "qc_grouped": {
         "ldpc_cn_group": [_p, _p, _p, _p, _p, _i, _i, _i, _i, _i, _i, _f, _i,
-                          _p],
+                          _i, _i, _p],
         "ldpc_vn_group": [_p, _p, _p, _p, _p, _p, _p, _i, _i, _i, _i, _i, _i,
-                          _f, _i, _p],
+                          _f, _i, _i, _i, _p],
+        "ldpc_vec_lanes": [_i, _i],
         "ldpc_parity_group": [_p, _p, _p, _p, _p, _i, _i, _i, _i, _i, _i,
                               _p],
     },
@@ -118,6 +125,14 @@ _SIGNATURES = {
 # its kernels are instantiated for and refuses the others)
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2,
                torch.float8_e5m2: 3}
+_SP_DTYPES = (torch.float32, torch.bfloat16, torch.float8_e5m2)
+# the grouped sum-product kernels' phi policies (their C entries' phi code)
+PHI_POLICIES = {"fast": 0, "accurate": 1}
+# the grouped check and variable kernels' vector: at most 16 bytes of
+# messages per thread and row, and at most 64 message values per thread
+# (degree x lanes: registers, no spills)
+VEC_BYTES = 16
+VEC_FLOATS = 64
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
@@ -142,7 +157,7 @@ def library_path(name: str) -> str:
     spill report. Safe to call for all libraries from several threads at
     once: each nvcc runs in its own process."""
     cmd = [_nvcc(), *NVCC_FLAGS]
-    return build_shared_library(name, [SOURCES[name]], cmd, timeout=900,
+    return build_shared_library(name, SOURCES[name], cmd, timeout=900,
                                 headers=HEADERS)
 
 
@@ -160,6 +175,11 @@ def load(name: str) -> ctypes.CDLL:
         lib.ldpc_max_degree.restype = _i
         if lib.ldpc_max_degree() != MAX_DEGREES[name]:
             raise RuntimeError(f"{name} library and MAX_DEGREES disagree")
+        if name == "qc_grouped" and any(
+                lib.ldpc_vec_lanes(code, d) != vec_lanes(dtype, d)
+                for dtype, code in DTYPE_CODES.items() if dtype in _SP_DTYPES
+                for d in range(1, MAX_DEGREES[name] + 1)):
+            raise RuntimeError("qc_grouped library and vec_lanes disagree")
         _libs[name] = lib
         return lib
 
@@ -183,30 +203,68 @@ def _fp8(name: str, dtype: torch.dtype) -> str:
     return f"{name}_fp8" if dtype == torch.float8_e5m2 else name
 
 
+def vec_lanes(dtype: torch.dtype, degree: int) -> int:
+    """Lanes per thread of the vector instantiation of the grouped check
+    and variable kernels (``VecLanes`` in csrc/qc_grouped.cuh): 16 bytes of
+    messages, halved until ``degree`` times the lanes is at most
+    :data:`VEC_FLOATS`."""
+    cap = VEC_BYTES // torch.empty((), dtype=dtype).element_size()
+    fit = 1 << ((VEC_FLOATS // degree).bit_length() - 1)
+    return min(cap, fit)
+
+
+def lanes_per_thread(B: int, dtype: torch.dtype, degree: int) -> int:
+    """The instantiation a grouped check or variable launch takes for B
+    lanes of ``dtype`` messages at ``degree``: :func:`vec_lanes` when B is
+    a multiple of it (every row then starts on a vector boundary), else 1."""
+    v = vec_lanes(dtype, degree)
+    return v if B % v == 0 else 1
+
+
+def _lanes(B: int, degree: int, msgs: torch.Tensor, *others) -> int:
+    """:func:`lanes_per_thread` for a launch on these tensors, or 1 when a
+    tensor's base is not aligned to that many of its elements (a view at an
+    odd offset): chosen before the launch, from the layout alone."""
+    v = lanes_per_thread(B, msgs.dtype, degree)
+    for t in (msgs, *others):
+        if t is not None and t.data_ptr() % (v * t.element_size()):
+            return 1
+    return v
+
+
+def _count_sum_product(name: str, dtype: torch.dtype, phi: str) -> None:
+    launch_counts[_fp8(name, dtype)] += 1
+    if phi == "accurate":
+        launch_counts["phi_accurate"] += 1
+
+
 def cn_group(msgs_v, syn, r_c, src, shift, g, Z: int, B: int,
-             pre: float) -> None:
-    """Check-node kernel for one check-degree group ``g``."""
+             pre: float, phi: str = "fast") -> None:
+    """Check-node kernel for one check-degree group ``g``; ``phi`` "fast"
+    (the decoder's) or "accurate" (common.cuh's phi_abs)."""
     lib = load("qc_grouped")
+    lanes = _lanes(B, g.degree, msgs_v, syn, r_c)
     err = lib.ldpc_cn_group(
         _ptr(msgs_v), _ptr(syn), _ptr(r_c), _ptr(src), _ptr(shift),
         g.node_start, g.count, g.degree, g.block_start, Z, B, pre,
-        DTYPE_CODES[msgs_v.dtype], _stream(msgs_v))
+        DTYPE_CODES[msgs_v.dtype], lanes, PHI_POLICIES[phi], _stream(msgs_v))
     _check(lib, err, "check-node kernel")
-    launch_counts[_fp8("cn", msgs_v.dtype)] += 1
+    _count_sum_product("cn", msgs_v.dtype, phi)
 
 
 def vn_group(r_c, llr, msgs_v, bits, fresh, src, shift, g, Z: int, B: int,
-             pre: float) -> None:
+             pre: float, phi: str = "fast") -> None:
     """Variable-node kernel for one variable-degree group ``g``; ``bits``
-    and ``fresh`` may be None."""
+    and ``fresh`` may be None; ``phi`` as in :func:`cn_group`."""
     lib = load("qc_grouped")
+    lanes = _lanes(B, g.degree, r_c, llr, msgs_v, bits, fresh)
     err = lib.ldpc_vn_group(
         _ptr(r_c), _ptr(llr), _ptr(msgs_v), _ptr(bits), _ptr(fresh),
         _ptr(src), _ptr(shift), g.node_start, g.count, g.degree,
-        g.block_start, Z, B, pre, DTYPE_CODES[r_c.dtype],
-        _stream(r_c))
+        g.block_start, Z, B, pre, DTYPE_CODES[r_c.dtype], lanes,
+        PHI_POLICIES[phi], _stream(r_c))
     _check(lib, err, "variable-node kernel")
-    launch_counts[_fp8("vn", r_c.dtype)] += 1
+    _count_sum_product("vn", r_c.dtype, phi)
 
 
 def parity_group(bits, syn, flags, src, shift, g, Z: int, B: int) -> None:

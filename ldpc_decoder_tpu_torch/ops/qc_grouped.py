@@ -38,7 +38,11 @@ gathers and elementwise ops, same summation order) and a kernel
 (csrc/qc_grouped.cu, min-sum csrc/qc_minsum.cu, via :mod:`._kernels`). The
 pass functions dispatch on the tensors' device: CPU tensors take the plain
 version (the CPU tests' path); CUDA tensors launch the kernel or raise —
-there is no fallback.
+there is no fallback. The sum-product kernels evaluate φ from the card's
+MUFU operations (``phi_abs_fast``, within 2.5e-6 of float64; its float32
+model is :func:`~ldpc_decoder_tpu_torch.ops.phi.phi_abs_fast_np`); their
+``_phi="accurate"`` instantiation repeats the plain version's φ, for the
+tests that hold the kernels' structure to it exactly.
 """
 
 from __future__ import annotations
@@ -207,10 +211,22 @@ def cn_pass_plain(msgs_v, syn, r_c, tables: GroupedQCTables,
     return r_c
 
 
+def _check_phi(phi: str) -> None:
+    if phi not in _kernels.PHI_POLICIES:
+        raise ValueError(f"unknown phi policy {phi!r}")
+
+
 def cn_pass_grouped(msgs_v, syn, r_c, tables: GroupedQCTables,
-                    pre: float = PRE_THRESHOLD) -> torch.Tensor:
+                    pre: float = PRE_THRESHOLD, *,
+                    _phi: str = "fast") -> torch.Tensor:
     """msgs_v [nb, Z, B] (vn order), syn [R, Z, B] int8 -> r_c [nb, Z, B]
-    (check order), every block rewritten in place; returns r_c."""
+    (check order), every block rewritten in place; returns r_c.
+
+    ``_phi`` (internal: the tests and chip_smoke.py) selects the kernel's φ:
+    "fast" (MUFU and FMA, what the decoder runs) or "accurate" (the
+    accurate tanhf/logf/expf, the plain version's arithmetic). The plain
+    version has one φ and ignores it."""
+    _check_phi(_phi)
     B = _check_msgs(tables, msgs_v, "msgs_v", r_c, "r_c")
     check(syn, "syn", (tables.R, tables.Z, B), (torch.int8,))
     if _backend(tables, msgs_v, syn, r_c) == "cpu":
@@ -218,7 +234,7 @@ def cn_pass_grouped(msgs_v, syn, r_c, tables: GroupedQCTables,
     with torch.cuda.device(msgs_v.device):
         for g in tables.row_groups:
             _kernels.cn_group(msgs_v, syn, r_c, tables.cn_src,
-                              tables.cn_shift, g, tables.Z, B, pre)
+                              tables.cn_shift, g, tables.Z, B, pre, _phi)
     return r_c
 
 
@@ -267,7 +283,8 @@ def vn_pass_plain(r_c, llr, msgs_v, tables: GroupedQCTables,
 
 def vn_pass_grouped(r_c, llr, msgs_v, tables: GroupedQCTables,
                     pre: float = PRE_THRESHOLD, bits=None, fresh=None,
-                    include_d1: bool = False) -> torch.Tensor:
+                    include_d1: bool = False, *,
+                    _phi: str = "fast") -> torch.Tensor:
     """r_c [nb, Z, B] (check order), llr [C, Z, B] (the message dtype;
     bfloat16 for float8_e5m2) -> msgs_v [nb, Z, B] in place; returns
     msgs_v.
@@ -276,7 +293,9 @@ def vn_pass_grouped(r_c, llr, msgs_v, tables: GroupedQCTables,
     ``fresh`` ([B] bool or None): lane-reset refill — flagged lanes carry a
     retired frame's messages and emit the init values φ(llr) instead.
     ``include_d1``: run the degree-1 groups on a non-emit iteration (the
-    first iteration after a refill, when their φ(llr) changed)."""
+    first iteration after a refill, when their φ(llr) changed).
+    ``_phi`` as in :func:`cn_pass_grouped`."""
+    _check_phi(_phi)
     B, tensors = _check_vn_args(tables, r_c, llr, msgs_v, bits, fresh,
                                 _MSG_DTYPES)
     if _backend(tables, *tensors) == "cpu":
@@ -285,7 +304,7 @@ def vn_pass_grouped(r_c, llr, msgs_v, tables: GroupedQCTables,
     with torch.cuda.device(r_c.device):
         for g in _vn_groups(tables, bits is not None, include_d1):
             _kernels.vn_group(r_c, llr, msgs_v, bits, fresh, tables.vn_src,
-                              tables.vn_shift, g, tables.Z, B, pre)
+                              tables.vn_shift, g, tables.Z, B, pre, _phi)
     return msgs_v
 
 

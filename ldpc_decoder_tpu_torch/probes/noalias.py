@@ -47,15 +47,24 @@ def _assembled(out: torch.Tensor, groups, assemble: bool) -> torch.Tensor:
 
 
 def run_iterations_fresh(msgs, llr, syn, tables: qg.GroupedQCTables, k: int,
-                         assemble: bool = False, plain: bool = False):
+                         assemble: bool = False, plain: bool = False,
+                         phi: str = "fast"):
     """k flood iterations like :func:`~ldpc_decoder_tpu_torch.ops.qc_grouped.
     run_iterations_qc_grouped` (no fresh lanes), every pass into a fresh
-    output; ``plain`` takes the plain passes. Returns ((msgs_v, r_c), bits,
-    violated); ``msgs`` is left as it was."""
-    cn, vn, parity = ((qg.cn_pass_plain, qg.vn_pass_plain,
-                       qg.parity_pass_plain) if plain else
-                      (qg.cn_pass_grouped, qg.vn_pass_grouped,
-                       qg.parity_pass_grouped))
+    output; ``plain`` takes the plain passes, else the kernels with the
+    ``phi`` policy. Returns ((msgs_v, r_c), bits, violated); ``msgs`` is
+    left as it was."""
+    if plain:
+        cn, vn, parity = (qg.cn_pass_plain, qg.vn_pass_plain,
+                          qg.parity_pass_plain)
+    else:
+        def cn(*a, **kw):
+            return qg.cn_pass_grouped(*a, **kw, _phi=phi)
+
+        def vn(*a, **kw):
+            return qg.vn_pass_grouped(*a, **kw, _phi=phi)
+
+        parity = qg.parity_pass_grouped
     msgs_v, r_c = msgs
     d1 = [slice(g.block_start, g.block_start + g.count)
           for g in tables.col_groups if g.degree == 1]
@@ -134,8 +143,10 @@ def run(dev: torch.device, small: bool = False, headline: bool = False,
     t, llr, syn, msgs = lane_state(dev, code, structure, batch, B)
     k = K_ITERATIONS
 
-    # one iteration, kernel against the plain passes (sum-product rule)
-    (mk, rk), bk, fk = run_iterations_fresh(msgs, llr, syn, t, 1)
+    # one iteration, kernel against the plain passes (sum-product rule, on
+    # the kernels' accurate-φ instantiation, the plain version's φ)
+    (mk, rk), bk, fk = run_iterations_fresh(msgs, llr, syn, t, 1,
+                                            phi="accurate")
     (mp, rp), bp, fp = run_iterations_fresh(msgs, llr, syn, t, 1, plain=True)
     err = max(C.assert_msgs_match(rk, rp, "noalias r_c vs plain"),
               C.assert_msgs_match(mk, mp, "noalias msgs_v vs plain"))

@@ -22,10 +22,10 @@ PHI_RTOL, PHI_ATOL = 1e-5, 1e-7
 
 
 def _check_phi(x: np.ndarray, dtype: torch.dtype, family: str,
-               device: torch.device) -> torch.Tensor:
+               device: torch.device, phi: str = "fast") -> torch.Tensor:
     """φ of every x (float32, signed) through one check-kernel launch of
-    ``family`` with ``dtype`` messages; returns slot 0 of the check pass,
-    [Z] on the card."""
+    ``family`` with ``dtype`` messages (the grouped family with its
+    ``phi`` policy); returns slot 0 of the check pass, [Z] on the card."""
     from ldpc_decoder_tpu_torch.codes.qc import QCStructure
     from ldpc_decoder_tpu_torch.ops import qc_grouped as qg
     from ldpc_decoder_tpu_torch.ops import qc_regular as qr
@@ -43,11 +43,32 @@ def _check_phi(x: np.ndarray, dtype: torch.dtype, family: str,
     syn = torch.zeros((1, Z, 1), dtype=torch.int8, device=device)
     if family == "grouped":
         t = qg.GroupedQCTables.from_qc_tables(qct)
-        r_c = qg.cn_pass_grouped(msgs, syn, torch.empty_like(msgs), t)
+        r_c = qg.cn_pass_grouped(msgs, syn, torch.empty_like(msgs), t,
+                                 _phi=phi)
         return r_c[0, :, 0]
     t = qr.QCRegularTables.from_qc_tables(qct)
     r_c = torch.empty((1, 2, Z, 1), dtype=dtype, device=device)
     return qr.cn_pass_regular(msgs.view(2, 1, Z, 1), syn, r_c, t)[0, 0, :, 0]
+
+
+def _phi_sweep(x: np.ndarray, phi: str, device: torch.device,
+               name: str) -> tuple[np.ndarray, np.ndarray]:
+    """φ of the sweep through the grouped check kernel with ``phi``, in
+    float64, and its relative error against float64; asserts positivity
+    and the rel + abs bound."""
+    from ldpc_decoder_tpu_torch.ops.phi import phi_abs_np
+
+    got = _check_phi(x, torch.float32, "grouped", device, phi).double()
+    got = got.cpu().numpy()
+    ref = phi_abs_np(x)
+    assert (got > 0).all(), (
+        f"{phi} phi <= 0 on {name} at x = {x[got <= 0][:5]}: the x > 5 "
+        f"tail (ops/phi.py, csrc/common.cuh, csrc/qc_grouped.cuh) has "
+        f"regressed")
+    ok = np.abs(got - ref) <= PHI_RTOL * ref + PHI_ATOL
+    assert ok.all(), (f"{phi} phi on {name} out of bound (rel {PHI_RTOL} + "
+                      f"abs {PHI_ATOL}) at x = {x[~ok][:5]}")
+    return got, np.abs(got - ref) / ref
 
 
 def cuda_numerics_smoke(device: torch.device | str = "cuda",
@@ -55,12 +76,18 @@ def cuda_numerics_smoke(device: torch.device | str = "cuda",
     """Assert the φ invariants hold on the card, through kernel launches.
 
     Raises RuntimeError without a CUDA device, AssertionError on a
-    regression. Checks: φ > 0 up to the clamp at 80 (the Taylor tail), φ
-    against float64 over [1e-5, 80] and finely around the switch at 5, the
-    self-inverse round trip φ(φ(x)) ≈ x, and that the regular family's
-    float8_e5m2 clamp keeps φ(±10) a normal e5m2 with its sign. Returns
-    the measured figures."""
-    from ldpc_decoder_tpu_torch.ops.phi import HIGH_THRESHOLD, phi_abs_np
+    regression. Checks, for the grouped kernels' fast φ (the decoder's)
+    and their accurate one: φ > 0 up to the clamp at 80 (the Taylor tail),
+    φ against float64 over [1e-5, 80] and finely around the switch at 5;
+    the fast φ within PHI_FAST_MAX_REL_ERR of float64 there; the
+    self-inverse round trip φ(φ(x)) ≈ x through the fast φ; and that the
+    regular family's float8_e5m2 clamp keeps φ(±10) a normal e5m2 with its
+    sign. Returns the measured figures (``phi_*``: the fast φ,
+    ``phi_accurate_*``: the accurate one)."""
+    from ldpc_decoder_tpu_torch.ops.phi import (
+        HIGH_THRESHOLD,
+        PHI_FAST_MAX_REL_ERR,
+    )
 
     device = torch.device(device)
     if device.type != "cuda" or not torch.cuda.is_available():
@@ -78,16 +105,11 @@ def cuda_numerics_smoke(device: torch.device | str = "cuda",
          np.nextafter(np.float32(5), np.float32(9)), 6.0, 12.0, 25.0, 50.0,
          HIGH_THRESHOLD],
     ]).astype(np.float32)
-    got = _check_phi(x, torch.float32, "grouped", device).double()
-    got = got.cpu().numpy()
-    ref = phi_abs_np(x)
-    assert (got > 0).all(), (
-        f"phi <= 0 on {name} at x = {x[got <= 0][:5]}: the x > 5 tail "
-        f"(ops/phi.py, csrc/common.cuh) has regressed")
-    rel = np.abs(got - ref) / ref
-    ok = np.abs(got - ref) <= PHI_RTOL * ref + PHI_ATOL
-    assert ok.all(), (f"phi on {name} out of bound (rel {PHI_RTOL} + abs "
-                      f"{PHI_ATOL}) at x = {x[~ok][:5]}")
+    acc, rel_acc = _phi_sweep(x, "accurate", device, name)
+    got, rel = _phi_sweep(x, "fast", device, name)
+    assert rel.max() <= PHI_FAST_MAX_REL_ERR, (
+        f"fast phi on {name}: max rel err {rel.max():.3e} at x = "
+        f"{x[rel.argmax()]} > {PHI_FAST_MAX_REL_ERR}")
 
     # 2. the self-inverse round trip keeps the operating range stable
     mid = np.geomspace(1e-4, 11.0, 32).astype(np.float32)
@@ -106,14 +128,20 @@ def cuda_numerics_smoke(device: torch.device | str = "cuda",
 
     out = {"phi_max_rel_err": float(rel.max()),
            "phi_worst_x": float(x[rel.argmax()]),
-           "phi_min": float(got.min()), "phi_round_trip_rel_err": rt,
+           "phi_min": float(got.min()),
+           "phi_accurate_max_rel_err": float(rel_acc.max()),
+           "phi_accurate_worst_x": float(x[rel_acc.argmax()]),
+           "phi_accurate_min": float(acc.min()),
+           "phi_round_trip_rel_err": rt,
            "phi10_e5m2": float(torch.tensor(bits[:1]).view(
                torch.float8_e5m2).float())}
-    verbose(f"smoke[{name}]: phi vs float64 over {x.size} points in "
-            f"[1e-5, {HIGH_THRESHOLD:g}]: max rel err "
-            f"{out['phi_max_rel_err']:.3e} at x = "
-            f"{out['phi_worst_x']:.6g} (bound rel {PHI_RTOL} + abs "
-            f"{PHI_ATOL}); min phi {out['phi_min']:.3e}; round trip "
-            f"{rt:.1e}; phi(10) as e5m2 {out['phi10_e5m2']:.4g} (normal, "
-            f"signed)")
+    for label, key in (("fast", "phi"), ("accurate", "phi_accurate")):
+        verbose(f"smoke[{name}]: {label} phi vs float64 over {x.size} "
+                f"points in [1e-5, {HIGH_THRESHOLD:g}]: max rel err "
+                f"{out[key + '_max_rel_err']:.3e} at x = "
+                f"{out[key + '_worst_x']:.6g} (bound rel {PHI_RTOL} + abs "
+                f"{PHI_ATOL}); min phi {out[key + '_min']:.3e}")
+    verbose(f"smoke[{name}]: fast phi within {PHI_FAST_MAX_REL_ERR} of "
+            f"float64; round trip {rt:.1e}; phi(10) as e5m2 "
+            f"{out['phi10_e5m2']:.4g} (normal, signed)")
     return out

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Where the time goes in the port's decode paths, on one NVIDIA GPU.
 
-    python3 profile_chip.py      # from the repository root, one card
+    python3 profile_chip.py               # from the repository root, one card
+    python3 profile_chip.py p41 "p41 fp8" # only the paths named
 
 For six paths of ``chip_smoke.py`` with the same decoder settings (p41
 at sigma 0.94 and reg36 at sigma 0.87, 512 frames, bf16, B = 256; the
@@ -22,6 +23,8 @@ activities) and prints:
 - the device's busy and idle shares over the span from the profiled
   decode's first device operation to its last (the results readback, which
   ends after the decode's clock stops, included);
+- the decoding and end-to-end Mb/s of the unprofiled decode (bench.py's
+  formulas, as chip_smoke.py prints them);
 - peak device memory, and the card's name, power limit, SM clock and
   power draw read by nvidia-smi after the run.
 
@@ -31,6 +34,7 @@ nonzero without a card. Imports nothing of JAX.
 
 import json
 import subprocess
+import sys
 import time
 
 import chip_smoke as cs
@@ -100,6 +104,16 @@ def profile_path(torch, label, dec, dyn, batch, n):
             by_name[evt.key] = (us, evt.count)
     own = {k: v for k, v in by_name.items() if any(f in k for f in OWN)}
     rest = {k: v for k, v in by_name.items() if k not in own}
+    # each template's instantiations summed (degrees, lanes, dtypes, phi)
+    by_kernel = {}
+    for k, (us, c) in own.items():
+        base = next(f for f in sorted(OWN, key=len, reverse=True) if f in k)
+        tot = by_kernel.setdefault(base, [0.0, 0])
+        tot[0] += us / 1e3
+        tot[1] += c
+    # bench.py's metrics (chip_smoke.run_path), from the unprofiled decode
+    bits = dec.code.n_vars
+    itpv = stats_wall.iter_time_per_vector
     busy_us, span_us = busy_and_span_us(prof.events())
     elapsed_ms = stats.elapsed_seconds * 1e3
     out = {
@@ -116,6 +130,10 @@ def profile_path(torch, label, dec, dyn, batch, n):
         "device_busy_ms": busy_us / 1e3,
         "device_span_ms": span_us / 1e3,
         "device_idle_share": 1.0 - busy_us / span_us if span_us else 1.0,
+        "decoding_mbps": bits / (stats_wall.avg_iter * itpv * 1048576.0),
+        "e2e_mbps": bits * n / 1048576.0 / stats_wall.elapsed_seconds,
+        "own_by_kernel_ms": {k: tuple(v) for k, v in sorted(
+            by_kernel.items(), key=lambda kv: -kv[1][0])},
         "own_kernels_ms": {k: (us / 1e3, c) for k, (us, c) in sorted(
             own.items(), key=lambda kv: -kv[1][0])},
         "other_kernels_ms": sum(us for us, _ in rest.values()) / 1e3,
@@ -128,7 +146,11 @@ def profile_path(torch, label, dec, dyn, batch, n):
            f"wall {out['hostfed_wall_ms']:.1f} ms); device busy "
            f"{out['device_busy_ms']:.1f} of {out['device_span_ms']:.1f} ms, "
            f"idle share {out['device_idle_share']:.4f}; "
-           f"peak memory {out['peak_memory_gb']:.2f} GB")
+           f"peak memory {out['peak_memory_gb']:.2f} GB; decoding "
+           f"{out['decoding_mbps']:.2f} Mb/s, e2e {out['e2e_mbps']:.2f} Mb/s "
+           f"(unprofiled)")
+    for k, (ms, c) in out["own_by_kernel_ms"].items():
+        cs.log(f"  {ms:10.2f} ms  {c:5d} launches  {k} (all instantiations)")
     for k, (ms, c) in out["own_kernels_ms"].items():
         cs.log(f"  {ms:10.2f} ms  {c:5d} launches  {k[:90]}")
     cs.log(f"  {out['other_kernels_ms']:10.2f} ms  other kernels; top: "
@@ -188,8 +210,14 @@ def main():
          k10),
         ("p41 fp8", cs.get_code, cs.SIGMA, sp_fp8, cs.N_FRAMES, p41_dyn),
     ]
+    wanted = sys.argv[1:] or [p[0] for p in paths]
+    unknown = set(wanted) - {p[0] for p in paths}
+    if unknown:
+        raise SystemExit(f"profile_chip: no path named {sorted(unknown)}")
     results = []
     for label, get, sigma, params, n, dyn in paths:
+        if label not in wanted:
+            continue
         code, s, _ = get()
         ch = BIAWGNChannel(sigma)
         batch = create_data(code, ch, 0, n, backend=backend)

@@ -10,12 +10,18 @@ host, which has no JAX; run it there with the repository's conftest
 Tolerances: signs, hard bits, parity flags and decoded words are exact;
 sum-product messages are within one ulp of the storage dtype (the plain
 version's φ goes through torch's CUDA tanh/log, the kernel's through
-tanhf/logf; float8_e5m2: one e5m2 step on a share of at most 1e-3);
+tanhf/logf; float8_e5m2: one e5m2 step on a share of at most 1e-3); the
+grouped kernels are held so on their accurate-φ instantiation, and their
+fast φ (MUFU and FMA, the decoder's) by ``runtime.perf.compare_msgs_fast``
+(float32 within 2 × 2.5e-6 + 2^-22 relative; bf16 one ulp, e5m2 one step,
+on a share of at most 1e-3);
 min-sum messages (general and QC, f32, bf16, float8_e5m2 and int8) are
 bitwise equal, and min-sum decodes equal in per-frame iterations too. The
 kernels' float8_e5m2 store equals torch's conversion on the card and on
 the CPU for every bfloat16 input.
 """
+
+import functools
 
 import numpy as np
 import pytest
@@ -82,7 +88,9 @@ def test_kernels_match_plain(small_code, cuda_device, dtype):
     ulp = 2.0 ** -7 if dtype == torch.bfloat16 else 2.0 ** -22
     before = dict(_kernels.launch_counts)
 
-    rk = qg.cn_pass_grouped(mv, syn, rc.clone(), t)
+    # the accurate-φ instantiation: the plain version's φ (the fast one is
+    # held to its own rule in test_grouped_kernels_both_phi)
+    rk = qg.cn_pass_grouped(mv, syn, rc.clone(), t, _phi="accurate")
     rp = qg.cn_pass_plain(mv, syn, rc.clone(), t)
     assert torch.equal(torch.signbit(rk), torch.signbit(rp))
     torch.testing.assert_close(rk.float(), rp.float(), rtol=ulp, atol=0)
@@ -94,7 +102,7 @@ def test_kernels_match_plain(small_code, cuda_device, dtype):
         bp = bk.clone()
         mk = qg.vn_pass_grouped(rc, llr, mv.clone(), t,
                                 bits=bk if emit else None, fresh=fr,
-                                include_d1=d1)
+                                include_d1=d1, _phi="accurate")
         mp = qg.vn_pass_plain(rc, llr, mv.clone(), t,
                               bits=bp if emit else None, fresh=fr,
                               include_d1=d1)
@@ -112,6 +120,100 @@ def test_kernels_match_plain(small_code, cuda_device, dtype):
     assert _kernels.launch_counts["parity"] - before["parity"] == n_rows
     # non-emit skips the degree-1 group; emit and include_d1 run it
     assert _kernels.launch_counts["vn"] - before["vn"] == 3 * n_cols - 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [256, 36])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float8_e5m2])
+def test_grouped_kernels_both_phi(cuda_device, dtype, B):
+    """Every check and variable degree 1-16 (a staircase base), aligned
+    B = 256 (the vector instantiations) and ragged B = 36 (one lane per
+    thread, but float32's 4), with and without fresh lanes, emit and
+    include_d1: the accurate-φ kernels against the plain passes by today's
+    rule, the fast ones by the fast rule, fast against accurate too; hard
+    bits exact; launches counted as before, the accurate ones also under
+    ``phi_accurate``."""
+    from ldpc_decoder_tpu_torch.ops import _kernels
+    from ldpc_decoder_tpu_torch.runtime import perf
+
+    t = qg.GroupedQCTables.from_qc_tables(QCDecodeTables.from_structure(
+        _staircase_structure(16, 24, 7), 0, cuda_device))
+    assert [g.degree for g in t.row_groups] == list(range(1, 17))
+    assert [g.degree for g in t.col_groups] == list(range(1, 17))
+    assert (_kernels.lanes_per_thread(B, dtype, 6) > 1) == (
+        B == 256 or dtype == torch.float32)
+    rng = np.random.default_rng(13)
+
+    def rand(shape, scale, dt):
+        x = rng.standard_normal(shape).astype(np.float32) * scale
+        return torch.from_numpy(x).to(cuda_device, dt)
+
+    mv, rc = rand((t.nb, t.Z, B), 5, dtype), rand((t.nb, t.Z, B), 5, dtype)
+    llr = rand((t.C, t.Z, B), 4, G.llr_dtype(dtype))
+    syn = torch.from_numpy((rng.random((t.R, t.Z, B)) < 0.5).astype(
+        np.int8)).to(cuda_device)
+    fresh = torch.from_numpy(rng.random(B) < 0.5).to(cuda_device)
+    cn_name, vn_name = ("cn_fp8", "vn_fp8") if dtype == FP8 else ("cn", "vn")
+    before = dict(_kernels.launch_counts)
+    rp = qg.cn_pass_plain(mv, syn, torch.empty_like(rc), t)
+    r = {phi: qg.cn_pass_grouped(mv, syn, torch.empty_like(rc), t, _phi=phi)
+         for phi in ("accurate", "fast")}
+    perf.compare_msgs("r_c accurate", r["accurate"], rp)
+    perf.compare_msgs_fast("r_c fast", r["fast"], rp)
+    perf.compare_msgs_fast("r_c fast vs accurate", r["fast"], r["accurate"])
+    for emit, fr, d1 in [(False, None, False), (True, fresh, False),
+                         (False, fresh, True), (True, None, True)]:
+        bp = torch.full((t.C, t.Z, B), -1, dtype=torch.int8,
+                        device=cuda_device)
+        mp = qg.vn_pass_plain(rc, llr, mv.clone(), t,
+                              bits=bp if emit else None, fresh=fr,
+                              include_d1=d1)
+        m = {}
+        for phi in ("accurate", "fast"):
+            bk = torch.full_like(bp, -1)
+            m[phi] = qg.vn_pass_grouped(rc, llr, mv.clone(), t,
+                                        bits=bk if emit else None, fresh=fr,
+                                        include_d1=d1, _phi=phi)
+            assert torch.equal(bk, bp), (phi, emit, d1)
+        perf.compare_msgs("msgs_v accurate", m["accurate"], mp)
+        perf.compare_msgs_fast("msgs_v fast", m["fast"], mp)
+        perf.compare_msgs_fast("msgs_v fast vs accurate", m["fast"],
+                               m["accurate"])
+    torch.cuda.synchronize()
+    counts = {n: _kernels.launch_counts[n] - before[n]
+              for n in (cn_name, vn_name, "phi_accurate")}
+    # per policy: 16 check groups; the variable runs skip the degree-1
+    # group only in the plain iteration
+    assert counts == {cn_name: 2 * 16, vn_name: 2 * (4 * 16 - 1),
+                      "phi_accurate": 16 + 4 * 16 - 1}
+
+
+@pytest.mark.cuda
+def test_fast_phi_matches_its_model(cuda_device):
+    """The fast φ on the card (through a degree-2 check, as the numerics
+    smoke reads it) against its float32 model ops/phi.py phi_abs_fast_np,
+    whose ex2/lg2 are correctly rounded: within the MUFU's error."""
+    from ldpc_decoder_tpu_torch.ops.phi import (
+        PHI_FAST_MAX_REL_ERR,
+        phi_abs_fast_np,
+        phi_abs_np,
+    )
+    from ldpc_decoder_tpu_torch.runtime.smoke import _check_phi
+
+    x = np.concatenate([np.geomspace(1e-5, 80.0, 20000),
+                        np.linspace(0.99, 1.01, 2001),
+                        np.linspace(4.99, 5.01, 2001)]).astype(np.float32)
+    got = _check_phi(x, torch.float32, "grouped", cuda_device, "fast")
+    got = got.cpu().numpy().astype(np.float64)
+    model = phi_abs_fast_np(x).astype(np.float64)
+    assert (got > 0).all()
+    np.testing.assert_allclose(got, model, rtol=1e-6, atol=0)
+    ref = phi_abs_np(x)
+    assert (np.abs(got - ref) / ref).max() <= PHI_FAST_MAX_REL_ERR
+    sign = _check_phi(-x[:100], torch.float32, "grouped", cuda_device,
+                      "fast").cpu()
+    assert torch.signbit(sign).all()
 
 
 @pytest.mark.cuda
@@ -533,8 +635,12 @@ def test_fp8_kernels_match_plain(small_code, cuda_device, family):
     syn = torch.from_numpy((rng.random((t.R, t.Z, B)) < 0.5).astype(
         np.int8)).to(cuda_device)
     fresh = torch.from_numpy(rng.random(B) < 0.5).to(cuda_device)
-    cn_k = qg.cn_pass_grouped if mod is qg else qr.cn_pass_regular
-    vn_k = qg.vn_pass_grouped if mod is qg else qr.vn_pass_regular
+    # the grouped family on its accurate-φ instantiation (the fast one:
+    # test_grouped_kernels_both_phi)
+    cn_k = (functools.partial(qg.cn_pass_grouped, _phi="accurate")
+            if mod is qg else qr.cn_pass_regular)
+    vn_k = (functools.partial(qg.vn_pass_grouped, _phi="accurate")
+            if mod is qg else qr.vn_pass_regular)
     before = dict(_kernels.launch_counts)
     rk = cn_k(mv, syn, torch.empty_like(rc), t)
     rp = mod.cn_pass_plain(mv, syn, torch.empty_like(rc), t)

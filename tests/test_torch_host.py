@@ -262,3 +262,37 @@ def test_port_imports_no_jax():
     r = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stderr
+
+
+def test_build_shared_library_several_sources(tmp_path, monkeypatch):
+    """A library of several sources (the grouped kernels' two): each source
+    compiled to an object, then linked into one library that exports both
+    sources' functions; the compilers' output kept in the log; a changed
+    source rebuilds."""
+    import ctypes
+    import shutil
+
+    from ldpc_decoder_tpu_torch import _build
+
+    if shutil.which("g++") is None:
+        pytest.skip("needs g++")
+    monkeypatch.setattr(_build, "BUILD_DIR", str(tmp_path / "build"))
+    a, b = tmp_path / "a.cpp", tmp_path / "b.cpp"
+    a.write_text('extern "C" int two() { return 2; }\n')
+    b.write_text('extern "C" int three() { return 3; }\n'
+                 '#warning from-b\n')
+    cmd = ["g++", "-O1", "-shared", "-fPIC"]
+    path = _build.build_shared_library("t", [str(a), str(b)], cmd, 120)
+    lib = ctypes.CDLL(path)
+    assert (lib.two(), lib.three()) == (2, 3)
+    assert "from-b" in open(path + ".log").read()
+    assert sorted(os.listdir(tmp_path / "build")) == sorted(
+        [os.path.basename(path), os.path.basename(path) + ".log"])
+    assert _build.build_shared_library("t", [str(a), str(b)], cmd,
+                                       120) == path
+    b.write_text('extern "C" int three() { return 4; }\n')
+    path2 = _build.build_shared_library("t", [str(a), str(b)], cmd, 120)
+    assert path2 != path and ctypes.CDLL(path2).three() == 4
+    b.write_text("syntax error\n")
+    with pytest.raises(_build.BuildError):
+        _build.build_shared_library("t", [str(a), str(b)], cmd, 120)
