@@ -9,11 +9,11 @@ messages with B = 256 frames in flight:
 
 - p41 (the bench's flagship): the punctured p41 code (n = 1,032,192,
   147,456 punctured), BI-AWGN at sigma = 0.94, 512 frames, k = 14, first
-  parity check at iteration 70 — the grouped kernels (csrc/qc_grouped.cu);
+  parity check at iteration 70 — the grouped kernels (csrc/qc_grouped.cuh);
 - reg36 (the README's library flow, bench.py's secondary point): the
   regular (3,6) code of n = 2^20 (Z = 32,768), BI-AWGN at sigma = 0.87,
   512 frames, then the erasure channel at epsilon = 0.40, 256 frames; k =
-  10, first check 0 — the regular kernels (csrc/qc_regular.cu).
+  10, first check 0 — the regular kernels (csrc/qc_regular.cuh).
 
 The general (any-alist) paths decode a random non-QC (3,6) code of n = 2^20
 (``make_regular_code(2**20, 3, 6, seed=9)``, the JAX package's
@@ -55,13 +55,16 @@ Phases:
 
 1. device: the card's name and power limit (nvidia-smi);
 2. build: the five kernel libraries from ldpc_decoder_tpu_torch/csrc/,
-   one nvcc each, started together; the grouped check and variable
-   kernels' registers and spills by (kernel, dtype, lanes per thread, phi
-   policy), none spilling, and the fast phi's SASS instructions (cuobjdump);
+   one nvcc per source, all started together; the grouped and the regular
+   check and variable kernels' registers and spills by (kernel, dtype,
+   lanes per thread, phi policy), none spilling, and the fast phi's SASS
+   instructions in each family (cuobjdump);
 3. the numerics smoke (``runtime.smoke.cuda_numerics_smoke``): phi on the
    device, through check-node launches of the grouped kernels' fast and
-   accurate phi, against float64 (max relative error and worst x of each;
-   the fast one within 2.5e-6), and phi(10) in float8_e5m2;
+   accurate phi and the regular kernel's fast one, against float64 (max
+   relative error and worst x of each; the fast ones within 2.5e-6 and
+   bit-identical), and phi(10) and the clamp at 10 in float8_e5m2 under
+   both policies;
 4. the p41 code (alist cache in codes_cache/) and 512 frames on the host;
 5. each grouped kernel against its plain PyTorch version on the card, at
    p41 x B = 256 on a real decode state: the check and variable kernels'
@@ -74,8 +77,10 @@ Phases:
 8. the reg36 code (alist cache) and its frames: 512 at sigma = 0.87, 256
    over the erasure channel;
 9. each regular kernel against its plain version at reg36 x B = 256 on a
-   real decode state, and against the grouped kernel (accurate phi: the
-   same phi_abs) on the same state, with the three times;
+   real decode state, as phase 5 does (both phi policies), and against the
+   grouped kernel of the same policy on the same state, bit for bit; both
+   policies' times beside the bound and its share, the plain time and the
+   grouped kernel's (fast phi);
 10. a small regular decode on the card against the plain passes on the CPU;
 11. the reg36 path, twice, reported and counted like phase 7;
 12. the reg36 erasure decode, counted the same way;
@@ -106,8 +111,8 @@ Phases:
 25. the float8_e5m2 kernels against their plain versions at full width on
     real decode states (the frames of phases 4 and 8): the regular
     sum-product and min-sum kernels at reg36 x B = 256, the grouped ones
-    at p41 x B = 256 (every group; sum-product with both phi policies, as
-    in phase 5), with fresh lanes and emits;
+    at p41 x B = 256 (every group), sum-product with both phi policies as
+    in phase 5, with fresh lanes and emits;
 26. small float8_e5m2 decodes on the card against the plain passes on the
     CPU (a regular base, p41 at Z = 128 in sum-product and min-sum); words
     and per-frame iterations equal;
@@ -126,8 +131,8 @@ Phases:
 
 Every phase must pass: any failure raises, and the script exits nonzero
 without its result line. The last line of stdout is the result object; the
-line before it lists the kernels (the grouped check and variable entries
-with their fast-phi time as ``ms`` and the accurate one as
+line before it lists the kernels (the QC sum-product check and variable
+entries with their fast-phi time as ``ms`` and the accurate one as
 ``accurate_ms``). Imports nothing of JAX.
 """
 
@@ -188,9 +193,11 @@ OPS_PER_PARITY_READ = 2
 OPS_PER_MINSUM_MESSAGE = 12
 
 GROUPED_SOURCE = "ldpc_decoder_tpu_torch/csrc/qc_grouped.cu"
-# the grouped check and variable kernels (qc_grouped.cu dispatches them)
+# the QC check and variable kernels (qc_grouped.cu and qc_regular.cu
+# dispatch them)
 GROUPED_CN_VN_SOURCE = "ldpc_decoder_tpu_torch/csrc/qc_grouped.cuh"
 REGULAR_SOURCE = "ldpc_decoder_tpu_torch/csrc/qc_regular.cu"
+REGULAR_CN_VN_SOURCE = "ldpc_decoder_tpu_torch/csrc/qc_regular.cuh"
 GENERAL_SOURCE = "ldpc_decoder_tpu_torch/csrc/general.cu"
 MINSUM_SOURCE = "ldpc_decoder_tpu_torch/csrc/qc_minsum.cu"
 PROBES_SOURCE = "ldpc_decoder_tpu_torch/csrc/probes.cu"
@@ -202,9 +209,9 @@ KERNELS = [
      "ldpc_decoder_tpu/ops/qc_pallas_grouped.py:414"),  # _vn_kernel_g
     ("parity", GROUPED_SOURCE,
      "ldpc_decoder_tpu/ops/qc_pallas_grouped.py:462"),  # _parity_kernel_g
-    ("cn_regular", REGULAR_SOURCE,
+    ("cn_regular", REGULAR_CN_VN_SOURCE,
      "ldpc_decoder_tpu/ops/qc_pallas.py:412"),  # _cn_kernel
-    ("vn_regular", REGULAR_SOURCE,
+    ("vn_regular", REGULAR_CN_VN_SOURCE,
      "ldpc_decoder_tpu/ops/qc_pallas.py:469"),  # _vn_kernel
     ("parity_regular", REGULAR_SOURCE,
      "ldpc_decoder_tpu/ops/qc_pallas.py:732"),  # _parity_kernel
@@ -230,9 +237,9 @@ KERNELS = [
      "ldpc_decoder_tpu/ops/qc_pallas_grouped.py:332"),  # _cn_kernel_g
     ("vn_fp8", GROUPED_CN_VN_SOURCE,
      "ldpc_decoder_tpu/ops/qc_pallas_grouped.py:414"),  # _vn_kernel_g
-    ("cn_regular_fp8", REGULAR_SOURCE,
+    ("cn_regular_fp8", REGULAR_CN_VN_SOURCE,
      "ldpc_decoder_tpu/ops/qc_pallas.py:412"),  # _cn_kernel
-    ("vn_regular_fp8", REGULAR_SOURCE,
+    ("vn_regular_fp8", REGULAR_CN_VN_SOURCE,
      "ldpc_decoder_tpu/ops/qc_pallas.py:469"),  # _vn_kernel
 ]
 GROUPED = ("cn", "vn", "parity")
@@ -384,29 +391,32 @@ def phase_build():
             f"{secs[name]:.1f} s; {len(entries)} kernels, max "
             f"{max((r for _, r, _ in entries), default=0)} registers, "
             f"{sum(max(s, 0) for _, _, s in entries)} spill bytes")
-        if name == "qc_regular":
-            for kname, regs, spill in entries:
-                if "Li30E" in kname and "vn_" not in kname:
-                    log(f"    d = 30: {kname}: {regs} registers, {spill} "
-                        f"spill bytes")
-        if name == "qc_grouped":
-            grouped_kernel_report(path, entries)
+        if name in CN_VN_ENTRIES:
+            cn_vn_kernel_report(name, path, entries)
 
 
-# (kernel, element type, lanes per thread, phi policy) in a mangled name
-GROUPED_ENTRY = re.compile(r"(cn|vn)_kernelI(\w+?)Li(\d+)ELi(\d+)E\w*?"
-                           r"(PhiFast|PhiAccurate)E")
+# (kernel, element type, degree, lanes per thread, phi policy) in a mangled
+# name, per library; and the one-lane float32 degree-1 fast check kernel
+CN_VN_ENTRIES = {
+    "qc_grouped": (re.compile(r"(cn|vn)_kernelI(\w+?)Li(\d+)ELi(\d+)E\w*?"
+                              r"(PhiFast|PhiAccurate)E"),
+                   "cn_kernel"),
+    "qc_regular": (re.compile(r"(cn|vn)_regular_kernelI(\w+?)Li(\d+)ELi(\d+)"
+                              r"E\w*?(PhiFast|PhiAccurate)E"),
+                   "cn_regular_kernel"),
+}
 
 
-def grouped_kernel_report(path, entries):
-    """The grouped check and variable kernels' registers and spills by
+def cn_vn_kernel_report(name, path, entries):
+    """A QC library's check and variable kernels' registers and spills by
     (kernel, dtype, lanes per thread, phi), asserting none spills; and the
     SASS instructions of the fast phi, counted with cuobjdump in the
     float32 degree-1 one-lane check kernel (its only floating-point work
     besides phi is ext - a and the hoisted input floor)."""
+    pattern, check_kernel = CN_VN_ENTRIES[name]
     rows = {}
     for kname, regs, spill in entries:
-        m = GROUPED_ENTRY.search(kname)
+        m = pattern.search(kname)
         if m is None:
             continue
         kernel, dtype, degree, lanes, phi = m.groups()
@@ -422,7 +432,7 @@ def grouped_kernel_report(path, entries):
             f"{min(degrees)}-{max(degrees)}, max {regs} registers, {spill} "
             f"spill bytes")
     spilled = [k for k, _, s in entries if s != 0]
-    assert not spilled, f"qc_grouped kernels spill: {spilled[:4]}"
+    assert not spilled, f"{name} kernels spill: {spilled[:4]}"
     from ldpc_decoder_tpu_torch.ops import _kernels
 
     cuobjdump = os.path.join(os.path.dirname(_kernels._nvcc()), "cuobjdump")
@@ -430,15 +440,19 @@ def grouped_kernel_report(path, entries):
                           text=True, timeout=300, check=True).stdout
     for phi in ("PhiFast", "PhiAccurate"):
         fn = [f for f in sass.split("Function : ")[1:]
-              if re.match(rf"\S*cn_kernelIfLi1ELi1E\w*?{phi}E", f)]
+              if re.match(rf"\S*{check_kernel}IfLi1ELi1E\w*?{phi}E", f)]
+        what = f"{check_kernel}<float, 1, 1, {phi}>"
         if not fn:
-            log(f"    SASS of cn_kernel<float, 1, 1, {phi}>: not found")
+            log(f"    SASS of {what}: not found")
             continue
         ops = re.findall(r"/\*[0-9a-f]{4}\*/\s+([A-Z][A-Z0-9_.]*)", fn[0])
+        # MUFU.RCP belongs to an integer division (a loop's trip count),
+        # not to phi, whose MUFUs are EX2 and LG2
         fp = [op for op in ops if op.split(".")[0] in (
-            "FADD", "FMUL", "FFMA", "FMNMX", "FSETP", "FSEL", "MUFU")]
-        log(f"    SASS of cn_kernel<float, 1, 1, {phi}>: {len(ops)} "
-            f"instructions, {len(fp)} floating-point or MUFU"
+            "FADD", "FMUL", "FFMA", "FMNMX", "FSETP", "FSEL", "MUFU")
+            and op != "MUFU.RCP"]
+        log(f"    SASS of {what}: {len(ops)} instructions, {len(fp)} "
+            f"floating-point or MUFU"
             + (f"; the fast phi: {len(fp) - 2} ({' '.join(fp)})"
                if phi == "PhiFast" else ""))
 
@@ -456,28 +470,51 @@ def lane_state(torch, np, dev, t, ch, batch, B):
     return llr, syn
 
 
-def grouped_policies(torch, qg, mv, rc, llr, syn, t, fresh, label,
-                     d1_kw=True):
-    """The grouped sum-product kernels of both phi policies against their
-    plain versions on one state (check pass, then the variable pass plain,
-    with emit and fresh lanes, first after a refill), and the fast ones
-    against the accurate ones: the accurate instantiation by
-    ``compare_msgs`` (the plain version's phi: today's rule), the fast one
-    by ``perf.compare_msgs_fast``; hard bits exact. Returns (r_c of the
+def sum_product_policies(torch, family, mv, rc, llr, syn, t, fresh, label,
+                         twin=None):
+    """A QC family's ("grouped" or "regular") sum-product kernels of both
+    phi policies against their plain versions on one state (check pass,
+    then the variable pass plain, with emit and fresh lanes, first after a
+    refill), and the fast ones against the accurate ones: the accurate
+    instantiation by ``compare_msgs`` (the plain version's phi: today's
+    rule), the fast one by ``perf.compare_msgs_fast``; hard bits exact.
+    ``twin`` (the grouped module and tables of the same regular base):
+    every regular kernel output also equals the grouped kernel's under the
+    same policy on the same inputs, bit for bit. Returns (r_c of the
     accurate check kernel, the last emitted bits, {"cn", "vn"}: max
     absolute error against plain of the fast kernels)."""
+    from ldpc_decoder_tpu_torch.ops import qc_grouped as qg
+    from ldpc_decoder_tpu_torch.ops import qc_regular as qr
+
+    grouped = family == "grouped"
+    mod = qg if grouped else qr
+    cn_k = qg.cn_pass_grouped if grouped else qr.cn_pass_regular
+    vn_k = qg.vn_pass_grouped if grouped else qr.vn_pass_regular
+    B = mv.shape[-1]
     rp = torch.empty_like(rc)
-    qg.cn_pass_plain(mv, syn, rp, t)
+    mod.cn_pass_plain(mv, syn, rp, t)
     rk = {phi: torch.empty_like(rc) for phi in ("accurate", "fast")}
     err = {}
     log("  check nodes:")
     for phi, rk_phi in rk.items():
-        qg.cn_pass_grouped(mv, syn, rk_phi, t, _phi=phi)
+        cn_k(mv, syn, rk_phi, t, _phi=phi)
     compare_msgs(f"r_c accurate vs plain ({label})", rk["accurate"], rp)
     err["cn"] = compare_fast(f"r_c fast vs plain ({label})", rk["fast"], rp)
     compare_fast(f"r_c fast vs accurate ({label})", rk["fast"],
                  rk["accurate"])
     del rp
+    if twin is not None:
+        tw, tg = twin
+        shape = (tg.nb, tg.Z, B)
+        for phi, rk_phi in rk.items():
+            rg = tw.cn_pass_grouped(mv.view(shape), syn,
+                                    torch.empty(shape, dtype=rc.dtype,
+                                                device=rc.device), tg,
+                                    _phi=phi)
+            assert bit_identical(rk_phi, rg), \
+                f"regular and grouped r_c differ ({phi}, {label})"
+        del rg
+        log("  r_c: regular == grouped bit for bit, both policies")
     log("  variable nodes:")
     r_in = rk["accurate"]
     errs = []
@@ -486,19 +523,27 @@ def grouped_policies(torch, qg, mv, rc, llr, syn, t, fresh, label,
     for what, emit, fr, d1 in [("plain iteration", False, None, False),
                                ("emit + fresh lanes", True, fresh, False),
                                ("first after refill", False, fresh, True)]:
-        kw = dict(fresh=fr, include_d1=d1) if d1_kw else dict(fresh=fr)
+        kw = dict(fresh=fr, include_d1=d1) if grouped else dict(fresh=fr)
         mp.copy_(mv)
-        bp = torch.full((t.C, t.Z, llr.shape[-1]), -1, dtype=torch.int8,
+        bp = torch.full((t.C, t.Z, B), -1, dtype=torch.int8,
                         device=mv.device)
-        qg.vn_pass_plain(r_in, llr, mp, t, bits=bp if emit else None, **kw)
+        mod.vn_pass_plain(r_in, llr, mp, t, bits=bp if emit else None, **kw)
         for phi, m in mk.items():
             m.copy_(mv)
             bk = torch.full_like(bp, -1)
-            qg.vn_pass_grouped(r_in, llr, m, t, bits=bk if emit else None,
-                               **kw, _phi=phi)
+            vn_k(r_in, llr, m, t, bits=bk if emit else None, **kw, _phi=phi)
             assert torch.equal(bk, bp), f"hard bits differ ({phi}, {what})"
             if emit:
                 emitted = bk
+            if twin is not None:
+                mg = mv.view(shape).clone()
+                bg = torch.full_like(bp, -1)
+                tw.vn_pass_grouped(r_in.view(shape), llr, mg, tg,
+                                   bits=bg if emit else None, fresh=fr,
+                                   include_d1=d1, _phi=phi)
+                assert bit_identical(m, mg) and torch.equal(bg, bk), \
+                    f"regular and grouped msgs_v differ ({phi}, {what})"
+                del mg
         compare_msgs(f"msgs_v accurate vs plain ({what})", mk["accurate"],
                      mp)
         errs.append(compare_fast(f"msgs_v fast vs plain ({what})",
@@ -507,6 +552,9 @@ def grouped_policies(torch, qg, mv, rc, llr, syn, t, fresh, label,
                      mk["accurate"])
         if emit:
             log(f"  hard bits ({what}): equal, both policies")
+        if twin is not None:
+            log(f"  msgs_v ({what}): regular == grouped bit for bit, both "
+                f"policies")
     err["vn"] = max(errs)
     return r_in, emitted, err
 
@@ -544,8 +592,8 @@ def phase_kernels(torch, np, dev, code, s, batch):
     mv, rc = msgs
     fresh = torch.zeros(B, dtype=torch.bool, device=dev)
     fresh[::5] = True
-    rk, emitted, err = grouped_policies(torch, qg, mv, rc, llr, syn, t,
-                                        fresh, "p41, bf16")
+    rk, emitted, err = sum_product_policies(torch, "grouped", mv, rc, llr,
+                                            syn, t, fresh, "p41, bf16")
     out = {"cn": dict(max_abs_err=err["cn"]), "vn": dict(
         max_abs_err=err["vn"])}
     passes = perf.grouped_bytes(t, B, 2, 2)  # bf16 messages and llr
@@ -592,8 +640,9 @@ def phase_kernels(torch, np, dev, code, s, batch):
 
 
 def phase_regular_kernels(torch, np, dev, code, s, batch):
-    """Regular kernel vs plain at the reg36 path's shapes on a real decode
-    state, and vs the grouped kernel on the same state."""
+    """Regular kernels (both phi policies) vs plain at the reg36 path's
+    shapes on a real decode state, and vs the grouped kernels of the same
+    policy on the same state, bit for bit."""
     from ldpc_decoder_tpu_torch.channels import BIAWGNChannel
     from ldpc_decoder_tpu_torch.ops import qc_grouped as qg
     from ldpc_decoder_tpu_torch.ops import qc_regular as qr
@@ -612,61 +661,27 @@ def phase_regular_kernels(torch, np, dev, code, s, batch):
     nb, Z = tg.nb, t.Z
     fresh = torch.zeros(B, dtype=torch.bool, device=dev)
     fresh[::5] = True
-    out, same = {}, {}
-
-    log("  check nodes:")
-    rk, rp = torch.empty_like(rc), torch.empty_like(rc)
-    rg = torch.empty((nb, Z, B), dtype=rc.dtype, device=dev)
-    qr.cn_pass_regular(mv, syn, rk, t)
-    qr.cn_pass_plain(mv, syn, rp, t)
-    # the grouped kernels' accurate phi is the regular kernels' phi_abs
-    qg.cn_pass_grouped(mv.view(nb, Z, B), syn, rg, tg, _phi="accurate")
-    err = compare_msgs("r_c", rk, rp)
-    same["r_c"] = bit_identical(rk, rg)
-    del rp
+    rk, emitted, err = sum_product_policies(
+        torch, "regular", mv, rc, llr, syn, t, fresh, "reg36, bf16",
+        twin=(qg, tg))
+    out = {"cn_regular": dict(max_abs_err=err["cn"]),
+           "vn_regular": dict(max_abs_err=err["vn"])}
     passes = perf.regular_bytes(t, B, 2, 2)  # bf16 messages and llr
-    out["cn_regular"] = dict(
-        max_abs_err=err,
-        ms=cuda_ms(lambda: qr.cn_pass_regular(mv, syn, rk, t), 10),
-        plain_ms=cuda_ms(lambda: qr.cn_pass_plain(mv, syn, rk, t), 3),
-        grouped_ms=cuda_ms(lambda: qg.cn_pass_grouped(
-            mv.view(nb, Z, B), syn, rg, tg), 10),
-        bound=bound(passes["cn"], OPS_PER_MESSAGE * t.n_edges * B))
-
-    log("  variable nodes:")
-    errs = []
-    mk, mp = mv.clone(), mv.clone()
-    mg = torch.empty((nb, Z, B), dtype=mv.dtype, device=dev)
-    for label, emit, fr in [("plain iteration", False, None),
-                            ("emit + fresh lanes", True, fresh),
-                            ("first after refill", False, fresh)]:
-        mk.copy_(mv)
-        mp.copy_(mv)
-        mg.copy_(mv.view(nb, Z, B))
-        bk = torch.full((t.C, Z, B), -1, dtype=torch.int8, device=dev)
-        bp, bg = bk.clone(), bk.clone()
-        qr.vn_pass_regular(rk, llr, mk, t, bits=bk if emit else None,
-                           fresh=fr)
-        qr.vn_pass_plain(rk, llr, mp, t, bits=bp if emit else None,
-                         fresh=fr)
-        qg.vn_pass_grouped(rk.view(nb, Z, B), llr, mg, tg,
-                           bits=bg if emit else None, fresh=fr,
-                           include_d1=fr is not None, _phi="accurate")
-        errs.append(compare_msgs(f"msgs_v ({label})", mk, mp))
-        assert torch.equal(bk, bp), f"hard bits differ ({label})"
-        same[f"msgs_v ({label})"] = bit_identical(mk, mg)
-        if emit:
-            emitted = bk
-            same["bits"] = torch.equal(bk, bg)
-            log(f"  hard bits ({label}): equal")
-    del mp
-    out["vn_regular"] = dict(
-        max_abs_err=max(errs),
-        ms=cuda_ms(lambda: qr.vn_pass_regular(rk, llr, mk, t), 10),
-        plain_ms=cuda_ms(lambda: qr.vn_pass_plain(rk, llr, mk, t), 3),
-        grouped_ms=cuda_ms(lambda: qg.vn_pass_grouped(
-            rk.view(nb, Z, B), llr, mg, tg), 10),
-        bound=bound(passes["vn"], OPS_PER_MESSAGE * t.n_edges * B))
+    mk, mg = mv.clone(), mv.view(nb, Z, B).clone()
+    rg = torch.empty((nb, Z, B), dtype=rc.dtype, device=dev)
+    label = f"reg36, B = {B}, bf16"
+    time_policies(out, "cn_regular", lambda phi: qr.cn_pass_regular(
+        mv, syn, rk, t, _phi=phi), lambda: qr.cn_pass_plain(mv, syn, rk, t),
+        passes["cn"], OPS_PER_MESSAGE * t.n_edges * B, label)
+    time_policies(out, "vn_regular", lambda phi: qr.vn_pass_regular(
+        rk, llr, mk, t, _phi=phi), lambda: qr.vn_pass_plain(rk, llr, mk, t),
+        passes["vn"], OPS_PER_MESSAGE * t.n_edges * B, label)
+    # PR 7's grouped kernels (fast phi) on the same state
+    out["cn_regular"]["grouped_ms"] = cuda_ms(lambda: qg.cn_pass_grouped(
+        mv.view(nb, Z, B), syn, rg, tg), 10)
+    out["vn_regular"]["grouped_ms"] = cuda_ms(lambda: qg.vn_pass_grouped(
+        rk.view(nb, Z, B), llr, mg, tg), 10)
+    del mk, mg, rg
 
     log("  parity:")
     ref = torch.from_numpy(np.ascontiguousarray(
@@ -676,19 +691,18 @@ def phase_regular_kernels(torch, np, dev, code, s, batch):
     bad = [3, 77, 200]
     syn_bad[t.R - 1, Z - 1, bad] ^= 1
     flags_same = True
-    for label, bits, sy, want in [
+    for what, bits, sy, want in [
             ("decode state", emitted, syn, None),
             ("codewords", ref, syn, []),
             ("codewords, 3 checks flipped", ref, syn_bad, bad)]:
         fk = qr.parity_pass_regular(bits, sy, t)
         fp = qr.parity_pass_plain(bits, sy, t)
-        assert torch.equal(fk, fp), f"parity flags differ ({label})"
+        assert torch.equal(fk, fp), f"parity flags differ ({what})"
         flags_same &= torch.equal(fk, qg.parity_pass_grouped(bits, sy, tg))
         lanes = torch.nonzero(fk).flatten().tolist()
         if want is not None:
-            assert lanes == want, f"parity ({label}): {lanes} != {want}"
-        log(f"  flags ({label}): equal, {len(lanes)} of {B} lanes violated")
-    same["flags"] = flags_same
+            assert lanes == want, f"parity ({what}): {lanes} != {want}"
+        log(f"  flags ({what}): equal, {len(lanes)} of {B} lanes violated")
     out["parity_regular"] = dict(
         max_abs_err=0.0,
         ms=cuda_ms(lambda: qr.parity_pass_regular(emitted, syn, t), 10),
@@ -696,13 +710,14 @@ def phase_regular_kernels(torch, np, dev, code, s, batch):
         grouped_ms=cuda_ms(lambda: qg.parity_pass_grouped(emitted, syn, tg),
                            10),
         bound=bound(passes["parity"], OPS_PER_PARITY_READ * t.n_edges * B))
-    log(f"  regular kernel vs grouped kernel on the same state, "
-        f"bit-identical: {same}")
+    assert flags_same, "regular and grouped parity flags differ"
+    r = out["parity_regular"]
+    log(f"  parity_regular: kernel {r['ms']:.3f} ms per pass, plain "
+        f"{r['plain_ms']:.3f} ms, bound {r['bound'][0]:.3f} ms "
+        f"({r['bound'][1]}) ({label})")
     for name, r in out.items():
-        log(f"  {name}: kernel {r['ms']:.3f} ms per pass, grouped kernel "
-            f"{r['grouped_ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, bound "
-            f"{r['bound'][0]:.3f} ms ({r['bound'][1]}) (reg36, B = {B}, "
-            f"bf16)")
+        log(f"  {name}: grouped kernel on the same state {r['grouped_ms']:.3f} "
+            f"ms ({label})")
     return out
 
 
@@ -1228,11 +1243,11 @@ def qc_minsum_path(dec, dyn, batch, n, kernels, label, s_expect, want, ref):
 def fp8_sum_product_kernels(torch, np, dev, family, t, llr, syn, B, label):
     """One QC family's float8_e5m2 sum-product kernels against their plain
     versions on a real decode state (four iterations in): every group,
-    with and without fresh lanes and emits; messages within
-    perf.FP8_STEP_SHARE (the grouped family: its accurate-phi kernels so,
-    its fast ones by perf.compare_msgs_fast), hard bits exact. Returns
-    {"cn": ..., "vn": ...} with the kernel, plain and bound times of a
-    non-emit pass (grouped: both policies)."""
+    with and without fresh lanes and emits; the accurate-phi kernels'
+    messages within perf.FP8_STEP_SHARE, the fast ones' by
+    perf.compare_msgs_fast, hard bits exact. Returns {"cn": ..., "vn":
+    ...} with both policies' times, the plain time and the bound of a
+    non-emit pass."""
     from ldpc_decoder_tpu_torch.ops import qc_grouped as qg
     from ldpc_decoder_tpu_torch.ops import qc_regular as qr
     from ldpc_decoder_tpu_torch.runtime import perf
@@ -1247,61 +1262,26 @@ def fp8_sum_product_kernels(torch, np, dev, family, t, llr, syn, B, label):
         run_blocks = sum(g.count * g.degree for g in t.col_groups
                          if g.degree > 1)  # non-emit pass
         passes = perf.grouped_bytes(t, B, 1, 2)  # e5m2 messages, bf16 llr
-        rk, _, err = grouped_policies(torch, qg, mv, rc, llr, syn, t, fresh,
-                                      label)
-        out = {"cn": dict(max_abs_err=err["cn"]),
-               "vn": dict(max_abs_err=err["vn"])}
-        mk = mv.clone()
-        time_policies(out, "cn", lambda phi: qg.cn_pass_grouped(
-            mv, syn, rk, t, _phi=phi), lambda: qg.cn_pass_plain(
-            mv, syn, rk, t), passes["cn"], OPS_PER_MESSAGE * blocks * Z * B,
-            label)
-        time_policies(out, "vn", lambda phi: qg.vn_pass_grouped(
-            rk, llr, mk, t, _phi=phi), lambda: qg.vn_pass_plain(
-            rk, llr, mk, t), passes["vn"],
-            OPS_PER_MESSAGE * run_blocks * Z * B, label)
-        return out
-
-    msgs = qr.init_messages_qc_regular(llr, t, fp8)
-    mv, rc = qr.run_iterations_qc_regular(msgs, llr, syn, t, 4)[0]
-    run_blocks = t.n_edges // t.Z
-    passes = perf.regular_bytes(t, B, 1, 2)
-    rk, rp = torch.empty_like(rc), torch.empty_like(rc)
-    qr.cn_pass_regular(mv, syn, rk, t)
-    qr.cn_pass_plain(mv, syn, rp, t)
-    err_cn = compare_msgs("r_c", rk, rp)
-    del rp
-    errs = []
-    mk, mp = mv.clone(), mv.clone()
-    for what, emit, fr in [("plain iteration", False, None),
-                           ("emit + fresh lanes", True, fresh),
-                           ("first after refill", False, fresh)]:
-        mk.copy_(mv)
-        mp.copy_(mv)
-        bk = torch.full((t.C, Z, B), -1, dtype=torch.int8, device=dev)
-        bp = bk.clone()
-        qr.vn_pass_regular(rk, llr, mk, t, bits=bk if emit else None,
-                           fresh=fr)
-        qr.vn_pass_plain(rk, llr, mp, t, bits=bp if emit else None, fresh=fr)
-        errs.append(compare_msgs(f"msgs_v ({what})", mk, mp))
-        assert torch.equal(bk, bp), f"hard bits differ ({label}, {what})"
-    del mp
-    out = {
-        "cn": dict(
-            max_abs_err=err_cn,
-            ms=cuda_ms(lambda: qr.cn_pass_regular(mv, syn, rk, t), 10),
-            plain_ms=cuda_ms(lambda: qr.cn_pass_plain(mv, syn, rk, t), 3),
-            bound=bound(passes["cn"], OPS_PER_MESSAGE * blocks * Z * B)),
-        "vn": dict(
-            max_abs_err=max(errs),
-            ms=cuda_ms(lambda: qr.vn_pass_regular(rk, llr, mk, t), 10),
-            plain_ms=cuda_ms(lambda: qr.vn_pass_plain(rk, llr, mk, t), 3),
-            bound=bound(passes["vn"], OPS_PER_MESSAGE * run_blocks * Z * B)),
-    }
-    for name, r in out.items():
-        log(f"  {name}: kernel {r['ms']:.3f} ms per pass, plain "
-            f"{r['plain_ms']:.3f} ms, bound {r['bound'][0]:.3f} ms "
-            f"({r['bound'][1]}) ({label})")
+        cn_k, cn_p = qg.cn_pass_grouped, qg.cn_pass_plain
+        vn_k, vn_p = qg.vn_pass_grouped, qg.vn_pass_plain
+    else:
+        msgs = qr.init_messages_qc_regular(llr, t, fp8)
+        mv, rc = qr.run_iterations_qc_regular(msgs, llr, syn, t, 4)[0]
+        run_blocks = blocks
+        passes = perf.regular_bytes(t, B, 1, 2)
+        cn_k, cn_p = qr.cn_pass_regular, qr.cn_pass_plain
+        vn_k, vn_p = qr.vn_pass_regular, qr.vn_pass_plain
+    rk, _, err = sum_product_policies(torch, family, mv, rc, llr, syn, t,
+                                      fresh, label)
+    out = {"cn": dict(max_abs_err=err["cn"]),
+           "vn": dict(max_abs_err=err["vn"])}
+    mk = mv.clone()
+    time_policies(out, "cn", lambda phi: cn_k(mv, syn, rk, t, _phi=phi),
+                  lambda: cn_p(mv, syn, rk, t), passes["cn"],
+                  OPS_PER_MESSAGE * blocks * Z * B, label)
+    time_policies(out, "vn", lambda phi: vn_k(rk, llr, mk, t, _phi=phi),
+                  lambda: vn_p(rk, llr, mk, t), passes["vn"],
+                  OPS_PER_MESSAGE * run_blocks * Z * B, label)
     return out
 
 

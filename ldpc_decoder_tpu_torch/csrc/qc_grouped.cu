@@ -20,13 +20,13 @@ LDPC_FOR_EACH_DEGREE(LDPC_ACCURATE_DEGREE)
 
 namespace {
 
+using ldpc::PhiAccurate;
+using ldpc::PhiFast;
 using ldpc::rotate;
+using ldpc::VecLanes;
 using ldpc::grouped::kMaxDegree;
-using ldpc::grouped::PhiAccurate;
-using ldpc::grouped::PhiFast;
 using ldpc::grouped::run_cn;
 using ldpc::grouped::run_vn;
-using ldpc::grouped::VecLanes;
 
 constexpr int kLaneThreads = 128;        // parity: threads per block, along B
 constexpr int kParityRowsPerBlock = 32;  // parity rows walked per thread

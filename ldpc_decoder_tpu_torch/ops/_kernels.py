@@ -3,8 +3,11 @@
 Five libraries: ``qc_grouped`` (the grouped family's sum-product and
 parity kernels, one launch per degree group; ``qc_grouped.cu`` and
 ``qc_grouped_accurate.cu``, which compile in parallel, and the kernels'
-header ``qc_grouped.cuh``),
-``qc_regular.cu`` (the regular family's, one launch per pass),
+header ``qc_grouped.cuh``), ``qc_regular`` (the regular family's, one
+launch per pass; ``qc_regular.cu`` and ``qc_regular_accurate.cu`` in
+parallel, the kernels in ``qc_regular.cuh``; both QC families' check and
+variable kernels share ``sum_product.cuh``: the fast φ, the φ policies and
+the vectors of lanes),
 ``qc_minsum.cu`` (the min-sum check and variable kernels of both QC
 families, int8 messages in the grouped one), ``general.cu`` (the
 general any-alist path, sum-product and min-sum, one launch per degree
@@ -50,8 +53,11 @@ SOURCES = {name: [os.path.join(CSRC, f"{name}.cu")]
            for name in ("qc_grouped", "qc_regular", "qc_minsum", "general",
                         "probes")}
 SOURCES["qc_grouped"].append(os.path.join(CSRC, "qc_grouped_accurate.cu"))
-HEADERS = (os.path.join(CSRC, "common.cuh"),
-           os.path.join(CSRC, "qc_grouped.cuh"))
+SOURCES["qc_regular"].append(os.path.join(CSRC, "qc_regular_accurate.cu"))
+# every header a source includes: hashed into each library's build key, so
+# an edited header rebuilds
+HEADERS = tuple(os.path.join(CSRC, h) for h in (
+    "common.cuh", "sum_product.cuh", "qc_grouped.cuh", "qc_regular.cuh"))
 # --split-compile=0: nvcc optimizes a source's template instantiations in
 # parallel, one thread per CPU. On an H100 host with 8 cores the four
 # libraries, built together, take 49.6 s with it on the three large
@@ -91,9 +97,11 @@ _SIGNATURES = {
                               _p],
     },
     "qc_regular": {
-        "ldpc_cn_regular": [_p, _p, _p, _p, _i, _i, _i, _i, _i, _f, _i, _p],
-        "ldpc_vn_regular": [_p, _p, _p, _p, _p, _p, _i, _i, _i, _i, _i, _f,
+        "ldpc_cn_regular": [_p, _p, _p, _p, _i, _i, _i, _i, _i, _f, _i, _i,
                             _i, _p],
+        "ldpc_vn_regular": [_p, _p, _p, _p, _p, _p, _i, _i, _i, _i, _i, _f,
+                            _i, _i, _i, _p],
+        "ldpc_vec_lanes": [_i, _i],
         "ldpc_parity_regular": [_p, _p, _p, _p, _i, _i, _i, _i, _p],
     },
     "qc_minsum": {
@@ -126,9 +134,9 @@ _SIGNATURES = {
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2,
                torch.float8_e5m2: 3}
 _SP_DTYPES = (torch.float32, torch.bfloat16, torch.float8_e5m2)
-# the grouped sum-product kernels' phi policies (their C entries' phi code)
+# the QC sum-product kernels' phi policies (their C entries' phi code)
 PHI_POLICIES = {"fast": 0, "accurate": 1}
-# the grouped check and variable kernels' vector: at most 16 bytes of
+# the QC check and variable kernels' vector: at most 16 bytes of
 # messages per thread and row, and at most 64 message values per thread
 # (degree x lanes: registers, no spills)
 VEC_BYTES = 16
@@ -175,11 +183,11 @@ def load(name: str) -> ctypes.CDLL:
         lib.ldpc_max_degree.restype = _i
         if lib.ldpc_max_degree() != MAX_DEGREES[name]:
             raise RuntimeError(f"{name} library and MAX_DEGREES disagree")
-        if name == "qc_grouped" and any(
+        if "ldpc_vec_lanes" in _SIGNATURES[name] and any(
                 lib.ldpc_vec_lanes(code, d) != vec_lanes(dtype, d)
                 for dtype, code in DTYPE_CODES.items() if dtype in _SP_DTYPES
                 for d in range(1, MAX_DEGREES[name] + 1)):
-            raise RuntimeError("qc_grouped library and vec_lanes disagree")
+            raise RuntimeError(f"{name} library and vec_lanes disagree")
         _libs[name] = lib
         return lib
 
@@ -204,8 +212,8 @@ def _fp8(name: str, dtype: torch.dtype) -> str:
 
 
 def vec_lanes(dtype: torch.dtype, degree: int) -> int:
-    """Lanes per thread of the vector instantiation of the grouped check
-    and variable kernels (``VecLanes`` in csrc/qc_grouped.cuh): 16 bytes of
+    """Lanes per thread of the vector instantiation of the QC check and
+    variable kernels (``VecLanes`` in csrc/sum_product.cuh): 16 bytes of
     messages, halved until ``degree`` times the lanes is at most
     :data:`VEC_FLOATS`."""
     cap = VEC_BYTES // torch.empty((), dtype=dtype).element_size()
@@ -214,7 +222,7 @@ def vec_lanes(dtype: torch.dtype, degree: int) -> int:
 
 
 def lanes_per_thread(B: int, dtype: torch.dtype, degree: int) -> int:
-    """The instantiation a grouped check or variable launch takes for B
+    """The instantiation a QC check or variable launch takes for B
     lanes of ``dtype`` messages at ``degree``: :func:`vec_lanes` when B is
     a multiple of it (every row then starts on a vector boundary), else 1."""
     v = vec_lanes(dtype, degree)
@@ -230,6 +238,12 @@ def _lanes(B: int, degree: int, msgs: torch.Tensor, *others) -> int:
         if t is not None and t.data_ptr() % (v * t.element_size()):
             return 1
     return v
+
+
+def check_phi(phi: str) -> None:
+    """Raise ValueError unless ``phi`` names a φ policy."""
+    if phi not in PHI_POLICIES:
+        raise ValueError(f"unknown phi policy {phi!r}")
 
 
 def _count_sum_product(name: str, dtype: torch.dtype, phi: str) -> None:
@@ -277,29 +291,35 @@ def parity_group(bits, syn, flags, src, shift, g, Z: int, B: int) -> None:
     launch_counts["parity"] += 1
 
 
-def cn_regular(msgs_v, syn, r_c, tables, pre: float) -> None:
+def cn_regular(msgs_v, syn, r_c, tables, pre: float,
+               phi: str = "fast") -> None:
     """Regular check-node kernel over all R checks (one launch); φ's clamp
     is :func:`~ldpc_decoder_tpu_torch.ops.phi.phi_high` of the message
-    dtype, compiled into the kernel."""
+    dtype, compiled into the kernel; ``phi`` as in :func:`cn_group`."""
     lib = load("qc_regular")
+    B = msgs_v.shape[-1]
+    lanes = _lanes(B, tables.d_c, msgs_v, syn, r_c)
     err = lib.ldpc_cn_regular(
         _ptr(msgs_v), _ptr(syn), _ptr(r_c), _ptr(tables.cn_read), tables.R,
-        tables.d_c, tables.d_v, tables.Z, msgs_v.shape[-1], pre,
-        DTYPE_CODES[msgs_v.dtype], _stream(msgs_v))
+        tables.d_c, tables.d_v, tables.Z, B, pre, DTYPE_CODES[msgs_v.dtype],
+        lanes, PHI_POLICIES[phi], _stream(msgs_v))
     _check(lib, err, "regular check-node kernel")
-    launch_counts[_fp8("cn_regular", msgs_v.dtype)] += 1
+    _count_sum_product("cn_regular", msgs_v.dtype, phi)
 
 
-def vn_regular(r_c, llr, msgs_v, bits, fresh, tables, pre: float) -> None:
+def vn_regular(r_c, llr, msgs_v, bits, fresh, tables, pre: float,
+               phi: str = "fast") -> None:
     """Regular variable-node kernel over all C variables (one launch);
-    ``bits`` and ``fresh`` may be None."""
+    ``bits`` and ``fresh`` may be None; ``phi`` as in :func:`cn_group`."""
     lib = load("qc_regular")
+    B = r_c.shape[-1]
+    lanes = _lanes(B, tables.d_v, r_c, llr, msgs_v, bits, fresh)
     err = lib.ldpc_vn_regular(
         _ptr(r_c), _ptr(llr), _ptr(msgs_v), _ptr(bits), _ptr(fresh),
-        _ptr(tables.vn_read), tables.C, tables.d_v, tables.d_c, tables.Z,
-        r_c.shape[-1], pre, DTYPE_CODES[r_c.dtype], _stream(r_c))
+        _ptr(tables.vn_read), tables.C, tables.d_v, tables.d_c, tables.Z, B,
+        pre, DTYPE_CODES[r_c.dtype], lanes, PHI_POLICIES[phi], _stream(r_c))
     _check(lib, err, "regular variable-node kernel")
-    launch_counts[_fp8("vn_regular", r_c.dtype)] += 1
+    _count_sum_product("vn_regular", r_c.dtype, phi)
 
 
 def parity_regular(bits, syn, flags, tables) -> None:

@@ -12,9 +12,9 @@ every dtype, as its JAX kernels do.
 This is the port's one φ formula in Python: the plain passes, the message
 init and the tests use it; the CUDA kernels (csrc/common.cuh ``phi_abs``)
 evaluate the same expression with the accurate ``tanhf`` / ``logf`` /
-``expf`` (the build never uses fast math). The grouped sum-product kernels
-evaluate it instead from the card's MUFU operations and FMAs
-(csrc/qc_grouped.cuh ``phi_abs_fast``); :func:`phi_abs_fast_np` is that
+``expf`` (the build never uses fast math). The QC sum-product kernels of
+both families evaluate it instead from the card's MUFU operations and FMAs
+(csrc/sum_product.cuh ``phi_abs_fast``); :func:`phi_abs_fast_np` is that
 function's float32 model, step for step, with the constants fitted by
 :mod:`ldpc_decoder_tpu_torch.ops.phi_fit`. φ is always evaluated in
 float32, whatever dtype the messages are stored in.
@@ -76,7 +76,7 @@ def phi_abs_np(x, pre: float = PRE_THRESHOLD, high: float = HIGH_THRESHOLD):
     return np.where(xm > TAYLOR_LIMIT, 2.0 * np.exp(-xm), main)
 
 
-# ---- the grouped kernels' fast φ (csrc/qc_grouped.cuh phi_abs_fast) ------
+# ---- the QC kernels' fast φ (csrc/sum_product.cuh phi_abs_fast) -----------
 
 # x below: -ln(x) + h(x²); from it up: t·P(t²), t = e^{-x}; above 5: 2t
 PHI_FAST_SPLIT = 1.0
@@ -108,7 +108,7 @@ def _horner(coef, u):
 
 def phi_abs_fast_np(x, pre: float = PRE_THRESHOLD,
                     high: float = HIGH_THRESHOLD) -> np.ndarray:
-    """Float32 model of the grouped kernels' ``phi_abs_fast``: the same
+    """Float32 model of the QC kernels' ``phi_abs_fast``: the same
     operations in the same order, each rounded to float32, with the card's
     ``ex2.approx`` and ``lg2.approx`` modelled as correctly rounded. The
     input floor is max(pre, the least normal float32), as the kernel's

@@ -1,4 +1,4 @@
-"""Fit the coefficients of the grouped kernels' fast φ (``phi_abs_fast``).
+"""Fit the coefficients of the QC kernels' fast φ (``phi_abs_fast``).
 
     python -m ldpc_decoder_tpu_torch.ops.phi_fit   # prints the constants
 
@@ -16,7 +16,7 @@ of degree 3 in a square, fitted here in float64 and rounded to float32:
 Each fit minimises φ's relative error over its interval (Lawson's
 iteratively reweighted least squares on Chebyshev points, a fixed number
 of iterations, so the result is deterministic). ``ops/phi.py`` and
-``csrc/qc_grouped.cuh`` hold copies of the rounded constants; the tests
+``csrc/sum_product.cuh`` hold copies of the rounded constants; the tests
 check that this script reproduces them.
 """
 

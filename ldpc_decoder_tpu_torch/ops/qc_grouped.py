@@ -211,11 +211,6 @@ def cn_pass_plain(msgs_v, syn, r_c, tables: GroupedQCTables,
     return r_c
 
 
-def _check_phi(phi: str) -> None:
-    if phi not in _kernels.PHI_POLICIES:
-        raise ValueError(f"unknown phi policy {phi!r}")
-
-
 def cn_pass_grouped(msgs_v, syn, r_c, tables: GroupedQCTables,
                     pre: float = PRE_THRESHOLD, *,
                     _phi: str = "fast") -> torch.Tensor:
@@ -226,7 +221,7 @@ def cn_pass_grouped(msgs_v, syn, r_c, tables: GroupedQCTables,
     "fast" (MUFU and FMA, what the decoder runs) or "accurate" (the
     accurate tanhf/logf/expf, the plain version's arithmetic). The plain
     version has one φ and ignores it."""
-    _check_phi(_phi)
+    _kernels.check_phi(_phi)
     B = _check_msgs(tables, msgs_v, "msgs_v", r_c, "r_c")
     check(syn, "syn", (tables.R, tables.Z, B), (torch.int8,))
     if _backend(tables, msgs_v, syn, r_c) == "cpu":
@@ -295,7 +290,7 @@ def vn_pass_grouped(r_c, llr, msgs_v, tables: GroupedQCTables,
     ``include_d1``: run the degree-1 groups on a non-emit iteration (the
     first iteration after a refill, when their φ(llr) changed).
     ``_phi`` as in :func:`cn_pass_grouped`."""
-    _check_phi(_phi)
+    _kernels.check_phi(_phi)
     B, tensors = _check_vn_args(tables, r_c, llr, msgs_v, bits, fresh,
                                 _MSG_DTYPES)
     if _backend(tables, *tensors) == "cpu":

@@ -34,10 +34,12 @@ a normal e5m2. The min-sum init is the unclipped llr
 
 Each pass has a plain PyTorch version (``*_plain``: gathers and
 elementwise ops in the kernel's summation order) and a kernel
-(csrc/qc_regular.cu, min-sum csrc/qc_minsum.cu, via :mod:`._kernels`, one
+(csrc/qc_regular.cuh, min-sum csrc/qc_minsum.cu, via :mod:`._kernels`, one
 launch per pass). The pass functions dispatch on the tensors' device: CPU
 tensors take the plain version; CUDA tensors launch the kernel or raise —
-there is no fallback.
+there is no fallback. The sum-product kernels evaluate φ from the card's
+MUFU operations (the decoder's); their internal ``_phi="accurate"``
+keyword selects the plain version's φ instead, as on the grouped passes.
 """
 
 from __future__ import annotations
@@ -189,15 +191,22 @@ def cn_pass_plain(msgs_v, syn, r_c, tables: QCRegularTables,
 
 
 def cn_pass_regular(msgs_v, syn, r_c, tables: QCRegularTables,
-                    pre: float = PRE_THRESHOLD) -> torch.Tensor:
+                    pre: float = PRE_THRESHOLD, *,
+                    _phi: str = "fast") -> torch.Tensor:
     """msgs_v [C, d_v, Z, B], syn [R, Z, B] int8 -> r_c [R, d_c, Z, B],
-    rewritten in place; returns r_c."""
+    rewritten in place; returns r_c.
+
+    ``_phi`` (internal: the tests and chip_smoke.py) selects the kernel's φ:
+    "fast" (MUFU and FMA, what the decoder runs) or "accurate" (the
+    accurate tanhf/logf/expf, the plain version's arithmetic). The plain
+    version has one φ and ignores it."""
     t = tables
+    _kernels.check_phi(_phi)
     _check_cn_args(msgs_v, syn, r_c, t)
     if _backend(t, msgs_v, syn, r_c) == "cpu":
         return cn_pass_plain(msgs_v, syn, r_c, t, pre)
     with torch.cuda.device(msgs_v.device):
-        _kernels.cn_regular(msgs_v, syn, r_c, t, pre)
+        _kernels.cn_regular(msgs_v, syn, r_c, t, pre, _phi)
     return r_c
 
 
@@ -227,20 +236,22 @@ def vn_pass_plain(r_c, llr, msgs_v, tables: QCRegularTables,
 
 
 def vn_pass_regular(r_c, llr, msgs_v, tables: QCRegularTables,
-                    pre: float = PRE_THRESHOLD, bits=None,
-                    fresh=None) -> torch.Tensor:
+                    pre: float = PRE_THRESHOLD, bits=None, fresh=None, *,
+                    _phi: str = "fast") -> torch.Tensor:
     """r_c [R, d_c, Z, B], llr [C, Z, B] (the message dtype; bfloat16 for
     float8_e5m2) -> msgs_v [C, d_v, Z, B] in place; returns msgs_v.
 
     ``bits`` ([C, Z, B] int8 or None): emit hard decisions into it.
     ``fresh`` ([B] bool or None): lane-reset refill — flagged lanes carry a
-    retired frame's messages and emit the init values φ(llr) instead."""
+    retired frame's messages and emit the init values φ(llr) instead.
+    ``_phi`` as in :func:`cn_pass_regular`."""
     t = tables
+    _kernels.check_phi(_phi)
     tensors = _check_vn_args(r_c, llr, msgs_v, bits, fresh, t)
     if _backend(t, *tensors) == "cpu":
         return vn_pass_plain(r_c, llr, msgs_v, t, pre, bits, fresh)
     with torch.cuda.device(r_c.device):
-        _kernels.vn_regular(r_c, llr, msgs_v, bits, fresh, t, pre)
+        _kernels.vn_regular(r_c, llr, msgs_v, bits, fresh, t, pre, _phi)
     return msgs_v
 
 

@@ -24,8 +24,8 @@ PHI_RTOL, PHI_ATOL = 1e-5, 1e-7
 def _check_phi(x: np.ndarray, dtype: torch.dtype, family: str,
                device: torch.device, phi: str = "fast") -> torch.Tensor:
     """φ of every x (float32, signed) through one check-kernel launch of
-    ``family`` with ``dtype`` messages (the grouped family with its
-    ``phi`` policy); returns slot 0 of the check pass, [Z] on the card."""
+    ``family`` with ``dtype`` messages and its ``phi`` policy; returns slot
+    0 of the check pass, [Z] on the card."""
     from ldpc_decoder_tpu_torch.codes.qc import QCStructure
     from ldpc_decoder_tpu_torch.ops import qc_grouped as qg
     from ldpc_decoder_tpu_torch.ops import qc_regular as qr
@@ -48,26 +48,27 @@ def _check_phi(x: np.ndarray, dtype: torch.dtype, family: str,
         return r_c[0, :, 0]
     t = qr.QCRegularTables.from_qc_tables(qct)
     r_c = torch.empty((1, 2, Z, 1), dtype=dtype, device=device)
-    return qr.cn_pass_regular(msgs.view(2, 1, Z, 1), syn, r_c, t)[0, 0, :, 0]
+    return qr.cn_pass_regular(msgs.view(2, 1, Z, 1), syn, r_c, t,
+                              _phi=phi)[0, 0, :, 0]
 
 
-def _phi_sweep(x: np.ndarray, phi: str, device: torch.device,
-               name: str) -> tuple[np.ndarray, np.ndarray]:
-    """φ of the sweep through the grouped check kernel with ``phi``, in
-    float64, and its relative error against float64; asserts positivity
-    and the rel + abs bound."""
+def _phi_sweep(x: np.ndarray, phi: str, device: torch.device, name: str,
+               family: str = "grouped") -> tuple[np.ndarray, np.ndarray]:
+    """φ of the sweep through ``family``'s float32 check kernel with
+    ``phi``, in float64, and its relative error against float64; asserts
+    positivity and the rel + abs bound."""
     from ldpc_decoder_tpu_torch.ops.phi import phi_abs_np
 
-    got = _check_phi(x, torch.float32, "grouped", device, phi).double()
+    got = _check_phi(x, torch.float32, family, device, phi).double()
     got = got.cpu().numpy()
     ref = phi_abs_np(x)
     assert (got > 0).all(), (
-        f"{phi} phi <= 0 on {name} at x = {x[got <= 0][:5]}: the x > 5 "
-        f"tail (ops/phi.py, csrc/common.cuh, csrc/qc_grouped.cuh) has "
-        f"regressed")
+        f"{family} {phi} phi <= 0 on {name} at x = {x[got <= 0][:5]}: the "
+        f"x > 5 tail (ops/phi.py, csrc/common.cuh, csrc/sum_product.cuh) "
+        f"has regressed")
     ok = np.abs(got - ref) <= PHI_RTOL * ref + PHI_ATOL
-    assert ok.all(), (f"{phi} phi on {name} out of bound (rel {PHI_RTOL} + "
-                      f"abs {PHI_ATOL}) at x = {x[~ok][:5]}")
+    assert ok.all(), (f"{family} {phi} phi on {name} out of bound (rel "
+                      f"{PHI_RTOL} + abs {PHI_ATOL}) at x = {x[~ok][:5]}")
     return got, np.abs(got - ref) / ref
 
 
@@ -79,11 +80,14 @@ def cuda_numerics_smoke(device: torch.device | str = "cuda",
     regression. Checks, for the grouped kernels' fast φ (the decoder's)
     and their accurate one: φ > 0 up to the clamp at 80 (the Taylor tail),
     φ against float64 over [1e-5, 80] and finely around the switch at 5;
-    the fast φ within PHI_FAST_MAX_REL_ERR of float64 there; the
-    self-inverse round trip φ(φ(x)) ≈ x through the fast φ; and that the
-    regular family's float8_e5m2 clamp keeps φ(±10) a normal e5m2 with its
-    sign. Returns the measured figures (``phi_*``: the fast φ,
-    ``phi_accurate_*``: the accurate one)."""
+    the fast φ within PHI_FAST_MAX_REL_ERR of float64 there, through the
+    regular kernel too (the same bits as the grouped one); the
+    self-inverse round trip φ(φ(x)) ≈ x through the fast φ; and, under
+    both policies, that the regular family's float8_e5m2 clamp keeps
+    φ(±10) a normal e5m2 with its sign and gives every input above 10
+    φ(10). Returns the measured figures (``phi_*``: the grouped fast φ,
+    ``phi_accurate_*``: the accurate one, ``phi_regular_*``: the regular
+    fast one)."""
     from ldpc_decoder_tpu_torch.ops.phi import (
         HIGH_THRESHOLD,
         PHI_FAST_MAX_REL_ERR,
@@ -107,9 +111,12 @@ def cuda_numerics_smoke(device: torch.device | str = "cuda",
     ]).astype(np.float32)
     acc, rel_acc = _phi_sweep(x, "accurate", device, name)
     got, rel = _phi_sweep(x, "fast", device, name)
-    assert rel.max() <= PHI_FAST_MAX_REL_ERR, (
-        f"fast phi on {name}: max rel err {rel.max():.3e} at x = "
-        f"{x[rel.argmax()]} > {PHI_FAST_MAX_REL_ERR}")
+    reg, rel_reg = _phi_sweep(x, "fast", device, name, "regular")
+    for label, r in (("grouped", rel), ("regular", rel_reg)):
+        assert r.max() <= PHI_FAST_MAX_REL_ERR, (
+            f"{label} fast phi on {name}: max rel err {r.max():.3e} at x = "
+            f"{x[r.argmax()]} > {PHI_FAST_MAX_REL_ERR}")
+    assert np.array_equal(reg, got), "regular and grouped fast phi differ"
 
     # 2. the self-inverse round trip keeps the operating range stable
     mid = np.geomspace(1e-4, 11.0, 32).astype(np.float32)
@@ -118,13 +125,19 @@ def cuda_numerics_smoke(device: torch.device | str = "cuda",
     rt = float((np.abs(twice - mid) / mid).max())
     assert rt < 2e-2, f"phi round trip error {rt:.2e} on {name}"
 
-    # 3. float8_e5m2 in the regular family: φ(±10) = ±9.08e-5, stored as a
-    #    normal e5m2 (exponent field > 0) with its sign
-    bits = _check_phi(np.array([10.0, -10.0], np.float32),
-                      torch.float8_e5m2, "regular", device)
-    bits = bits.view(torch.uint8).cpu().numpy()
-    assert ((bits & 0x7C) != 0).all(), f"phi(10) subnormal in e5m2: {bits}"
-    assert list(bits >> 7) == [0, 1], f"phi(+-10) lost its sign: {bits}"
+    # 3. float8_e5m2 in the regular family, both policies: φ(±10) =
+    #    ±9.08e-5, stored as a normal e5m2 (exponent field > 0) with its
+    #    sign, and every input above 10 clamped to it
+    above = np.array([10.0, -10.0, 12.0, -14.0, 448.0, 57344.0], np.float32)
+    for phi in ("fast", "accurate"):
+        bits = _check_phi(above, torch.float8_e5m2, "regular", device, phi)
+        bits = bits.view(torch.uint8).cpu().numpy()
+        assert ((bits & 0x7C) != 0).all(), (
+            f"{phi} phi(10) subnormal in e5m2: {bits}")
+        assert list(bits >> 7) == [0, 1, 0, 1, 0, 0], (
+            f"{phi} phi(+-10) lost its sign: {bits}")
+        assert ((bits & 0x7F) == bits[0]).all(), (
+            f"{phi} phi's e5m2 clamp at 10 does not hold: {bits}")
 
     out = {"phi_max_rel_err": float(rel.max()),
            "phi_worst_x": float(x[rel.argmax()]),
@@ -132,6 +145,8 @@ def cuda_numerics_smoke(device: torch.device | str = "cuda",
            "phi_accurate_max_rel_err": float(rel_acc.max()),
            "phi_accurate_worst_x": float(x[rel_acc.argmax()]),
            "phi_accurate_min": float(acc.min()),
+           "phi_regular_max_rel_err": float(rel_reg.max()),
+           "phi_regular_worst_x": float(x[rel_reg.argmax()]),
            "phi_round_trip_rel_err": rt,
            "phi10_e5m2": float(torch.tensor(bits[:1]).view(
                torch.float8_e5m2).float())}
@@ -141,7 +156,11 @@ def cuda_numerics_smoke(device: torch.device | str = "cuda",
                 f"{out[key + '_max_rel_err']:.3e} at x = "
                 f"{out[key + '_worst_x']:.6g} (bound rel {PHI_RTOL} + abs "
                 f"{PHI_ATOL}); min phi {out[key + '_min']:.3e}")
+    verbose(f"smoke[{name}]: regular fast phi (float32 check kernel) max "
+            f"rel err {out['phi_regular_max_rel_err']:.3e} at x = "
+            f"{out['phi_regular_worst_x']:.6g}, the grouped kernel's bits")
     verbose(f"smoke[{name}]: fast phi within {PHI_FAST_MAX_REL_ERR} of "
             f"float64; round trip {rt:.1e}; phi(10) as e5m2 "
-            f"{out['phi10_e5m2']:.4g} (normal, signed)")
+            f"{out['phi10_e5m2']:.4g} (normal, signed, the clamp at 10 "
+            f"held), both policies")
     return out

@@ -11,10 +11,12 @@ Tolerances: signs, hard bits, parity flags and decoded words are exact;
 sum-product messages are within one ulp of the storage dtype (the plain
 version's φ goes through torch's CUDA tanh/log, the kernel's through
 tanhf/logf; float8_e5m2: one e5m2 step on a share of at most 1e-3); the
-grouped kernels are held so on their accurate-φ instantiation, and their
-fast φ (MUFU and FMA, the decoder's) by ``runtime.perf.compare_msgs_fast``
-(float32 within 2 × 2.5e-6 + 2^-22 relative; bf16 one ulp, e5m2 one step,
-on a share of at most 1e-3);
+grouped and regular kernels are held so on their accurate-φ
+instantiation, and their fast φ (MUFU and FMA, the decoder's) by
+``runtime.perf.compare_msgs_fast`` (float32 within 2 × 2.5e-6 + 2^-22
+relative; bf16 one ulp, e5m2 one step, on a share of at most 1e-3); on a
+regular base the two families' kernels give the same bits under either
+policy (float32, bfloat16);
 min-sum messages (general and QC, f32, bf16, float8_e5m2 and int8) are
 bitwise equal, and min-sum decodes equal in per-frame iterations too. The
 kernels' float8_e5m2 store equals torch's conversion on the card and on
@@ -270,7 +272,9 @@ def test_regular_kernels_match_plain(cuda_device, dtype, d_c):
     ulp = 2.0 ** -7 if dtype == torch.bfloat16 else 2.0 ** -22
     before = dict(_kernels.launch_counts)
 
-    rk = qr.cn_pass_regular(mv, syn, rc.clone(), t)
+    # the accurate-φ instantiation: the plain version's φ (the fast one is
+    # held to its own rule in test_regular_kernels_both_phi)
+    rk = qr.cn_pass_regular(mv, syn, rc.clone(), t, _phi="accurate")
     rp = qr.cn_pass_plain(mv, syn, rc.clone(), t)
     assert torch.equal(torch.signbit(rk), torch.signbit(rp))
     torch.testing.assert_close(rk.float(), rp.float(), rtol=ulp, atol=0)
@@ -280,7 +284,8 @@ def test_regular_kernels_match_plain(cuda_device, dtype, d_c):
                         device=cuda_device)
         bp = bk.clone()
         mk = qr.vn_pass_regular(rc, llr, mv.clone(), t,
-                                bits=bk if emit else None, fresh=fr)
+                                bits=bk if emit else None, fresh=fr,
+                                _phi="accurate")
         mp = qr.vn_pass_plain(rc, llr, mv.clone(), t,
                               bits=bp if emit else None, fresh=fr)
         assert torch.equal(torch.signbit(mk), torch.signbit(mp))
@@ -293,8 +298,99 @@ def test_regular_kernels_match_plain(cuda_device, dtype, d_c):
                        qr.parity_pass_plain(bits, syn, t))
     torch.cuda.synchronize()
     for name, n in (("cn_regular", 1), ("vn_regular", 3),
-                    ("parity_regular", 1)):
+                    ("parity_regular", 1), ("phi_accurate", 4)):
         assert _kernels.launch_counts[name] - before[name] == n
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [256, 36])
+@pytest.mark.parametrize("d_c", [6, 16, 30])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float8_e5m2])
+def test_regular_kernels_both_phi(cuda_device, dtype, d_c, B):
+    """The regular sum-product kernels at d_c = 6, 16 and 30 (d_v = 3),
+    aligned B = 256 (the vector instantiations) and ragged B = 36 (one
+    lane per thread where the vector holds 8 or 16), with and without
+    fresh lanes and emit: the accurate-φ kernels against the plain passes
+    by today's rule, the fast ones by the fast rule, fast against accurate
+    too; hard bits exact. Where the grouped family takes the same base
+    (d_c <= 16) and clamp (not float8_e5m2), each output equals the
+    grouped kernel's under the same policy, bit for bit. Launches counted,
+    the accurate ones also under ``phi_accurate``."""
+    from ldpc_decoder_tpu_torch.ops import _kernels
+    from ldpc_decoder_tpu_torch.runtime import perf
+
+    qct = QCDecodeTables.from_structure(_regular_structure(d_c, 48, d_c + 1),
+                                        0, cuda_device)
+    t = qr.QCRegularTables.from_qc_tables(qct)
+    twin = d_c <= 16 and dtype != FP8
+    tg = qg.GroupedQCTables.from_qc_tables(qct) if twin else None
+    # B = 36 takes one lane per thread only where the vector has 8 or 16
+    ragged = B == 36 and d_c == 6 and dtype != torch.float32
+    assert _kernels.lanes_per_thread(B, dtype, d_c) == (
+        1 if ragged else _kernels.vec_lanes(dtype, d_c))
+    rng = np.random.default_rng(17)
+
+    def rand(shape, scale, dt):
+        x = rng.standard_normal(shape).astype(np.float32) * scale
+        return torch.from_numpy(x).to(cuda_device, dt)
+
+    mv = rand((t.C, t.d_v, t.Z, B), 5, dtype)
+    rc = rand((t.R, t.d_c, t.Z, B), 5, dtype)
+    llr = rand((t.C, t.Z, B), 4, G.llr_dtype(dtype))
+    syn = torch.from_numpy((rng.random((t.R, t.Z, B)) < 0.5).astype(
+        np.int8)).to(cuda_device)
+    fresh = torch.from_numpy(rng.random(B) < 0.5).to(cuda_device)
+    flat = (t.C * t.d_v, t.Z, B)
+    cn_name, vn_name = (("cn_regular_fp8", "vn_regular_fp8") if dtype == FP8
+                        else ("cn_regular", "vn_regular"))
+    before = dict(_kernels.launch_counts)
+    rp = qr.cn_pass_plain(mv, syn, torch.empty_like(rc), t)
+    r = {phi: qr.cn_pass_regular(mv, syn, torch.empty_like(rc), t, _phi=phi)
+         for phi in ("accurate", "fast")}
+    perf.compare_msgs("r_c accurate", r["accurate"], rp)
+    perf.compare_msgs_fast("r_c fast", r["fast"], rp)
+    perf.compare_msgs_fast("r_c fast vs accurate", r["fast"], r["accurate"])
+    for phi in r if twin else ():
+        rg = qg.cn_pass_grouped(mv.view(flat), syn,
+                                torch.empty(flat, dtype=dtype,
+                                            device=cuda_device), tg,
+                                _phi=phi)
+        assert _same_bits(r[phi], rg.view_as(r[phi])), phi
+    runs = [(False, None), (True, fresh), (False, fresh), (True, None)]
+    for emit, fr in runs:
+        bp = torch.full((t.C, t.Z, B), -1, dtype=torch.int8,
+                        device=cuda_device)
+        mp = qr.vn_pass_plain(rc, llr, mv.clone(), t,
+                              bits=bp if emit else None, fresh=fr)
+        m = {}
+        for phi in ("accurate", "fast"):
+            bk = torch.full_like(bp, -1)
+            m[phi] = qr.vn_pass_regular(rc, llr, mv.clone(), t,
+                                        bits=bk if emit else None, fresh=fr,
+                                        _phi=phi)
+            assert torch.equal(bk, bp), (phi, emit)
+            if twin:
+                bg = torch.full_like(bp, -1)
+                mg = qg.vn_pass_grouped(rc.view(t.R * t.d_c, t.Z, B), llr,
+                                        mv.clone().view(flat), tg,
+                                        bits=bg if emit else None, fresh=fr,
+                                        _phi=phi)
+                assert _same_bits(m[phi], mg.view_as(m[phi])), (phi, emit)
+                assert torch.equal(bg, bk), (phi, emit)
+        perf.compare_msgs("msgs_v accurate", m["accurate"], mp)
+        perf.compare_msgs_fast("msgs_v fast", m["fast"], mp)
+        perf.compare_msgs_fast("msgs_v fast vs accurate", m["fast"],
+                               m["accurate"])
+    torch.cuda.synchronize()
+    counts = {n: _kernels.launch_counts[n] - before[n]
+              for n in (cn_name, vn_name, "phi_accurate", "cn", "vn")}
+    # per policy one check launch and one variable launch per run; the
+    # grouped twin has one degree group on each side
+    n_twin = int(twin)
+    assert counts == {cn_name: 2, vn_name: 2 * len(runs),
+                      "phi_accurate": (1 + len(runs)) * (1 + n_twin),
+                      "cn": 2 * n_twin, "vn": 2 * len(runs) * n_twin}
 
 
 @pytest.mark.cuda
@@ -635,12 +731,14 @@ def test_fp8_kernels_match_plain(small_code, cuda_device, family):
     syn = torch.from_numpy((rng.random((t.R, t.Z, B)) < 0.5).astype(
         np.int8)).to(cuda_device)
     fresh = torch.from_numpy(rng.random(B) < 0.5).to(cuda_device)
-    # the grouped family on its accurate-φ instantiation (the fast one:
-    # test_grouped_kernels_both_phi)
-    cn_k = (functools.partial(qg.cn_pass_grouped, _phi="accurate")
-            if mod is qg else qr.cn_pass_regular)
-    vn_k = (functools.partial(qg.vn_pass_grouped, _phi="accurate")
-            if mod is qg else qr.vn_pass_regular)
+    # both families on their accurate-φ instantiation (the fast one:
+    # test_grouped_kernels_both_phi, test_regular_kernels_both_phi)
+    cn_k = functools.partial(
+        qg.cn_pass_grouped if mod is qg else qr.cn_pass_regular,
+        _phi="accurate")
+    vn_k = functools.partial(
+        qg.vn_pass_grouped if mod is qg else qr.vn_pass_regular,
+        _phi="accurate")
     before = dict(_kernels.launch_counts)
     rk = cn_k(mv, syn, torch.empty_like(rc), t)
     rp = mod.cn_pass_plain(mv, syn, torch.empty_like(rc), t)

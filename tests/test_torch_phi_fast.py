@@ -1,7 +1,7 @@
-"""The grouped kernels' fast φ, on the CPU: its float32 model, constants and
-fit, and the kernels' vector-width choice.
+"""The QC kernels' fast φ, on the CPU: its float32 model, constants and
+fit, and the grouped and regular kernels' vector-width and φ choices.
 
-``phi_abs_fast_np`` (ops/phi.py) models csrc/qc_grouped.cuh's
+``phi_abs_fast_np`` (ops/phi.py) models csrc/sum_product.cuh's
 ``phi_abs_fast`` operation for operation in float32, with the card's
 ex2.approx and lg2.approx taken as correctly rounded. It is held to
 float64 within the fast φ's target, PHI_FAST_MAX_REL_ERR (2.5e-6, the
@@ -13,6 +13,7 @@ and tests/test_torch_cuda.py, not here.
 """
 
 import importlib
+import inspect
 import re
 from pathlib import Path
 
@@ -28,8 +29,8 @@ from ldpc_decoder_tpu_torch.ops import phi_fit  # noqa: E402
 
 jphi = importlib.import_module("ldpc_decoder_tpu.ops.phi")
 tphi = importlib.import_module("ldpc_decoder_tpu_torch.ops.phi")
-SOURCE = (Path(__file__).resolve().parents[1] / "ldpc_decoder_tpu_torch"
-          / "csrc" / "qc_grouped.cuh")
+CSRC = Path(__file__).resolve().parents[1] / "ldpc_decoder_tpu_torch" / "csrc"
+SOURCE = CSRC / "sum_product.cuh"
 TARGET = tphi.PHI_FAST_MAX_REL_ERR
 
 
@@ -75,6 +76,29 @@ def test_fast_model_matches_jax():
     got = tphi.phi_abs_fast_np(x).astype(np.float64)
     ref = tphi.phi_abs_np(x)
     jx = np.asarray(jphi.phi_abs(jnp.asarray(x))).astype(np.float64)
+    assert (np.abs(got - jx) <= np.abs(jx - ref) + TARGET * ref).all()
+
+
+qc_pallas = importlib.import_module("ldpc_decoder_tpu.ops.qc_pallas")
+
+
+@pytest.mark.parametrize("reference", ["float64", "jax-regular"])
+def test_fast_model_at_the_fp8_clamp(reference):
+    """The regular family's float8_e5m2 clamp (high = 10) through the fast
+    φ: against float64 φ with the same clamp within the target, and
+    against the JAX regular kernels' φ (``qc_pallas._phi_abs_f32`` with
+    high 10) within that φ's own distance from float64 plus the target
+    (XLA:CPU's tanh is 1.3e-5 off float64 near x = 5)."""
+    x = _sweep()
+    got = tphi.phi_abs_fast_np(x, high=10.0).astype(np.float64)
+    ref = tphi.phi_abs_np(x, high=10.0)
+    ten = tphi.phi_abs_fast_np(np.float32(10.0), high=10.0)
+    assert x.max() > 10 and (got[x >= 10] == ten).all()
+    if reference == "float64":
+        assert (np.abs(got - ref) / ref).max() <= TARGET
+        return
+    jx = np.asarray(qc_pallas._phi_abs_f32(
+        jnp.asarray(x), 10.0, tphi.PRE_THRESHOLD)).astype(np.float64)
     assert (np.abs(got - jx) <= np.abs(jx - ref) + TARGET * ref).all()
 
 
@@ -251,3 +275,105 @@ def test_no_user_setting_selects_phi():
         text = (pkg / rel).read_text()
         assert "_phi" not in text and "accurate" not in text, rel
     assert "environ" not in (pkg / "ops" / "_kernels.py").read_text()
+    # both QC families' wrappers: φ is an internal keyword-only argument
+    # whose default is the fast kernel, and their runners never pass it
+    from ldpc_decoder_tpu_torch.ops import qc_grouped as qg
+    from ldpc_decoder_tpu_torch.ops import qc_regular as qr
+
+    for fn in (qg.cn_pass_grouped, qg.vn_pass_grouped, qr.cn_pass_regular,
+               qr.vn_pass_regular):
+        p = inspect.signature(fn).parameters["_phi"]
+        assert p.kind is p.KEYWORD_ONLY and p.default == "fast", fn
+    for fn in (qr._iteration, qr.run_iterations_qc_regular,
+               qr.burst_iterations_qc_regular, qg._iteration,
+               qg.run_iterations_qc_grouped,
+               qg.burst_iterations_qc_grouped):
+        assert "_phi" not in inspect.getsource(fn), fn
+
+
+# lanes per thread of the vector instantiation at the regular family's
+# degrees 17-32 (d_c = 30 among them): two for every dtype
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_vec_lanes_regular_degrees(dtype):
+    size = torch.empty((), dtype=dtype).element_size()
+    assert _kernels.MAX_DEGREES["qc_regular"] == 32
+    for d in range(17, 33):
+        v = _kernels.vec_lanes(dtype, d)
+        assert v == 2 and v * size <= 16 and v * d <= 64 < 2 * v * d, d
+
+
+# reg36's (d_c, d_v) = (6, 3): the (check, variable) lanes per thread at
+# its B = 256 and at B = 8 and the ragged 36 and 100; and d_c = 30
+REG36_LANES = {
+    torch.float32: {256: (4, 4), 8: (4, 4), 36: (4, 4), 100: (4, 4)},
+    torch.bfloat16: {256: (8, 8), 8: (8, 8), 36: (1, 1), 100: (1, 1)},
+    torch.float8_e5m2: {256: (8, 16), 8: (8, 1), 36: (1, 1), 100: (1, 1)},
+}
+
+
+@pytest.mark.parametrize("B", [256, 8, 36, 100])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_lanes_per_thread_reg36(B, dtype):
+    got = tuple(_kernels.lanes_per_thread(B, dtype, d) for d in (6, 3))
+    assert got == REG36_LANES[dtype][B]
+    assert _kernels.lanes_per_thread(B, dtype, 30) == 2
+
+
+def test_headers_cover_every_include():
+    """Every header a kernel source includes is hashed into the build key
+    (``_kernels.HEADERS``), so an edited header rebuilds every library."""
+    included = set()
+    for src in CSRC.iterdir():
+        if src.suffix in (".cu", ".cuh"):
+            included |= set(re.findall(r'#include "([^"]+)"',
+                                       src.read_text()))
+    assert included == {Path(h).name for h in _kernels.HEADERS}
+    for name, sources in _kernels.SOURCES.items():
+        assert all(Path(f).exists() for f in sources), name
+    assert [Path(f).name for f in _kernels.SOURCES["qc_regular"]] == [
+        "qc_regular.cu", "qc_regular_accurate.cu"]
+
+
+def _small_regular():
+    from ldpc_decoder_tpu_torch.codes.qc import make_qc_code
+    from ldpc_decoder_tpu_torch.ops import qc_regular as qr
+    from ldpc_decoder_tpu_torch.ops.qc_decode import QCDecodeTables
+
+    _, s = make_qc_code(np.ones((3, 6), np.int8), Z=16, seed=3)
+    t = qr.QCRegularTables.from_qc_tables(QCDecodeTables.from_structure(
+        s, 0, "cpu"))
+    rng = np.random.default_rng(4)
+    B = 8
+    mv = torch.from_numpy(rng.standard_normal((t.C, t.d_v, t.Z, B)).astype(
+        np.float32) * 4)
+    rc = torch.from_numpy(rng.standard_normal((t.R, t.d_c, t.Z, B)).astype(
+        np.float32) * 4)
+    llr = torch.from_numpy(rng.standard_normal((t.C, t.Z, B)).astype(
+        np.float32) * 3)
+    syn = torch.from_numpy((rng.random((t.R, t.Z, B)) < 0.5).astype(np.int8))
+    fresh = torch.from_numpy(rng.random(B) < 0.5)
+    return qr, t, mv, rc, llr, syn, fresh
+
+
+@pytest.mark.parametrize("phi", ["fast", "accurate"])
+def test_regular_phi_keyword_on_cpu_is_the_plain_version(phi):
+    """On CPU tensors both policies take the regular family's one plain
+    version, with emit and fresh lanes too."""
+    qr, t, mv, rc, llr, syn, fresh = _small_regular()
+    got = qr.cn_pass_regular(mv, syn, torch.empty_like(rc), t, _phi=phi)
+    assert torch.equal(got, qr.cn_pass_plain(mv, syn, torch.empty_like(rc),
+                                             t))
+    bk, bp = (torch.empty((t.C, t.Z, mv.shape[-1]), dtype=torch.int8)
+              for _ in range(2))
+    out = qr.vn_pass_regular(rc, llr, mv.clone(), t, bits=bk, fresh=fresh,
+                             _phi=phi)
+    want = qr.vn_pass_plain(rc, llr, mv.clone(), t, bits=bp, fresh=fresh)
+    assert torch.equal(out, want) and torch.equal(bk, bp)
+
+
+def test_regular_phi_keyword_refuses_unknown_policy():
+    qr, t, mv, rc, llr, syn, _ = _small_regular()
+    with pytest.raises(ValueError, match="phi policy"):
+        qr.cn_pass_regular(mv, syn, torch.empty_like(rc), t, _phi="exact")
+    with pytest.raises(ValueError, match="phi policy"):
+        qr.vn_pass_regular(rc, llr, mv.clone(), t, _phi="tanh")
