@@ -18,7 +18,7 @@ messages with B = 256 frames in flight:
 The general (any-alist) paths decode a random non-QC (3,6) code of n = 2^20
 (``make_regular_code(2**20, 3, 6, seed=9)``, the JAX package's
 scripts/bench_general.py code) at sigma = 0.84, 768 frames, k = 10, through
-the general kernels (csrc/general.cu):
+the general kernels (csrc/general.cuh, min-sum csrc/general.cu):
 
 - sum-product, bfloat16, B = 384 (two fills, so the refill runs);
 - int8 min-sum (alpha 0.8, offset 0, scale 4), B = 768 (one fill).
@@ -55,10 +55,11 @@ Phases:
 
 1. device: the card's name and power limit (nvidia-smi);
 2. build: the five kernel libraries from ldpc_decoder_tpu_torch/csrc/,
-   one nvcc per source, all started together; the grouped and the regular
-   check and variable kernels' registers and spills by (kernel, dtype,
-   lanes per thread, phi policy), none spilling, and the fast phi's SASS
-   instructions in each family (cuobjdump);
+   one nvcc per source, all started together; the grouped, regular and
+   general sum-product check and variable kernels' registers and spills by
+   (kernel, dtype, lanes per thread, phi policy), no kernel of those
+   libraries spilling, and the fast phi's SASS instructions in each
+   (cuobjdump);
 3. the numerics smoke (``runtime.smoke.cuda_numerics_smoke``): phi on the
    device, through check-node launches of the grouped kernels' fast and
    accurate phi and the regular kernel's fast one, against float64 (max
@@ -86,10 +87,16 @@ Phases:
 12. the reg36 erasure decode, counted the same way;
 13. the general code (generated and compiled, timed) and 768 frames;
 14. each general kernel against its plain version on the card, at full
-    width on a real decode state: sum-product bf16 at B = 384, int8
-    min-sum at B = 768 and bf16 min-sum at B = 384, with both times;
+    width on a real decode state: sum-product bf16 at B = 384 with both
+    phi policies, as phase 5 does (fast, accurate and plain times beside
+    the bound and its share), int8 min-sum at B = 768 and bf16 min-sum at
+    B = 384, bitwise, with both times;
 15. a small multi-bucket irregular decode (degree-1 variables) on the card
-    against the plain passes on the CPU, f32 sum-product and int8 min-sum;
+    against the plain passes on the CPU, f32 sum-product (on the
+    accurate-phi kernels) and int8 min-sum, equal in words and per-frame
+    iterations; then f32 sum-product on the fast kernels (the decoder's):
+    every frame the CPU decodes to the reference bits decodes to the same
+    bits, the average iterations within 5, the differing frames counted;
 16. the general sum-product path, twice, counted like phase 7;
 17. the general int8 min-sum path, twice, counted the same way;
 18. the grouped min-sum kernels against their plain versions at p41 x
@@ -131,11 +138,13 @@ Phases:
 
 Every phase must pass: any failure raises, and the script exits nonzero
 without its result line. The last line of stdout is the result object; the
-line before it lists the kernels (the QC sum-product check and variable
+line before it lists the kernels (the sum-product check and variable
 entries with their fast-phi time as ``ms`` and the accurate one as
 ``accurate_ms``). Imports nothing of JAX.
 """
 
+import contextlib
+import functools
 import json
 import os
 import re
@@ -199,6 +208,9 @@ GROUPED_CN_VN_SOURCE = "ldpc_decoder_tpu_torch/csrc/qc_grouped.cuh"
 REGULAR_SOURCE = "ldpc_decoder_tpu_torch/csrc/qc_regular.cu"
 REGULAR_CN_VN_SOURCE = "ldpc_decoder_tpu_torch/csrc/qc_regular.cuh"
 GENERAL_SOURCE = "ldpc_decoder_tpu_torch/csrc/general.cu"
+# the general sum-product check and variable kernels (general.cu
+# dispatches them)
+GENERAL_CN_VN_SOURCE = "ldpc_decoder_tpu_torch/csrc/general.cuh"
 MINSUM_SOURCE = "ldpc_decoder_tpu_torch/csrc/qc_minsum.cu"
 PROBES_SOURCE = "ldpc_decoder_tpu_torch/csrc/probes.cu"
 # (name in the kernels line and in launch_counts, source, TPU kernel)
@@ -215,9 +227,9 @@ KERNELS = [
      "ldpc_decoder_tpu/ops/qc_pallas.py:469"),  # _vn_kernel
     ("parity_regular", REGULAR_SOURCE,
      "ldpc_decoder_tpu/ops/qc_pallas.py:732"),  # _parity_kernel
-    ("cn_general", GENERAL_SOURCE,
+    ("cn_general", GENERAL_CN_VN_SOURCE,
      "ldpc_decoder_tpu/ops/general_pallas.py:252"),  # _cn_kernel
-    ("vn_general", GENERAL_SOURCE,
+    ("vn_general", GENERAL_CN_VN_SOURCE,
      "ldpc_decoder_tpu/ops/general_pallas.py:280"),  # _vn_kernel
     ("cn_general_minsum", GENERAL_SOURCE,
      "ldpc_decoder_tpu/ops/general_pallas.py:308"),  # _cn_kernel_minsum
@@ -396,7 +408,8 @@ def phase_build():
 
 
 # (kernel, element type, degree, lanes per thread, phi policy) in a mangled
-# name, per library; and the one-lane float32 degree-1 fast check kernel
+# sum-product kernel name, per library; and the one-lane float32 degree-1
+# check kernel
 CN_VN_ENTRIES = {
     "qc_grouped": (re.compile(r"(cn|vn)_kernelI(\w+?)Li(\d+)ELi(\d+)E\w*?"
                               r"(PhiFast|PhiAccurate)E"),
@@ -404,15 +417,19 @@ CN_VN_ENTRIES = {
     "qc_regular": (re.compile(r"(cn|vn)_regular_kernelI(\w+?)Li(\d+)ELi(\d+)"
                               r"E\w*?(PhiFast|PhiAccurate)E"),
                    "cn_regular_kernel"),
+    "general": (re.compile(r"(cn|vn)_general_kernelI(\w+?)Li(\d+)ELi(\d+)"
+                           r"E\w*?(PhiFast|PhiAccurate)E"),
+                "cn_general_kernel"),
 }
 
 
 def cn_vn_kernel_report(name, path, entries):
-    """A QC library's check and variable kernels' registers and spills by
-    (kernel, dtype, lanes per thread, phi), asserting none spills; and the
-    SASS instructions of the fast phi, counted with cuobjdump in the
-    float32 degree-1 one-lane check kernel (its only floating-point work
-    besides phi is ext - a and the hoisted input floor)."""
+    """A library's sum-product check and variable kernels' registers and
+    spills by (kernel, dtype, lanes per thread, phi), asserting no kernel
+    of the library spills; and the SASS instructions of the fast phi,
+    counted with cuobjdump in the float32 degree-1 one-lane check kernel
+    (its only floating-point work besides phi is ext - a and the hoisted
+    input floor)."""
     pattern, check_kernel = CN_VN_ENTRIES[name]
     rows = {}
     for kname, regs, spill in entries:
@@ -815,12 +832,52 @@ def general_lane_state(torch, np, dev, t, ch, batch, B, dtype):
     return llr, syn
 
 
+def general_policies(torch, G, t, mv, rc, llr, syn, B):
+    """The general sum-product kernels of both phi policies against their
+    plain versions on one state (the check pass, then the variable pass
+    plain and with emit), and the fast ones against the accurate ones: the
+    accurate instantiation by ``compare_msgs`` (the plain version's phi:
+    today's rule), the fast one by ``perf.compare_msgs_fast``; hard bits
+    exact. Returns (r_c of the accurate check kernel, {"cn", "vn"}: max
+    absolute error against plain of the fast kernels)."""
+    log("  check nodes:")
+    rp = G.cn_pass_general_plain(mv, syn, torch.empty_like(rc), t)
+    rk = {phi: G.cn_pass_general(mv, syn, torch.empty_like(rc), t, _phi=phi)
+          for phi in ("accurate", "fast")}
+    compare_msgs("r_c accurate vs plain", rk["accurate"], rp)
+    err = {"cn": compare_fast("r_c fast vs plain", rk["fast"], rp)}
+    compare_fast("r_c fast vs accurate", rk["fast"], rk["accurate"])
+    del rp
+    log("  variable nodes:")
+    errs = []
+    for emit in (False, True):
+        what = "emit" if emit else "no emit"
+        bp = torch.full((t.n_vars, B), -1, dtype=torch.int8, device=mv.device)
+        mp = G.vn_pass_general_plain(rc, llr, torch.empty_like(mv), t,
+                                     bits=bp if emit else None)
+        mk = {}
+        for phi in rk:
+            bk = torch.full_like(bp, -1)
+            mk[phi] = G.vn_pass_general(rc, llr, torch.empty_like(mv), t,
+                                        bits=bk if emit else None, _phi=phi)
+            assert torch.equal(bk, bp), f"hard bits differ ({phi}, {what})"
+        compare_msgs(f"msgs_v accurate vs plain ({what})", mk["accurate"], mp)
+        errs.append(compare_fast(f"msgs_v fast vs plain ({what})",
+                                 mk["fast"], mp))
+        compare_fast(f"msgs_v fast vs accurate ({what})", mk["fast"],
+                     mk["accurate"])
+        del mp, mk
+    log("  hard bits (emit): equal, both policies")
+    err["vn"] = max(errs)
+    return rk["accurate"], err
+
+
 def phase_general_kernels(torch, np, dev, cc, batch):
     """Each general kernel vs its plain version at full width on a real
     decode state (four iterations in): sum-product bf16 at B = 384 (the
-    sum-product path's), int8 min-sum at B = 768 (the min-sum path's) and
-    bf16 min-sum at B = 384. Sum-product within the one-ulp share, min-sum
-    bitwise; signs and hard bits exact."""
+    sum-product path's; both phi policies, as phase 5), int8 min-sum at
+    B = 768 (the min-sum path's) and bf16 min-sum at B = 384. Sum-product
+    within its policy's rule, min-sum bitwise; signs and hard bits exact."""
     from ldpc_decoder_tpu_torch.channels import BIAWGNChannel
     from ldpc_decoder_tpu_torch.ops import general as G
     from ldpc_decoder_tpu_torch.runtime import perf
@@ -842,35 +899,40 @@ def phase_general_kernels(torch, np, dev, cc, batch):
         msgs = G.init_messages_general(llr, t, dtype, **init_kw)
         msgs, _, _ = G.run_iterations_general(msgs, llr, syn, t, 4, **kw)
         mv, rc = msgs
-        if alg == "min-sum":
-            def cn(impl, r):
-                return impl(mv, syn, r, t, ms["alpha"], ms["beta"],
-                            ms["qscale"])
+        passes = perf.general_bytes(t, B, mv.element_size(),
+                                    llr.element_size())
+        if alg == "sum-product":
+            rk, err = general_policies(torch, G, t, mv, rc, llr, syn, B)
+            r = {"cn_general": dict(max_abs_err=err["cn"]),
+                 "vn_general": dict(max_abs_err=err["vn"])}
+            mk = mv.clone()
+            where = f"general, {tag}"
+            time_policies(r, "cn_general", lambda phi: G.cn_pass_general(
+                mv, syn, rk, t, _phi=phi),
+                lambda: G.cn_pass_general_plain(mv, syn, rk, t),
+                passes["cn"], OPS_PER_MESSAGE * E * B, where)
+            time_policies(r, "vn_general", lambda phi: G.vn_pass_general(
+                rc, llr, mk, t, _phi=phi),
+                lambda: G.vn_pass_general_plain(rc, llr, mk, t),
+                passes["vn"], OPS_PER_MESSAGE * E * B, where)
+            out.update(r)
+            del mv, rc, rk, mk, msgs, llr, syn
+            torch.cuda.empty_cache()
+            continue
 
-            def vn(impl, m, bits=None):
-                return impl(rc, llr, m, t, ms["clamp"], ms["qscale"],
-                            bits=bits)
+        def cn(impl, r):
+            return impl(mv, syn, r, t, ms["alpha"], ms["beta"], ms["qscale"])
 
-            cnk, cnp = G.cn_pass_general_minsum, G.cn_pass_general_minsum_plain
-            vnk, vnp = G.vn_pass_general_minsum, G.vn_pass_general_minsum_plain
-            ops = OPS_PER_MINSUM_MESSAGE
-        else:
-            def cn(impl, r):
-                return impl(mv, syn, r, t)
+        def vn(impl, m, bits=None):
+            return impl(rc, llr, m, t, ms["clamp"], ms["qscale"], bits=bits)
 
-            def vn(impl, m, bits=None):
-                return impl(rc, llr, m, t, bits=bits)
-
-            cnk, cnp = G.cn_pass_general, G.cn_pass_general_plain
-            vnk, vnp = G.vn_pass_general, G.vn_pass_general_plain
-            ops = OPS_PER_MESSAGE
+        cnk, cnp = G.cn_pass_general_minsum, G.cn_pass_general_minsum_plain
+        vnk, vnp = G.vn_pass_general_minsum, G.vn_pass_general_minsum_plain
 
         def compare(name, k, p):
-            if alg == "min-sum":
-                assert bit_identical(k, p), f"{name} ({tag}): not bitwise"
-                log(f"  {name}: bitwise equal")
-                return float((k.float() - p.float()).abs().max())
-            return compare_msgs(name, k, p)
+            assert bit_identical(k, p), f"{name} ({tag}): not bitwise"
+            log(f"  {name}: bitwise equal")
+            return float((k.float() - p.float()).abs().max())
 
         rk, rp = torch.empty_like(rc), torch.empty_like(rc)
         cn(cnk, rk)
@@ -889,8 +951,7 @@ def phase_general_kernels(torch, np, dev, cc, batch):
             assert torch.equal(bk, bp), f"hard bits differ ({tag})"
         log("  hard bits (emit): equal")
         del mp
-        passes = perf.general_bytes(t, B, mv.element_size(),
-                                    llr.element_size())
+        ops = OPS_PER_MINSUM_MESSAGE
         r = {
             "cn": dict(
                 max_abs_err=err_cn,
@@ -907,23 +968,43 @@ def phase_general_kernels(torch, np, dev, cc, batch):
             log(f"  {name}: kernel {v['ms']:.3f} ms per pass, plain "
                 f"{v['plain_ms']:.3f} ms, bound {v['bound'][0]:.3f} ms "
                 f"({v['bound'][1]}) (general, {tag})")
-        suffix = "_minsum" if alg == "min-sum" else ""
-        if f"cn_general{suffix}" not in out:  # the main paths' shapes
-            out[f"cn_general{suffix}"] = r["cn"]
-            out[f"vn_general{suffix}"] = r["vn"]
+        if "cn_general_minsum" not in out:  # the main path's shapes
+            out["cn_general_minsum"] = r["cn"]
+            out["vn_general_minsum"] = r["vn"]
         del mv, rc, rk, mk, msgs, llr, syn
         torch.cuda.empty_cache()
     return out
 
 
+@contextlib.contextmanager
+def general_phi(policy):
+    """The general sum-product passes bound to the ``policy`` kernels while
+    the block runs (the runners look them up at call time); restored after
+    it. Neither the runners nor the decoder learn a phi."""
+    from ldpc_decoder_tpu_torch.ops import general as G
+
+    cn, vn = G.cn_pass_general, G.vn_pass_general
+    G.cn_pass_general = functools.partial(cn, _phi=policy)
+    G.vn_pass_general = functools.partial(vn, _phi=policy)
+    try:
+        yield
+    finally:
+        G.cn_pass_general, G.vn_pass_general = cn, vn
+
+
 def small_general_decode(np, dev):
     """A multi-bucket irregular code with degree-1 variables: kernels on
     the card vs plain passes on the CPU, f32 sum-product and int8 min-sum
-    with a per-degree alpha table; equal words and per-frame iterations.
-    (Degree-1 variables leave some frames in error at any noise; the card
-    and the CPU must agree on them too.)"""
+    with a per-degree alpha table; equal words and per-frame iterations,
+    f32 sum-product on the accurate-phi kernels. (Degree-1 variables leave
+    some frames in error at any noise; the card and the CPU must agree on
+    them too.) Then f32 sum-product on the fast kernels, the decoder's:
+    every frame the CPU decodes to the reference bits, the card decodes to
+    the same bits, and the average iterations are within 5 of the CPU's;
+    the frames whose words or iterations differ are counted."""
     from ldpc_decoder_tpu_torch.channels import BIAWGNChannel
     from ldpc_decoder_tpu_torch.codes.generate import make_irregular_code
+    from ldpc_decoder_tpu_torch.ops import _kernels
     from ldpc_decoder_tpu_torch.ops.general import GeneralTables
     from ldpc_decoder_tpu_torch.runtime.datagen import create_data
     from ldpc_decoder_tpu_torch.runtime.decoder import LDPCDecoder
@@ -938,26 +1019,51 @@ def small_general_decode(np, dev):
     ch = BIAWGNChannel(0.65)
     n = 104
     batch = create_data(code, ch, 0, n, backend="numpy")
+    ref = batch.ref_bits_packed()
     dyn = DynamicParams(num_iter_max=60, num_iter_check_parity=5)
+
+    def decode(d, kw):
+        dec = LDPCDecoder(code, ch, StaticParams(
+            parallel_factor_user=32, qc_autodetect=False, **kw), device=d)
+        assert isinstance(dec.tables, GeneralTables)
+        return dec.decode(dyn, n, batch.values, batch.syndromes)
+
     for kw in (dict(message_dtype="float32"),
                dict(message_dtype="int8", algorithm="min-sum",
                     minsum_alpha={5: 0.8, 6: 0.75}, minsum_offset=0.0)):
-        got = {}
-        for d in ("cpu", dev):
-            dec = LDPCDecoder(code, ch, StaticParams(
-                parallel_factor_user=32, qc_autodetect=False, **kw), device=d)
-            assert isinstance(dec.tables, GeneralTables)
-            got[str(d)] = dec.decode(dyn, n, batch.values, batch.syndromes)
-        (res_c, st_c), (res_g, st_g) = got["cpu"], got[str(dev)]
+        what = f"{kw['message_dtype']} {kw.get('algorithm', 'sum-product')}"
+        res_c, st_c = decode("cpu", kw)
+        if "algorithm" in kw:
+            res_g, st_g = decode(dev, kw)
+        else:
+            with general_phi("accurate"):
+                res_g, st_g = decode(dev, kw)
+            what += ", accurate phi"
         assert np.array_equal(res_g, res_c), "card and CPU words differ"
         assert np.array_equal(st_g.iterations, st_c.iterations), \
             "card and CPU per-frame iterations differ"
-        bad = int((popcount_rows(batch.ref_bits_packed() ^ res_g) > 0).sum())
+        bad = int((popcount_rows(ref ^ res_g) > 0).sum())
         log(f"  irregular n = {code.n_vars} (degree-1..4 variables), {n} "
-            f"frames, {kw['message_dtype']} "
-            f"{kw.get('algorithm', 'sum-product')}: card == CPU words and "
-            f"per-frame iterations; avg iterations {st_g.avg_iter:.2f}, "
-            f"{bad} frames with bit errors")
+            f"frames, {what}: card == CPU words and per-frame iterations; "
+            f"avg iterations {st_g.avg_iter:.2f}, {bad} frames with bit "
+            f"errors")
+        if "algorithm" in kw:
+            continue
+        _kernels.reset_launch_counts()
+        res_f, st_f = decode(dev, kw)
+        assert _kernels.launch_counts["phi_accurate"] == 0
+        good = (res_c == ref).all(axis=1)
+        assert np.array_equal(res_f[good], res_c[good]), \
+            "a frame the CPU decodes differs on the card (fast phi)"
+        assert abs(st_f.avg_iter - st_c.avg_iter) <= 5, \
+            (st_f.avg_iter, st_c.avg_iter)
+        words = int((res_f != res_c).any(axis=1).sum())
+        iters = int((st_f.iterations != st_c.iterations).sum())
+        log(f"  float32 sum-product, fast phi (the decoder's): the "
+            f"{int(good.sum())} frames the CPU decodes decode to the same "
+            f"bits; {words} frames differ in words and {iters} in "
+            f"iterations from the CPU's; avg iterations {st_f.avg_iter:.2f} "
+            f"(CPU {st_c.avg_iter:.2f})")
 
 
 def minsum_kernels(torch, np, dev, family, t, llr, syn, B, dtype, alpha,

@@ -1,167 +1,63 @@
-// General (any-alist) LDPC kernels for NVIDIA Hopper (sm_90a).
+// General (any-alist) LDPC kernels for NVIDIA Hopper (sm_90a): the min-sum
+// check and variable kernels, the dispatch of the sum-product ones
+// (general.cuh) and the C entries. The sum-product PhiAccurate
+// instantiations compile in general_accurate.cu; this file compiles the
+// PhiFast ones. Nodes are sorted by degree; one launch serves one degree
+// bucket, with the degree a template parameter so every per-node loop is
+// unrolled.
 //
-// Four kernels carry every iteration of the decoder on a code with no QC
-// structure: the check-node and variable-node updates of sum-product and
-// of normalized/offset min-sum. Nodes are sorted by degree; one launch
-// serves one degree bucket, with the degree a template parameter so every
-// per-node loop is unrolled.
-//
-// Layout (ldpc_decoder_tpu_torch/ops/general.py): frames (lanes) on the
-// last, fastest axis. Edge arrays [E, B] are plane-major per bucket: slot k
-// of node i of a bucket of `count` nodes sits at edge row
-// edge_start + k*count + i. msgs_v is in variable order, r_c in check
-// order; llr and bits [n_vars, B], syn [n_checks, B] are indexed by the
-// sorted node row node_start + i.
-//
-// The edge permutation is gathered inside the kernels: a check slot reads
-// msgs_v[perm_v2c[row]], a variable slot reads r_c[perm_c2v[row]]. (The
-// TPU path gathers in separate XLA passes; fusing them here saves the two
-// gathered edge-array copies per iteration.)
-//
-// Threads. A thread owns one lane b and walks a few nodes of its bucket, so
-// every row read and write is one coalesced run along B; all threads of a
-// block read the same slot index (one broadcast load per warp) before their
-// gathered row loads. Blocks cover (node chunk, lane chunk); the last lane
-// chunk is guarded, so any B works. Offsets into the [E, B] arrays are
-// 64-bit: E*B passes 2^31 at the 2^20-bit codes' widths.
+// Layout and the fused gather: general.cuh. The min-sum kernels keep the
+// first, simple design: a thread owns one lane b and walks a few nodes of
+// its bucket, so every row read and write is one coalesced run along B; all
+// threads of a block read the same slot index (one broadcast load per warp)
+// before their gathered row loads. Blocks cover (node chunk, lane chunk);
+// the last lane chunk is guarded, so any B works. Offsets into the [E, B]
+// arrays are 64-bit.
 //
 // Arithmetic is kept bit-identical to the plain PyTorch versions: f32 sums
 // left to right in slot order, the sign-bit algebra of the TPU kernels,
 // products and differences through __fmul_rn/__fsub_rn (never contracted
-// into an FMA), rintf (round half to even) for int8. phi and the storage
-// conversions come from common.cuh; this file is never built with
-// --use_fast_math; the int8 load/store helpers are common.cuh's too.
-// Kernels launch on the caller's stream, allocate nothing and never
-// synchronise; every C entry returns cudaGetLastError(), which the Python
-// wrapper turns into an exception.
+// into an FMA), rintf (round half to even) for int8. The storage
+// conversions and the int8 load/store helpers come from common.cuh; this
+// file is never built with --use_fast_math. Kernels launch on the caller's
+// stream, allocate nothing and never synchronise; every C entry returns
+// cudaGetLastError(), which the Python wrapper turns into an exception.
 
 #include <cstdint>
 
-#include "common.cuh"
+#include "general.cuh"
+
+namespace ldpc {
+namespace general {
+
+#define LDPC_EXTERN extern
+LDPC_FOR_EACH_DEGREE(LDPC_ACCURATE_DEGREE)
+#undef LDPC_EXTERN
+
+}  // namespace general
+}  // namespace ldpc
 
 namespace {
 
-using ldpc::from_f32;
-using ldpc::kPhiHigh;
 using ldpc::kSignBit;
 using ldpc::Llr;
 using ldpc::load_msg;
-using ldpc::phi_abs;
+using ldpc::PhiAccurate;
+using ldpc::PhiFast;
 using ldpc::signed_f32;
 using ldpc::store_msg;
 using ldpc::to_f32;
+using ldpc::VecLanes;
+using ldpc::general::kMaxDegree;
+using ldpc::general::run_cn;
+using ldpc::general::run_vn;
 
-constexpr int kMaxDegree = 32;      // sign bits of a check fit a uint32
 constexpr int kLaneThreads = 128;   // threads per block, along B
 constexpr int kNodesPerBlock = 8;   // nodes walked per thread
 
 dim3 grid_for(int count, int B) {
   return dim3((count + kNodesPerBlock - 1) / kNodesPerBlock,
               (B + kLaneThreads - 1) / kLaneThreads);
-}
-
-// ---- sum-product check-node update -------------------------------------
-//
-// Replaces _cn_kernel (ldpc_decoder_tpu/ops/general_pallas.py:252) and the
-// XLA gather m_c = take(msgs_v, perm_v2c) before it. For check i of the
-// bucket and lane b, with row_k = edge_start + k*count + i:
-//   m_k = msgs_v[perm_v2c[row_k]][b], a_k = |m_k|
-//   ext = a_0 + a_1 + ...                  (left to right)
-//   x   = syn ^ (D odd) ^ (parity of the sign bits of m)   (one bit)
-//   r_c[row_k][b] = phi_abs(ext - a_k) | ((signbit(m_k) ^ x) << 31)
-// Bound on this card: bytes (D gathered reads and D writes of the message
-// dtype per check and lane, the syndrome byte, D slot indices per check);
-// D phi evaluations per check and lane stay well under the float32 rate.
-// Simple design: one lane per thread, the D gathered loads of a node issued
-// back to back, values in registers.
-template <typename T, int D>
-__global__ void __launch_bounds__(kLaneThreads)
-cn_general_kernel(const T* __restrict__ msgs_v,
-                  const int8_t* __restrict__ syn, T* __restrict__ r_c,
-                  const int* __restrict__ perm_v2c, int node_start,
-                  int count, int edge_start, int B, float pre) {
-  const int b = blockIdx.y * kLaneThreads + threadIdx.x;
-  if (b >= B) return;
-  const int i0 = blockIdx.x * kNodesPerBlock;
-  const int i1 = min(i0 + kNodesPerBlock, count);
-  for (int i = i0; i < i1; ++i) {
-    size_t row[D];
-    float a[D];
-    uint32_t signs = 0;  // bit k: sign bit of m_k
-#pragma unroll
-    for (int k = 0; k < D; ++k) {
-      row[k] = static_cast<size_t>(edge_start) +
-               static_cast<size_t>(k) * count + i;
-      const size_t src = static_cast<size_t>(perm_v2c[row[k]]);
-      const float m = to_f32(msgs_v[src * B + b]);
-      signs |= (__float_as_uint(m) >> 31) << k;
-      a[k] = fabsf(m);
-    }
-    const uint32_t x =
-        (static_cast<uint32_t>(syn[static_cast<size_t>(node_start + i) * B +
-                                   b]) ^
-         static_cast<uint32_t>(D & 1) ^ static_cast<uint32_t>(__popc(signs))) &
-        1u;
-    float ext = a[0];
-#pragma unroll
-    for (int k = 1; k < D; ++k) ext = __fadd_rn(ext, a[k]);
-#pragma unroll
-    for (int k = 0; k < D; ++k) {
-      const float res = phi_abs(__fsub_rn(ext, a[k]), pre, kPhiHigh);
-      const uint32_t sign = (((signs >> k) ^ x) & 1u) << 31;
-      r_c[row[k] * B + b] = from_f32<T>(signed_f32(res, sign));
-    }
-  }
-}
-
-// ---- sum-product variable-node update ----------------------------------
-//
-// Replaces _vn_kernel (ldpc_decoder_tpu/ops/general_pallas.py:280) and the
-// XLA gather r_v = take(r_c, perm_c2v) before it. For variable i and lane b:
-//   r_k   = r_c[perm_c2v[row_k]][b]
-//   tot   = llr + (r_0 + r_1 + ...)         (slot order)
-//   tq    = tot rounded through the message dtype (RNE for bf16)
-//   msgs_v[row_k][b] = phi_abs(|tq - r_k|) | signbit(tq - r_k)
-//   bits (emit only) = !signbit(tot)         (-0 decodes as 0)
-// No degree-1 special case: a lone slot gets phi(tq - r_0).
-// Bound on this card: bytes (D gathered reads and D writes per variable and
-// lane, the llr, and on emit one int8 bit). Same simple design as the check
-// kernel.
-template <typename T, int D>
-__global__ void __launch_bounds__(kLaneThreads)
-vn_general_kernel(const T* __restrict__ r_c, const T* __restrict__ llr,
-                  T* __restrict__ msgs_v, int8_t* __restrict__ bits,
-                  const int* __restrict__ perm_c2v, int node_start,
-                  int count, int edge_start, int B, float pre) {
-  const int b = blockIdx.y * kLaneThreads + threadIdx.x;
-  if (b >= B) return;
-  const int i0 = blockIdx.x * kNodesPerBlock;
-  const int i1 = min(i0 + kNodesPerBlock, count);
-  for (int i = i0; i < i1; ++i) {
-    const size_t node = static_cast<size_t>(node_start + i) * B + b;
-    size_t row[D];
-    float r[D];
-#pragma unroll
-    for (int k = 0; k < D; ++k) {
-      row[k] = static_cast<size_t>(edge_start) +
-               static_cast<size_t>(k) * count + i;
-      const size_t src = static_cast<size_t>(perm_c2v[row[k]]);
-      r[k] = to_f32(r_c[src * B + b]);
-    }
-    float s = r[0];
-#pragma unroll
-    for (int k = 1; k < D; ++k) s = __fadd_rn(s, r[k]);
-    const float tot = __fadd_rn(to_f32(llr[node]), s);
-    if (bits != nullptr) bits[node] = (__float_as_uint(tot) & kSignBit) ? 0 : 1;
-    const float tq = to_f32(from_f32<T>(tot));
-#pragma unroll
-    for (int k = 0; k < D; ++k) {
-      const float p = __fsub_rn(tq, r[k]);
-      const float mag = phi_abs(fabsf(p), pre, kPhiHigh);
-      msgs_v[row[k] * B + b] =
-          from_f32<T>(signed_f32(mag, __float_as_uint(p) & kSignBit));
-    }
-  }
 }
 
 // ---- min-sum check-node update -----------------------------------------
@@ -276,14 +172,74 @@ vn_general_minsum_kernel(const T* __restrict__ r_c,
   }
 }
 
+// ---- sum-product dispatch --------------------------------------------------
+//
+// The instantiation of a sum-product launch: lanes is 1 or VecLanes<T, D>
+// (ops/_kernels.py picks it by shape), phi 0 (PhiFast) or 1 (PhiAccurate);
+// any other value is refused.
+template <typename T, int D>
+int launch_cn(const void* msgs_v, const void* syn, void* r_c,
+              const int* perm, int node_start, int count, int edge_start,
+              int B, float pre, int lanes, int phi, cudaStream_t s) {
+  constexpr int V = VecLanes<T, D>::value;
+#define LDPC_RUN(VV, P)                                                     \
+  run_cn<T, D, VV, P>(msgs_v, syn, r_c, perm, node_start, count,            \
+                      edge_start, B, pre, s)
+  if (phi != 0 && phi != 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (lanes == V) {
+    if (phi == 0) LDPC_RUN(V, PhiFast); else LDPC_RUN(V, PhiAccurate);
+  } else if (lanes == 1) {
+    if (phi == 0) LDPC_RUN(1, PhiFast); else LDPC_RUN(1, PhiAccurate);
+  } else {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+#undef LDPC_RUN
+  return 0;
+}
+
+template <typename T, int D>
+int launch_vn(const void* r_c, const void* llr, void* msgs_v, void* bits,
+              const int* perm, int node_start, int count, int edge_start,
+              int B, float pre, int lanes, int phi, cudaStream_t s) {
+  constexpr int V = VecLanes<T, D>::value;
+#define LDPC_RUN(VV, P)                                                     \
+  run_vn<T, D, VV, P>(r_c, llr, msgs_v, bits, perm, node_start, count,      \
+                      edge_start, B, pre, s)
+  if (phi != 0 && phi != 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (lanes == V) {
+    if (phi == 0) LDPC_RUN(V, PhiFast); else LDPC_RUN(V, PhiAccurate);
+  } else if (lanes == 1) {
+    if (phi == 0) LDPC_RUN(1, PhiFast); else LDPC_RUN(1, PhiAccurate);
+  } else {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+#undef LDPC_RUN
+  return 0;
+}
+
 }  // namespace
 
-#define LDPC_FOR_EACH_DEGREE(F)                                    \
-  F(1) F(2) F(3) F(4) F(5) F(6) F(7) F(8) F(9) F(10) F(11) F(12)   \
-  F(13) F(14) F(15) F(16) F(17) F(18) F(19) F(20) F(21) F(22)      \
-  F(23) F(24) F(25) F(26) F(27) F(28) F(29) F(30) F(31) F(32)
+// dtype codes of the C entries: 0 float32, 1 bfloat16, 2 int8 (min-sum
+// only); the sum-product entries refuse any other code.
+#define LDPC_SP_DTYPE_CASE(D)                                               \
+  case D:                                                                   \
+    if (dtype == 0)                                                         \
+      err = LDPC_LAUNCH(float, D);                                          \
+    else if (dtype == 1)                                                    \
+      err = LDPC_LAUNCH(__nv_bfloat16, D);                                  \
+    else                                                                    \
+      return static_cast<int>(cudaErrorInvalidValue);                       \
+    break;
 
-// dtype codes of the C entries: 0 float32, 1 bfloat16, 2 int8
+// ldpc_vec_lanes answers for float8_e5m2 (code 3) too, as the QC
+// libraries' do, though no general kernel takes it: ops/_kernels.py checks
+// every sum-product dtype's table at load.
+#define LDPC_LANES_CASE(D)                                                  \
+  case D:                                                                   \
+    if (dtype == 0) return VecLanes<float, D>::value;                       \
+    if (dtype == 1) return VecLanes<__nv_bfloat16, D>::value;               \
+    if (dtype == 3) return VecLanes<__nv_fp8_e5m2, D>::value;               \
+    return 0;
 
 extern "C" {
 
@@ -293,74 +249,64 @@ const char* ldpc_cuda_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
+// Lanes per thread of the vector instantiation of the sum-product check
+// and variable kernels for (dtype code, degree); 0 for a pair that has
+// none.
+int ldpc_vec_lanes(int dtype, int degree) {
+  switch (degree) {
+    LDPC_FOR_EACH_DEGREE(LDPC_LANES_CASE)
+    default:
+      return 0;
+  }
+}
+
 // Sum-product check pass over one bucket: r_c rows of the bucket from the
-// gathered msgs_v rows. dtype 0 (float32) or 1 (bfloat16).
+// gathered msgs_v rows. dtype 0 (float32) or 1 (bfloat16). lanes: 1 or
+// ldpc_vec_lanes(dtype, degree), every pointer aligned to lanes elements
+// and B a multiple of lanes; phi: 0 fast, 1 accurate.
 int ldpc_cn_general(const void* msgs_v, const void* syn, void* r_c,
                     const void* perm_v2c, int node_start, int count,
                     int degree, int edge_start, int B, float pre, int dtype,
-                    void* stream) {
+                    int lanes, int phi, void* stream) {
   if (count <= 0) return 0;
-  const dim3 grid = grid_for(count, B);
-  const int8_t* sy = static_cast<const int8_t*>(syn);
   const int* perm = static_cast<const int*>(perm_v2c);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  int err = 0;
   switch (degree) {
-#define LDPC_CASE(D)                                                        \
-  case D:                                                                   \
-    if (dtype == 1)                                                         \
-      cn_general_kernel<__nv_bfloat16, D><<<grid, kLaneThreads, 0, s>>>(    \
-          static_cast<const __nv_bfloat16*>(msgs_v), sy,                    \
-          static_cast<__nv_bfloat16*>(r_c), perm, node_start, count,        \
-          edge_start, B, pre);                                              \
-    else if (dtype == 0)                                                    \
-      cn_general_kernel<float, D><<<grid, kLaneThreads, 0, s>>>(            \
-          static_cast<const float*>(msgs_v), sy, static_cast<float*>(r_c),  \
-          perm, node_start, count, edge_start, B, pre);                     \
-    else                                                                    \
-      return static_cast<int>(cudaErrorInvalidValue);                       \
-    break;
-    LDPC_FOR_EACH_DEGREE(LDPC_CASE)
-#undef LDPC_CASE
+#define LDPC_LAUNCH(T, D)                                                   \
+  launch_cn<T, D>(msgs_v, syn, r_c, perm, node_start, count, edge_start, B, \
+                  pre, lanes, phi, s)
+    LDPC_FOR_EACH_DEGREE(LDPC_SP_DTYPE_CASE)
+#undef LDPC_LAUNCH
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
+  if (err != 0) return err;
   return static_cast<int>(cudaGetLastError());
 }
 
 // Sum-product variable pass over one bucket: msgs_v rows of the bucket from
 // the gathered r_c rows. bits (nullable): write hard decisions [n_vars, B].
-// dtype 0 (float32) or 1 (bfloat16); llr in the message dtype.
+// dtype 0 (float32) or 1 (bfloat16); llr in the message dtype; lanes and
+// phi as in ldpc_cn_general.
 int ldpc_vn_general(const void* r_c, const void* llr, void* msgs_v,
                     void* bits, const void* perm_c2v, int node_start,
                     int count, int degree, int edge_start, int B, float pre,
-                    int dtype, void* stream) {
+                    int dtype, int lanes, int phi, void* stream) {
   if (count <= 0) return 0;
-  const dim3 grid = grid_for(count, B);
-  int8_t* hb = static_cast<int8_t*>(bits);
   const int* perm = static_cast<const int*>(perm_c2v);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  int err = 0;
   switch (degree) {
-#define LDPC_CASE(D)                                                        \
-  case D:                                                                   \
-    if (dtype == 1)                                                         \
-      vn_general_kernel<__nv_bfloat16, D><<<grid, kLaneThreads, 0, s>>>(    \
-          static_cast<const __nv_bfloat16*>(r_c),                           \
-          static_cast<const __nv_bfloat16*>(llr),                           \
-          static_cast<__nv_bfloat16*>(msgs_v), hb, perm, node_start, count, \
-          edge_start, B, pre);                                              \
-    else if (dtype == 0)                                                    \
-      vn_general_kernel<float, D><<<grid, kLaneThreads, 0, s>>>(            \
-          static_cast<const float*>(r_c), static_cast<const float*>(llr),   \
-          static_cast<float*>(msgs_v), hb, perm, node_start, count,         \
-          edge_start, B, pre);                                              \
-    else                                                                    \
-      return static_cast<int>(cudaErrorInvalidValue);                       \
-    break;
-    LDPC_FOR_EACH_DEGREE(LDPC_CASE)
-#undef LDPC_CASE
+#define LDPC_LAUNCH(T, D)                                                   \
+  launch_vn<T, D>(r_c, llr, msgs_v, bits, perm, node_start, count,          \
+                  edge_start, B, pre, lanes, phi, s)
+    LDPC_FOR_EACH_DEGREE(LDPC_SP_DTYPE_CASE)
+#undef LDPC_LAUNCH
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
+  if (err != 0) return err;
   return static_cast<int>(cudaGetLastError());
 }
 

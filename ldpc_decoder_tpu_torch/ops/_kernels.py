@@ -5,15 +5,16 @@ parity kernels, one launch per degree group; ``qc_grouped.cu`` and
 ``qc_grouped_accurate.cu``, which compile in parallel, and the kernels'
 header ``qc_grouped.cuh``), ``qc_regular`` (the regular family's, one
 launch per pass; ``qc_regular.cu`` and ``qc_regular_accurate.cu`` in
-parallel, the kernels in ``qc_regular.cuh``; both QC families' check and
-variable kernels share ``sum_product.cuh``: the fast φ, the φ policies and
-the vectors of lanes),
-``qc_minsum.cu`` (the min-sum check and variable kernels of both QC
-families, int8 messages in the grouped one), ``general.cu`` (the
-general any-alist path, sum-product and min-sum, one launch per degree
-bucket) and ``probes.cu`` (the measurement probes of
-:mod:`ldpc_decoder_tpu_torch.probes`, which no decode runs); all include
-``common.cuh``. Each is compiled
+parallel, the kernels in ``qc_regular.cuh``), ``qc_minsum.cu`` (the
+min-sum check and variable kernels of both QC families, int8 messages in
+the grouped one), ``general`` (the general any-alist path, one launch per
+degree bucket: ``general.cu``, with the min-sum kernels, and
+``general_accurate.cu`` in parallel, the sum-product kernels in
+``general.cuh``) and ``probes.cu`` (the measurement probes of
+:mod:`ldpc_decoder_tpu_torch.probes`, which no decode runs). The
+sum-product check and variable kernels of all three families share
+``sum_product.cuh``: the fast φ, the φ policies and the vectors of lanes;
+all sources include ``common.cuh``. Each is compiled
 by ``nvcc`` for ``sm_90a`` into a library with a plain ``extern "C"``
 interface (no PyTorch headers, so it builds in seconds) at first use, into
 the git-ignored ``ldpc_decoder_tpu_torch/build/``; a changed source or
@@ -27,7 +28,9 @@ kernels. The QC sum-product kernels count their float8_e5m2 launches
 apart (``cn_fp8``, ``vn_fp8``, ``cn_regular_fp8``, ``vn_regular_fp8``),
 since those are the float8 branches of other TPU kernels' rows; the
 min-sum kernels count every message dtype under one name; the probes
-count ``probe_row_copy`` and ``probe_window``. Argument checking is the
+count ``probe_row_copy`` and ``probe_window``. Every sum-product launch of
+the accurate φ also counts under ``phi_accurate``, which no decode
+touches. Argument checking is the
 callers' job (:mod:`ldpc_decoder_tpu_torch.ops.qc_grouped`,
 :mod:`ldpc_decoder_tpu_torch.ops.qc_regular`,
 :mod:`ldpc_decoder_tpu_torch.ops.general`,
@@ -54,10 +57,12 @@ SOURCES = {name: [os.path.join(CSRC, f"{name}.cu")]
                         "probes")}
 SOURCES["qc_grouped"].append(os.path.join(CSRC, "qc_grouped_accurate.cu"))
 SOURCES["qc_regular"].append(os.path.join(CSRC, "qc_regular_accurate.cu"))
+SOURCES["general"].append(os.path.join(CSRC, "general_accurate.cu"))
 # every header a source includes: hashed into each library's build key, so
 # an edited header rebuilds
 HEADERS = tuple(os.path.join(CSRC, h) for h in (
-    "common.cuh", "sum_product.cuh", "qc_grouped.cuh", "qc_regular.cuh"))
+    "common.cuh", "sum_product.cuh", "qc_grouped.cuh", "qc_regular.cuh",
+    "general.cuh"))
 # --split-compile=0: nvcc optimizes a source's template instantiations in
 # parallel, one thread per CPU. On an H100 host with 8 cores the four
 # libraries, built together, take 49.6 s with it on the three large
@@ -115,9 +120,11 @@ _SIGNATURES = {
                                    _i, _f, _i, _p],
     },
     "general": {
-        "ldpc_cn_general": [_p, _p, _p, _p, _i, _i, _i, _i, _i, _f, _i, _p],
+        "ldpc_cn_general": [_p, _p, _p, _p, _i, _i, _i, _i, _i, _f, _i, _i,
+                            _i, _p],
         "ldpc_vn_general": [_p, _p, _p, _p, _p, _i, _i, _i, _i, _i, _f, _i,
-                            _p],
+                            _i, _i, _p],
+        "ldpc_vec_lanes": [_i, _i],
         "ldpc_cn_general_minsum": [_p, _p, _p, _p, _i, _i, _i, _i, _i, _f,
                                    _f, _f, _i, _p],
         "ldpc_vn_general_minsum": [_p, _p, _p, _p, _p, _i, _i, _i, _i, _i,
@@ -134,9 +141,9 @@ _SIGNATURES = {
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2,
                torch.float8_e5m2: 3}
 _SP_DTYPES = (torch.float32, torch.bfloat16, torch.float8_e5m2)
-# the QC sum-product kernels' phi policies (their C entries' phi code)
+# the sum-product kernels' phi policies (their C entries' phi code)
 PHI_POLICIES = {"fast": 0, "accurate": 1}
-# the QC check and variable kernels' vector: at most 16 bytes of
+# the sum-product check and variable kernels' vector: at most 16 bytes of
 # messages per thread and row, and at most 64 message values per thread
 # (degree x lanes: registers, no spills)
 VEC_BYTES = 16
@@ -212,9 +219,9 @@ def _fp8(name: str, dtype: torch.dtype) -> str:
 
 
 def vec_lanes(dtype: torch.dtype, degree: int) -> int:
-    """Lanes per thread of the vector instantiation of the QC check and
-    variable kernels (``VecLanes`` in csrc/sum_product.cuh): 16 bytes of
-    messages, halved until ``degree`` times the lanes is at most
+    """Lanes per thread of the vector instantiation of the sum-product
+    check and variable kernels (``VecLanes`` in csrc/sum_product.cuh): 16
+    bytes of messages, halved until ``degree`` times the lanes is at most
     :data:`VEC_FLOATS`."""
     cap = VEC_BYTES // torch.empty((), dtype=dtype).element_size()
     fit = 1 << ((VEC_FLOATS // degree).bit_length() - 1)
@@ -222,8 +229,8 @@ def vec_lanes(dtype: torch.dtype, degree: int) -> int:
 
 
 def lanes_per_thread(B: int, dtype: torch.dtype, degree: int) -> int:
-    """The instantiation a QC check or variable launch takes for B
-    lanes of ``dtype`` messages at ``degree``: :func:`vec_lanes` when B is
+    """The instantiation a sum-product check or variable launch takes for
+    B lanes of ``dtype`` messages at ``degree``: :func:`vec_lanes` when B is
     a multiple of it (every row then starts on a vector boundary), else 1."""
     v = vec_lanes(dtype, degree)
     return v if B % v == 0 else 1
@@ -332,27 +339,34 @@ def parity_regular(bits, syn, flags, tables) -> None:
     launch_counts["parity_regular"] += 1
 
 
-def cn_general(msgs_v, syn, r_c, perm_v2c, bucket, pre: float) -> None:
-    """General sum-product check-node kernel for one check bucket."""
+def cn_general(msgs_v, syn, r_c, perm_v2c, bucket, pre: float,
+               phi: str = "fast") -> None:
+    """General sum-product check-node kernel for one check bucket; ``phi``
+    as in :func:`cn_group`."""
     lib = load("general")
+    B = msgs_v.shape[-1]
+    lanes = _lanes(B, bucket.degree, msgs_v, syn, r_c)
     err = lib.ldpc_cn_general(
         _ptr(msgs_v), _ptr(syn), _ptr(r_c), _ptr(perm_v2c), bucket.row_start,
-        bucket.count, bucket.degree, bucket.edge_start, msgs_v.shape[-1], pre,
-        DTYPE_CODES[msgs_v.dtype], _stream(msgs_v))
+        bucket.count, bucket.degree, bucket.edge_start, B, pre,
+        DTYPE_CODES[msgs_v.dtype], lanes, PHI_POLICIES[phi], _stream(msgs_v))
     _check(lib, err, "general check-node kernel")
-    launch_counts["cn_general"] += 1
+    _count_sum_product("cn_general", msgs_v.dtype, phi)
 
 
-def vn_general(r_c, llr, msgs_v, bits, perm_c2v, bucket, pre: float) -> None:
+def vn_general(r_c, llr, msgs_v, bits, perm_c2v, bucket, pre: float,
+               phi: str = "fast") -> None:
     """General sum-product variable-node kernel for one variable bucket;
-    ``bits`` may be None."""
+    ``bits`` may be None; ``phi`` as in :func:`cn_group`."""
     lib = load("general")
+    B = r_c.shape[-1]
+    lanes = _lanes(B, bucket.degree, r_c, llr, msgs_v, bits)
     err = lib.ldpc_vn_general(
         _ptr(r_c), _ptr(llr), _ptr(msgs_v), _ptr(bits), _ptr(perm_c2v),
-        bucket.row_start, bucket.count, bucket.degree, bucket.edge_start,
-        r_c.shape[-1], pre, DTYPE_CODES[r_c.dtype], _stream(r_c))
+        bucket.row_start, bucket.count, bucket.degree, bucket.edge_start, B,
+        pre, DTYPE_CODES[r_c.dtype], lanes, PHI_POLICIES[phi], _stream(r_c))
     _check(lib, err, "general variable-node kernel")
-    launch_counts["vn_general"] += 1
+    _count_sum_product("vn_general", r_c.dtype, phi)
 
 
 def cn_general_minsum(msgs_v, syn, r_c, perm_v2c, bucket, alpha: float,

@@ -23,10 +23,13 @@ every pass writes its output in place.
 
 Each pass has a plain PyTorch version (``*_plain``: it gathers with
 ``index_select`` first, then runs the bucket stream in the kernel's
-summation order) and a kernel (csrc/general.cu via :mod:`._kernels`, one
-launch per degree bucket). The pass functions dispatch on the tensors'
-device: CPU tensors take the plain version; CUDA tensors launch the kernel
-or raise — there is no fallback.
+summation order) and a kernel (csrc/general.cuh for sum-product,
+csrc/general.cu for min-sum, via :mod:`._kernels`, one launch per degree
+bucket). The pass functions dispatch on the tensors' device: CPU tensors
+take the plain version; CUDA tensors launch the kernel or raise — there is
+no fallback. The sum-product kernels evaluate φ from the card's MUFU
+operations (the decoder's); their internal ``_phi="accurate"`` keyword
+selects the plain version's φ instead, as on the QC passes.
 
 Check and variable rules (``general_pallas.py:252-367``):
 
@@ -201,14 +204,22 @@ def cn_pass_general_plain(msgs_v, syn, r_c, tables: GeneralTables,
 
 
 def cn_pass_general(msgs_v, syn, r_c, tables: GeneralTables,
-                    pre: float = PRE_THRESHOLD) -> torch.Tensor:
+                    pre: float = PRE_THRESHOLD, *,
+                    _phi: str = "fast") -> torch.Tensor:
     """msgs_v [E, B] (variable order), syn [n_checks, B] int8 -> r_c [E, B]
-    (check order), rewritten in place; returns r_c."""
+    (check order), rewritten in place; returns r_c.
+
+    ``_phi`` (internal: the tests and chip_smoke.py) selects the kernel's φ:
+    "fast" (MUFU and FMA, what the decoder runs) or "accurate" (the
+    accurate tanhf/logf/expf, the plain version's arithmetic). The plain
+    version has one φ and ignores it."""
+    _kernels.check_phi(_phi)
     if _check_edges(msgs_v, syn, r_c, tables, _SP_DTYPES) == "cpu":
         return cn_pass_general_plain(msgs_v, syn, r_c, tables, pre)
     with torch.cuda.device(msgs_v.device):
         for b in tables.cn_buckets:
-            _kernels.cn_general(msgs_v, syn, r_c, tables.perm_v2c, b, pre)
+            _kernels.cn_general(msgs_v, syn, r_c, tables.perm_v2c, b, pre,
+                                _phi)
     return r_c
 
 
@@ -238,16 +249,19 @@ def vn_pass_general_plain(r_c, llr, msgs_v, tables: GeneralTables,
 
 
 def vn_pass_general(r_c, llr, msgs_v, tables: GeneralTables,
-                    pre: float = PRE_THRESHOLD, bits=None) -> torch.Tensor:
+                    pre: float = PRE_THRESHOLD, bits=None, *,
+                    _phi: str = "fast") -> torch.Tensor:
     """r_c [E, B] (check order), llr [n_vars, B] (message dtype) -> msgs_v
     [E, B] (variable order) in place; returns msgs_v. ``bits`` ([n_vars, B]
-    int8 or None): emit hard decisions into it."""
+    int8 or None): emit hard decisions into it. ``_phi`` as in
+    :func:`cn_pass_general`."""
+    _kernels.check_phi(_phi)
     if _check_vars(r_c, llr, msgs_v, bits, tables, _SP_DTYPES) == "cpu":
         return vn_pass_general_plain(r_c, llr, msgs_v, tables, pre, bits)
     with torch.cuda.device(r_c.device):
         for b in tables.vn_buckets:
             _kernels.vn_general(r_c, llr, msgs_v, bits, tables.perm_c2v, b,
-                                pre)
+                                pre, _phi)
     return msgs_v
 
 

@@ -14,9 +14,10 @@ tanhf/logf; float8_e5m2: one e5m2 step on a share of at most 1e-3); the
 grouped and regular kernels are held so on their accurate-φ
 instantiation, and their fast φ (MUFU and FMA, the decoder's) by
 ``runtime.perf.compare_msgs_fast`` (float32 within 2 × 2.5e-6 + 2^-22
-relative; bf16 one ulp, e5m2 one step, on a share of at most 1e-3); on a
-regular base the two families' kernels give the same bits under either
-policy (float32, bfloat16);
+relative; bf16 one ulp, e5m2 one step, on a share of at most 1e-3), and
+so are the general sum-product kernels; on a regular base the two QC
+families' kernels give the same bits under either policy (float32,
+bfloat16);
 min-sum messages (general and QC, f32, bf16, float8_e5m2 and int8) are
 bitwise equal, and min-sum decodes equal in per-frame iterations too. The
 kernels' float8_e5m2 store equals torch's conversion on the card and on
@@ -421,11 +422,10 @@ IRREGULAR = ((200, 100, {1: 0.1, 2: 0.3, 3: 0.4, 4: 0.2},
 B_GENERAL = 40  # not a multiple of 32: the last lane chunk is partial
 
 
-def _general_state(device, dtype, seed):
+def _general_state(device, dtype, seed, nb=B_GENERAL):
     t = G.GeneralTables.from_compiled(compile_code(
         make_irregular_code(*IRREGULAR[0], **IRREGULAR[1])), device)
     rng = np.random.default_rng(seed)
-    nb = B_GENERAL
 
     def rand(rows, scale, dt):
         x = rng.standard_normal((rows, nb)).astype(np.float32) * scale
@@ -448,35 +448,68 @@ def _same_bits(a, b):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("B", [B_GENERAL, 37])
+@pytest.mark.parametrize("phi", ["accurate", "fast"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_general_kernels_match_plain(cuda_device, dtype):
+def test_general_kernels_match_plain(cuda_device, dtype, phi, B):
+    """The general sum-product kernels of each φ policy, at B = 40 (the
+    vector instantiations at every degree) and the ragged B = 37 (one lane
+    per thread), with and without emit: the accurate-φ kernels against the
+    plain passes by today's rule (signs exact, one ulp of the storage
+    dtype), the fast ones by the fast rule, against plain and against the
+    accurate kernels; hard bits exact. Launches counted, the accurate ones
+    also under ``phi_accurate``."""
     from ldpc_decoder_tpu_torch.ops import _kernels
+    from ldpc_decoder_tpu_torch.runtime import perf
 
-    t, st = _general_state(cuda_device, dtype, 7)
+    t, st = _general_state(cuda_device, dtype, 7, B)
+    for b in t.cn_buckets + t.vn_buckets:
+        assert _kernels.lanes_per_thread(B, dtype, b.degree) == (
+            1 if B == 37 else _kernels.vec_lanes(dtype, b.degree))
     ulp = 2.0 ** -7 if dtype == torch.bfloat16 else 2.0 ** -22
+
+    def held(k, p):
+        if phi == "accurate":
+            assert torch.equal(torch.signbit(k), torch.signbit(p))
+            torch.testing.assert_close(k.float(), p.float(), rtol=ulp, atol=0)
+        else:
+            perf.compare_msgs_fast("general fast", k, p)
+
+    def vn(impl, bits, **kw):
+        return impl(st["rc"], st["llr"], torch.empty_like(st["mv"]), t,
+                    bits=bits, **kw)
+
     before = dict(_kernels.launch_counts)
-    rk = G.cn_pass_general(st["mv"], st["syn"], torch.empty_like(st["rc"]), t)
+    rk = G.cn_pass_general(st["mv"], st["syn"], torch.empty_like(st["rc"]), t,
+                           _phi=phi)
     rp = G.cn_pass_general_plain(st["mv"], st["syn"],
                                  torch.empty_like(st["rc"]), t)
-    assert torch.equal(torch.signbit(rk), torch.signbit(rp))
-    torch.testing.assert_close(rk.float(), rp.float(), rtol=ulp, atol=0)
+    held(rk, rp)
+    mk = {}
     for emit in (False, True):
-        bk = torch.full((t.n_vars, B_GENERAL), -1, dtype=torch.int8,
+        bk = torch.full((t.n_vars, B), -1, dtype=torch.int8,
                         device=cuda_device)
         bp = bk.clone()
-        mk = G.vn_pass_general(st["rc"], st["llr"], torch.empty_like(st["mv"]),
-                               t, bits=bk if emit else None)
-        mp = G.vn_pass_general_plain(st["rc"], st["llr"],
-                                     torch.empty_like(st["mv"]), t,
-                                     bits=bp if emit else None)
-        assert torch.equal(torch.signbit(mk), torch.signbit(mp))
-        torch.testing.assert_close(mk.float(), mp.float(), rtol=ulp, atol=0)
+        mk[emit] = vn(G.vn_pass_general, bk if emit else None, _phi=phi)
+        held(mk[emit], vn(G.vn_pass_general_plain, bp if emit else None))
         assert torch.equal(bk, bp)
     torch.cuda.synchronize()
-    assert (_kernels.launch_counts["cn_general"] - before["cn_general"]
-            == len(t.cn_buckets))
-    assert (_kernels.launch_counts["vn_general"] - before["vn_general"]
-            == 2 * len(t.vn_buckets))
+    counts = {n: _kernels.launch_counts[n] - before[n]
+              for n in ("cn_general", "vn_general", "phi_accurate")}
+    passes = len(t.cn_buckets) + 2 * len(t.vn_buckets)
+    assert counts == {"cn_general": len(t.cn_buckets),
+                      "vn_general": 2 * len(t.vn_buckets),
+                      "phi_accurate": passes if phi == "accurate" else 0}
+    if phi == "fast":
+        ra = G.cn_pass_general(st["mv"], st["syn"],
+                               torch.empty_like(st["rc"]), t,
+                               _phi="accurate")
+        perf.compare_msgs_fast("general fast vs accurate", rk, ra)
+        for emit in (False, True):
+            bk = torch.full((t.n_vars, B), -1, dtype=torch.int8,
+                            device=cuda_device)
+            ma = vn(G.vn_pass_general, bk if emit else None, _phi="accurate")
+            perf.compare_msgs_fast("general fast vs accurate", mk[emit], ma)
 
 
 @pytest.mark.cuda
@@ -520,24 +553,51 @@ def test_general_minsum_kernels_match_plain(cuda_device, dtype):
     dict(message_dtype="int8", algorithm="min-sum", minsum_alpha=0.8,
          minsum_offset=0.0),
 ])
-def test_general_decode_on_card_matches_cpu(cuda_device, kw):
+def test_general_decode_on_card_matches_cpu(cuda_device, kw, monkeypatch):
     """The general path on a small (3,6) code: kernels on the card vs
-    plain passes on the CPU; equal words and per-frame iterations."""
+    plain passes on the CPU; equal words and per-frame iterations, float32
+    sum-product on the accurate-φ kernels (bound onto the passes the
+    runners call). Then float32 sum-product on the fast kernels, the
+    decoder's: every frame the CPU decodes to the reference bits decodes to
+    the same bits, and the average iterations are within 5 of the CPU's;
+    no accurate kernel launches."""
+    from ldpc_decoder_tpu_torch.ops import _kernels
+
     code = make_regular_code(512, 3, 6, seed=21)
     ch = BIAWGNChannel(0.72)
     n = 3 * 32 + 8
     batch = create_data(code, ch, 0, n, backend="numpy")
     dyn = DynamicParams(num_iter_max=60, num_iter_check_parity=5)
-    out = {}
-    for dev in ("cpu", cuda_device):
+
+    def decode(dev):
         dec = LDPCDecoder(code, ch, StaticParams(
             parallel_factor_user=32, qc_autodetect=False, **kw), device=dev)
         assert isinstance(dec.tables, G.GeneralTables)
-        out[str(dev)] = dec.decode(dyn, n, batch.values, batch.syndromes)
-    (res_c, st_c), (res_g, st_g) = out["cpu"], out[str(cuda_device)]
+        return dec.decode(dyn, n, batch.values, batch.syndromes)
+
+    sum_product = "algorithm" not in kw
+    res_c, st_c = decode("cpu")
+    with monkeypatch.context() as m:
+        if sum_product:
+            for name in ("cn_pass_general", "vn_pass_general"):
+                m.setattr(G, name, functools.partial(getattr(G, name),
+                                                     _phi="accurate"))
+        res_g, st_g = decode(cuda_device)
     np.testing.assert_array_equal(res_g, res_c)
     np.testing.assert_array_equal(st_g.iterations, st_c.iterations)
-    assert (res_g == batch.ref_bits_packed()).all()
+    ref = batch.ref_bits_packed()
+    assert (res_g == ref).all()
+    if not sum_product:
+        return
+    before = _kernels.launch_counts["phi_accurate"]
+    res_f, st_f = decode(cuda_device)
+    assert _kernels.launch_counts["phi_accurate"] == before
+    good = (res_c == ref).all(axis=1)
+    np.testing.assert_array_equal(res_f[good], res_c[good])
+    assert abs(st_f.avg_iter - st_c.avg_iter) <= 5
+    print(f"fast phi: {int((res_f != res_c).any(axis=1).sum())} frames "
+          f"differ in words, {int((st_f.iterations != st_c.iterations).sum())}"
+          f" in iterations from the CPU's")
 
 
 def _staircase_structure(D, Z, seed):

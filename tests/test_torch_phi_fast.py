@@ -275,19 +275,22 @@ def test_no_user_setting_selects_phi():
         text = (pkg / rel).read_text()
         assert "_phi" not in text and "accurate" not in text, rel
     assert "environ" not in (pkg / "ops" / "_kernels.py").read_text()
-    # both QC families' wrappers: φ is an internal keyword-only argument
-    # whose default is the fast kernel, and their runners never pass it
+    # the sum-product wrappers of both QC families and of the general
+    # path: φ is an internal keyword-only argument whose default is the
+    # fast kernel, and their runners never pass it
+    from ldpc_decoder_tpu_torch.ops import general as G
     from ldpc_decoder_tpu_torch.ops import qc_grouped as qg
     from ldpc_decoder_tpu_torch.ops import qc_regular as qr
 
     for fn in (qg.cn_pass_grouped, qg.vn_pass_grouped, qr.cn_pass_regular,
-               qr.vn_pass_regular):
+               qr.vn_pass_regular, G.cn_pass_general, G.vn_pass_general):
         p = inspect.signature(fn).parameters["_phi"]
         assert p.kind is p.KEYWORD_ONLY and p.default == "fast", fn
     for fn in (qr._iteration, qr.run_iterations_qc_regular,
                qr.burst_iterations_qc_regular, qg._iteration,
                qg.run_iterations_qc_grouped,
-               qg.burst_iterations_qc_grouped):
+               qg.burst_iterations_qc_grouped, G._iteration,
+               G.run_iterations_general, G.burst_iterations_general):
         assert "_phi" not in inspect.getsource(fn), fn
 
 
