@@ -59,7 +59,9 @@ Phases:
    general sum-product check and variable kernels' registers and spills by
    (kernel, dtype, lanes per thread, phi policy), no kernel of those
    libraries spilling, and the fast phi's SASS instructions in each
-   (cuobjdump);
+   (cuobjdump); the grouped and general min-sum check kernels' registers
+   and spills by (kernel, dtype, lanes per thread), none spilling, and
+   any other qc_minsum kernel that spills named;
 3. the numerics smoke (``runtime.smoke.cuda_numerics_smoke``): phi on the
    device, through check-node launches of the grouped kernels' fast and
    accurate phi and the regular kernel's fast one, against float64 (max
@@ -90,7 +92,8 @@ Phases:
     width on a real decode state: sum-product bf16 at B = 384 with both
     phi policies, as phase 5 does (fast, accurate and plain times beside
     the bound and its share), int8 min-sum at B = 768 and bf16 min-sum at
-    B = 384, bitwise, with both times;
+    B = 384, bitwise, with both times (and the lanes each check launch
+    took; at B = 768 the one-lane check kernel too, bitwise and timed);
 15. a small multi-bucket irregular decode (degree-1 variables) on the card
     against the plain passes on the CPU, f32 sum-product (on the
     accurate-phi kernels) and int8 min-sum, equal in words and per-frame
@@ -101,11 +104,13 @@ Phases:
 17. the general int8 min-sum path, twice, counted the same way;
 18. the grouped min-sum kernels against their plain versions at p41 x
     B = 256, int8, a per-degree alpha table and offset 0.5, every group
-    (the degree-1 one too), with and without fresh lanes, bitwise;
+    (the degree-1 one too), with and without fresh lanes, bitwise (and the
+    lanes each check launch took, as in phases 20 and 25);
 19. reg36 rebuilt as a plain code, 512 frames at sigma = 0.84, and the
     detection of its structure, timed (and of its interleaved renumbering);
 20. the QC min-sum kernels against their plain versions at reg36 x
-    B = 256: regular bf16 and grouped int8, bitwise, with both times;
+    B = 256: regular bf16 and grouped int8, bitwise, with both times (the
+    grouped int8 check kernel's one-lane instantiation too);
 21. small QC min-sum decodes on the card against the plain passes on the
     CPU: regular-base bf16, regular-base int8 (grouped), and a small p41
     lift in int8 with the alpha table; words and per-frame iterations
@@ -140,7 +145,9 @@ Every phase must pass: any failure raises, and the script exits nonzero
 without its result line. The last line of stdout is the result object; the
 line before it lists the kernels (the sum-product check and variable
 entries with their fast-phi time as ``ms`` and the accurate one as
-``accurate_ms``). Imports nothing of JAX.
+``accurate_ms``; the grouped and general min-sum check entries with their
+one-lane instantiation's time as ``one_lane_ms``). Imports nothing of
+JAX.
 """
 
 import contextlib
@@ -208,6 +215,9 @@ GROUPED_CN_VN_SOURCE = "ldpc_decoder_tpu_torch/csrc/qc_grouped.cuh"
 REGULAR_SOURCE = "ldpc_decoder_tpu_torch/csrc/qc_regular.cu"
 REGULAR_CN_VN_SOURCE = "ldpc_decoder_tpu_torch/csrc/qc_regular.cuh"
 GENERAL_SOURCE = "ldpc_decoder_tpu_torch/csrc/general.cu"
+# the min-sum check kernels, on csrc/minsum.cuh
+GENERAL_MS_CN_SOURCE = "ldpc_decoder_tpu_torch/csrc/general_minsum.cu"
+MINSUM_CN_SOURCE = "ldpc_decoder_tpu_torch/csrc/qc_minsum_cn.cu"
 # the general sum-product check and variable kernels (general.cu
 # dispatches them)
 GENERAL_CN_VN_SOURCE = "ldpc_decoder_tpu_torch/csrc/general.cuh"
@@ -231,12 +241,12 @@ KERNELS = [
      "ldpc_decoder_tpu/ops/general_pallas.py:252"),  # _cn_kernel
     ("vn_general", GENERAL_CN_VN_SOURCE,
      "ldpc_decoder_tpu/ops/general_pallas.py:280"),  # _vn_kernel
-    ("cn_general_minsum", GENERAL_SOURCE,
+    ("cn_general_minsum", GENERAL_MS_CN_SOURCE,
      "ldpc_decoder_tpu/ops/general_pallas.py:308"),  # _cn_kernel_minsum
     ("vn_general_minsum", GENERAL_SOURCE,
      "ldpc_decoder_tpu/ops/general_pallas.py:350"),  # _vn_kernel_minsum
     # the min-sum and int8 branches of kernels 1, 2, 4 and 5
-    ("cn_group_minsum", MINSUM_SOURCE,
+    ("cn_group_minsum", MINSUM_CN_SOURCE,
      "ldpc_decoder_tpu/ops/qc_pallas_grouped.py:332"),  # _cn_kernel_g
     ("vn_group_minsum", MINSUM_SOURCE,
      "ldpc_decoder_tpu/ops/qc_pallas_grouped.py:414"),  # _vn_kernel_g
@@ -257,9 +267,13 @@ KERNELS = [
 GROUPED = ("cn", "vn", "parity")
 REGULAR = ("cn_regular", "vn_regular", "parity_regular")
 GENERAL_SP = ("cn_general", "vn_general")
-GENERAL_MS = ("cn_general_minsum", "vn_general_minsum")
+# (the min-sum paths' check launches must take the vector instantiation:
+# counted again under cn_general_minsum_vec and cn_group_minsum_vec)
+GENERAL_MS = ("cn_general_minsum", "vn_general_minsum",
+              "cn_general_minsum_vec")
 QC_MS_REGULAR = ("cn_regular_minsum", "vn_regular_minsum", "parity_regular")
-QC_MS_GROUPED = ("cn_group_minsum", "vn_group_minsum", "parity")
+QC_MS_GROUPED = ("cn_group_minsum", "vn_group_minsum", "parity",
+                 "cn_group_minsum_vec")
 FP8_GROUPED = ("cn_fp8", "vn_fp8", "parity")
 FP8_REGULAR = ("cn_regular_fp8", "vn_regular_fp8", "parity_regular")
 # the probes of rows 11-16: (name in the kernels line, probe of
@@ -405,6 +419,8 @@ def phase_build():
             f"{sum(max(s, 0) for _, _, s in entries)} spill bytes")
         if name in CN_VN_ENTRIES:
             cn_vn_kernel_report(name, path, entries)
+        if name in ("qc_minsum", "general"):
+            minsum_cn_report(name, path, entries)
 
 
 # (kernel, element type, degree, lanes per thread, phi policy) in a mangled
@@ -421,6 +437,23 @@ CN_VN_ENTRIES = {
                            r"E\w*?(PhiFast|PhiAccurate)E"),
                 "cn_general_kernel"),
 }
+
+
+@functools.lru_cache(maxsize=None)
+def sass_of(path):
+    """The SASS of a built library (cuobjdump -sass)."""
+    from ldpc_decoder_tpu_torch.ops import _kernels
+
+    cuobjdump = os.path.join(os.path.dirname(_kernels._nvcc()), "cuobjdump")
+    return subprocess.run([cuobjdump, "-sass", path], capture_output=True,
+                          text=True, timeout=300, check=True).stdout
+
+
+def sass_ops(function):
+    """The instruction mnemonics of one function of a SASS listing
+    (predicates dropped)."""
+    return re.findall(r"/\*[0-9a-f]{4}\*/\s+(?:@!?U?P\w+\s+)?"
+                      r"([A-Z][A-Z0-9_.]*)", function)
 
 
 def cn_vn_kernel_report(name, path, entries):
@@ -452,9 +485,7 @@ def cn_vn_kernel_report(name, path, entries):
     assert not spilled, f"{name} kernels spill: {spilled[:4]}"
     from ldpc_decoder_tpu_torch.ops import _kernels
 
-    cuobjdump = os.path.join(os.path.dirname(_kernels._nvcc()), "cuobjdump")
-    sass = subprocess.run([cuobjdump, "-sass", path], capture_output=True,
-                          text=True, timeout=300, check=True).stdout
+    sass = sass_of(path)
     for phi in ("PhiFast", "PhiAccurate"):
         fn = [f for f in sass.split("Function : ")[1:]
               if re.match(rf"\S*{check_kernel}IfLi1ELi1E\w*?{phi}E", f)]
@@ -472,6 +503,108 @@ def cn_vn_kernel_report(name, path, entries):
             f"floating-point or MUFU"
             + (f"; the fast phi: {len(fp) - 2} ({' '.join(fp)})"
                if phi == "PhiFast" else ""))
+
+
+MINSUM_CN_ENTRY = re.compile(
+    r"(cn_group_minsum|cn_general_minsum)_kernelI(\w+?)Li(\d+)ELi(\d+)E")
+DTYPE_MANGLING = {"f": "f32", "13__nv_bfloat16": "bf16", "a": "int8",
+                  "13__nv_fp8_e5m2": "fp8"}
+
+
+def demangle(names):
+    """C++ names through cu++filt where the toolkit has it, else as they
+    are."""
+    from ldpc_decoder_tpu_torch.ops import _kernels
+
+    tool = os.path.join(os.path.dirname(_kernels._nvcc()), "cu++filt")
+    if not names or not os.path.exists(tool):
+        return list(names)
+    out = subprocess.run([tool, *names], capture_output=True, text=True,
+                         timeout=60)
+    lines = out.stdout.splitlines()
+    return lines if out.returncode == 0 and len(lines) == len(names) \
+        else list(names)
+
+
+def minsum_cn_report(name, path, entries):
+    """The min-sum check kernels' registers and spills by (kernel, dtype,
+    lanes per thread), asserting none spills; any other kernel of the
+    library that spills is named (qc_minsum's are recorded, not gated);
+    and the SASS instructions of the int8 degree-6 vector instantiation
+    (the main paths' kernel), counted with cuobjdump."""
+    rows, others = {}, []
+    for kname, regs, spill in entries:
+        m = MINSUM_CN_ENTRY.search(kname)
+        if m is None:
+            if spill > 0:
+                others.append((kname, regs, spill))
+            continue
+        kernel, dtype, degree, lanes = m.groups()
+        r = rows.setdefault((kernel, DTYPE_MANGLING[dtype], int(lanes)),
+                            [0, 0, [], []])
+        r[0] = max(r[0], regs)
+        r[1] += max(spill, 0)
+        r[2].append(int(degree))
+        if spill != 0:
+            r[3].append(int(degree))
+    assert rows, f"{name}: no min-sum check kernel in the ptxas log"
+    for (kernel, dtype, lanes), (regs, spill, degrees, _) in sorted(
+            rows.items()):
+        log(f"    {kernel} {dtype} V = {lanes}: degrees {min(degrees)}-"
+            f"{max(degrees)}, max {regs} registers, {spill} spill bytes")
+    spilled = {k: v[3] for k, v in rows.items() if v[3]}
+    assert not spilled, \
+        f"{name}: min-sum check kernels spill at degrees {spilled}"
+    for (kname, regs, spill), plain in zip(
+            others, demangle([k for k, _, _ in others])):
+        log(f"    spills ({name}, not a redesigned kernel): {plain}: "
+            f"{regs} registers, {spill} spill bytes")
+    kernel = next(iter(rows))[0]
+    fn = [f for f in sass_of(path).split("Function : ")[1:]
+          if re.match(rf"\S*{kernel}_kernelIaLi6ELi16E", f)]
+    if fn:
+        ops = sass_ops(fn[0])
+        log(f"    SASS of {kernel}_kernel<int8_t, 6, 16>: {len(ops)} "
+            f"instructions, {sum(op.startswith('VIMNMX') for op in ops)} "
+            f"16x2 min/max, {sum(op.startswith('PRMT') for op in ops)} "
+            f"PRMT")
+    else:
+        log(f"    SASS of {kernel}_kernel<int8_t, 6, 16>: not found")
+
+
+def minsum_cn_lanes(name, before, B, dtype, n_launches):
+    """Logs the lanes per thread the min-sum check launches since
+    ``before`` (a copy of launch_counts) took: how many took the vector
+    instantiation (counted under ``name``_vec), of ``n_launches``."""
+    from ldpc_decoder_tpu_torch.ops import _kernels
+
+    vec = _kernels.launch_counts[f"{name}_vec"] - before[f"{name}_vec"]
+    total = _kernels.launch_counts[name] - before[name]
+    assert total == n_launches, (total, n_launches)
+    v = _kernels.minsum_lanes_per_thread(B, dtype, 6)
+    log(f"  {name} lanes per thread: {vec} of {total} launches V = {v}, "
+        f"{total - vec} V = 1")
+    return vec
+
+
+def minsum_cn_one_lane(family, t, mv, syn, r, alpha, beta, qscale):
+    """The min-sum check pass of ``family`` ("general" or "grouped") on its
+    one-lane instantiation, through the launch wrappers as the pass calls
+    them (the pass itself picks the vector one at these shapes)."""
+    from ldpc_decoder_tpu_torch.ops import _kernels
+    from ldpc_decoder_tpu_torch.ops.qc_decode import resolve_minsum_alpha
+
+    if family == "general":
+        for b in t.cn_buckets:
+            _kernels.cn_general_minsum(
+                mv, syn, r, t.perm_v2c, b,
+                resolve_minsum_alpha(alpha, b.degree), beta, qscale, lanes=1)
+    else:
+        for g in t.row_groups:
+            _kernels.cn_group_minsum(
+                mv, syn, r, t.cn_src, t.cn_shift, g, t.Z, mv.shape[-1],
+                resolve_minsum_alpha(alpha, g.degree), beta, qscale, lanes=1)
+    return r
 
 
 def lane_state(torch, np, dev, t, ch, batch, B):
@@ -879,6 +1012,7 @@ def phase_general_kernels(torch, np, dev, cc, batch):
     B = 768 (the min-sum path's) and bf16 min-sum at B = 384. Sum-product
     within its policy's rule, min-sum bitwise; signs and hard bits exact."""
     from ldpc_decoder_tpu_torch.channels import BIAWGNChannel
+    from ldpc_decoder_tpu_torch.ops import _kernels
     from ldpc_decoder_tpu_torch.ops import general as G
     from ldpc_decoder_tpu_torch.runtime import perf
 
@@ -935,9 +1069,20 @@ def phase_general_kernels(torch, np, dev, cc, batch):
             return float((k.float() - p.float()).abs().max())
 
         rk, rp = torch.empty_like(rc), torch.empty_like(rc)
+        before = dict(_kernels.launch_counts)
         cn(cnk, rk)
+        minsum_cn_lanes("cn_general_minsum", before, B, dtype,
+                        len(t.cn_buckets))
         cn(cnp, rp)
         err_cn = compare("r_c", rk, rp)
+        main_path = "cn_general_minsum" not in out  # the main path's shapes
+
+        def one_lane(r):
+            return minsum_cn_one_lane("general", t, mv, syn, r, ms["alpha"],
+                                      ms["beta"], ms["qscale"])
+
+        if main_path:
+            compare("r_c (one lane)", one_lane(torch.empty_like(rc)), rp)
         del rp
         errs = []
         mk, mp = torch.empty_like(mv), torch.empty_like(mv)
@@ -964,11 +1109,17 @@ def phase_general_kernels(torch, np, dev, cc, batch):
                 plain_ms=cuda_ms(lambda: vn(vnp, mk), 3),
                 bound=bound(passes["vn"], ops * E * B)),
         }
+        if main_path:
+            r["cn"]["one_lane_ms"] = cuda_ms(lambda: one_lane(rk), 10)
         for name, v in r.items():
-            log(f"  {name}: kernel {v['ms']:.3f} ms per pass, plain "
-                f"{v['plain_ms']:.3f} ms, bound {v['bound'][0]:.3f} ms "
-                f"({v['bound'][1]}) (general, {tag})")
-        if "cn_general_minsum" not in out:  # the main path's shapes
+            log(f"  {name}: kernel {v['ms']:.3f} ms per pass "
+                f"({v['bound'][0] / v['ms']:.1%} of the bound)"
+                + (f", one lane {v['one_lane_ms']:.3f} ms "
+                   f"({v['bound'][0] / v['one_lane_ms']:.1%})"
+                   if "one_lane_ms" in v else "")
+                + f", plain {v['plain_ms']:.3f} ms, bound "
+                f"{v['bound'][0]:.3f} ms ({v['bound'][1]}) (general, {tag})")
+        if main_path:
             out["cn_general_minsum"] = r["cn"]
             out["vn_general_minsum"] = r["vn"]
         del mv, rc, rk, mk, msgs, llr, syn
@@ -1067,13 +1218,16 @@ def small_general_decode(np, dev):
 
 
 def minsum_kernels(torch, np, dev, family, t, llr, syn, B, dtype, alpha,
-                   label):
+                   label, one_lane=False):
     """One QC family's min-sum kernels against their plain versions on a
     real decode state (four iterations in), offset 0.5, clamp 64, scale 4:
     bitwise, with and without fresh lanes, every group (the grouped
-    family's emit and first-after-refill passes run its degree-1 group).
-    Returns {"cn": ..., "vn": ...} with the kernel, plain and bound times
-    of a non-emit pass."""
+    family's emit and first-after-refill passes run its degree-1 group);
+    the lanes each grouped check launch took, and with ``one_lane`` the
+    grouped check kernel's one-lane instantiation too, bitwise. Returns
+    {"cn": ..., "vn": ...} with the kernel, plain and bound times of a
+    non-emit pass (and the one-lane check time as "one_lane_ms")."""
+    from ldpc_decoder_tpu_torch.ops import _kernels
     from ldpc_decoder_tpu_torch.ops import qc_grouped as qg
     from ldpc_decoder_tpu_torch.ops import qc_regular as qr
     from ldpc_decoder_tpu_torch.runtime import perf
@@ -1118,12 +1272,25 @@ def minsum_kernels(torch, np, dev, family, t, llr, syn, B, dtype, alpha,
     Z, blocks = t.Z, t.n_edges // t.Z
 
     rk, rp = torch.empty_like(rc), torch.empty_like(rc)
+    before = dict(_kernels.launch_counts)
     cn(cnk, rk)
+    if family == "grouped":
+        minsum_cn_lanes("cn_group_minsum", before, B, dtype,
+                        len(t.row_groups))
     cn(cnp, rp)
     assert bit_identical(rk, rp), f"r_c ({label}): not bitwise"
     err_cn = float((rk.float() - rp.float()).abs().max())
-    del rp
     log("  r_c: bitwise equal")
+
+    def cn_one_lane(r):
+        return minsum_cn_one_lane("grouped", t, mv, syn, r, alpha, beta,
+                                  qscale)
+
+    if one_lane:
+        assert bit_identical(cn_one_lane(torch.empty_like(rc)), rp), \
+            f"r_c ({label}, one lane): not bitwise"
+        log("  r_c (one lane): bitwise equal")
+    del rp
     mk, mp = mv.clone(), mv.clone()
     for what, emit, fr, d1 in [("plain iteration", False, None, False),
                                ("emit + fresh lanes", True, fresh, False),
@@ -1155,9 +1322,15 @@ def minsum_kernels(torch, np, dev, family, t, llr, syn, B, dtype, alpha,
             bound=bound(passes["vn"],
                         OPS_PER_MINSUM_MESSAGE * run_blocks * Z * B)),
     }
+    if one_lane:
+        out["cn"]["one_lane_ms"] = cuda_ms(lambda: cn_one_lane(rk), 10)
     for name, r in out.items():
-        log(f"  {name}: kernel {r['ms']:.3f} ms per pass, plain "
-            f"{r['plain_ms']:.3f} ms, bound {r['bound'][0]:.3f} ms "
+        log(f"  {name}: kernel {r['ms']:.3f} ms per pass "
+            f"({r['bound'][0] / r['ms']:.1%} of the bound)"
+            + (f", one lane {r['one_lane_ms']:.3f} ms "
+               f"({r['bound'][0] / r['one_lane_ms']:.1%})"
+               if "one_lane_ms" in r else "")
+            + f", plain {r['plain_ms']:.3f} ms, bound {r['bound'][0]:.3f} ms "
             f"({r['bound'][1]}) ({label})")
     return out
 
@@ -1207,7 +1380,7 @@ def phase_reg36_minsum_kernels(torch, np, dev, code, s, batch):
     log("  grouped family, int8:")
     llr, syn = minsum_lane_state(torch, np, dev, t, ch, batch, B, torch.int8)
     r = minsum_kernels(torch, np, dev, "grouped", t, llr, syn, B, torch.int8,
-                       1.0, "reg36, B = 256, int8")
+                       1.0, "reg36, B = 256, int8", one_lane=True)
     out["cn_group_minsum"], out["vn_group_minsum"] = r["cn"], r["vn"]
     return out
 
@@ -1848,7 +2021,7 @@ def main():
                  "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                  "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
                  "bound_by": r["bound"][1], "library_ms": None}
-        for extra in ("grouped_ms", "accurate_ms"):
+        for extra in ("grouped_ms", "accurate_ms", "one_lane_ms"):
             if extra in r:
                 entry[extra] = r[extra]
         kernels.append(entry)

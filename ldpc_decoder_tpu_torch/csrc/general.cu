@@ -1,18 +1,19 @@
 // General (any-alist) LDPC kernels for NVIDIA Hopper (sm_90a): the min-sum
-// check and variable kernels, the dispatch of the sum-product ones
-// (general.cuh) and the C entries. The sum-product PhiAccurate
-// instantiations compile in general_accurate.cu; this file compiles the
-// PhiFast ones. Nodes are sorted by degree; one launch serves one degree
-// bucket, with the degree a template parameter so every per-node loop is
-// unrolled.
+// variable kernel, the dispatch of the sum-product ones (general.cuh) and
+// the C entries. The sum-product PhiAccurate instantiations compile in
+// general_accurate.cu, the min-sum check kernel in general_minsum.cu; this
+// file compiles the PhiFast ones and exports ldpc_max_degree and
+// ldpc_cuda_error_string for the library. Nodes are sorted by degree; one
+// launch serves one degree bucket, with the degree a template parameter so
+// every per-node loop is unrolled.
 //
-// Layout and the fused gather: general.cuh. The min-sum kernels keep the
-// first, simple design: a thread owns one lane b and walks a few nodes of
-// its bucket, so every row read and write is one coalesced run along B; all
-// threads of a block read the same slot index (one broadcast load per warp)
-// before their gathered row loads. Blocks cover (node chunk, lane chunk);
-// the last lane chunk is guarded, so any B works. Offsets into the [E, B]
-// arrays are 64-bit.
+// Layout and the fused gather: general.cuh. The min-sum variable kernel
+// keeps the first, simple design: a thread owns one lane b and walks a few
+// nodes of its bucket, so every row read and write is one coalesced run
+// along B; all threads of a block read the same slot index (one broadcast
+// load per warp) before their gathered row loads. Blocks cover (node chunk,
+// lane chunk); the last lane chunk is guarded, so any B works. Offsets into
+// the [E, B] arrays are 64-bit.
 //
 // Arithmetic is kept bit-identical to the plain PyTorch versions: f32 sums
 // left to right in slot order, the sign-bit algebra of the TPU kernels,
@@ -44,7 +45,6 @@ using ldpc::Llr;
 using ldpc::load_msg;
 using ldpc::PhiAccurate;
 using ldpc::PhiFast;
-using ldpc::signed_f32;
 using ldpc::store_msg;
 using ldpc::to_f32;
 using ldpc::VecLanes;
@@ -58,70 +58,6 @@ constexpr int kNodesPerBlock = 8;   // nodes walked per thread
 dim3 grid_for(int count, int B) {
   return dim3((count + kNodesPerBlock - 1) / kNodesPerBlock,
               (B + kLaneThreads - 1) / kLaneThreads);
-}
-
-// ---- min-sum check-node update -----------------------------------------
-//
-// Replaces _cn_kernel_minsum (ldpc_decoder_tpu/ops/general_pallas.py:308)
-// and the gather before it. For check i and lane b, a_k = |m_k| (int8
-// dequantized):
-//   m1, pos = first minimum of a (strict <: ties keep the first), m2 = the
-//   second; a sole edge (D = 1) has m2 = 0
-//   other_k = (pos == k) ? m2 : m1
-//   |out_k| = max(alpha * other_k - beta, 0), sign as in the sum-product
-//   check kernel; int8 quantized on write
-// alpha * other - beta is rounded twice (__fmul_rn, __fsub_rn), as the
-// plain version and the TPU kernel compute it.
-// Bound on this card: bytes, as the sum-product check kernel, with a few
-// compares instead of phi per message.
-template <typename T, int D>
-__global__ void __launch_bounds__(kLaneThreads)
-cn_general_minsum_kernel(const T* __restrict__ msgs_v,
-                         const int8_t* __restrict__ syn, T* __restrict__ r_c,
-                         const int* __restrict__ perm_v2c, int node_start,
-                         int count, int edge_start, int B, float alpha,
-                         float beta, float qscale, float inv) {
-  const int b = blockIdx.y * kLaneThreads + threadIdx.x;
-  if (b >= B) return;
-  const int i0 = blockIdx.x * kNodesPerBlock;
-  const int i1 = min(i0 + kNodesPerBlock, count);
-  for (int i = i0; i < i1; ++i) {
-    size_t row[D];
-    uint32_t signs = 0;
-    float m1 = 0.0f, m2 = __int_as_float(0x7f800000);  // +inf
-    int pos = 0;
-#pragma unroll
-    for (int k = 0; k < D; ++k) {
-      row[k] = static_cast<size_t>(edge_start) +
-               static_cast<size_t>(k) * count + i;
-      const size_t src = static_cast<size_t>(perm_v2c[row[k]]);
-      const float m = load_msg(msgs_v[src * B + b], inv);
-      signs |= (__float_as_uint(m) >> 31) << k;
-      const float a = fabsf(m);
-      if (k == 0) {
-        m1 = a;
-      } else {
-        const bool is_new = a < m1;
-        m2 = is_new ? m1 : fminf(m2, a);
-        m1 = is_new ? a : m1;
-        pos = is_new ? k : pos;
-      }
-    }
-    if (D == 1) m2 = 0.0f;
-    const uint32_t x =
-        (static_cast<uint32_t>(syn[static_cast<size_t>(node_start + i) * B +
-                                   b]) ^
-         static_cast<uint32_t>(D & 1) ^ static_cast<uint32_t>(__popc(signs))) &
-        1u;
-#pragma unroll
-    for (int k = 0; k < D; ++k) {
-      const float other = pos == k ? m2 : m1;
-      const float res =
-          fmaxf(__fsub_rn(__fmul_rn(alpha, other), beta), 0.0f);
-      const uint32_t sign = (((signs >> k) ^ x) & 1u) << 31;
-      r_c[row[k] * B + b] = store_msg<T>(signed_f32(res, sign), qscale);
-    }
-  }
 }
 
 // ---- min-sum variable-node update --------------------------------------
@@ -307,44 +243,6 @@ int ldpc_vn_general(const void* r_c, const void* llr, void* msgs_v,
       return static_cast<int>(cudaErrorInvalidValue);
   }
   if (err != 0) return err;
-  return static_cast<int>(cudaGetLastError());
-}
-
-// Min-sum check pass over one bucket. dtype 0 (float32), 1 (bfloat16) or
-// 2 (int8 at qscale steps per unit); alpha is this bucket's degree's.
-int ldpc_cn_general_minsum(const void* msgs_v, const void* syn, void* r_c,
-                           const void* perm_v2c, int node_start, int count,
-                           int degree, int edge_start, int B, float alpha,
-                           float beta, float qscale, int dtype,
-                           void* stream) {
-  if (count <= 0) return 0;
-  const dim3 grid = grid_for(count, B);
-  const int8_t* sy = static_cast<const int8_t*>(syn);
-  const int* perm = static_cast<const int*>(perm_v2c);
-  const float inv = 1.0f / qscale;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (degree) {
-#define LDPC_LAUNCH(T, D)                                                   \
-  cn_general_minsum_kernel<T, D><<<grid, kLaneThreads, 0, s>>>(             \
-      static_cast<const T*>(msgs_v), sy, static_cast<T*>(r_c), perm,        \
-      node_start, count, edge_start, B, alpha, beta, qscale, inv)
-#define LDPC_CASE(D)                                                        \
-  case D:                                                                   \
-    if (dtype == 0)                                                         \
-      LDPC_LAUNCH(float, D);                                                \
-    else if (dtype == 1)                                                    \
-      LDPC_LAUNCH(__nv_bfloat16, D);                                        \
-    else if (dtype == 2)                                                    \
-      LDPC_LAUNCH(int8_t, D);                                               \
-    else                                                                    \
-      return static_cast<int>(cudaErrorInvalidValue);                       \
-    break;
-    LDPC_FOR_EACH_DEGREE(LDPC_CASE)
-#undef LDPC_CASE
-#undef LDPC_LAUNCH
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -1,9 +1,12 @@
 // QC-LDPC min-sum kernels for NVIDIA Hopper (sm_90a).
 //
-// The normalized/offset min-sum branches of the QC kernels: the check-node
-// and variable-node updates of the grouped family (irregular bases, and
-// every int8 decode: one launch per degree group) and of the regular
-// family (one launch per pass). The parity check is the sum-product
+// The normalized/offset min-sum branches of the QC kernels: the
+// variable-node update of the grouped family (irregular bases, and every
+// int8 decode: one launch per degree group) and the check-node and
+// variable-node updates of the regular family (one launch per pass). The
+// grouped check-node update is qc_minsum_cn.cu's, compiled beside this
+// source into the same library; this one exports ldpc_max_degree and
+// ldpc_cuda_error_string for both. The parity check is the sum-product
 // libraries' (qc_grouped.cu, qc_regular.cu): it reads hard bits only.
 //
 // Layouts and read tables are those of qc_grouped.cu (flat [nb, Z, B]
@@ -84,17 +87,16 @@ __device__ __forceinline__ void load_regular_slots(const int* __restrict__ tab,
   __syncthreads();
 }
 
-// One check row of min-sum. The D rotated reads of the row go through
-// (blk, sh) from src (already offset to lane b); out is the row's first
-// output slot, slot k at out + k * ZB.
+// One check row of regular min-sum. The D rotated reads of the row go
+// through (blk, sh) from src (already offset to lane b); out is the row's
+// first output slot, slot k at out + k * ZB.
 //   a_k = |m_k|; m1, pos = the first minimum of a (strict <: ties keep the
-//   first), m2 = the second; a sole edge has m2 = 0 when zero_sole
+//   first), m2 = the second (+inf for D = 1, as the Pallas kernel keeps it;
+//   the grouped kernel's sole edge has m2 = 0, minsum.cuh)
 //   other_k = pos == k ? m2 : m1
 //   |out_k| = max(alpha * other_k - beta, 0), the sign bit
 //   signbit(m_k) ^ syn ^ (D odd) ^ (parity of the sign bits of m)
-// The grouped kernel sets zero_sole (qc_pallas_grouped.py:394); the
-// regular one keeps m2 = +inf for D = 1, as its Pallas kernel does.
-template <typename T, int D, bool kZeroSole>
+template <typename T, int D>
 __device__ __forceinline__ void minsum_check_row(
     const T* src, const int* blk, const int* sh, int z, int Z, size_t ZB,
     int B, uint32_t syn, T* out, float alpha, float beta, float qscale,
@@ -118,7 +120,6 @@ __device__ __forceinline__ void minsum_check_row(
       pos = is_new ? k : pos;
     }
   }
-  if (kZeroSole && D == 1) m2 = 0.0f;
   const uint32_t x = (syn ^ static_cast<uint32_t>(D & 1) ^
                       static_cast<uint32_t>(__popc(signs))) & 1u;
   const size_t row = static_cast<size_t>(z) * B;
@@ -162,43 +163,6 @@ __device__ __forceinline__ void minsum_variable_col(
     const float p = (fr || (kSoleLlr && D == 1)) ? l : total - w[k];
     out[static_cast<size_t>(k) * ZB + row] =
         store_msg<T>(fminf(fmaxf(p, -clamp), clamp), qscale);
-  }
-}
-
-// ---- grouped check-node update ---------------------------------------------
-//
-// Replaces _cn_kernel_g (ldpc_decoder_tpu/ops/qc_pallas_grouped.py:332),
-// min-sum branch (:385-400) with the int8 staging of _window_flat (:291-298)
-// and the store of _store_msg (:321-329). One launch per check-degree group:
-// r_c blocks [block_start, block_start + count * D) from msgs_v.
-// Bound on this card: bytes (D reads + D writes of the message dtype per
-// check row and lane, plus the syndrome byte); a few compares, a multiply
-// and a subtract per message. Simple design as the sum-product kernels'.
-template <typename T, int D>
-__global__ void __launch_bounds__(kLaneThreads)
-cn_group_minsum_kernel(const T* __restrict__ msgs_v,
-                       const int8_t* __restrict__ syn, T* __restrict__ r_c,
-                       const int* __restrict__ slot_src,
-                       const int* __restrict__ slot_shift, int node_start,
-                       int block_start, int Z, int B, float alpha, float beta,
-                       float qscale, float inv) {
-  __shared__ int blk[D];
-  __shared__ int sh[D];
-  const int node = blockIdx.z;
-  const int e0 = block_start + node * D;
-  load_group_slots<D>(slot_src, slot_shift, e0, blk, sh);
-  const int b = blockIdx.x * kLaneThreads + threadIdx.x;
-  if (b >= B) return;
-  const size_t ZB = static_cast<size_t>(Z) * B;
-  T* out = r_c + static_cast<size_t>(e0) * ZB + b;
-  const int8_t* sy = syn + static_cast<size_t>(node_start + node) * ZB + b;
-  const int z0 = blockIdx.y * kRowsPerBlock;
-  const int z1 = min(z0 + kRowsPerBlock, Z);
-  for (int z = z0; z < z1; ++z) {
-    minsum_check_row<T, D, true>(
-        msgs_v + b, blk, sh, z, Z, ZB, B,
-        static_cast<uint32_t>(sy[static_cast<size_t>(z) * B]), out, alpha,
-        beta, qscale, inv);
   }
 }
 
@@ -267,7 +231,7 @@ cn_regular_minsum_kernel(const T* __restrict__ msgs_v,
   const int z0 = blockIdx.y * kRowsPerBlock;
   const int z1 = min(z0 + kRowsPerBlock, Z);
   for (int z = z0; z < z1; ++z) {
-    minsum_check_row<T, D, false>(
+    minsum_check_row<T, D>(
         msgs_v + b, blk, sh, z, Z, ZB, B,
         static_cast<uint32_t>(sy[static_cast<size_t>(z) * B]), out, alpha,
         beta, 1.0f, 1.0f);
@@ -324,46 +288,6 @@ int ldpc_max_degree() { return kMaxDegree; }
 
 const char* ldpc_cuda_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
-}
-
-// Min-sum check pass over one check-degree group; alpha is this degree's.
-int ldpc_cn_group_minsum(const void* msgs_v, const void* syn, void* r_c,
-                         const void* slot_src, const void* slot_shift,
-                         int node_start, int count, int degree,
-                         int block_start, int Z, int B, float alpha,
-                         float beta, float qscale, int dtype, void* stream) {
-  if (count <= 0) return 0;
-  const dim3 grid = grid_for(B, Z, count);
-  const int8_t* sy = static_cast<const int8_t*>(syn);
-  const int* src = static_cast<const int*>(slot_src);
-  const int* shift = static_cast<const int*>(slot_shift);
-  const float inv = 1.0f / qscale;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (degree) {
-#define LDPC_LAUNCH(T, D)                                                   \
-  cn_group_minsum_kernel<T, D><<<grid, kLaneThreads, 0, s>>>(               \
-      static_cast<const T*>(msgs_v), sy, static_cast<T*>(r_c), src, shift,  \
-      node_start, block_start, Z, B, alpha, beta, qscale, inv)
-#define LDPC_CASE(D)                                                        \
-  case D:                                                                   \
-    if (dtype == 0)                                                         \
-      LDPC_LAUNCH(float, D);                                                \
-    else if (dtype == 1)                                                    \
-      LDPC_LAUNCH(__nv_bfloat16, D);                                        \
-    else if (dtype == 2)                                                    \
-      LDPC_LAUNCH(int8_t, D);                                               \
-    else if (dtype == 3)                                                    \
-      LDPC_LAUNCH(__nv_fp8_e5m2, D);                                        \
-    else                                                                    \
-      return static_cast<int>(cudaErrorInvalidValue);                       \
-    break;
-    LDPC_FOR_EACH_DEGREE(LDPC_CASE)
-#undef LDPC_CASE
-#undef LDPC_LAUNCH
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(cudaGetLastError());
 }
 
 // Min-sum variable pass over one variable-degree group. bits (nullable):

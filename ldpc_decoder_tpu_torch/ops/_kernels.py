@@ -5,17 +5,20 @@ parity kernels, one launch per degree group; ``qc_grouped.cu`` and
 ``qc_grouped_accurate.cu``, which compile in parallel, and the kernels'
 header ``qc_grouped.cuh``), ``qc_regular`` (the regular family's, one
 launch per pass; ``qc_regular.cu`` and ``qc_regular_accurate.cu`` in
-parallel, the kernels in ``qc_regular.cuh``), ``qc_minsum.cu`` (the
+parallel, the kernels in ``qc_regular.cuh``), ``qc_minsum`` (the
 min-sum check and variable kernels of both QC families, int8 messages in
-the grouped one), ``general`` (the general any-alist path, one launch per
-degree bucket: ``general.cu``, with the min-sum kernels, and
-``general_accurate.cu`` in parallel, the sum-product kernels in
-``general.cuh``) and ``probes.cu`` (the measurement probes of
+the grouped one: ``qc_minsum.cu`` and, in parallel, ``qc_minsum_cn.cu``,
+the grouped check kernel), ``general`` (the general any-alist path, one
+launch per degree bucket: ``general.cu``, with the min-sum variable
+kernel, ``general_accurate.cu`` and ``general_minsum.cu``, the min-sum
+check kernel, in parallel, the sum-product kernels in ``general.cuh``) and
+``probes.cu`` (the measurement probes of
 :mod:`ldpc_decoder_tpu_torch.probes`, which no decode runs). The
 sum-product check and variable kernels of all three families share
 ``sum_product.cuh``: the fast φ, the φ policies and the vectors of lanes;
-all sources include ``common.cuh``. Each is compiled
-by ``nvcc`` for ``sm_90a`` into a library with a plain ``extern "C"``
+the grouped and general min-sum check kernels share ``minsum.cuh``, the
+check row on those vectors; all sources include ``common.cuh``. Each is
+compiled by ``nvcc`` for ``sm_90a`` into a library with a plain ``extern "C"``
 interface (no PyTorch headers, so it builds in seconds) at first use, into
 the git-ignored ``ldpc_decoder_tpu_torch/build/``; a changed source or
 header rebuilds. Fast math is never enabled: φ's accuracy near x = 5
@@ -27,10 +30,12 @@ global state), so a run can show that its main path went through the
 kernels. The QC sum-product kernels count their float8_e5m2 launches
 apart (``cn_fp8``, ``vn_fp8``, ``cn_regular_fp8``, ``vn_regular_fp8``),
 since those are the float8 branches of other TPU kernels' rows; the
-min-sum kernels count every message dtype under one name; the probes
-count ``probe_row_copy`` and ``probe_window``. Every sum-product launch of
-the accurate φ also counts under ``phi_accurate``, which no decode
-touches. Argument checking is the
+min-sum kernels count every message dtype under one name, and the two
+min-sum check kernels count their vector launches again under
+``cn_group_minsum_vec`` and ``cn_general_minsum_vec``, so a run shows
+which instantiation it took; the probes count ``probe_row_copy`` and
+``probe_window``. Every sum-product launch of the accurate φ also counts
+under ``phi_accurate``, which no decode touches. Argument checking is the
 callers' job (:mod:`ldpc_decoder_tpu_torch.ops.qc_grouped`,
 :mod:`ldpc_decoder_tpu_torch.ops.qc_regular`,
 :mod:`ldpc_decoder_tpu_torch.ops.general`,
@@ -58,11 +63,16 @@ SOURCES = {name: [os.path.join(CSRC, f"{name}.cu")]
 SOURCES["qc_grouped"].append(os.path.join(CSRC, "qc_grouped_accurate.cu"))
 SOURCES["qc_regular"].append(os.path.join(CSRC, "qc_regular_accurate.cu"))
 SOURCES["general"].append(os.path.join(CSRC, "general_accurate.cu"))
+# the min-sum check kernels in their own sources: built in one source with
+# their library's other kernels, those two libraries finished 42-54 s
+# after the other three (chip_smoke phase 2, PERF.md)
+SOURCES["general"].append(os.path.join(CSRC, "general_minsum.cu"))
+SOURCES["qc_minsum"].append(os.path.join(CSRC, "qc_minsum_cn.cu"))
 # every header a source includes: hashed into each library's build key, so
 # an edited header rebuilds
 HEADERS = tuple(os.path.join(CSRC, h) for h in (
     "common.cuh", "sum_product.cuh", "qc_grouped.cuh", "qc_regular.cuh",
-    "general.cuh"))
+    "general.cuh", "minsum.cuh"))
 # --split-compile=0: nvcc optimizes a source's template instantiations in
 # parallel, one thread per CPU. On an H100 host with 8 cores the four
 # libraries, built together, take 49.6 s with it on the three large
@@ -83,6 +93,7 @@ launch_counts = {"cn": 0, "vn": 0, "parity": 0,
                  "cn_general": 0, "vn_general": 0,
                  "cn_general_minsum": 0, "vn_general_minsum": 0,
                  "cn_group_minsum": 0, "vn_group_minsum": 0,
+                 "cn_general_minsum_vec": 0, "cn_group_minsum_vec": 0,
                  "cn_regular_minsum": 0, "vn_regular_minsum": 0,
                  "probe_row_copy": 0, "probe_window": 0,
                  "phi_accurate": 0}
@@ -111,7 +122,8 @@ _SIGNATURES = {
     },
     "qc_minsum": {
         "ldpc_cn_group_minsum": [_p, _p, _p, _p, _p, _i, _i, _i, _i, _i, _i,
-                                 _f, _f, _f, _i, _p],
+                                 _f, _f, _f, _i, _i, _p],
+        "ldpc_minsum_vec_lanes": [_i, _i],
         "ldpc_vn_group_minsum": [_p, _p, _p, _p, _p, _p, _p, _i, _i, _i, _i,
                                  _i, _i, _f, _f, _i, _p],
         "ldpc_cn_regular_minsum": [_p, _p, _p, _p, _i, _i, _i, _i, _i, _f,
@@ -126,7 +138,8 @@ _SIGNATURES = {
                             _i, _i, _p],
         "ldpc_vec_lanes": [_i, _i],
         "ldpc_cn_general_minsum": [_p, _p, _p, _p, _i, _i, _i, _i, _i, _f,
-                                   _f, _f, _i, _p],
+                                   _f, _f, _i, _i, _p],
+        "ldpc_minsum_vec_lanes": [_i, _i],
         "ldpc_vn_general_minsum": [_p, _p, _p, _p, _p, _i, _i, _i, _i, _i,
                                    _f, _f, _i, _p],
     },
@@ -148,6 +161,9 @@ PHI_POLICIES = {"fast": 0, "accurate": 1}
 # (degree x lanes: registers, no spills)
 VEC_BYTES = 16
 VEC_FLOATS = 64
+# the [nb * Z] message rows of the grouped min-sum check kernel: a row
+# index is an int (the row index times B is 64-bit)
+MAX_ROWS = 2**31 - 1
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
@@ -195,6 +211,13 @@ def load(name: str) -> ctypes.CDLL:
                 for dtype, code in DTYPE_CODES.items() if dtype in _SP_DTYPES
                 for d in range(1, MAX_DEGREES[name] + 1)):
             raise RuntimeError(f"{name} library and vec_lanes disagree")
+        if "ldpc_minsum_vec_lanes" in _SIGNATURES[name] and any(
+                lib.ldpc_minsum_vec_lanes(code, d) != minsum_vec_lanes(
+                    dtype, d)
+                for dtype, code in DTYPE_CODES.items()
+                for d in range(1, MAX_DEGREES[name] + 1)):
+            raise RuntimeError(f"{name} library and minsum_vec_lanes "
+                               f"disagree")
         _libs[name] = lib
         return lib
 
@@ -236,15 +259,49 @@ def lanes_per_thread(B: int, dtype: torch.dtype, degree: int) -> int:
     return v if B % v == 0 else 1
 
 
+def _aligned(v: int, *tensors) -> int:
+    """``v``, or 1 when a tensor's base is not aligned to ``v`` of its
+    elements (a view at an odd offset)."""
+    for t in tensors:
+        if t is not None and t.data_ptr() % (v * t.element_size()):
+            return 1
+    return v
+
+
 def _lanes(B: int, degree: int, msgs: torch.Tensor, *others) -> int:
     """:func:`lanes_per_thread` for a launch on these tensors, or 1 when a
     tensor's base is not aligned to that many of its elements (a view at an
     odd offset): chosen before the launch, from the layout alone."""
-    v = lanes_per_thread(B, msgs.dtype, degree)
-    for t in (msgs, *others):
-        if t is not None and t.data_ptr() % (v * t.element_size()):
-            return 1
-    return v
+    return _aligned(lanes_per_thread(B, msgs.dtype, degree), msgs, *others)
+
+
+def minsum_vec_lanes(dtype: torch.dtype, degree: int) -> int:
+    """Lanes per thread of the vector instantiation of the min-sum check
+    kernels (``MinsumLanes`` in csrc/minsum.cuh): 16 bytes of messages at
+    every degree, since their per-lane state (m1, m2, pos and the sign bits)
+    does not grow with it."""
+    return VEC_BYTES // torch.empty((), dtype=dtype).element_size()
+
+
+def minsum_lanes_per_thread(B: int, dtype: torch.dtype, degree: int) -> int:
+    """The instantiation a min-sum check launch takes for B lanes of
+    ``dtype`` messages at ``degree``: :func:`minsum_vec_lanes` when B is a
+    multiple of it, else 1."""
+    v = minsum_vec_lanes(dtype, degree)
+    return v if B % v == 0 else 1
+
+
+def _minsum_lanes(B: int, degree: int, msgs: torch.Tensor, *others) -> int:
+    """:func:`minsum_lanes_per_thread` for a launch on these tensors, or 1
+    for a base off the vector boundary, as :func:`_lanes`."""
+    return _aligned(minsum_lanes_per_thread(B, msgs.dtype, degree), msgs,
+                    *others)
+
+
+def _count_minsum_cn(name: str, lanes: int) -> None:
+    launch_counts[name] += 1
+    if lanes > 1:
+        launch_counts[f"{name}_vec"] += 1
 
 
 def check_phi(phi: str) -> None:
@@ -370,16 +427,22 @@ def vn_general(r_c, llr, msgs_v, bits, perm_c2v, bucket, pre: float,
 
 
 def cn_general_minsum(msgs_v, syn, r_c, perm_v2c, bucket, alpha: float,
-                      beta: float, qscale: float) -> None:
+                      beta: float, qscale: float,
+                      lanes: int | None = None) -> None:
     """General min-sum check-node kernel for one check bucket (``alpha``
-    for its degree)."""
+    for its degree). ``lanes``: None picks the instantiation by layout
+    (:func:`_minsum_lanes`), 1 asks for the one-lane one (chip_smoke times
+    it beside the vector one)."""
     lib = load("general")
+    B = msgs_v.shape[-1]
+    if lanes is None:
+        lanes = _minsum_lanes(B, bucket.degree, msgs_v, syn, r_c)
     err = lib.ldpc_cn_general_minsum(
         _ptr(msgs_v), _ptr(syn), _ptr(r_c), _ptr(perm_v2c), bucket.row_start,
-        bucket.count, bucket.degree, bucket.edge_start, msgs_v.shape[-1],
-        alpha, beta, qscale, DTYPE_CODES[msgs_v.dtype], _stream(msgs_v))
+        bucket.count, bucket.degree, bucket.edge_start, B, alpha, beta,
+        qscale, DTYPE_CODES[msgs_v.dtype], lanes, _stream(msgs_v))
     _check(lib, err, "general min-sum check-node kernel")
-    launch_counts["cn_general_minsum"] += 1
+    _count_minsum_cn("cn_general_minsum", lanes)
 
 
 def vn_general_minsum(r_c, llr, msgs_v, bits, perm_c2v, bucket,
@@ -396,16 +459,22 @@ def vn_general_minsum(r_c, llr, msgs_v, bits, perm_c2v, bucket,
 
 
 def cn_group_minsum(msgs_v, syn, r_c, src, shift, g, Z: int, B: int,
-                    alpha: float, beta: float, qscale: float) -> None:
+                    alpha: float, beta: float, qscale: float,
+                    lanes: int | None = None) -> None:
     """Min-sum check-node kernel for one check-degree group ``g`` (``alpha``
-    for its degree)."""
+    for its degree); ``lanes`` as in :func:`cn_general_minsum`."""
     lib = load("qc_minsum")
+    if msgs_v.numel() // B > MAX_ROWS:
+        raise ValueError(f"{msgs_v.numel() // B} message rows: the grouped "
+                         f"min-sum check kernel indexes at most {MAX_ROWS}")
+    if lanes is None:
+        lanes = _minsum_lanes(B, g.degree, msgs_v, syn, r_c)
     err = lib.ldpc_cn_group_minsum(
         _ptr(msgs_v), _ptr(syn), _ptr(r_c), _ptr(src), _ptr(shift),
         g.node_start, g.count, g.degree, g.block_start, Z, B, alpha, beta,
-        qscale, DTYPE_CODES[msgs_v.dtype], _stream(msgs_v))
+        qscale, DTYPE_CODES[msgs_v.dtype], lanes, _stream(msgs_v))
     _check(lib, err, "grouped min-sum check-node kernel")
-    launch_counts["cn_group_minsum"] += 1
+    _count_minsum_cn("cn_group_minsum", lanes)
 
 
 def vn_group_minsum(r_c, llr, msgs_v, bits, fresh, src, shift, g, Z: int,

@@ -55,7 +55,8 @@ class StaticParams:
     minsum_clamp: float = 64.0
     # int8 fixed-point scale (steps per LLR unit) for message_dtype "int8":
     # messages are stored as round(m * qscale) saturated at ±127. A power
-    # of two, so the dequantize multiply is exact in float32.
+    # of two in [2^-120, 2^120], so the dequantize multiply is exact in
+    # float32 (and the check kernels may compare the integer magnitudes).
     minsum_qscale: float = 4.0
 
     def __post_init__(self):
@@ -82,11 +83,13 @@ class StaticParams:
                     "message_dtype='int8' is fixed-point min-sum storage; "
                     "it requires algorithm='min-sum' (the φ-domain "
                     "sum-product messages are not linearly quantizable)")
-            if (self.minsum_qscale <= 0
+            if (not 2.0**-120 <= self.minsum_qscale <= 2.0**120
                     or math.log2(self.minsum_qscale) % 1 != 0):
                 raise ValueError(
-                    f"minsum_qscale must be a positive power of two for "
-                    f"exact dequantization, got {self.minsum_qscale}")
+                    f"minsum_qscale must be a power of two in [2^-120, "
+                    f"2^120] for exact dequantization (every int8 step "
+                    f"|q| / qscale an exact float32), got "
+                    f"{self.minsum_qscale}")
         if self.kernel_impl in ("pallas", "xla"):
             raise NotImplementedError(
                 f"kernel_impl={self.kernel_impl!r} is not ported: the port "

@@ -4,10 +4,11 @@
     python3 profile_chip.py               # from the repository root, one card
     python3 profile_chip.py p41 "p41 fp8" # only the paths named
 
-For six paths of ``chip_smoke.py`` with the same decoder settings (p41
+For seven paths of ``chip_smoke.py`` with the same decoder settings (p41
 at sigma 0.94 and reg36 at sigma 0.87, 512 frames, bf16, B = 256; the
 general sum-product path on the random (3,6) 2^20 code at sigma 0.84, 768
-frames, bf16, B = 384; reg36 as a plain code, its structure detected, in
+frames, bf16, B = 384, and its int8 min-sum path (alpha 0.8, offset 0,
+B = 768); reg36 as a plain code, its structure detected, in
 int8 offset min-sum at sigma 0.84, 512 frames, B = 256; reg36 and p41 in
 float8_e5m2 sum-product at their bf16 settings) it decodes once to warm
 up, then profiles a second decode with ``torch.profiler`` (CPU and CUDA
@@ -183,6 +184,9 @@ def main():
                       message_dtype="bfloat16")
     sp_general = StaticParams(parallel_factor_user=384,
                               message_dtype="bfloat16", qc_autodetect=False)
+    sp_general_int8 = StaticParams(
+        parallel_factor_user=768, message_dtype="int8", algorithm="min-sum",
+        minsum_alpha=0.8, minsum_offset=0.0, qc_autodetect=False)
     k10 = DynamicParams(num_iter_max=120, num_iter_check_parity=10,
                         num_iter_first_check=0, loading_factor=2)
 
@@ -204,6 +208,8 @@ def main():
         ("reg36", cs.get_reg36_code, cs.REG36_SIGMA, sp, cs.N_FRAMES, k10),
         ("general", general_code, cs.GENERAL_SIGMA, sp_general,
          cs.N_GENERAL_FRAMES, k10),
+        ("general int8 min-sum", general_code, cs.GENERAL_SIGMA,
+         sp_general_int8, cs.N_GENERAL_FRAMES, k10),
         ("reg36 int8 min-sum", reg36_plain, cs.MINSUM_SIGMA, sp_int8,
          cs.N_FRAMES, k10),
         ("reg36 fp8", cs.get_reg36_code, cs.REG36_SIGMA, sp_fp8, cs.N_FRAMES,

@@ -512,14 +512,42 @@ def test_general_kernels_match_plain(cuda_device, dtype, phi, B):
             perf.compare_msgs_fast("general fast vs accurate", mk[emit], ma)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int8])
-def test_general_minsum_kernels_match_plain(cuda_device, dtype):
-    """Bitwise, with a per-degree α table (the degree-1 checks have their
-    own), an offset, and degree-1 variables and checks."""
+# min-sum check kernel layouts: (B, tensors at an odd offset); B = 64 takes
+# the vector instantiation in every dtype, 40 in float32 and bfloat16 only,
+# the ragged 37 and the offset views one lane per thread
+MINSUM_LAYOUTS = {"64": (64, False), "40": (40, False), "37": (37, False),
+                  "64 at an odd offset": (64, True)}
+
+
+def _at_odd_offset(x):
+    """A copy of ``x`` whose base is one element past an aligned one."""
+    buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    buf[1:].copy_(x.reshape(-1))
+    return buf[1:].view(x.shape)
+
+
+def _minsum_vector(layout, dtype):
+    """Whether a min-sum check launch in ``layout`` takes the vector
+    instantiation (the lanes of _kernels.minsum_lanes_per_thread)."""
     from ldpc_decoder_tpu_torch.ops import _kernels
 
-    t, st = _general_state(cuda_device, dtype, 8)
+    B, offset = MINSUM_LAYOUTS[layout]
+    return not offset and _kernels.minsum_lanes_per_thread(B, dtype, 6) > 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", sorted(MINSUM_LAYOUTS))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int8])
+def test_general_minsum_kernels_match_plain(cuda_device, dtype, layout):
+    """Bitwise, with a per-degree α table (the degree-1 checks have their
+    own), an offset, and degree-1 variables and checks; the check kernel at
+    each layout of MINSUM_LAYOUTS, its vector launches counted."""
+    from ldpc_decoder_tpu_torch.ops import _kernels
+
+    nb, offset = MINSUM_LAYOUTS[layout]
+    t, st = _general_state(cuda_device, dtype, 8, nb)
+    if offset:
+        st["mv"] = _at_odd_offset(st["mv"])
     alpha = ((1, 0.5), (5, 0.9), (0, 0.75))
     before = dict(_kernels.launch_counts)
     rk = G.cn_pass_general_minsum(st["mv"], st["syn"],
@@ -529,22 +557,26 @@ def test_general_minsum_kernels_match_plain(cuda_device, dtype):
                                         alpha, 0.25)
     assert _same_bits(rk, rp)
     for emit in (False, True):
-        bk = torch.full((t.n_vars, B_GENERAL), -1, dtype=torch.int8,
+        bk = torch.full((t.n_vars, nb), -1, dtype=torch.int8,
                         device=cuda_device)
         bp = bk.clone()
         mk = G.vn_pass_general_minsum(st["rc"], st["llr"],
-                                      torch.empty_like(st["mv"]), t, 20.0,
+                                      torch.empty_like(st["rc"]), t, 20.0,
                                       bits=bk if emit else None)
         mp = G.vn_pass_general_minsum_plain(st["rc"], st["llr"],
-                                            torch.empty_like(st["mv"]), t,
+                                            torch.empty_like(st["rc"]), t,
                                             20.0, bits=bp if emit else None)
         assert _same_bits(mk, mp)
         assert torch.equal(bk, bp)
     torch.cuda.synchronize()
     counts = {n: _kernels.launch_counts[n] - before[n]
-              for n in ("cn_general_minsum", "vn_general_minsum")}
-    assert counts == {"cn_general_minsum": len(t.cn_buckets),
-                      "vn_general_minsum": 2 * len(t.vn_buckets)}
+              for n in ("cn_general_minsum", "cn_general_minsum_vec",
+                        "vn_general_minsum")}
+    n_cn = len(t.cn_buckets)
+    assert counts == {
+        "cn_general_minsum": n_cn,
+        "cn_general_minsum_vec": n_cn if _minsum_vector(layout, dtype) else 0,
+        "vn_general_minsum": 2 * len(t.vn_buckets)}
 
 
 @pytest.mark.cuda
@@ -622,12 +654,15 @@ def _msgs(rng, shape, dtype, device):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("layout", sorted(MINSUM_LAYOUTS))
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int8,
                                    torch.float8_e5m2])
-def test_grouped_minsum_kernels_match_plain(cuda_device, dtype):
-    """Every degree 1..32 on both sides (so degree 1 and 17-32 too), B = 40
-    (the last lane chunk guarded), an α table with an offset, fresh lanes
-    (for int8 the lane reset writes quantize(clip(llr))): bitwise."""
+def test_grouped_minsum_kernels_match_plain(cuda_device, dtype, layout):
+    """Every degree 1..32 on both sides (so degree 1 and 17-32 too), each
+    layout of MINSUM_LAYOUTS for the check kernel (the last lane chunk
+    guarded), an α table with an offset, fresh lanes (for int8 the lane
+    reset writes quantize(clip(llr))): bitwise; the check kernel's vector
+    launches counted."""
     from ldpc_decoder_tpu_torch.ops import _kernels
 
     t = qg.GroupedQCTables.from_qc_tables(QCDecodeTables.from_structure(
@@ -635,7 +670,7 @@ def test_grouped_minsum_kernels_match_plain(cuda_device, dtype):
     assert [g.degree for g in t.row_groups] == list(range(1, 33))
     assert [g.degree for g in t.col_groups] == list(range(1, 33))
     rng = np.random.default_rng(9)
-    nb = B_GENERAL
+    nb, offset = MINSUM_LAYOUTS[layout]
     mv = _msgs(rng, (t.nb, t.Z, nb), dtype, cuda_device)
     rc = _msgs(rng, (t.nb, t.Z, nb), dtype, cuda_device)
     llr = torch.from_numpy((rng.standard_normal((t.C, t.Z, nb)) * 12).astype(
@@ -644,10 +679,11 @@ def test_grouped_minsum_kernels_match_plain(cuda_device, dtype):
         np.int8)).to(cuda_device)
     fresh = torch.from_numpy(rng.random(nb) < 0.5).to(cuda_device)
     alpha = ((1, 0.5), (17, 0.9), (32, 0.625), (0, 0.75))
+    mv_cn = _at_odd_offset(mv) if offset else mv
     before = dict(_kernels.launch_counts)
-    rk = qg.cn_pass_grouped_minsum(mv, syn, torch.empty_like(rc), t, alpha,
+    rk = qg.cn_pass_grouped_minsum(mv_cn, syn, torch.empty_like(rc), t, alpha,
                                    0.25)
-    rp = qg.cn_pass_minsum_plain(mv, syn, torch.empty_like(rc), t, alpha,
+    rp = qg.cn_pass_minsum_plain(mv_cn, syn, torch.empty_like(rc), t, alpha,
                                  0.25)
     assert _same_bits(rk, rp)
     for emit, fr, d1 in [(False, None, False), (True, fresh, False),
@@ -665,9 +701,13 @@ def test_grouped_minsum_kernels_match_plain(cuda_device, dtype):
         assert torch.equal(bk, bp)
     torch.cuda.synchronize()
     counts = {n: _kernels.launch_counts[n] - before[n]
-              for n in ("cn_group_minsum", "vn_group_minsum")}
+              for n in ("cn_group_minsum", "cn_group_minsum_vec",
+                        "vn_group_minsum")}
     # non-emit skips the degree-1 group; emit and include_d1 run it
-    assert counts == {"cn_group_minsum": 32, "vn_group_minsum": 3 * 32 - 1}
+    assert counts == {
+        "cn_group_minsum": 32,
+        "cn_group_minsum_vec": 32 if _minsum_vector(layout, dtype) else 0,
+        "vn_group_minsum": 3 * 32 - 1}
 
 
 @pytest.mark.cuda

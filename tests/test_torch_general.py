@@ -51,6 +51,10 @@ from ldpc_decoder_tpu_torch.convert import (  # noqa: E402
     general_state_to_jax,
 )
 from ldpc_decoder_tpu_torch.ops import general as G  # noqa: E402
+from ldpc_decoder_tpu_torch.ops import minsum_model  # noqa: E402
+from ldpc_decoder_tpu_torch.ops.qc_decode import (  # noqa: E402
+    resolve_minsum_alpha,
+)
 from ldpc_decoder_tpu_torch.runtime.decoder import LDPCDecoder  # noqa: E402
 from ldpc_decoder_tpu_torch.runtime.params import (  # noqa: E402
     DynamicParams,
@@ -278,8 +282,34 @@ def test_vn_pass_matches_jax(code, dtype, emit):
 
 # ---- min-sum passes (bitwise) --------------------------------------------------
 
-@pytest.mark.parametrize("alpha,beta", [
-    (0.8, 0.0), (ALPHA_TABLE, 0.0), (ALPHA_TABLE, 0.25)])
+def _minsum_cn_jax(code, dtype, alpha, beta):
+    """(port msgs_v, syndromes, the JAX check pass's r_c in the port's
+    layout) on the seed-5 state."""
+    t = code["t"]
+    st = _random_state(t, 5)
+    mv, mv_j = _as(st["msgs_v"], dtype)
+    m_c = _edges_to_jax(code, mv_j[t.perm_v2c.numpy()], "c")
+    ref = GP.cn_update_general(
+        jnp.asarray(m_c), jnp.asarray(_nodes_to_jax(code, st["syn"], "c")),
+        code["tp"], alg="min-sum", beta=beta, alpha=alpha, qscale=4.0)
+    return mv, torch.from_numpy(st["syn"]), _edges_from_jax(code, ref, "c")
+
+
+def _assert_minsum_cn(out, ref, dtype, beta):
+    if dtype == "float32" and beta:
+        port, ref = out.numpy(), np.asarray(ref)
+        np.testing.assert_array_equal(np.signbit(port), np.signbit(ref))
+        tol = 2 * np.spacing(np.abs(ref) + np.float32(beta))
+        assert (np.abs(port - ref) <= tol).all()
+        assert (port != ref).any()  # the contraction shows on these inputs
+    else:
+        _bitwise(out, ref)
+
+
+MINSUM_RULES = [(0.8, 0.0), (ALPHA_TABLE, 0.0), (ALPHA_TABLE, 0.25)]
+
+
+@pytest.mark.parametrize("alpha,beta", MINSUM_RULES)
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8"])
 def test_minsum_cn_pass_bitwise(code, dtype, alpha, beta):
     """Bitwise, with one exception: XLA:CPU contracts α·m − β into one
@@ -289,23 +319,30 @@ def test_minsum_cn_pass_bitwise(code, dtype, alpha, beta):
     differ by up to 2 ulps of α·|m|; bf16 and int8 storage round that
     away on these inputs, and with β = 0 both agree bit for bit."""
     t = code["t"]
-    st = _random_state(t, 5)
-    mv, mv_j = _as(st["msgs_v"], dtype)
-    m_c = _edges_to_jax(code, mv_j[t.perm_v2c.numpy()], "c")
-    ref = GP.cn_update_general(
-        jnp.asarray(m_c), jnp.asarray(_nodes_to_jax(code, st["syn"], "c")),
-        code["tp"], alg="min-sum", beta=beta, alpha=alpha, qscale=4.0)
-    out = G.cn_pass_general_minsum(mv, torch.from_numpy(st["syn"]),
-                                   torch.empty_like(mv), t, alpha, beta, 4.0)
-    ref = _edges_from_jax(code, ref, "c")
-    if dtype == "float32" and beta:
-        port, ref = out.numpy(), np.asarray(ref)
-        np.testing.assert_array_equal(np.signbit(port), np.signbit(ref))
-        tol = 2 * np.spacing(np.abs(ref) + np.float32(beta))
-        assert (np.abs(port - ref) <= tol).all()
-        assert (port != ref).any()  # the contraction shows on these inputs
-    else:
-        _bitwise(out, ref)
+    mv, syn, ref = _minsum_cn_jax(code, dtype, alpha, beta)
+    out = G.cn_pass_general_minsum(mv, syn, torch.empty_like(mv), t, alpha,
+                                   beta, 4.0)
+    _assert_minsum_cn(out, ref, dtype, beta)
+
+
+@pytest.mark.parametrize("alpha,beta", MINSUM_RULES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8"])
+def test_minsum_cn_model_matches_jax(code, dtype, alpha, beta):
+    """The numpy model of the CUDA check kernel's arithmetic
+    (``ops/minsum_model.py``: one read pass, two stored magnitudes per
+    lane, the sign set in the stored value) against the JAX kernel, under
+    test_minsum_cn_pass_bitwise's rule."""
+    t = code["t"]
+    mv, syn, ref = _minsum_cn_jax(code, dtype, alpha, beta)
+    m_c = mv.index_select(0, t.perm_v2c)
+    out = torch.empty_like(mv)
+    for b in t.cn_buckets:
+        m, kind = minsum_model.to_bits(G._planes(m_c, b))
+        got = minsum_model.check_rows(
+            m, G._nodes(syn, b).numpy(), kind,
+            resolve_minsum_alpha(alpha, b.degree), beta, 4.0)
+        G._planes(out, b).copy_(minsum_model.from_bits(got, kind))
+    _assert_minsum_cn(out, ref, dtype, beta)
 
 
 @pytest.mark.parametrize("emit", [False, True])

@@ -104,10 +104,10 @@ def test_general_lanes_follow_alignment():
 
 def test_general_sources_split_by_policy():
     """The general library compiles its fast and accurate instantiations
-    in two sources, in parallel, and its kernels' header is hashed into
-    every build key."""
+    in two sources, in parallel (beside a third, the min-sum check
+    kernel's), and its kernels' header is hashed into every build key."""
     assert [Path(f).name for f in _kernels.SOURCES["general"]] == [
-        "general.cu", "general_accurate.cu"]
+        "general.cu", "general_accurate.cu", "general_minsum.cu"]
     assert "general.cuh" in {Path(h).name for h in _kernels.HEADERS}
     for name in ("general.cu", "general_accurate.cu"):
         assert '#include "general.cuh"' in (CSRC / name).read_text(), name

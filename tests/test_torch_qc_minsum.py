@@ -44,9 +44,13 @@ from ldpc_decoder_tpu_torch.convert import (  # noqa: E402
     regular_state_from_jax,
     structure_from_numpy,
 )
+from ldpc_decoder_tpu_torch.ops import minsum_model  # noqa: E402
 from ldpc_decoder_tpu_torch.ops import qc_grouped as qg  # noqa: E402
 from ldpc_decoder_tpu_torch.ops import qc_regular as qr  # noqa: E402
-from ldpc_decoder_tpu_torch.ops.qc_decode import QCDecodeTables  # noqa: E402
+from ldpc_decoder_tpu_torch.ops.qc_decode import (  # noqa: E402
+    QCDecodeTables,
+    resolve_minsum_alpha,
+)
 
 B = 8
 QSCALE = 4.0
@@ -153,11 +157,11 @@ def _fresh8(fresh):
 
 # ---- grouped family ---------------------------------------------------------
 
-@pytest.mark.parametrize("rule", sorted(RULES))
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8"])
-def test_grouped_cn_minsum_matches_jax(grouped, dtype, rule):
+def _grouped_cn_jax(grouped, dtype, rule):
+    """(msgs_v, syndromes, the JAX check pass's r_c in the port's layout)
+    on the seed-11 state."""
     jt, t = grouped["jt"], grouped["t"]
-    alpha, beta, bitwise = RULES[rule]
+    alpha, beta, _ = RULES[rule]
     rng = np.random.default_rng(11)
     mv = _msgs(rng, (t.nb, t.Z, B), dtype)
     syn = (rng.random((t.R, t.Z, B)) < 0.5).astype(np.int8)
@@ -166,11 +170,46 @@ def test_grouped_cn_minsum_matches_jax(grouped, dtype, rule):
                                _jax(rc_j, dtype), jt, alg="min-sum",
                                beta=beta, alpha=alpha, qscale=QSCALE)
     _, ref = grouped_state_from_jax(mv_j, _np(out_j), jt, t)
+    return mv, syn, ref
+
+
+@pytest.mark.parametrize("rule", sorted(RULES))
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8"])
+def test_grouped_cn_minsum_matches_jax(grouped, dtype, rule):
+    t = grouped["t"]
+    alpha, beta, bitwise = RULES[rule]
+    mv, syn, ref = _grouped_cn_jax(grouped, dtype, rule)
     r_c = torch.empty((t.nb, t.Z, B), dtype=TORCH_DTYPES[dtype])
     out = qg.cn_pass_grouped_minsum(_torch(mv, dtype), torch.from_numpy(syn),
                                     r_c, t, alpha, beta, QSCALE)
     assert out is r_c  # written in place
-    _assert_msgs(out, ref, bitwise, dtype, np.abs(_np(_torch(mv, dtype))).max())
+    _assert_msgs(out, ref, bitwise, dtype,
+                 np.abs(_np(_torch(mv, dtype))).max())
+
+
+@pytest.mark.parametrize("rule", sorted(RULES))
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8"])
+def test_grouped_cn_minsum_model_matches_jax(grouped, dtype, rule):
+    """The numpy model of the CUDA check kernel's arithmetic
+    (``ops/minsum_model.py``: one read pass, two stored magnitudes per
+    lane, the sign set in the stored value) against the JAX kernel, under
+    test_grouped_cn_minsum_matches_jax's rule."""
+    t = grouped["t"]
+    alpha, beta, bitwise = RULES[rule]
+    mv, syn, ref = _grouped_cn_jax(grouped, dtype, rule)
+    mv_t = _torch(mv, dtype)
+    out = torch.empty_like(mv_t)
+    for g in t.row_groups:
+        d, n = g.degree, g.count
+        sl = slice(g.block_start, g.block_start + n * d)
+        rows = qg._rotated(mv_t, t.cn_src[sl], t.cn_shift[sl], t.Z)
+        m, kind = minsum_model.to_bits(rows.view(n, d, t.Z, B).transpose(0, 1))
+        got = minsum_model.check_rows(
+            m, syn[g.node_start:g.node_start + n], kind,
+            resolve_minsum_alpha(alpha, d), beta, QSCALE)
+        out[sl].view(n, d, t.Z, B).copy_(
+            minsum_model.from_bits(np.swapaxes(got, 0, 1), kind))
+    _assert_msgs(out, ref, bitwise, dtype, np.abs(_np(mv_t)).max())
 
 
 @pytest.mark.parametrize("emit,fresh,include_d1", [
