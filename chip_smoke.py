@@ -9,11 +9,13 @@ messages with B = 256 frames in flight:
 
 - p41 (the bench's flagship): the punctured p41 code (n = 1,032,192,
   147,456 punctured), BI-AWGN at sigma = 0.94, 512 frames, k = 14, first
-  parity check at iteration 70 — the grouped kernels (csrc/qc_grouped.cuh);
+  parity check at iteration 70 — the grouped kernels (csrc/qc_grouped.cuh,
+  the parity csrc/parity.cuh);
 - reg36 (the README's library flow, bench.py's secondary point): the
   regular (3,6) code of n = 2^20 (Z = 32,768), BI-AWGN at sigma = 0.87,
   512 frames, then the erasure channel at epsilon = 0.40, 256 frames; k =
-  10, first check 0 — the regular kernels (csrc/qc_regular.cuh).
+  10, first check 0 — the regular kernels (csrc/qc_regular.cuh, the
+  parity csrc/parity.cuh).
 
 The general (any-alist) paths decode a random non-QC (3,6) code of n = 2^20
 (``make_regular_code(2**20, 3, 6, seed=9)``, the JAX package's
@@ -61,7 +63,8 @@ Phases:
    libraries spilling, and the fast phi's SASS instructions in each
    (cuobjdump); the grouped and general min-sum check kernels' registers
    and spills by (kernel, dtype, lanes per thread), none spilling, and
-   any other qc_minsum kernel that spills named;
+   any other qc_minsum kernel that spills named; the parity kernels'
+   registers and spills by (family, lanes per thread), none spilling;
 3. the numerics smoke (``runtime.smoke.cuda_numerics_smoke``): phi on the
    device, through check-node launches of the grouped kernels' fast and
    accurate phi and the regular kernel's fast one, against float64 (max
@@ -73,17 +76,25 @@ Phases:
    p41 x B = 256 on a real decode state: the check and variable kernels'
    accurate-phi instantiation by today's rule, their fast one (the
    decoder's) by the fast rule, fast against accurate too; both policies'
-   times beside the bound and its share, and the plain time;
+   times beside the bound and its share, and the plain time; the parity
+   kernel on the decode state, on the frames' codewords and on them with
+   three checks flipped, flags exact at one lane and 16 and at every grid
+   slice of PARITY_SLICES, the decoder's launches on the vector
+   instantiation; its times (vector, one lane, each slice, plain) beside
+   the bound and its share, with its registers from phase 2;
 6. a small p41 decode on the card against the plain passes on the CPU;
 7. the p41 path, twice; the second decode is reported, and the kernels'
-   launch counts are read around it;
+   launch counts are read around it (every parity launch of a path must
+   take the vector instantiation, counted under parity_vec and
+   parity_regular_vec);
 8. the reg36 code (alist cache) and its frames: 512 at sigma = 0.87, 256
    over the erasure channel;
 9. each regular kernel against its plain version at reg36 x B = 256 on a
    real decode state, as phase 5 does (both phi policies), and against the
    grouped kernel of the same policy on the same state, bit for bit; both
    policies' times beside the bound and its share, the plain time and the
-   grouped kernel's (fast phi);
+   grouped kernel's (fast phi); the regular parity kernel as phase 5's,
+   and its flags equal to the grouped kernel's;
 10. a small regular decode on the card against the plain passes on the CPU;
 11. the reg36 path, twice, reported and counted like phase 7;
 12. the reg36 erasure decode, counted the same way;
@@ -145,9 +156,10 @@ Every phase must pass: any failure raises, and the script exits nonzero
 without its result line. The last line of stdout is the result object; the
 line before it lists the kernels (the sum-product check and variable
 entries with their fast-phi time as ``ms`` and the accurate one as
-``accurate_ms``; the grouped and general min-sum check entries with their
-one-lane instantiation's time as ``one_lane_ms``). Imports nothing of
-JAX.
+``accurate_ms``; the grouped and general min-sum check entries and the
+parity entries with their one-lane instantiation's time as
+``one_lane_ms``, the parity entries with each grid slice's as
+``slice_ms``). Imports nothing of JAX.
 """
 
 import contextlib
@@ -201,18 +213,20 @@ REG36_FP8_AVG_ITERS = (40.0, 50.0)
 CLI_SMALL_ALIST = os.path.join(REPO, "codes_cache", "cli_qc36_z128.alist")
 # per-degree alpha of the p41 check degrees (3, 6, 7), with the fallback
 MINSUM_ALPHA_TABLE = {3: 0.8, 6: 0.75, 7: 0.75, 0: 0.8}
-# float32 operations per parity read: one add and one AND
-OPS_PER_PARITY_READ = 2
+# the parity kernels' grid slices timed in phases 5 and 9 (lanes per
+# slice; 256 at B = 256: one slice, each check sweeping all lanes in turn)
+PARITY_SLICES = (256, 128, 64, 32, 16)
 # min-sum: |m|, a compare and two selects for the two minima, the leave-
 # one-out select, a multiply, a subtract, a max, the sign OR, and the int8
 # dequantize/quantize multiply, round and clamp
 OPS_PER_MINSUM_MESSAGE = 12
 
-GROUPED_SOURCE = "ldpc_decoder_tpu_torch/csrc/qc_grouped.cu"
+# the parity kernels of both QC families (qc_grouped_parity.cu and
+# qc_regular_parity.cu give it their slot tables)
+PARITY_SOURCE = "ldpc_decoder_tpu_torch/csrc/parity.cuh"
 # the QC check and variable kernels (qc_grouped.cu and qc_regular.cu
 # dispatch them)
 GROUPED_CN_VN_SOURCE = "ldpc_decoder_tpu_torch/csrc/qc_grouped.cuh"
-REGULAR_SOURCE = "ldpc_decoder_tpu_torch/csrc/qc_regular.cu"
 REGULAR_CN_VN_SOURCE = "ldpc_decoder_tpu_torch/csrc/qc_regular.cuh"
 GENERAL_SOURCE = "ldpc_decoder_tpu_torch/csrc/general.cu"
 # the min-sum check kernels, on csrc/minsum.cuh
@@ -229,13 +243,13 @@ KERNELS = [
      "ldpc_decoder_tpu/ops/qc_pallas_grouped.py:332"),  # _cn_kernel_g
     ("vn", GROUPED_CN_VN_SOURCE,
      "ldpc_decoder_tpu/ops/qc_pallas_grouped.py:414"),  # _vn_kernel_g
-    ("parity", GROUPED_SOURCE,
+    ("parity", PARITY_SOURCE,
      "ldpc_decoder_tpu/ops/qc_pallas_grouped.py:462"),  # _parity_kernel_g
     ("cn_regular", REGULAR_CN_VN_SOURCE,
      "ldpc_decoder_tpu/ops/qc_pallas.py:412"),  # _cn_kernel
     ("vn_regular", REGULAR_CN_VN_SOURCE,
      "ldpc_decoder_tpu/ops/qc_pallas.py:469"),  # _vn_kernel
-    ("parity_regular", REGULAR_SOURCE,
+    ("parity_regular", PARITY_SOURCE,
      "ldpc_decoder_tpu/ops/qc_pallas.py:732"),  # _parity_kernel
     ("cn_general", GENERAL_CN_VN_SOURCE,
      "ldpc_decoder_tpu/ops/general_pallas.py:252"),  # _cn_kernel
@@ -264,23 +278,28 @@ KERNELS = [
     ("vn_regular_fp8", REGULAR_CN_VN_SOURCE,
      "ldpc_decoder_tpu/ops/qc_pallas.py:469"),  # _vn_kernel
 ]
-GROUPED = ("cn", "vn", "parity")
-REGULAR = ("cn_regular", "vn_regular", "parity_regular")
+# (every parity launch of a path must take the vector instantiation,
+# counted again under parity_vec and parity_regular_vec; so must the
+# min-sum paths' check launches, under cn_general_minsum_vec and
+# cn_group_minsum_vec)
+GROUPED = ("cn", "vn", "parity", "parity_vec")
+REGULAR = ("cn_regular", "vn_regular", "parity_regular",
+           "parity_regular_vec")
 GENERAL_SP = ("cn_general", "vn_general")
-# (the min-sum paths' check launches must take the vector instantiation:
-# counted again under cn_general_minsum_vec and cn_group_minsum_vec)
 GENERAL_MS = ("cn_general_minsum", "vn_general_minsum",
               "cn_general_minsum_vec")
-QC_MS_REGULAR = ("cn_regular_minsum", "vn_regular_minsum", "parity_regular")
+QC_MS_REGULAR = ("cn_regular_minsum", "vn_regular_minsum", "parity_regular",
+                 "parity_regular_vec")
 QC_MS_GROUPED = ("cn_group_minsum", "vn_group_minsum", "parity",
-                 "cn_group_minsum_vec")
-FP8_GROUPED = ("cn_fp8", "vn_fp8", "parity")
-FP8_REGULAR = ("cn_regular_fp8", "vn_regular_fp8", "parity_regular")
+                 "cn_group_minsum_vec", "parity_vec")
+FP8_GROUPED = ("cn_fp8", "vn_fp8", "parity", "parity_vec")
+FP8_REGULAR = ("cn_regular_fp8", "vn_regular_fp8", "parity_regular",
+               "parity_regular_vec")
 # the probes of rows 11-16: (name in the kernels line, probe of
 # ldpc_decoder_tpu_torch.probes.PROBES, source, launch counters)
 PROBE_ROWS = [
     ("probe_noalias", "noalias", GROUPED_CN_VN_SOURCE,
-     ("cn", "vn", "parity")),
+     ("cn", "vn", "parity", "parity_vec")),
     ("probe_rotated_copy", "rotated_copy", PROBES_SOURCE,
      ("probe_row_copy",)),
     ("probe_row_width", "row_width", PROBES_SOURCE, ("probe_row_copy",)),
@@ -387,6 +406,38 @@ def ptxas_entries(text):
     return out
 
 
+# the parity kernels' registers and spills by (family, lanes per thread),
+# from phase 2, logged again in phases 5 and 9
+PARITY_PTXAS = {}
+PARITY_ENTRY = re.compile(
+    r"parity_kernelILi(\d+)ELi(\d+)E\w*?(Grouped|Regular)Slots")
+
+
+def parity_report(name, entries):
+    """A QC library's parity kernels' registers and spills by (family, V),
+    asserting none spills."""
+    rows = {}
+    for kname, regs, spill in entries:
+        m = PARITY_ENTRY.search(kname)
+        if m is None:
+            continue
+        degree, lanes, family = m.groups()
+        r = rows.setdefault((family.lower(), int(lanes)), [0, 0, []])
+        r[0] = max(r[0], regs)
+        r[1] += max(spill, 0)
+        r[2].append(int(degree))
+    assert rows, f"{name}: no parity kernel in the ptxas log"
+    for (family, lanes), (regs, spill, degrees) in sorted(rows.items()):
+        fixed = [d for d in degrees if d]  # D = 0: any degree, at run time
+        line = (f"parity_kernel {family} V = {lanes}: degrees "
+                f"{min(fixed)}-{max(fixed)}"
+                + (" and the runtime-degree kernel" if 0 in degrees else "")
+                + f", max {regs} registers, {spill} spill bytes")
+        log(f"    {line}")
+        PARITY_PTXAS.setdefault(family, []).append(line)
+        assert spill == 0, f"{name}: parity kernels spill ({line})"
+
+
 def phase_build():
     """All libraries at once (one nvcc each), then loaded and checked."""
     from ldpc_decoder_tpu_torch.ops import _kernels
@@ -421,6 +472,8 @@ def phase_build():
             cn_vn_kernel_report(name, path, entries)
         if name in ("qc_minsum", "general"):
             minsum_cn_report(name, path, entries)
+        if name in ("qc_grouped", "qc_regular"):
+            parity_report(name, entries)
 
 
 # (kernel, element type, degree, lanes per thread, phi policy) in a mangled
@@ -725,6 +778,97 @@ def time_policies(out, name, fn, plain_fn, n_bytes, n_ops, label):
         f"({label})")
 
 
+def parity_ops(t, B):
+    """Integer operations of one parity pass, per word of four lanes: an
+    XOR for each slot's row, and an AND and an OR for each check row."""
+    n_slots = t.nb if hasattr(t, "nb") else t.R * t.d_c
+    return (n_slots + 2 * t.R) * t.Z * B // 4
+
+
+def parity_block(torch, family, t, emitted, syn, ref, n_bytes, label,
+                 twin=None):
+    """A QC family's parity kernel against its plain version on the decode
+    state (``emitted`` bits), on the codewords ``ref`` and on them with
+    three checks flipped: the decoder's launch (the vector instantiation,
+    asserted by its counter), the one-lane instantiation and every grid
+    slice of PARITY_SLICES, flags exact. Then the times per pass on the
+    decode state beside the bound and its share: the decoder's launch, the
+    one-lane one, each grid slice, the plain version, and (``twin``: the
+    grouped tables of the same regular base) the grouped kernel. Logs the
+    family's parity kernels' registers and spills from phase 2. Returns
+    the kernels-line entry."""
+    from ldpc_decoder_tpu_torch.ops import _kernels
+    from ldpc_decoder_tpu_torch.ops import qc_grouped as qg
+    from ldpc_decoder_tpu_torch.ops import qc_regular as qr
+
+    mod = qg if family == "grouped" else qr
+    name = "parity" if family == "grouped" else "parity_regular"
+    dec_pass = (qg.parity_pass_grouped if family == "grouped"
+                else qr.parity_pass_regular)
+    B = emitted.shape[-1]
+    log("  parity:")
+    for row in PARITY_PTXAS.get(family, []):
+        log(f"    {row}")
+    syn_bad = syn.clone()
+    bad = [3, 77, 200]
+    syn_bad[t.R - 1, t.Z - 1, bad] ^= 1
+    twin_same = True
+    n_dec = 0
+    for what, bits, sy, want in [
+            ("decode state", emitted, syn, None),
+            ("codewords", ref, syn, []),
+            ("codewords, 3 checks flipped", ref, syn_bad, bad)]:
+        fp = mod.parity_pass_plain(bits, sy, t)
+        before = dict(_kernels.launch_counts)
+        assert torch.equal(dec_pass(bits, sy, t), fp), \
+            f"parity flags differ ({what})"
+        n = _kernels.launch_counts[name] - before[name]
+        assert n > 0 and _kernels.launch_counts[f"{name}_vec"] - before[
+            f"{name}_vec"] == n, f"{name}: the decoder's launch took one lane"
+        n_dec += n
+        for lanes in (None, 1):
+            for sl in PARITY_SLICES:
+                fk = mod.parity_kernel_flags(bits, sy, t, lanes=lanes,
+                                             slice_lanes=sl)
+                assert torch.equal(fk != 0, fp), \
+                    f"parity flags differ ({what}, lanes {lanes}, slice {sl})"
+        if twin is not None:
+            twin_same &= torch.equal(qg.parity_pass_grouped(bits, sy, twin),
+                                     fp)
+        lanes = torch.nonzero(fp).flatten().tolist()
+        if want is not None:
+            assert lanes == want, f"parity ({what}): {lanes} != {want}"
+        log(f"  flags ({what}): equal at one lane and 16, every slice, "
+            f"{len(lanes)} of {B} lanes violated")
+    assert twin_same, "regular and grouped parity flags differ"
+    log(f"  {name}: the decoder's {n_dec} launches took the vector "
+        f"instantiation (16 lanes a thread)")
+    r = dict(max_abs_err=0.0,
+             ms=cuda_ms(lambda: dec_pass(emitted, syn, t), 10),
+             one_lane_ms=cuda_ms(lambda: mod.parity_kernel_flags(
+                 emitted, syn, t, lanes=1), 10),
+             slice_ms={sl: cuda_ms(lambda sl=sl: mod.parity_kernel_flags(
+                 emitted, syn, t, slice_lanes=sl), 10)
+                 for sl in PARITY_SLICES},
+             plain_ms=cuda_ms(lambda: mod.parity_pass_plain(emitted, syn, t),
+                              3),
+             bound=bound(n_bytes, parity_ops(t, B)))
+    if twin is not None:
+        r["grouped_ms"] = cuda_ms(
+            lambda: qg.parity_pass_grouped(emitted, syn, twin), 10)
+    b = r["bound"][0]
+    log(f"  {name}: vector {r['ms']:.3f} ms per pass ({b / r['ms']:.1%} of "
+        f"the bound; slice {_kernels.PARITY_SLICE_LANES} lanes), one lane "
+        f"{r['one_lane_ms']:.3f} ms ({b / r['one_lane_ms']:.1%}), plain "
+        f"{r['plain_ms']:.3f} ms, bound {b:.3f} ms ({r['bound'][1]}) "
+        f"({label})")
+    log(f"  {name} grid slices (lanes per slice: vector ms, share of the "
+        f"bound; all checks of a slice run before the next slice): "
+        + ", ".join(f"{sl}: {ms:.3f} ms, {b / ms:.1%}"
+                    for sl, ms in r["slice_ms"].items()))
+    return r
+
+
 def phase_kernels(torch, np, dev, code, s, batch):
     """Grouped kernels (both phi policies) vs plain at the p41 path's
     shapes on a real decode state."""
@@ -759,33 +903,11 @@ def phase_kernels(torch, np, dev, code, s, batch):
         rk, llr, mk, t, _phi=phi), lambda: qg.vn_pass_plain(rk, llr, mk, t),
         passes["vn"], OPS_PER_MESSAGE * blocks * t.Z * B, label)
 
-    log("  parity:")
     ref = torch.from_numpy(np.ascontiguousarray(
         batch.ref_bits[t.vn_order.cpu().numpy(), :B])).to(dev).view(
         t.C, t.Z, B)
-    syn_bad = syn.clone()
-    bad = [3, 77, 200]
-    syn_bad[t.R - 1, t.Z - 1, bad] ^= 1
-    for what, bits, sy, want in [
-            ("decode state", emitted, syn, None),
-            ("codewords", ref, syn, []),
-            ("codewords, 3 checks flipped", ref, syn_bad, bad)]:
-        fk = qg.parity_pass_grouped(bits, sy, t)
-        fp = qg.parity_pass_plain(bits, sy, t)
-        assert torch.equal(fk, fp), f"parity flags differ ({what})"
-        lanes = torch.nonzero(fk).flatten().tolist()
-        if want is not None:
-            assert lanes == want, f"parity ({what}): {lanes} != {want}"
-        log(f"  flags ({what}): equal, {len(lanes)} of {B} lanes violated")
-    out["parity"] = dict(
-        max_abs_err=0.0,
-        ms=cuda_ms(lambda: qg.parity_pass_grouped(emitted, syn, t), 10),
-        plain_ms=cuda_ms(lambda: qg.parity_pass_plain(emitted, syn, t), 3),
-        bound=bound(passes["parity"], OPS_PER_PARITY_READ * t.nb * t.Z * B))
-    r = out["parity"]
-    log(f"  parity: kernel {r['ms']:.3f} ms per pass, plain "
-        f"{r['plain_ms']:.3f} ms, bound {r['bound'][0]:.3f} ms "
-        f"({r['bound'][1]}) ({label})")
+    out["parity"] = parity_block(torch, "grouped", t, emitted, syn, ref,
+                                 passes["parity"], label)
     return out
 
 
@@ -833,38 +955,12 @@ def phase_regular_kernels(torch, np, dev, code, s, batch):
         rk.view(nb, Z, B), llr, mg, tg), 10)
     del mk, mg, rg
 
-    log("  parity:")
     ref = torch.from_numpy(np.ascontiguousarray(
         batch.ref_bits[t.vn_order.cpu().numpy(), :B])).to(dev).view(
         t.C, Z, B)
-    syn_bad = syn.clone()
-    bad = [3, 77, 200]
-    syn_bad[t.R - 1, Z - 1, bad] ^= 1
-    flags_same = True
-    for what, bits, sy, want in [
-            ("decode state", emitted, syn, None),
-            ("codewords", ref, syn, []),
-            ("codewords, 3 checks flipped", ref, syn_bad, bad)]:
-        fk = qr.parity_pass_regular(bits, sy, t)
-        fp = qr.parity_pass_plain(bits, sy, t)
-        assert torch.equal(fk, fp), f"parity flags differ ({what})"
-        flags_same &= torch.equal(fk, qg.parity_pass_grouped(bits, sy, tg))
-        lanes = torch.nonzero(fk).flatten().tolist()
-        if want is not None:
-            assert lanes == want, f"parity ({what}): {lanes} != {want}"
-        log(f"  flags ({what}): equal, {len(lanes)} of {B} lanes violated")
-    out["parity_regular"] = dict(
-        max_abs_err=0.0,
-        ms=cuda_ms(lambda: qr.parity_pass_regular(emitted, syn, t), 10),
-        plain_ms=cuda_ms(lambda: qr.parity_pass_plain(emitted, syn, t), 3),
-        grouped_ms=cuda_ms(lambda: qg.parity_pass_grouped(emitted, syn, tg),
-                           10),
-        bound=bound(passes["parity"], OPS_PER_PARITY_READ * t.n_edges * B))
-    assert flags_same, "regular and grouped parity flags differ"
-    r = out["parity_regular"]
-    log(f"  parity_regular: kernel {r['ms']:.3f} ms per pass, plain "
-        f"{r['plain_ms']:.3f} ms, bound {r['bound'][0]:.3f} ms "
-        f"({r['bound'][1]}) ({label})")
+    out["parity_regular"] = parity_block(torch, "regular", t, emitted, syn,
+                                         ref, passes["parity"], label,
+                                         twin=tg)
     for name, r in out.items():
         log(f"  {name}: grouped kernel on the same state {r['grouped_ms']:.3f} "
             f"ms ({label})")
@@ -945,6 +1041,12 @@ def run_path(dec, dyn, batch, n, kernels, label, repeat=True, ref=None,
             assert count > 0, f"{name} kernel never launched"
         else:
             assert count == 0, f"{name} kernel launched off its path"
+    for name in ("parity", "parity_regular"):
+        if name in kernels:
+            vec = launches[f"{name}_vec"]
+            log(f"  {name}: {vec} of {launches[name]} launches took the "
+                f"vector instantiation (16 lanes a thread)")
+            assert vec == launches[name], f"{label}: {name} took one lane"
     if gate:
         assert fer1 == 0.0 and ber == 0.0, f"FER(>0) = {fer1}, BER = {ber}"
     return stats, launches
@@ -1712,7 +1814,8 @@ def phase_probes(torch, dev, code, s, batch, s36):
         entries.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": head["replaces"],
-            "launches": sum(launches[c] for c in counters),
+            "launches": sum(launches[c] for c in counters
+                            if not c.endswith("_vec")),
             "max_abs_err": head["max_abs_err"], "ms": head["ms"],
             "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
             "bound_by": head["bound_by"], "library_ms": head["library_ms"]})
@@ -2021,7 +2124,8 @@ def main():
                  "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                  "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
                  "bound_by": r["bound"][1], "library_ms": None}
-        for extra in ("grouped_ms", "accurate_ms", "one_lane_ms"):
+        for extra in ("grouped_ms", "accurate_ms", "one_lane_ms",
+                      "slice_ms"):
             if extra in r:
                 entry[extra] = r[extra]
         kernels.append(entry)

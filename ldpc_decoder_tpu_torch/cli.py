@@ -102,9 +102,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="symmetric LLR clamp on min-sum variable "
                    "messages")
     p.add_argument("--qscale", type=float, default=4.0, metavar="SCALE",
-                   help="int8 fixed-point steps per LLR unit (power of "
-                   "two; range +-127/SCALE, resolution 1/SCALE) for "
-                   "--dtype int8")
+                   help="int8 fixed-point steps per LLR unit (a power of "
+                   "two in [2^-121, 2^125]; range +-127/SCALE, resolution "
+                   "1/SCALE) for --dtype int8")
     p.add_argument("--kernel", choices=["auto", "pallas", "xla"],
                    default="auto",
                    help="decode kernel implementation (only 'auto', the "

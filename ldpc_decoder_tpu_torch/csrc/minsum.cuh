@@ -29,8 +29,8 @@
 // becomes 0 either way). The scan compares integer magnitudes: the
 // float32, bfloat16 and float8_e5m2 bits without the sign order as their
 // values do, and an int8 |q| orders as |q| / qscale does, exactly, for
-// every qscale with 2^-120 <= qscale <= 2^120 (the decoder's range:
-// |q| / qscale is then an exact float32); m1 and m2 are widened to float32
+// every qscale with 2^-121 <= qscale <= 2^125 (the decoder's range:
+// |q| / qscale is then a normal float32); m1 and m2 are widened to float32
 // only after the scan. For the narrow types the scan is branch-free: a key
 // |m| << 5 | k per slot, whose two smallest keys give m1, pos and m2.
 // Inputs are NaN-free messages. The model of both paths, operation for

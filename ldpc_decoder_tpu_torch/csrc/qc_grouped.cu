@@ -1,8 +1,8 @@
-// Grouped QC-LDPC kernels for NVIDIA Hopper (sm_90a): the parity kernel,
-// the dispatch of the check and variable kernels (qc_grouped.cuh) and the
-// C entries. The PhiAccurate instantiations compile in
-// qc_grouped_accurate.cu; this file compiles the PhiFast ones. Never built
-// with --use_fast_math.
+// Grouped QC-LDPC kernels for NVIDIA Hopper (sm_90a): the dispatch of the
+// check and variable kernels (qc_grouped.cuh) and the C entries. The
+// PhiAccurate instantiations compile in qc_grouped_accurate.cu; this file
+// compiles the PhiFast ones; the parity check compiles in
+// qc_grouped_parity.cu. Never built with --use_fast_math.
 
 #include <cstdint>
 
@@ -22,60 +22,10 @@ namespace {
 
 using ldpc::PhiAccurate;
 using ldpc::PhiFast;
-using ldpc::rotate;
 using ldpc::VecLanes;
 using ldpc::grouped::kMaxDegree;
 using ldpc::grouped::run_cn;
 using ldpc::grouped::run_vn;
-
-constexpr int kLaneThreads = 128;        // parity: threads per block, along B
-constexpr int kParityRowsPerBlock = 32;  // parity rows walked per thread
-
-// ---- parity check -----------------------------------------------------------
-//
-// Replaces _parity_kernel_g (ldpc_decoder_tpu/ops/qc_pallas_grouped.py:462).
-// acc = syn + sum_k bits[src_k][(z + s_k) mod Z] in int32; a check is
-// violated where acc is odd; flags[b] |= any violated check of lane b.
-// Bound on this card: bytes (d int8 reads per check and lane). Each thread
-// ORs its rows in a register and issues at most one atomicOr, so the 256
-// flag words see one atomic per (block, lane) instead of one per check.
-template <int D>
-__global__ void __launch_bounds__(kLaneThreads)
-parity_kernel(const int8_t* __restrict__ bits, const int8_t* __restrict__ syn,
-              int* __restrict__ flags, const int* __restrict__ slot_src,
-              const int* __restrict__ slot_shift, int node_start,
-              int block_start, int Z, int B) {
-  const int b = blockIdx.x * kLaneThreads + threadIdx.x;
-  if (b >= B) return;
-  const int node = blockIdx.z;
-  const int e0 = block_start + node * D;
-  const size_t ZB = static_cast<size_t>(Z) * B;
-  const int8_t* src[D];
-  int sh[D];
-#pragma unroll
-  for (int k = 0; k < D; ++k) {
-    src[k] = bits + static_cast<size_t>(slot_src[e0 + k]) * ZB + b;
-    sh[k] = slot_shift[e0 + k];
-  }
-  const int8_t* sy = syn + static_cast<size_t>(node_start + node) * ZB + b;
-  const int z0 = blockIdx.y * kParityRowsPerBlock;
-  const int z1 = min(z0 + kParityRowsPerBlock, Z);
-  int odd = 0;
-  for (int z = z0; z < z1; ++z) {
-    int acc = sy[static_cast<size_t>(z) * B];
-#pragma unroll
-    for (int k = 0; k < D; ++k) {
-      acc += src[k][static_cast<size_t>(rotate(z, sh[k], Z)) * B];
-    }
-    odd |= acc & 1;
-  }
-  if (odd) atomicOr(flags + b, 1);
-}
-
-dim3 parity_grid(int B, int Z, int count) {
-  return dim3((B + kLaneThreads - 1) / kLaneThreads,
-              (Z + kParityRowsPerBlock - 1) / kParityRowsPerBlock, count);
-}
 
 template <typename T, int D>
 int launch_cn(const void* msgs_v, const void* syn, void* r_c, const int* src,
@@ -118,14 +68,6 @@ int launch_vn(const void* r_c, const void* llr, void* msgs_v, void* bits,
   return 0;
 }
 
-template <int D>
-void launch_parity(const void* bits, const void* syn, void* flags,
-                   const int* src, const int* shift, int node_start,
-                   int count, int block_start, int Z, int B, cudaStream_t s) {
-  parity_kernel<D><<<parity_grid(B, Z, count), kLaneThreads, 0, s>>>(
-      static_cast<const int8_t*>(bits), static_cast<const int8_t*>(syn),
-      static_cast<int*>(flags), src, shift, node_start, block_start, Z, B);
-}
 }  // namespace
 
 // dtype codes of the message C entries: 0 float32, 1 bfloat16, 3 float8_e5m2
@@ -216,28 +158,6 @@ int ldpc_vn_group(const void* r_c, const void* llr, void* msgs_v, void* bits,
       return static_cast<int>(cudaErrorInvalidValue);
   }
   if (err != 0) return err;
-  return static_cast<int>(cudaGetLastError());
-}
-
-// One check-degree group of the parity check: flags [B] int32 |= violated.
-int ldpc_parity_group(const void* bits, const void* syn, void* flags,
-                      const void* slot_src, const void* slot_shift,
-                      int node_start, int count, int degree, int block_start,
-                      int Z, int B, void* stream) {
-  const int* src = static_cast<const int*>(slot_src);
-  const int* shift = static_cast<const int*>(slot_shift);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (degree) {
-#define LDPC_PARITY_CASE(D)                                                 \
-  case D:                                                                   \
-    launch_parity<D>(bits, syn, flags, src, shift, node_start, count,       \
-                     block_start, Z, B, s);                                 \
-    break;
-    LDPC_FOR_EACH_DEGREE(LDPC_PARITY_CASE)
-#undef LDPC_PARITY_CASE
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
   return static_cast<int>(cudaGetLastError());
 }
 

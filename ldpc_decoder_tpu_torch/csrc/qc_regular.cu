@@ -1,13 +1,11 @@
-// Regular QC-LDPC kernels for NVIDIA Hopper (sm_90a): the parity kernel,
-// the dispatch of the check and variable kernels (qc_regular.cuh) and the
-// C entries. The PhiAccurate instantiations compile in
-// qc_regular_accurate.cu; this file compiles the PhiFast ones. Never built
-// with --use_fast_math.
+// Regular QC-LDPC kernels for NVIDIA Hopper (sm_90a): the dispatch of the
+// check and variable kernels (qc_regular.cuh) and the C entries. The
+// PhiAccurate instantiations compile in qc_regular_accurate.cu; this file
+// compiles the PhiFast ones; the parity check compiles in
+// qc_regular_parity.cu. Never built with --use_fast_math.
 //
-// Layout and read tables: qc_regular.cuh. A parity slot reads the hard bits
-// of column src_node with the block's shift s: out[z] = bits[src_node][(z +
-// s) mod Z]. Every C entry returns cudaGetLastError(), which the Python
-// wrapper turns into an exception.
+// Layout and read tables: qc_regular.cuh. Every C entry returns
+// cudaGetLastError(), which the Python wrapper turns into an exception.
 
 #include <cstdint>
 
@@ -27,71 +25,10 @@ namespace {
 
 using ldpc::PhiAccurate;
 using ldpc::PhiFast;
-using ldpc::rotate;
 using ldpc::VecLanes;
 using ldpc::regular::kMaxDegree;
 using ldpc::regular::run_cn;
 using ldpc::regular::run_vn;
-
-constexpr int kLaneThreads = 128;        // parity: threads per block, along B
-constexpr int kParityRowsPerBlock = 32;  // parity rows walked per thread
-
-// The check's D (bits column, shift) pairs into shared memory, from its
-// cn_read entries (column, slot, shift). Every thread of the block must
-// call it: it ends in a barrier.
-template <int D>
-__device__ __forceinline__ void load_slots(const int* __restrict__ tab,
-                                           int node, int* blk, int* sh) {
-  for (int k = threadIdx.x; k < D; k += blockDim.x) {
-    const int* e = tab + (static_cast<size_t>(node) * D + k) * 3;
-    blk[k] = e[0];
-    sh[k] = e[2];
-  }
-  __syncthreads();
-}
-
-dim3 parity_grid(int B, int Z, int nodes) {
-  return dim3((B + kLaneThreads - 1) / kLaneThreads,
-              (Z + kParityRowsPerBlock - 1) / kParityRowsPerBlock, nodes);
-}
-
-// ---- parity check -----------------------------------------------------------
-//
-// Replaces _parity_kernel (ldpc_decoder_tpu/ops/qc_pallas.py:732).
-// acc = syn + sum_k bits[col_k][(z + s_k) mod Z] in int32; a check is
-// violated where acc is odd; flags[b] |= any violated check of lane b.
-// Bound on this card: bytes (d_c int8 reads per check row and lane, read
-// again for each of the d_c checks of a column). Each thread ORs its rows
-// in a register and issues at most one atomicOr, so the B flag words see
-// one atomic per (block, lane) instead of one per check.
-template <int D>
-__global__ void __launch_bounds__(kLaneThreads)
-parity_regular_kernel(const int8_t* __restrict__ bits,
-                      const int8_t* __restrict__ syn, int* __restrict__ flags,
-                      const int* __restrict__ cn_read, int Z, int B) {
-  __shared__ int blk[D];
-  __shared__ int sh[D];
-  const int node = blockIdx.z;
-  load_slots<D>(cn_read, node, blk, sh);
-  const int b = blockIdx.x * kLaneThreads + threadIdx.x;
-  if (b >= B) return;
-  const size_t ZB = static_cast<size_t>(Z) * B;
-  const int8_t* src = bits + b;
-  const int8_t* sy = syn + static_cast<size_t>(node) * ZB + b;
-  const int z0 = blockIdx.y * kParityRowsPerBlock;
-  const int z1 = min(z0 + kParityRowsPerBlock, Z);
-  int odd = 0;
-  for (int z = z0; z < z1; ++z) {
-    int acc = sy[static_cast<size_t>(z) * B];
-#pragma unroll
-    for (int k = 0; k < D; ++k) {
-      acc += src[static_cast<size_t>(blk[k]) * ZB +
-                 static_cast<size_t>(rotate(z, sh[k], Z)) * B];
-    }
-    odd |= acc & 1;
-  }
-  if (odd) atomicOr(flags + b, 1);
-}
 
 template <typename T, int D>
 int launch_cn(const void* msgs_v, const void* syn, void* r_c,
@@ -220,30 +157,6 @@ int ldpc_vn_regular(const void* r_c, const void* llr, void* msgs_v,
       return static_cast<int>(cudaErrorInvalidValue);
   }
   if (err != 0) return err;
-  return static_cast<int>(cudaGetLastError());
-}
-
-// Parity check over all R checks: flags [B] int32 |= violated.
-int ldpc_parity_regular(const void* bits, const void* syn, void* flags,
-                        const void* cn_read, int R, int d_c, int Z, int B,
-                        void* stream) {
-  const dim3 grid = parity_grid(B, Z, R);
-  const int8_t* hb = static_cast<const int8_t*>(bits);
-  const int8_t* sy = static_cast<const int8_t*>(syn);
-  int* fl = static_cast<int*>(flags);
-  const int* tab = static_cast<const int*>(cn_read);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (d_c) {
-#define LDPC_PARITY_CASE(D)                                              \
-  case D:                                                                \
-    parity_regular_kernel<D><<<grid, kLaneThreads, 0, s>>>(hb, sy, fl,   \
-                                                           tab, Z, B);   \
-    break;
-    LDPC_FOR_EACH_DEGREE(LDPC_PARITY_CASE)
-#undef LDPC_PARITY_CASE
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -1,11 +1,12 @@
 """Build, load and launch the CUDA kernels of ``csrc/``.
 
 Five libraries: ``qc_grouped`` (the grouped family's sum-product and
-parity kernels, one launch per degree group; ``qc_grouped.cu`` and
-``qc_grouped_accurate.cu``, which compile in parallel, and the kernels'
-header ``qc_grouped.cuh``), ``qc_regular`` (the regular family's, one
-launch per pass; ``qc_regular.cu`` and ``qc_regular_accurate.cu`` in
-parallel, the kernels in ``qc_regular.cuh``), ``qc_minsum`` (the
+parity kernels, one launch per degree group; ``qc_grouped.cu``,
+``qc_grouped_accurate.cu`` and ``qc_grouped_parity.cu``, which compile in
+parallel, and the kernels' header ``qc_grouped.cuh``), ``qc_regular`` (the
+regular family's, one launch per pass; ``qc_regular.cu``,
+``qc_regular_accurate.cu`` and ``qc_regular_parity.cu`` in parallel, the
+kernels in ``qc_regular.cuh``), ``qc_minsum`` (the
 min-sum check and variable kernels of both QC families, int8 messages in
 the grouped one: ``qc_minsum.cu`` and, in parallel, ``qc_minsum_cn.cu``,
 the grouped check kernel), ``general`` (the general any-alist path, one
@@ -17,7 +18,8 @@ check kernel, in parallel, the sum-product kernels in ``general.cuh``) and
 sum-product check and variable kernels of all three families share
 ``sum_product.cuh``: the fast φ, the φ policies and the vectors of lanes;
 the grouped and general min-sum check kernels share ``minsum.cuh``, the
-check row on those vectors; all sources include ``common.cuh``. Each is
+check row on those vectors; the two QC parity kernels are one template in
+``parity.cuh``; all sources include ``common.cuh``. Each is
 compiled by ``nvcc`` for ``sm_90a`` into a library with a plain ``extern "C"``
 interface (no PyTorch headers, so it builds in seconds) at first use, into
 the git-ignored ``ldpc_decoder_tpu_torch/build/``; a changed source or
@@ -31,9 +33,10 @@ kernels. The QC sum-product kernels count their float8_e5m2 launches
 apart (``cn_fp8``, ``vn_fp8``, ``cn_regular_fp8``, ``vn_regular_fp8``),
 since those are the float8 branches of other TPU kernels' rows; the
 min-sum kernels count every message dtype under one name, and the two
-min-sum check kernels count their vector launches again under
-``cn_group_minsum_vec`` and ``cn_general_minsum_vec``, so a run shows
-which instantiation it took; the probes count ``probe_row_copy`` and
+min-sum check kernels and the two parity kernels count their vector
+launches again under ``cn_group_minsum_vec``, ``cn_general_minsum_vec``,
+``parity_vec`` and ``parity_regular_vec``, so a run shows which
+instantiation it took; the probes count ``probe_row_copy`` and
 ``probe_window``. Every sum-product launch of the accurate φ also counts
 under ``phi_accurate``, which no decode touches. Argument checking is the
 callers' job (:mod:`ldpc_decoder_tpu_torch.ops.qc_grouped`,
@@ -62,6 +65,10 @@ SOURCES = {name: [os.path.join(CSRC, f"{name}.cu")]
                         "probes")}
 SOURCES["qc_grouped"].append(os.path.join(CSRC, "qc_grouped_accurate.cu"))
 SOURCES["qc_regular"].append(os.path.join(CSRC, "qc_regular_accurate.cu"))
+# the parity kernels (parity.cuh) in their own sources, compiled beside
+# their families' check and variable kernels
+SOURCES["qc_grouped"].append(os.path.join(CSRC, "qc_grouped_parity.cu"))
+SOURCES["qc_regular"].append(os.path.join(CSRC, "qc_regular_parity.cu"))
 SOURCES["general"].append(os.path.join(CSRC, "general_accurate.cu"))
 # the min-sum check kernels in their own sources: built in one source with
 # their library's other kernels, those two libraries finished 42-54 s
@@ -72,7 +79,7 @@ SOURCES["qc_minsum"].append(os.path.join(CSRC, "qc_minsum_cn.cu"))
 # an edited header rebuilds
 HEADERS = tuple(os.path.join(CSRC, h) for h in (
     "common.cuh", "sum_product.cuh", "qc_grouped.cuh", "qc_regular.cuh",
-    "general.cuh", "minsum.cuh"))
+    "general.cuh", "minsum.cuh", "parity.cuh"))
 # --split-compile=0: nvcc optimizes a source's template instantiations in
 # parallel, one thread per CPU. On an H100 host with 8 cores the four
 # libraries, built together, take 49.6 s with it on the three large
@@ -88,6 +95,7 @@ MAX_DEGREES = {"qc_grouped": 16, "qc_regular": 32, "qc_minsum": 32,
 
 launch_counts = {"cn": 0, "vn": 0, "parity": 0,
                  "cn_regular": 0, "vn_regular": 0, "parity_regular": 0,
+                 "parity_vec": 0, "parity_regular_vec": 0,
                  "cn_fp8": 0, "vn_fp8": 0,
                  "cn_regular_fp8": 0, "vn_regular_fp8": 0,
                  "cn_general": 0, "vn_general": 0,
@@ -110,7 +118,8 @@ _SIGNATURES = {
                           _f, _i, _i, _i, _p],
         "ldpc_vec_lanes": [_i, _i],
         "ldpc_parity_group": [_p, _p, _p, _p, _p, _i, _i, _i, _i, _i, _i,
-                              _p],
+                              _i, _i, _p],
+        "ldpc_parity_vec_lanes": [],
     },
     "qc_regular": {
         "ldpc_cn_regular": [_p, _p, _p, _p, _i, _i, _i, _i, _i, _f, _i, _i,
@@ -118,7 +127,8 @@ _SIGNATURES = {
         "ldpc_vn_regular": [_p, _p, _p, _p, _p, _p, _i, _i, _i, _i, _i, _f,
                             _i, _i, _i, _p],
         "ldpc_vec_lanes": [_i, _i],
-        "ldpc_parity_regular": [_p, _p, _p, _p, _i, _i, _i, _i, _p],
+        "ldpc_parity_regular": [_p, _p, _p, _p, _i, _i, _i, _i, _i, _i, _p],
+        "ldpc_parity_vec_lanes": [],
     },
     "qc_minsum": {
         "ldpc_cn_group_minsum": [_p, _p, _p, _p, _p, _i, _i, _i, _i, _i, _i,
@@ -164,6 +174,14 @@ VEC_FLOATS = 64
 # the [nb * Z] message rows of the grouped min-sum check kernel: a row
 # index is an int (the row index times B is 64-bit)
 MAX_ROWS = 2**31 - 1
+# the parity kernels (csrc/parity.cuh): lanes per thread of the vector
+# instantiation (16 int8 lanes, one 16-byte load per row and slot; each QC
+# library's ldpc_parity_vec_lanes, checked at load), and the lanes of one
+# slice of their grid, whose checks all run before the next slice's: 128
+# was the fastest of 16-256 at p41 and reg36 x B = 256 on an H100 (PERF.md,
+# chip_smoke phases 5 and 9), 7-8 % ahead of one slice of 256
+PARITY_VEC_LANES = 16
+PARITY_SLICE_LANES = 128
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
@@ -211,6 +229,10 @@ def load(name: str) -> ctypes.CDLL:
                 for dtype, code in DTYPE_CODES.items() if dtype in _SP_DTYPES
                 for d in range(1, MAX_DEGREES[name] + 1)):
             raise RuntimeError(f"{name} library and vec_lanes disagree")
+        if ("ldpc_parity_vec_lanes" in _SIGNATURES[name]
+                and lib.ldpc_parity_vec_lanes() != PARITY_VEC_LANES):
+            raise RuntimeError(f"{name} library and PARITY_VEC_LANES "
+                               f"disagree")
         if "ldpc_minsum_vec_lanes" in _SIGNATURES[name] and any(
                 lib.ldpc_minsum_vec_lanes(code, d) != minsum_vec_lanes(
                     dtype, d)
@@ -298,10 +320,31 @@ def _minsum_lanes(B: int, degree: int, msgs: torch.Tensor, *others) -> int:
                     *others)
 
 
-def _count_minsum_cn(name: str, lanes: int) -> None:
+def _count_lanes(name: str, lanes: int) -> None:
+    """One launch of ``name``, counted again under ``name``_vec when it
+    took the vector instantiation."""
     launch_counts[name] += 1
     if lanes > 1:
         launch_counts[f"{name}_vec"] += 1
+
+
+def parity_lanes_per_thread(B: int) -> int:
+    """The instantiation a parity launch takes for B lanes:
+    :data:`PARITY_VEC_LANES` when B is a multiple of it, else 1."""
+    return PARITY_VEC_LANES if B % PARITY_VEC_LANES == 0 else 1
+
+
+def _parity_launch(B: int, lanes: int | None, slice_lanes: int | None,
+                   bits, syn) -> tuple[int, int]:
+    """(lanes, slice_lanes) of a parity launch: ``lanes`` None picks them by
+    layout (:func:`parity_lanes_per_thread`, or 1 for a base off the
+    16-byte boundary); ``slice_lanes`` None is :data:`PARITY_SLICE_LANES`;
+    either way the slice is cut to the power of two that holds B."""
+    if lanes is None:
+        lanes = _aligned(parity_lanes_per_thread(B), bits, syn)
+    if slice_lanes is None:
+        slice_lanes = PARITY_SLICE_LANES
+    return lanes, max(lanes, min(slice_lanes, 1 << (B - 1).bit_length()))
 
 
 def check_phi(phi: str) -> None:
@@ -345,14 +388,21 @@ def vn_group(r_c, llr, msgs_v, bits, fresh, src, shift, g, Z: int, B: int,
     _count_sum_product("vn", r_c.dtype, phi)
 
 
-def parity_group(bits, syn, flags, src, shift, g, Z: int, B: int) -> None:
-    """Parity kernel for one check-degree group ``g``: flags [B] int32."""
+def parity_group(bits, syn, flags, src, shift, g, Z: int, B: int,
+                 lanes: int | None = None,
+                 slice_lanes: int | None = None) -> None:
+    """Parity kernel for one check-degree group ``g``: flags [B] int32 set
+    to 1 where violated. ``lanes`` None picks the instantiation by layout, 1
+    asks for the one-lane one; ``slice_lanes`` None takes
+    :data:`PARITY_SLICE_LANES` (chip_smoke times others beside it)."""
     lib = load("qc_grouped")
+    lanes, slice_lanes = _parity_launch(B, lanes, slice_lanes, bits, syn)
     err = lib.ldpc_parity_group(
         _ptr(bits), _ptr(syn), _ptr(flags), _ptr(src), _ptr(shift),
-        g.node_start, g.count, g.degree, g.block_start, Z, B, _stream(bits))
+        g.node_start, g.count, g.degree, g.block_start, Z, B, lanes,
+        slice_lanes, _stream(bits))
     _check(lib, err, "parity kernel")
-    launch_counts["parity"] += 1
+    _count_lanes("parity", lanes)
 
 
 def cn_regular(msgs_v, syn, r_c, tables, pre: float,
@@ -386,14 +436,19 @@ def vn_regular(r_c, llr, msgs_v, bits, fresh, tables, pre: float,
     _count_sum_product("vn_regular", r_c.dtype, phi)
 
 
-def parity_regular(bits, syn, flags, tables) -> None:
-    """Regular parity kernel over all R checks: flags [B] int32."""
+def parity_regular(bits, syn, flags, tables, lanes: int | None = None,
+                   slice_lanes: int | None = None) -> None:
+    """Regular parity kernel over all R checks: flags [B] int32 set to 1
+    where violated; ``lanes`` and ``slice_lanes`` as in
+    :func:`parity_group`."""
     lib = load("qc_regular")
+    B = bits.shape[-1]
+    lanes, slice_lanes = _parity_launch(B, lanes, slice_lanes, bits, syn)
     err = lib.ldpc_parity_regular(
         _ptr(bits), _ptr(syn), _ptr(flags), _ptr(tables.cn_read), tables.R,
-        tables.d_c, tables.Z, bits.shape[-1], _stream(bits))
+        tables.d_c, tables.Z, B, lanes, slice_lanes, _stream(bits))
     _check(lib, err, "regular parity kernel")
-    launch_counts["parity_regular"] += 1
+    _count_lanes("parity_regular", lanes)
 
 
 def cn_general(msgs_v, syn, r_c, perm_v2c, bucket, pre: float,
@@ -442,7 +497,7 @@ def cn_general_minsum(msgs_v, syn, r_c, perm_v2c, bucket, alpha: float,
         bucket.count, bucket.degree, bucket.edge_start, B, alpha, beta,
         qscale, DTYPE_CODES[msgs_v.dtype], lanes, _stream(msgs_v))
     _check(lib, err, "general min-sum check-node kernel")
-    _count_minsum_cn("cn_general_minsum", lanes)
+    _count_lanes("cn_general_minsum", lanes)
 
 
 def vn_general_minsum(r_c, llr, msgs_v, bits, perm_c2v, bucket,
@@ -474,7 +529,7 @@ def cn_group_minsum(msgs_v, syn, r_c, src, shift, g, Z: int, B: int,
         g.node_start, g.count, g.degree, g.block_start, Z, B, alpha, beta,
         qscale, DTYPE_CODES[msgs_v.dtype], lanes, _stream(msgs_v))
     _check(lib, err, "grouped min-sum check-node kernel")
-    _count_minsum_cn("cn_group_minsum", lanes)
+    _count_lanes("cn_group_minsum", lanes)
 
 
 def vn_group_minsum(r_c, llr, msgs_v, bits, fresh, src, shift, g, Z: int,

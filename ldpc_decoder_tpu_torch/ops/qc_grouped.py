@@ -438,12 +438,24 @@ def parity_pass_grouped(bits, syn, tables: GroupedQCTables) -> torch.Tensor:
     check(syn, "syn", (tables.R, tables.Z, B), (torch.int8,))
     if _backend(tables, bits, syn) == "cpu":
         return parity_pass_plain(bits, syn, tables)
+    return parity_kernel_flags(bits, syn, tables) != 0
+
+
+def parity_kernel_flags(bits, syn, tables: GroupedQCTables,
+                        lanes: int | None = None,
+                        slice_lanes: int | None = None) -> torch.Tensor:
+    """The parity kernel's launches on card tensors, one per check-degree
+    group: [B] int32 flags, 1 where violated. ``lanes`` and ``slice_lanes``
+    None choose the instantiation and the grid as the decoder does
+    (``_kernels.parity_group``); chip_smoke times the others."""
+    B = bits.shape[-1]
     flags = torch.zeros(B, dtype=torch.int32, device=bits.device)
     with torch.cuda.device(bits.device):
         for g in tables.row_groups:
             _kernels.parity_group(bits, syn, flags, tables.par_src,
-                                  tables.par_shift, g, tables.Z, B)
-    return flags != 0
+                                  tables.par_shift, g, tables.Z, B, lanes,
+                                  slice_lanes)
+    return flags
 
 
 # ---- message init and iteration runners -------------------------------------

@@ -356,10 +356,20 @@ def parity_pass_regular(bits, syn, tables: QCRegularTables) -> torch.Tensor:
     check(syn, "syn", (t.R, t.Z, B), (torch.int8,))
     if _backend(t, bits, syn) == "cpu":
         return parity_pass_plain(bits, syn, t)
-    flags = torch.zeros(B, dtype=torch.int32, device=bits.device)
+    return parity_kernel_flags(bits, syn, t) != 0
+
+
+def parity_kernel_flags(bits, syn, tables: QCRegularTables,
+                        lanes: int | None = None,
+                        slice_lanes: int | None = None) -> torch.Tensor:
+    """The parity kernel's launch on card tensors, over all checks: [B]
+    int32 flags, 1 where violated; ``lanes`` and ``slice_lanes`` as in
+    :func:`~ldpc_decoder_tpu_torch.ops.qc_grouped.parity_kernel_flags`."""
+    flags = torch.zeros(bits.shape[-1], dtype=torch.int32,
+                        device=bits.device)
     with torch.cuda.device(bits.device):
-        _kernels.parity_regular(bits, syn, flags, t)
-    return flags != 0
+        _kernels.parity_regular(bits, syn, flags, tables, lanes, slice_lanes)
+    return flags
 
 
 # ---- message init and iteration runners -------------------------------------

@@ -15,6 +15,14 @@ from dataclasses import dataclass
 
 _MESSAGE_DTYPES = ("float32", "bfloat16", "float8_e5m2", "int8")
 _ALGORITHMS = ("sum-product", "min-sum")
+# The int8 qscale range: over it 1/qscale and every step |q|/qscale
+# (|q| <= 127) are normal float32 values, so dequantizing is exact, the
+# integer order of |q| is the order of the values, and JAX (whose XLA:CPU
+# flushes subnormals to zero) computes the same messages. At 2^-122 the
+# steps |q| >= 64 overflow to inf; at 2^126 alpha * 2^-126 (alpha < 1) is
+# a subnormal that XLA flushes and the port quantizes to one step.
+QSCALE_MIN_LOG2 = -121
+QSCALE_MAX_LOG2 = 125
 
 
 @dataclass
@@ -55,8 +63,9 @@ class StaticParams:
     minsum_clamp: float = 64.0
     # int8 fixed-point scale (steps per LLR unit) for message_dtype "int8":
     # messages are stored as round(m * qscale) saturated at ±127. A power
-    # of two in [2^-120, 2^120], so the dequantize multiply is exact in
-    # float32 (and the check kernels may compare the integer magnitudes).
+    # of two in [2^QSCALE_MIN_LOG2, 2^QSCALE_MAX_LOG2], so the dequantize
+    # multiply is exact in float32 (and the check kernels may compare the
+    # integer magnitudes).
     minsum_qscale: float = 4.0
 
     def __post_init__(self):
@@ -83,13 +92,14 @@ class StaticParams:
                     "message_dtype='int8' is fixed-point min-sum storage; "
                     "it requires algorithm='min-sum' (the φ-domain "
                     "sum-product messages are not linearly quantizable)")
-            if (not 2.0**-120 <= self.minsum_qscale <= 2.0**120
+            if (not 2.0**QSCALE_MIN_LOG2 <= self.minsum_qscale
+                    <= 2.0**QSCALE_MAX_LOG2
                     or math.log2(self.minsum_qscale) % 1 != 0):
                 raise ValueError(
-                    f"minsum_qscale must be a power of two in [2^-120, "
-                    f"2^120] for exact dequantization (every int8 step "
-                    f"|q| / qscale an exact float32), got "
-                    f"{self.minsum_qscale}")
+                    f"minsum_qscale must be a power of two in "
+                    f"[2^{QSCALE_MIN_LOG2}, 2^{QSCALE_MAX_LOG2}] for exact "
+                    f"dequantization (every int8 step |q| / qscale a "
+                    f"normal float32), got {self.minsum_qscale}")
         if self.kernel_impl in ("pallas", "xla"):
             raise NotImplementedError(
                 f"kernel_impl={self.kernel_impl!r} is not ported: the port "

@@ -40,9 +40,10 @@ import time
 
 import chip_smoke as cs
 
-# kernel-name fragments of the hand-written kernels (csrc/)
+# kernel-name fragments of the hand-written kernels (csrc/; the parity
+# kernel of both QC families is parity.cuh's parity_kernel)
 OWN = ("cn_kernel", "vn_kernel", "parity_kernel", "cn_regular_kernel",
-       "vn_regular_kernel", "parity_regular_kernel", "cn_general_kernel",
+       "vn_regular_kernel", "cn_general_kernel",
        "vn_general_kernel", "cn_general_minsum_kernel",
        "vn_general_minsum_kernel", "cn_group_minsum_kernel",
        "vn_group_minsum_kernel", "cn_regular_minsum_kernel",

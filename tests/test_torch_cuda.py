@@ -1057,3 +1057,115 @@ def test_probe_headlines_on_card(cuda_device):
         recs = probes.PROBES[name](cuda_device, small=True, headline=True)
         assert recs and recs[0]["ms"] > 0 and recs[0]["plain_ms"] > 0
         assert recs[0]["max_abs_err"] is not None
+
+
+# ---- the parity kernels (csrc/parity.cuh) ------------------------------------
+
+# parity kernel layouts: (B, tensors at an odd offset); 256 and 64 take the
+# vector instantiation (16 lanes a thread), the ragged 40 and 37 and the
+# offset view one lane
+PARITY_LAYOUTS = {"256": (256, False), "64": (64, False), "40": (40, False),
+                  "37": (37, False), "64 at an odd offset": (64, True)}
+
+
+def _parity_tables(family, device):
+    """Tables with every instantiated check degree: the grouped staircase
+    base (degrees 1..16, one launch each), or the regular (3, d_c) bases,
+    d_c 1..32, one launch each."""
+    if family == "grouped":
+        return [qg.GroupedQCTables.from_qc_tables(QCDecodeTables.from_structure(
+            _staircase_structure(16, 32, 4), 0, device))]
+    return [qr.QCRegularTables.from_qc_tables(QCDecodeTables.from_structure(
+        _regular_structure(d_c, 32, d_c), 0, device)) for d_c in range(1, 33)]
+
+
+def _syndromes(bits, t):
+    """The syndromes [R, Z, B] of which ``bits`` is a word: each check row's
+    rotated bits summed, mod 2."""
+    if isinstance(t, qr.QCRegularTables):
+        read = t.cn_read
+        x = bits[read[..., 0:1].long(), qr._rows(read, t.Z)]
+        return (x.sum(dim=1) & 1).to(torch.int8)
+    syn = torch.empty((t.R, t.Z, bits.shape[-1]), dtype=torch.int8,
+                      device=bits.device)
+    for g in t.row_groups:
+        sl = slice(g.block_start, g.block_start + g.count * g.degree)
+        x = qg._rotated(bits, t.par_src[sl], t.par_shift[sl], t.Z)
+        syn[g.node_start:g.node_start + g.count] = (x.view(
+            g.count, g.degree, t.Z, -1).sum(dim=1) & 1).to(torch.int8)
+    return syn
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("data", ["arbitrary int8", "flipped checks"])
+@pytest.mark.parametrize("layout", sorted(PARITY_LAYOUTS))
+@pytest.mark.parametrize("family", ["grouped", "regular"])
+def test_parity_kernels_match_plain(cuda_device, family, layout, data):
+    """Every instantiated degree, each layout of PARITY_LAYOUTS, arbitrary
+    int8 bits and syndromes (every third lane made even) or 0/1 words with
+    three checks flipped: the flags equal the plain pass's exactly, through
+    the decoder's launch and at every grid slice of 16 lanes up; the
+    vector launches counted."""
+    from ldpc_decoder_tpu_torch.ops import _kernels
+
+    mod = qg if family == "grouped" else qr
+    kernel = (qg.parity_pass_grouped if family == "grouped"
+              else qr.parity_pass_regular)
+    B, offset = PARITY_LAYOUTS[layout]
+    rng = np.random.default_rng(17)
+    vector = B % 16 == 0 and not offset
+    n_launches = 0
+    before = dict(_kernels.launch_counts)
+    for t in _parity_tables(family, cuda_device):
+        if data == "arbitrary int8":
+            bits, syn = (torch.from_numpy(rng.integers(
+                -128, 128, (n, t.Z, B)).astype(np.int8)).to(cuda_device)
+                for n in (t.C, t.R))
+            even = torch.arange(B, device=cuda_device) % 3 == 0
+            bits[..., even] &= ~1
+            syn[..., even] &= ~1
+            want = (torch.arange(B) % 3 != 0).tolist()
+        else:
+            bits = torch.from_numpy((rng.random((t.C, t.Z, B)) < 0.5).astype(
+                np.int8)).to(cuda_device)
+            syn = _syndromes(bits, t)
+            bad = [0, 5, B - 1]
+            syn[t.R - 1, t.Z - 1, bad] ^= 1
+            want = [b in bad for b in range(B)]
+        if offset:
+            bits, syn = _at_odd_offset(bits), _at_odd_offset(syn)
+        plain = mod.parity_pass_plain(bits, syn, t)
+        assert plain.tolist() == want
+        assert torch.equal(kernel(bits, syn, t), plain)
+        for slice_lanes in (16, 32, 64, 128, 256):
+            flags = mod.parity_kernel_flags(bits, syn, t,
+                                            slice_lanes=slice_lanes)
+            assert torch.equal(flags != 0, plain), slice_lanes
+            assert set(flags.unique().tolist()) <= {0, 1}
+        n_launches += 6 * (len(t.row_groups) if family == "grouped" else 1)
+    torch.cuda.synchronize()
+    name = "parity" if family == "grouped" else "parity_regular"
+    assert _kernels.launch_counts[name] - before[name] == n_launches
+    assert _kernels.launch_counts[f"{name}_vec"] - before[f"{name}_vec"] == (
+        n_launches if vector else 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family", ["grouped", "regular"])
+def test_parity_one_lane_matches_vector(cuda_device, family):
+    """At B = 256 the one-lane instantiation, asked for, gives the vector
+    one's flags, with and without slices."""
+    mod = qg if family == "grouped" else qr
+    rng = np.random.default_rng(18)
+    for t in _parity_tables(family, cuda_device)[::7]:
+        bits = torch.from_numpy((rng.random((t.C, t.Z, 256)) < 0.5).astype(
+            np.int8)).to(cuda_device)
+        syn = _syndromes(bits, t)
+        syn[0, 3, [7, 100]] ^= 1
+        for slice_lanes in (None, 32):
+            one = mod.parity_kernel_flags(bits, syn, t, lanes=1,
+                                          slice_lanes=slice_lanes)
+            vec = mod.parity_kernel_flags(bits, syn, t,
+                                          slice_lanes=slice_lanes)
+            assert torch.equal(one, vec)
+            assert torch.nonzero(one).flatten().tolist() == [7, 100]

@@ -334,7 +334,7 @@ def test_headers_cover_every_include():
     for name, sources in _kernels.SOURCES.items():
         assert all(Path(f).exists() for f in sources), name
     assert [Path(f).name for f in _kernels.SOURCES["qc_regular"]] == [
-        "qc_regular.cu", "qc_regular_accurate.cu"]
+        "qc_regular.cu", "qc_regular_accurate.cu", "qc_regular_parity.cu"]
 
 
 def _small_regular():
