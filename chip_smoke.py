@@ -46,6 +46,12 @@ The CLI (``python -m ldpc_decoder_tpu_torch.cli``, the JAX CLI's flags)
 decodes reg36 from its cached alist, 512 frames at sigma = 0.87 in
 bfloat16 at log level 2, in process, then a small QC code in a subprocess.
 
+The qualification (``scripts/fer_stats_torch.py``) generates its frames
+on the card (``runtime/datagen_device.py``: the ChaCha8 reference bits and
+the channel values from csrc/datagen.cu, the syndromes in plain PyTorch)
+and decodes 2048 of them per noise point: p41 over BI-AWGN, reg36 over the
+erasure channel and the BSC.
+
 The probes (``python -m ldpc_decoder_tpu_torch.probes``, the counterparts
 of the TPU measurement kernels in scripts/) run one headline point each at
 full size: the grouped kernels writing fresh outputs at p41 x B = 256
@@ -56,7 +62,7 @@ stream (phi under traffic, rotated window reads: rows 14, 16).
 Phases:
 
 1. device: the card's name and power limit (nvidia-smi);
-2. build: the five kernel libraries from ldpc_decoder_tpu_torch/csrc/,
+2. build: the six kernel libraries from ldpc_decoder_tpu_torch/csrc/,
    one nvcc per source, all started together; the grouped, regular and
    general sum-product check and variable kernels' registers and spills by
    (kernel, dtype, lanes per thread, phi policy), no kernel of those
@@ -65,6 +71,8 @@ Phases:
    and spills by (kernel, dtype, lanes per thread), none spilling, and
    any other qc_minsum kernel that spills named; the parity kernels'
    registers and spills by (family, lanes per thread), none spilling;
+   the pool kernels' (csrc/datagen.cu) registers, stack frames and
+   spills, none spilling;
 3. the numerics smoke (``runtime.smoke.cuda_numerics_smoke``): phi on the
    device, through check-node launches of the grouped kernels' fast and
    accurate phi and the regular kernel's fast one, against float64 (max
@@ -151,6 +159,24 @@ Phases:
     like a path's (row 11: the grouped kernels' fresh outputs bit-identical
     to the in-place run over 14 iterations; its one-iteration check against
     the plain passes runs their accurate phi).
+31. device datagen: the pool kernels of csrc/datagen.cu against their
+    plain versions at full size, bit for bit (reference bits and packed
+    words; BI-AWGN values at p41 x 512 in the decoder's sorted order with
+    the erased tail, erasure and BSC values at reg36 x 256), each one's
+    time beside its bound and the plain time; then create_pool_device
+    against the host datagen: p41 BI-AWGN x 512 against phase 4's frames
+    (bits, syndromes and packed words equal, the erased tail 0.0, the
+    noise's mean and std), reg36 erasure x 256 against phase 8's and a
+    32-frame BSC pool against create_data (every array equal), each pool's
+    wall beside the host datagen's;
+32. the qualification (scripts/fer_stats_torch.py's protocol in process,
+    pools generated on the card, 2048 frames per point): p41 BI-AWGN at
+    sigma = 0.94 and 0.95, reg36 erasure at epsilon = 0.40 and 0.42, reg36
+    BSC at p = 0.05; FER(>0) = 0 and BER = 0 required at 0.94, 0.40 and
+    0.05, the others recorded (a point that loses frames is decoded again
+    with the passes bound to the accurate phi); every pool through the two
+    pool kernels (one launch each per pool), every decode through its
+    family's kernels on the fast phi.
 
 Every phase must pass: any failure raises, and the script exits nonzero
 without its result line. The last line of stdout is the result object; the
@@ -159,7 +185,9 @@ entries with their fast-phi time as ``ms`` and the accurate one as
 ``accurate_ms``; the grouped and general min-sum check entries and the
 parity entries with their one-lane instantiation's time as
 ``one_lane_ms``, the parity entries with each grid slice's as
-``slice_ms``). Imports nothing of JAX.
+``slice_ms``; the pool kernels with p41 x 512 BI-AWGN as ``ms`` and the
+reg36 erasure and BSC values as ``erasure_ms`` and ``bsc_ms``). Imports
+nothing of JAX.
 """
 
 import contextlib
@@ -172,11 +200,18 @@ import sys
 import threading
 import time
 
+# the sample codes (bench.py's cache files and headers)
+from ldpc_decoder_tpu_torch.codes.samples import (
+    REG36_ALIST,
+    get_code,
+    get_reg36_code,
+)
 # the median of CUDA-event runs after a warm-up; the least time of a piece
 # of work at the card's data-sheet rates (H100 SXM, 700 W); the rules a
 # kernel is held to against its plain version, and the float32 operations
 # per sum-product message
 from ldpc_decoder_tpu_torch.runtime import perf
+from ldpc_decoder_tpu_torch.runtime.datagen_device import count_bit_errors
 from ldpc_decoder_tpu_torch.runtime.perf import (
     OPS_PER_MESSAGE,
     bit_identical,
@@ -185,13 +220,6 @@ from ldpc_decoder_tpu_torch.runtime.perf import (
 )
 
 REPO = os.path.dirname(os.path.abspath(__file__))
-P41_ALIST = os.path.join(REPO, "codes_cache",
-                         "code_awgn_rate_0.5_thr_0.95.alist")
-# bench.py's cache file and #params header for the regular (3,6) code
-REG36_ALIST = os.path.join(REPO, "codes_cache",
-                           "bench_qc36x_awgn_r05_1048576_g8.alist")
-REG36_PARAMS = {"base": "reg36_16x32_s2", "Z": "32768", "seed": "1",
-                "coarse": "1024", "fine_mod": "64", "min_girth": "8"}
 SIGMA = 0.94
 REG36_SIGMA = 0.87
 EPSILON = 0.40
@@ -209,6 +237,18 @@ MINSUM_AVG_ITERS = (20.0, 40.0)  # reg36 offset min-sum, bf16 and int8
 # reg36 float8_e5m2 sum-product at sigma 0.87, k = 10 (JAX, commit
 # cb2eb0c: FER 0 at about 3 iterations over bfloat16's 41.6)
 REG36_FP8_AVG_ITERS = (40.0, 50.0)
+# phase 31: the plain pool versions run by chunks of this many frames; the
+# reg36 BSC point of phases 31 and 32 (the (3,6) ensemble's BP threshold
+# is p = 0.084)
+PLAIN_CHUNK = 64
+BSC_P = 0.05
+# phase 32, the qualification (scripts/fer_stats_torch.py's protocol):
+# frames per point and the points; FER(>0) = 0 and BER = 0 are required at
+# SIGMA, EPSILON and BSC_P, the others are recorded beside the JAX record
+# (FER 0/2048 at sigma 0.95 and epsilon 0.42)
+QUAL_FRAMES = 2048
+QUAL_SIGMAS = (SIGMA, 0.95)
+QUAL_EPSILONS = (EPSILON, 0.42)
 # the small QC code of the CLI's subprocess run (git-ignored cache)
 CLI_SMALL_ALIST = os.path.join(REPO, "codes_cache", "cli_qc36_z128.alist")
 # per-degree alpha of the p41 check degrees (3, 6, 7), with the fallback
@@ -237,6 +277,15 @@ MINSUM_CN_SOURCE = "ldpc_decoder_tpu_torch/csrc/qc_minsum_cn.cu"
 GENERAL_CN_VN_SOURCE = "ldpc_decoder_tpu_torch/csrc/general.cuh"
 MINSUM_SOURCE = "ldpc_decoder_tpu_torch/csrc/qc_minsum.cu"
 PROBES_SOURCE = "ldpc_decoder_tpu_torch/csrc/probes.cu"
+# the pool kernels (no Pallas counterpart: they replace jnp code that XLA
+# fuses), by the JAX function each replaces
+DATAGEN_SOURCE = "ldpc_decoder_tpu_torch/csrc/datagen.cu"
+DATAGEN_KERNELS = [
+    # reference_bits_device (and datagen_device.py:35 _pack_rows)
+    ("chacha_bits", "ldpc_decoder_tpu/rng/chacha_jax.py:107"),
+    # bsc_/erasure_/awgn_values_device (and _make_pool's tail and gather)
+    ("channel_values", "ldpc_decoder_tpu/rng/chacha_jax.py:141"),
+]
 # (name in the kernels line and in launch_counts, source, TPU kernel)
 KERNELS = [
     ("cn", GROUPED_CN_VN_SOURCE,
@@ -323,53 +372,16 @@ def phase(number, title):
     log(f"[{number}] {title} (at {time.perf_counter() - T_START:.1f} s)")
 
 
-def cached_code(path, want, build):
-    """(code, structure, how) from the alist cache at ``path`` when its
-    #params header equals ``want``, else built by ``build()`` and cached."""
-    from ldpc_decoder_tpu_torch.codes.qc import (
-        load_qc_alist,
-        read_alist_params,
-        write_qc_alist,
-    )
-
-    if os.path.exists(path) and read_alist_params(path) == want:
-        code, s = load_qc_alist(path)
-        if s is not None:
-            return code, s, "cache"
-    code, s = build()
-    os.makedirs(os.path.dirname(path), exist_ok=True)
-    write_qc_alist(code, s, path, params=want)
-    return code, s, "built"
-
-
-def get_code():
-    """p41, the same file and header as bench.py."""
-    from ldpc_decoder_tpu_torch.codes.protographs import (
-        p41_code,
-        p41_shipped_params,
-    )
-
-    return cached_code(P41_ALIST, p41_shipped_params(), p41_code)
-
-
-def get_reg36_code():
-    """The README's regular (3,6) 2^20 code, the same file, header and
-    construction as bench.py's get_reg36_code."""
-    from ldpc_decoder_tpu_torch.codes.protographs import regular_base
-    from ldpc_decoder_tpu_torch.codes.qc import make_qc_code
-
-    def build():
-        return make_qc_code(regular_base(16, 32, 3, 6, seed=2), Z=32768,
-                            seed=1, coarse=1024, fine_mod=64, min_girth=8)
-
-    return cached_code(REG36_ALIST, REG36_PARAMS, build)
-
-
-def popcount_rows(x):
+def bit_errors(ref, results):
+    """Per-frame bit errors between packed uint32 words [N, n_words] (numpy,
+    as ``decode`` returns them), by ``count_bit_errors``."""
     import numpy as np
+    import torch
 
-    x = np.ascontiguousarray(x, dtype=np.uint32)
-    return np.unpackbits(x.view(np.uint8), axis=1).sum(axis=1)
+    return count_bit_errors(
+        torch.from_numpy(np.ascontiguousarray(ref).view(np.int32)),
+        torch.from_numpy(np.ascontiguousarray(results).view(np.int32))
+    ).numpy()
 
 
 def compare_msgs(name, k, p):
@@ -438,6 +450,56 @@ def parity_report(name, entries):
         assert spill == 0, f"{name}: parity kernels spill ({line})"
 
 
+# the channels of channel_values_kernel, by template argument
+CHANNEL_NAMES = ("BSC", "erasure", "AWGN")
+# the SASS instructions that can carry a ChaCha8 XOR or rotation, all on
+# the ALU pipe (LEA.HI forms a rotation from a shifted copy)
+XOR_ROTATE_SASS = ("LOP3", "SHF", "PRMT", "LEA")
+
+
+def datagen_kernel_label(name):
+    m = re.search(r"channel_values_kernelILi(\d)E", name)
+    return "chacha_bits_kernel" if m is None else (
+        f"channel_values_kernel<{CHANNEL_NAMES[int(m.group(1))]}>")
+
+
+def datagen_report(path):
+    """The pool kernels' registers, stack frames and spills (D1 and each
+    channel of D2), asserting none spills; then each kernel's integer
+    instructions in its SASS (one ChaCha8 block a thread, unrolled) against
+    the block that runtime/perf.py's bound counts, asserting the kernel
+    issues at least the bound's XORs and rotations on the ALU pipe."""
+    with open(path + ".log") as f:
+        text = f.read()
+    chunks = text.split("Compiling entry function '")[1:]
+    assert len(chunks) == 4, f"datagen: {len(chunks)} kernels, expected 4"
+    for chunk in chunks:
+        label = datagen_kernel_label(chunk.split("'", 1)[0])
+        regs = int(re.search(r"Used (\d+) registers", chunk).group(1))
+        frame, stores, loads = map(int, re.search(
+            r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) "
+            r"bytes spill loads", chunk).groups())
+        log(f"    {label}: {regs} registers, {frame} bytes stack frame, "
+            f"{stores + loads} spill bytes")
+        assert stores + loads == 0, f"{label} spills"
+    functions = sass_of(path).split("Function : ")[1:]
+    assert len(functions) == 4, f"datagen SASS: {len(functions)} functions"
+    for fn in functions:
+        label = datagen_kernel_label(fn.split(None, 1)[0])
+        ops = [op.split(".")[0] for op in sass_ops(fn)]
+        count = {k: ops.count(k) for k in ("IADD3", "IMAD", *XOR_ROTATE_SASS)}
+        xor_rotate = sum(count[k] for k in XOR_ROTATE_SASS)
+        _, adds, alu = perf.chacha8_block_ops(
+            key1=0 if label == "chacha_bits_kernel" else 1)
+        log(f"    {label} SASS: {len(ops)} instructions, "
+            + ", ".join(f"{v} {k}" for k, v in count.items())
+            + f"; the bound's block: {alu} XORs and rotations, {adds} "
+            f"additions")
+        assert xor_rotate >= alu, (
+            f"{label}: {xor_rotate} XOR or rotation instructions, fewer "
+            f"than the bound's {alu}")
+
+
 def phase_build():
     """All libraries at once (one nvcc each), then loaded and checked."""
     from ldpc_decoder_tpu_torch.ops import _kernels
@@ -474,6 +536,8 @@ def phase_build():
             minsum_cn_report(name, path, entries)
         if name in ("qc_grouped", "qc_regular"):
             parity_report(name, entries)
+        if name == "datagen":
+            datagen_report(path)
 
 
 # (kernel, element type, degree, lanes per thread, phi policy) in a mangled
@@ -1021,7 +1085,7 @@ def run_path(dec, dyn, batch, n, kernels, label, repeat=True, ref=None,
             f"{label}: the two decodes' words differ"
     if ref is None:
         ref = batch.ref_bits_packed()
-    errors = popcount_rows(ref ^ results)
+    errors = bit_errors(ref, results)
     frame_bits = dec.code.n_vars
     itpv = stats.iter_time_per_vector
     dec_mbps = frame_bits / (stats.avg_iter * itpv * 1048576.0)
@@ -1230,19 +1294,26 @@ def phase_general_kernels(torch, np, dev, cc, batch):
 
 
 @contextlib.contextmanager
-def general_phi(policy):
-    """The general sum-product passes bound to the ``policy`` kernels while
-    the block runs (the runners look them up at call time); restored after
-    it. Neither the runners nor the decoder learn a phi."""
+def phi_policy(policy):
+    """The sum-product passes of every family (grouped, regular, general)
+    bound to the ``policy`` kernels while the block runs (the runners look
+    them up at call time); restored after it. Neither the runners nor the
+    decoder learn a phi."""
     from ldpc_decoder_tpu_torch.ops import general as G
+    from ldpc_decoder_tpu_torch.ops import qc_grouped as qg
+    from ldpc_decoder_tpu_torch.ops import qc_regular as qr
 
-    cn, vn = G.cn_pass_general, G.vn_pass_general
-    G.cn_pass_general = functools.partial(cn, _phi=policy)
-    G.vn_pass_general = functools.partial(vn, _phi=policy)
+    passes = [(G, "cn_pass_general"), (G, "vn_pass_general"),
+              (qg, "cn_pass_grouped"), (qg, "vn_pass_grouped"),
+              (qr, "cn_pass_regular"), (qr, "vn_pass_regular")]
+    saved = [getattr(mod, name) for mod, name in passes]
+    for (mod, name), fn in zip(passes, saved):
+        setattr(mod, name, functools.partial(fn, _phi=policy))
     try:
         yield
     finally:
-        G.cn_pass_general, G.vn_pass_general = cn, vn
+        for (mod, name), fn in zip(passes, saved):
+            setattr(mod, name, fn)
 
 
 def small_general_decode(np, dev):
@@ -1289,13 +1360,13 @@ def small_general_decode(np, dev):
         if "algorithm" in kw:
             res_g, st_g = decode(dev, kw)
         else:
-            with general_phi("accurate"):
+            with phi_policy("accurate"):
                 res_g, st_g = decode(dev, kw)
             what += ", accurate phi"
         assert np.array_equal(res_g, res_c), "card and CPU words differ"
         assert np.array_equal(st_g.iterations, st_c.iterations), \
             "card and CPU per-frame iterations differ"
-        bad = int((popcount_rows(ref ^ res_g) > 0).sum())
+        bad = int((bit_errors(ref, res_g) > 0).sum())
         log(f"  irregular n = {code.n_vars} (degree-1..4 variables), {n} "
             f"frames, {what}: card == CPU words and per-frame iterations; "
             f"avg iterations {st_g.avg_iter:.2f}, {bad} frames with bit "
@@ -1514,7 +1585,7 @@ def card_vs_cpu_decodes(np, dev, cases):
         assert np.array_equal(res_g, res_c), f"{label}: words differ"
         assert np.array_equal(st_g.iterations, st_c.iterations), \
             f"{label}: per-frame iterations differ"
-        bad = int((popcount_rows(batch.ref_bits_packed() ^ res_g) > 0).sum())
+        bad = int((bit_errors(batch.ref_bits_packed(), res_g) > 0).sum())
         log(f"  {label} ({want.__name__}): card == CPU words and per-frame "
             f"iterations; avg iterations {st_g.avg_iter:.2f}, "
             f"{st_g.total_supersteps} supersteps, {bad} of {n} frames with "
@@ -1590,7 +1661,7 @@ def detection_decodes(np, dev):
         assert np.array_equal(unpack(res_i)[:, to_v], unpack(res_a)), \
             "interleaved words differ"
         assert np.array_equal(st_i.iterations, st_a.iterations)
-        bad = int((popcount_rows(batch.ref_bits_packed() ^ res_a) > 0).sum())
+        bad = int((bit_errors(batch.ref_bits_packed(), res_a) > 0).sum())
         log(f"  {kw.get('message_dtype', 'float32')} "
             f"{kw.get('algorithm', 'sum-product')} "
             f"({type(dec_a.tables).__name__}): interleaved == aligned words "
@@ -1826,6 +1897,253 @@ def phase_probes(torch, dev, code, s, batch, s36):
     return entries
 
 
+def datagen_kernels(torch, dev, label, dec, channel, noise, n, start):
+    """D1 and D2 at ``dec``'s code, n frames from ``start``, against their
+    plain versions on the card (run by PLAIN_CHUNK frames: the plain
+    versions' int64 keystream takes 16 words of 8 bytes per block), bit for
+    bit; each kernel's time beside its bound and the plain time. Returns
+    {"chacha_bits": ..., "channel_values": ...} records."""
+    from ldpc_decoder_tpu_torch.rng import chacha_torch as ct
+    from ldpc_decoder_tpu_torch.runtime.datagen_device import _pool_tables
+
+    code = dec.code
+    n_vars, n_tx = code.n_vars, code.n_vars - code.n_erased_vars
+    n_words = dec.n_words
+    pos = _pool_tables(dec).pos
+    bits, packed = ct.reference_bits_packed(start, n_vars, n, dev)
+    vals = ct.channel_values(bits, start, channel, noise, n_tx=n_tx, pos=pos)
+    torch.cuda.synchronize()
+    chunks = [(lo, min(PLAIN_CHUNK, n - lo)) for lo in range(0, n, PLAIN_CHUNK)]
+    max_err = 0.0
+    for lo, c in chunks:
+        pb = ct.reference_bits_plain(start + lo, n_vars, c, dev)
+        assert torch.equal(pb, bits[:, lo:lo + c]), f"{label}: D1 bits"
+        assert torch.equal(ct.pack_rows(pb, n_words), packed[lo:lo + c]), \
+            f"{label}: D1 packed words"
+        pv = ct.channel_values_plain(pb, start + lo, channel, noise, n_tx,
+                                     pos)
+        got = vals[:, lo:lo + c]
+        max_err = max(max_err, float((got - pv).abs().max()))
+        assert bit_identical(got.contiguous(), pv), \
+            f"{label}: D2 {channel} values differ (max {max_err})"
+        del pb, pv, got
+    torch.cuda.empty_cache()
+
+    def plain_bits():
+        for lo, c in chunks:
+            ct.pack_rows(ct.reference_bits_plain(start + lo, n_vars, c, dev),
+                         n_words)
+
+    def plain_values():
+        for lo, c in chunks:
+            ct.channel_values_plain(bits[:, lo:lo + c].contiguous(),
+                                    start + lo, channel, noise, n_tx, pos)
+
+    work = {"chacha_bits": perf.chacha_bits_work(n_vars, n),
+            "channel_values": perf.channel_values_work(channel, n_vars, n_tx,
+                                                       n)}
+    out = {}
+    for name, fn, plain in (
+            ("chacha_bits",
+             lambda: ct.reference_bits_packed(start, n_vars, n, dev),
+             plain_bits),
+            ("channel_values",
+             lambda: ct.channel_values(bits, start, channel, noise,
+                                       n_tx=n_tx, pos=pos, out=vals),
+             plain_values)):
+        ms = cuda_ms(fn)
+        plain_ms = cuda_ms(plain, reps=3)
+        b = bound(*work[name], perf.INT32_OPS_PER_S)
+        out[name] = {"ms": ms, "plain_ms": plain_ms, "bound": b,
+                     "max_abs_err": max_err if name == "channel_values"
+                     else 0.0}
+        log(f"  {label} {name}: {ms:.3f} ms, bound {b[0]:.3f} ms ({b[1]}, "
+            f"{b[0] / ms:.1%}), plain {plain_ms:.3f} ms; equal to plain")
+        torch.cuda.empty_cache()
+    del bits, packed, vals
+    torch.cuda.empty_cache()
+    return out
+
+
+def timed_pool(torch, dec, channel, n):
+    """create_pool_device of frames 0 .. n on the card, one chunk, and its
+    wall seconds (to the pool ready), with D1 and D2 launched once each."""
+    from ldpc_decoder_tpu_torch.ops import _kernels
+    from ldpc_decoder_tpu_torch.runtime.datagen_device import (
+        create_pool_device,
+    )
+
+    before = dict(_kernels.launch_counts)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pool = create_pool_device(dec, channel, 0, n, chunk_frames=n)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    for name in ("chacha_bits", "channel_values"):
+        assert _kernels.launch_counts[name] - before[name] == 1, name
+    return pool, secs
+
+
+def load_fer_stats():
+    """scripts/fer_stats_torch.py as a module."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "fer_stats_torch", os.path.join(REPO, "scripts", "fer_stats_torch.py"))
+    fer = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(fer)
+    return fer
+
+
+def phase_datagen(torch, np, dev, code, s, batch, host_s, code36, s36,
+                  batch_bec, bec_host_s):
+    """Phase 31: the pool kernels against their plain versions at the
+    shape phase 32's qualification generates its pools (its decoders, one
+    pool of 2B frames as one chunk), then create_pool_device against the
+    host datagen. Returns the kernels-line records of D1 and D2 (p41,
+    BI-AWGN)."""
+    from ldpc_decoder_tpu_torch.runtime.datagen import create_data
+    from ldpc_decoder_tpu_torch.runtime.datagen_device import _pool_tables
+
+    fer = load_fer_stats()
+    dec, ch = fer.qualification_decoder(code, s, 0, SIGMA, dev)
+    n = fer.pool_frames(dec)
+    out = datagen_kernels(torch, dev, f"p41 x {n} BI-AWGN", dec, "awgn",
+                          SIGMA, n, 0)
+    extra = {}
+    for channel, idx, noise in (("erasure", 2, EPSILON), ("bsc", 1, BSC_P)):
+        dec36, _ = fer.qualification_decoder(code36, s36, idx, noise, dev)
+        n36 = fer.pool_frames(dec36)
+        r = datagen_kernels(torch, dev, f"reg36 x {n36} {channel}", dec36,
+                            channel, noise, n36, 0)
+        extra[f"{channel}_frames"] = n36
+        extra[f"{channel}_ms"] = r["channel_values"]["ms"]
+        extra[f"{channel}_bound_ms"] = r["channel_values"]["bound"][0]
+        del dec36
+    out["channel_values"].update(extra)
+
+    # p41 BI-AWGN x 512 against phase 4's batch: bits, syndromes and
+    # words exact, the erased tail 0.0, the noise's mean and std
+    pool, secs = timed_pool(torch, dec, ch, N_FRAMES)
+    t0 = time.perf_counter()
+    pv, ps = dec.upload_pools(batch.values, batch.syndromes)
+    torch.cuda.synchronize()
+    up_s = time.perf_counter() - t0
+    assert torch.equal(pool.syn_sorted, ps), "p41 pool syndromes"
+    ref = torch.from_numpy(batch.ref_bits_packed().view(np.int32)).to(dev)
+    assert torch.equal(pool.ref_packed, ref), "p41 pool packed words"
+    del pv, ps, ref
+    from ldpc_decoder_tpu_torch.rng import chacha_torch as ct
+
+    bits = ct.reference_bits(0, code.n_vars, N_FRAMES, dev)
+    assert torch.equal(bits, torch.from_numpy(batch.ref_bits).to(dev)), \
+        "p41 reference bits"
+    pos = _pool_tables(dec).pos.long()
+    n_tx = code.n_vars - code.n_erased_vars
+    assert not pool.values_sorted[pos[n_tx:]].any(), "p41 erased tail"
+    noise = (pool.values_sorted[pos[:n_tx]]
+             - torch.where(bits[:n_tx] > 0, 1.0, -1.0)).double()
+    mean, std = float(noise.mean()), float(noise.std())
+    log(f"  p41 pool: {N_FRAMES} frames in {secs:.3f} s on the card "
+        f"(host datagen {host_s:.1f} s, its upload {up_s:.2f} s); bits, "
+        f"syndromes and words equal the host's, erased tail 0.0, noise "
+        f"mean {mean:.2e} std {std:.5f} (sigma {SIGMA})")
+    assert abs(mean) < 0.01 and abs(std - SIGMA) < 0.01, (mean, std)
+    del pool, bits, noise, dec
+    torch.cuda.empty_cache()
+
+    # reg36 erasure x 256 against phase 8's batch, and a BSC pool of 32
+    # frames against the host datagen: every array exact
+    for idx, noise, n, host, label in (
+            (2, EPSILON, N_ERASURE_FRAMES, (batch_bec, bec_host_s),
+             f"erasure {EPSILON}"),
+            (1, BSC_P, 32, None, f"BSC {BSC_P}")):
+        dec36, channel = fer.qualification_decoder(code36, s36, idx, noise,
+                                                   dev)
+        pool, secs = timed_pool(torch, dec36, channel, n)
+        if host is None:
+            t0 = time.perf_counter()
+            host = (create_data(code36, channel, 0, n, backend="numpy"),
+                    time.perf_counter() - t0)
+        hb, hs = host
+        pv, ps = dec36.upload_pools(hb.values, hb.syndromes)
+        assert bit_identical(pool.values_sorted, pv), f"{label} values"
+        assert torch.equal(pool.syn_sorted, ps), f"{label} syndromes"
+        assert torch.equal(pool.ref_packed, torch.from_numpy(
+            hb.ref_bits_packed().view(np.int32)).to(dev)), f"{label} words"
+        log(f"  reg36 {label} pool: {n} frames in {secs:.3f} s on the "
+            f"card (host datagen {hs:.1f} s); values, syndromes and words "
+            f"equal the host's")
+        del pool, pv, ps, dec36
+        torch.cuda.empty_cache()
+    return out
+
+
+def qualification(torch, dev, code, s, code36, s36):
+    """Phase 32: scripts/fer_stats_torch.py's points, 2048 frames each,
+    the launch counts set to 0 before each run of a point and read after;
+    FER 0 and BER 0 required at the gated points, the others recorded and
+    decoded again with every sum-product pass on the accurate phi (each of
+    those launches counted under phi_accurate, none in the first run).
+    Returns the launches of D1 and D2 summed over the runs."""
+    from ldpc_decoder_tpu_torch.ops import _kernels
+
+    fer = load_fer_stats()
+    pools = QUAL_FRAMES // 512  # pools of 2B = 512 frames
+    totals = {"chacha_bits": 0, "channel_values": 0}
+    records = []
+
+    def read_launches(label, kernels, accurate):
+        launches = dict(_kernels.launch_counts)
+        for name, count in launches.items():
+            if name in ("chacha_bits", "channel_values"):
+                assert count == pools, f"{label}: {name} {count} launches"
+                totals[name] += count
+            elif name in kernels:
+                assert count > 0, f"{label}: {name} never launched"
+            elif name != "phi_accurate":
+                assert count == 0, f"{label}: {name} launched off its path"
+        sum_product = launches[kernels[0]] + launches[kernels[1]]
+        want = sum_product if accurate else 0
+        assert launches["phi_accurate"] == want, (
+            f"{label}: {launches['phi_accurate']} accurate-phi launches of "
+            f"{sum_product} sum-product ones")
+
+    points = [("p41 BI-AWGN", code, s, 0, x, GROUPED, x == SIGMA)
+              for x in QUAL_SIGMAS]
+    points += [("reg36 erasure", code36, s36, 2, x, REGULAR, x == EPSILON)
+               for x in QUAL_EPSILONS]
+    points += [("reg36 BSC", code36, s36, 1, BSC_P, REGULAR, True)]
+    for label, c, st, ch_idx, x, kernels, gated in points:
+        fc = fer.first_check_for(ch_idx, x)
+        _kernels.reset_launch_counts()
+        pt = fer.qualify_point(c, st, ch_idx, x, QUAL_FRAMES, fc, dev,
+                               log=lambda m: log(f"  {label} {m}"))
+        torch.cuda.synchronize()
+        read_launches(label, kernels, accurate=False)
+        rec = {"point": label, "x": x, **{k: pt[k] for k in (
+            "fer1", "fer1_events", "fer15", "ber", "avg_iters", "max_iters",
+            "dec_mbps", "datagen_s")}}
+        if gated:
+            assert pt["fer1"] == 0.0 and pt["ber"] == 0.0, \
+                f"{label}: FER(>0) {pt['fer1']}, BER {pt['ber']}"
+        else:
+            _kernels.reset_launch_counts()
+            with phi_policy("accurate"):
+                acc = fer.qualify_point(
+                    c, st, ch_idx, x, QUAL_FRAMES, fc, dev,
+                    log=lambda m: log(f"  {label} (accurate phi) {m}"))
+            torch.cuda.synchronize()
+            read_launches(f"{label} (accurate phi)", kernels, accurate=True)
+            rec["accurate_phi"] = {k: acc[k] for k in (
+                "fer1_events", "fer15", "ber", "avg_iters", "max_iters",
+                "dec_mbps")}
+        records.append(rec)
+        torch.cuda.empty_cache()
+    log(json.dumps({"qualification": records}))
+    return totals
+
+
 def main():
     import numpy as np
     import torch
@@ -1879,8 +2197,9 @@ def main():
     t0 = time.perf_counter()
     ch = BIAWGNChannel(SIGMA)
     batch = create_data(code, ch, 0, N_FRAMES, backend=backend)
+    host_s = time.perf_counter() - t0
     log(f"  create_data: {N_FRAMES} frames at sigma {SIGMA}, {backend} "
-        f"backend, {time.perf_counter() - t0:.1f} s")
+        f"backend, {host_s:.1f} s")
 
     phase(5, "grouped kernels vs plain at p41 x B = 256")
     timings = phase_kernels(torch, np, dev, code, s, batch)
@@ -1921,8 +2240,9 @@ def main():
     bec = ErasureChannel(EPSILON)
     batch_bec = create_data(code36, bec, 0, N_ERASURE_FRAMES,
                             backend="numpy")
+    bec_host_s = time.perf_counter() - t0
     log(f"  create_data: {N_ERASURE_FRAMES} frames at epsilon {EPSILON}, "
-        f"numpy backend, {time.perf_counter() - t0:.1f} s")
+        f"numpy backend, {bec_host_s:.1f} s")
 
     phase(9, "regular kernels vs plain and grouped at reg36 x B = 256")
     timings.update(phase_regular_kernels(torch, np, dev, code36, s36, batch36))
@@ -1953,7 +2273,7 @@ def main():
     stats_bec, _ = run_path(dec_bec, dyn36, batch_bec, N_ERASURE_FRAMES,
                             REGULAR, f"erasure {EPSILON}", repeat=False)
     assert stats_bec.avg_iter <= ERASURE_MAX_AVG_ITERS, stats_bec.avg_iter
-    del dec_bec, batch_bec
+    del dec_bec  # the frames stay for phase 31
     torch.cuda.empty_cache()
 
     phase(13, "general code and frames")
@@ -2102,7 +2422,14 @@ def main():
 
     phase(30, "probes (rows 11-16)")
     probe_entries = phase_probes(torch, dev, code, s, batch, s36)
-    del batch
+
+    phase(31, "device datagen: the pool kernels and pools at full size")
+    timings.update(phase_datagen(torch, np, dev, code, s, batch, host_s,
+                                 code36, s36, batch_bec, bec_host_s))
+    del batch, batch_bec
+
+    phase(32, f"qualification: {QUAL_FRAMES} frames per point")
+    launches.update(qualification(torch, dev, code, s, code36, s36))
     log(f"  all phases passed in {time.perf_counter() - t_all:.1f} s")
 
     launches.update({name: launches36[name] for name in REGULAR})
@@ -2129,6 +2456,16 @@ def main():
             if extra in r:
                 entry[extra] = r[extra]
         kernels.append(entry)
+    for name, rep in DATAGEN_KERNELS:
+        r = timings[name]
+        kernels.append({
+            "name": name, "route": "cuda", "source": DATAGEN_SOURCE,
+            "replaces": rep, "launches": launches[name],
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
+            "bound_by": r["bound"][1], "library_ms": None,
+            **{k: v for k, v in r.items() if k.endswith("_ms")
+               and k not in ("plain_ms",)}})
     kernels += probe_entries
     log(json.dumps({"kernels": kernels}))
     assert "jax" not in sys.modules

@@ -1,6 +1,6 @@
 """Build, load and launch the CUDA kernels of ``csrc/``.
 
-Five libraries: ``qc_grouped`` (the grouped family's sum-product and
+Six libraries: ``qc_grouped`` (the grouped family's sum-product and
 parity kernels, one launch per degree group; ``qc_grouped.cu``,
 ``qc_grouped_accurate.cu`` and ``qc_grouped_parity.cu``, which compile in
 parallel, and the kernels' header ``qc_grouped.cuh``), ``qc_regular`` (the
@@ -14,7 +14,9 @@ launch per degree bucket: ``general.cu``, with the min-sum variable
 kernel, ``general_accurate.cu`` and ``general_minsum.cu``, the min-sum
 check kernel, in parallel, the sum-product kernels in ``general.cuh``) and
 ``probes.cu`` (the measurement probes of
-:mod:`ldpc_decoder_tpu_torch.probes`, which no decode runs). The
+:mod:`ldpc_decoder_tpu_torch.probes`, which no decode runs) and
+``datagen.cu`` (a frame pool's ChaCha8 reference bits and channel values,
+:mod:`ldpc_decoder_tpu_torch.rng.chacha_torch`). The
 sum-product check and variable kernels of all three families share
 ``sum_product.cuh``: the fast φ, the φ policies and the vectors of lanes;
 the grouped and general min-sum check kernels share ``minsum.cuh``, the
@@ -37,12 +39,14 @@ min-sum check kernels and the two parity kernels count their vector
 launches again under ``cn_group_minsum_vec``, ``cn_general_minsum_vec``,
 ``parity_vec`` and ``parity_regular_vec``, so a run shows which
 instantiation it took; the probes count ``probe_row_copy`` and
-``probe_window``. Every sum-product launch of the accurate φ also counts
+``probe_window``, the pool generators ``chacha_bits`` and
+``channel_values``. Every sum-product launch of the accurate φ also counts
 under ``phi_accurate``, which no decode touches. Argument checking is the
 callers' job (:mod:`ldpc_decoder_tpu_torch.ops.qc_grouped`,
 :mod:`ldpc_decoder_tpu_torch.ops.qc_regular`,
 :mod:`ldpc_decoder_tpu_torch.ops.general`,
-:mod:`ldpc_decoder_tpu_torch.probes.kernels`); a nonzero CUDA error from a
+:mod:`ldpc_decoder_tpu_torch.probes.kernels`,
+:mod:`ldpc_decoder_tpu_torch.rng.chacha_torch`); a nonzero CUDA error from a
 launch raises.
 """
 
@@ -62,7 +66,7 @@ CSRC = os.path.join(os.path.dirname(os.path.dirname(
 # the sources of each library (compiled in parallel when several)
 SOURCES = {name: [os.path.join(CSRC, f"{name}.cu")]
            for name in ("qc_grouped", "qc_regular", "qc_minsum", "general",
-                        "probes")}
+                        "probes", "datagen")}
 SOURCES["qc_grouped"].append(os.path.join(CSRC, "qc_grouped_accurate.cu"))
 SOURCES["qc_regular"].append(os.path.join(CSRC, "qc_regular_accurate.cu"))
 # the parity kernels (parity.cuh) in their own sources, compiled beside
@@ -89,7 +93,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
               "--split-compile=0"]
 # each source's kMaxDegree: degrees 1..max are instantiated (probes: the
-# most windows per output node)
+# most windows per output node; datagen has no node degree)
 MAX_DEGREES = {"qc_grouped": 16, "qc_regular": 32, "qc_minsum": 32,
                "general": 32, "probes": 6}
 
@@ -104,12 +108,14 @@ launch_counts = {"cn": 0, "vn": 0, "parity": 0,
                  "cn_general_minsum_vec": 0, "cn_group_minsum_vec": 0,
                  "cn_regular_minsum": 0, "vn_regular_minsum": 0,
                  "probe_row_copy": 0, "probe_window": 0,
+                 "chacha_bits": 0, "channel_values": 0,
                  "phi_accurate": 0}
 
 _p, _i, _f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _ll = ctypes.c_longlong
 # per library: {launch function: argtypes}; each returns a CUDA error code.
-# Every library also exports ldpc_max_degree() and ldpc_cuda_error_string.
+# Every library also exports ldpc_cuda_error_string, and each but datagen
+# ldpc_max_degree().
 _SIGNATURES = {
     "qc_grouped": {
         "ldpc_cn_group": [_p, _p, _p, _p, _p, _i, _i, _i, _i, _i, _i, _f, _i,
@@ -157,6 +163,11 @@ _SIGNATURES = {
         "ldpc_probe_row_copy": [_p, _p, _p, _p, _p, _i, _ll, _i, _i, _i, _p],
         "ldpc_probe_window": [_p, _p, _p, _p, _p, _i, _i, _i, _i, _i, _i, _i,
                               _i, _i, _f, _i, _p],
+    },
+    "datagen": {
+        "ldpc_chacha_bits": [_p, _p, ctypes.c_uint, _i, _i, _i, _p],
+        "ldpc_channel_values": [_p, _p, _p, ctypes.c_uint, _i, _i, _i, _ll,
+                                _i, _f, _p],
     },
 }
 # message dtype codes of every library's C entries (each takes the ones
@@ -220,10 +231,12 @@ def load(name: str) -> ctypes.CDLL:
             getattr(lib, fn).restype = _i
         lib.ldpc_cuda_error_string.argtypes = [_i]
         lib.ldpc_cuda_error_string.restype = ctypes.c_char_p
-        lib.ldpc_max_degree.argtypes = []
-        lib.ldpc_max_degree.restype = _i
-        if lib.ldpc_max_degree() != MAX_DEGREES[name]:
-            raise RuntimeError(f"{name} library and MAX_DEGREES disagree")
+        if name in MAX_DEGREES:
+            lib.ldpc_max_degree.argtypes = []
+            lib.ldpc_max_degree.restype = _i
+            if lib.ldpc_max_degree() != MAX_DEGREES[name]:
+                raise RuntimeError(f"{name} library and MAX_DEGREES "
+                                   f"disagree")
         if "ldpc_vec_lanes" in _SIGNATURES[name] and any(
                 lib.ldpc_vec_lanes(code, d) != vec_lanes(dtype, d)
                 for dtype, code in DTYPE_CODES.items() if dtype in _SP_DTYPES
@@ -598,3 +611,31 @@ def probe_window(src, syn, out, blocks, shifts, degree: int, k: int,
         Z, W, rows, pre, DTYPE_CODES[src.dtype], _stream(src))
     _check(lib, err, "window-stream probe")
     launch_counts["probe_window"] += 1
+
+
+# channel codes of ldpc_channel_values
+CHANNEL_CODES = {"bsc": 0, "erasure": 1, "awgn": 2}
+
+
+def chacha_bits(bits, packed, start: int, n_vars: int, n_frames: int,
+                n_words: int) -> None:
+    """D1: a pool's reference bits [n_vars, n_frames] int8 and their packed
+    words [n_frames, n_words] int32 from the streams seeded start + 32 g."""
+    lib = load("datagen")
+    err = lib.ldpc_chacha_bits(_ptr(bits), _ptr(packed), start, n_vars,
+                               n_frames, n_words, _stream(bits))
+    _check(lib, err, "reference-bits kernel")
+    launch_counts["chacha_bits"] += 1
+
+
+def channel_values(values, bits, pos, start: int, n_vars: int, n_tx: int,
+                   n_frames: int, channel: str, noise: float) -> None:
+    """D2: channel values of ``n_frames`` frames into the rows of
+    ``values`` (row pos[v], or v when ``pos`` is None; its row stride taken
+    from the tensor), 0.0 from variable ``n_tx`` on."""
+    lib = load("datagen")
+    err = lib.ldpc_channel_values(
+        _ptr(values), _ptr(bits), _ptr(pos), start, n_vars, n_tx, n_frames,
+        values.stride(0), CHANNEL_CODES[channel], noise, _stream(values))
+    _check(lib, err, "channel-values kernel")
+    launch_counts["channel_values"] += 1

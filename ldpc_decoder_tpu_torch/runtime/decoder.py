@@ -94,6 +94,7 @@ from ldpc_decoder_tpu_torch.ops.qc_regular import (
     init_messages_qc_regular,
     run_iterations_qc_regular,
 )
+from ldpc_decoder_tpu_torch.rng.chacha_torch import pack_rows
 from ldpc_decoder_tpu_torch.runtime.params import DynamicParams, StaticParams
 
 _TORCH_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
@@ -139,7 +140,7 @@ def _pack_bits_natural(bits: torch.Tensor, block_perm: torch.Tensor,
     flood.cu:277-295), when the natural-order gather is a permute of whole
     Z-blocks (``block_perm``: natural block -> sorted block)."""
     C, Z, n = bits.shape
-    return _pack_words(bits[block_perm].reshape(C * Z, n), n_words)
+    return pack_rows(bits[block_perm].reshape(C * Z, n), n_words)
 
 
 def _block_perm(vn_pos: np.ndarray, Z: int) -> np.ndarray | None:
@@ -205,22 +206,6 @@ def _inverse(perm: np.ndarray) -> np.ndarray:
     inv = np.empty_like(perm)
     inv[perm] = np.arange(perm.size, dtype=perm.dtype)
     return inv
-
-
-def _pack_words(nat: torch.Tensor, n_words: int) -> torch.Tensor:
-    """bits [n_vars, n] int8 in natural order -> [n, n_words] int32 words
-    (see :func:`_pack_bits_natural`)."""
-    n_vars, n = nat.shape
-    pad = n_words * 32 - n_vars
-    if pad:
-        nat = torch.cat([nat, nat.new_zeros((pad, n))])
-    x = nat.view(n_words, 32, n).to(torch.int64)
-    words = torch.zeros((n_words, n), dtype=torch.int64, device=nat.device)
-    for j in range(32):
-        words |= x[:, j] << j
-    # [0, 2^32) -> the int32 with the same bit pattern
-    words -= (words >> 31) << 32
-    return words.to(torch.int32).T.contiguous()
 
 
 class LDPCDecoder:
@@ -336,7 +321,7 @@ class LDPCDecoder:
                 bits, self._block_perm, self.n_words)
         else:  # gather rows: user variable u sits at sorted row vn_pos[u]
             rows = qct.vn_pos.to(self.device)
-            self._pack = lambda bits: _pack_words(
+            self._pack = lambda bits: pack_rows(
                 bits.reshape(-1, bits.shape[-1]).index_select(0, rows),
                 self.n_words)
         self._vn_order_io = qct.vn_order.cpu().numpy()
@@ -351,7 +336,7 @@ class LDPCDecoder:
         self._run_iterations = partial(run_iterations_general, **self._alg)
         self._run_burst = partial(burst_iterations_general, **self._alg)
         self._node_shape = ((t.n_vars,), (t.n_checks,))
-        self._pack = lambda bits: _pack_words(
+        self._pack = lambda bits: pack_rows(
             bits.index_select(0, t.vn_pos), self.n_words)
         self._vn_order_io = t.vn_order.cpu().numpy()
         self._cn_order_io = t.cn_order.cpu().numpy()
@@ -394,6 +379,24 @@ class LDPCDecoder:
 
     def parallel_factor(self) -> int:
         return self._parallel_factor
+
+    def set_erased_variables(self, n_erased_inputs: int) -> None:
+        """Mark the trailing ``n_erased_inputs`` variables (natural order)
+        as erased, punctured: their channel LLRs are zeroed at every load
+        and refill, and pools generated for this decoder zero their values
+        (the reference's setter, h/ldpc_decoder_gpu.h:122-125; JAX
+        ``decoder.py:433-450``)."""
+        n_vars = self.code.n_vars
+        if not 0 <= n_erased_inputs <= n_vars:
+            raise ValueError(f"n_erased_inputs {n_erased_inputs} outside "
+                             f"[0, {n_vars}]")
+        erased_nat = np.zeros(n_vars, dtype=bool)
+        erased_nat[n_vars - n_erased_inputs:] = True
+        mask = torch.from_numpy(erased_nat[self._vn_order_io])[:, None]
+        self.tables = dataclasses.replace(
+            self.tables, erased_mask_sorted=mask.to(self.device))
+        self.code = dataclasses.replace(
+            self.code, n_erased_vars=int(n_erased_inputs))
 
     def decoding_input_is_llr(self) -> bool:
         """Raw channel values are expected: every built-in channel converts

@@ -47,6 +47,7 @@ from ldpc_decoder_tpu_torch.ops import qc_grouped as qg  # noqa: E402
 from ldpc_decoder_tpu_torch.ops import qc_regular as qr  # noqa: E402
 from ldpc_decoder_tpu_torch.ops.qc_decode import QCDecodeTables  # noqa: E402
 from ldpc_decoder_tpu_torch.runtime.datagen import create_data  # noqa: E402
+from ldpc_decoder_tpu_torch.runtime import perf  # noqa: E402
 from ldpc_decoder_tpu_torch.runtime.decoder import LDPCDecoder  # noqa: E402
 from ldpc_decoder_tpu_torch.runtime.params import (  # noqa: E402
     DynamicParams,
@@ -1169,3 +1170,106 @@ def test_parity_one_lane_matches_vector(cuda_device, family):
                                           slice_lanes=slice_lanes)
             assert torch.equal(one, vec)
             assert torch.nonzero(one).flatten().tolist() == [7, 100]
+
+
+# ---- pool generation (csrc/datagen.cu) --------------------------------------
+
+# (n_vars, n_tx, start): a whole number of blocks; a ragged n_vars with an
+# erased tail; a start whose seeds wrap past 2^32
+DATAGEN_SHAPES = [(512, 512, 9), (1031, 900, 2**32 - 40), (4101, 4101, 3)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_vars,n_tx,start", DATAGEN_SHAPES)
+def test_chacha_bits_kernel_matches_plain(cuda_device, n_vars, n_tx, start):
+    """D1: the bits and the packed words equal the plain version's on the
+    card and the CPU's, one launch a call."""
+    from ldpc_decoder_tpu_torch.ops import _kernels
+    from ldpc_decoder_tpu_torch.rng import chacha_torch as ct
+
+    n = 96
+    before = _kernels.launch_counts["chacha_bits"]
+    bits, packed = ct.reference_bits_packed(start, n_vars, n, cuda_device)
+    torch.cuda.synchronize()
+    assert _kernels.launch_counts["chacha_bits"] == before + 1
+    plain = ct.reference_bits_plain(start, n_vars, n, cuda_device)
+    assert torch.equal(bits, plain)
+    assert torch.equal(packed, ct.pack_rows(plain, (n_vars + 31) // 32))
+    cpu_bits, cpu_packed = ct.reference_bits_packed(start, n_vars, n, "cpu")
+    assert torch.equal(bits.cpu(), cpu_bits)
+    assert torch.equal(packed.cpu(), cpu_packed)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("channel,noise", [("bsc", 0.07), ("erasure", 0.3),
+                                           ("awgn", 0.9)])
+@pytest.mark.parametrize("n_vars,n_tx,start", DATAGEN_SHAPES)
+def test_channel_values_kernel_matches_plain(cuda_device, channel, noise,
+                                             n_vars, n_tx, start):
+    """D2 equals its plain version on the card bit for bit (AWGN too: the
+    plain version's log and cos are the same CUDA library functions),
+    with the erased tail 0.0 and each variable in its sorted row; written
+    into a column slice of a wider pool, it leaves the other columns
+    alone."""
+    from ldpc_decoder_tpu_torch.ops import _kernels
+    from ldpc_decoder_tpu_torch.rng import chacha_torch as ct
+
+    n = 64
+    bits = ct.reference_bits(start, n_vars, n, cuda_device)
+    pos = torch.from_numpy(np.random.default_rng(n_vars).permutation(
+        n_vars).astype(np.int32)).to(cuda_device)
+    pool = torch.full((n_vars, 3 * n), float("nan"), device=cuda_device)
+    before = _kernels.launch_counts["channel_values"]
+    out = ct.channel_values(bits, start, channel, noise, n_tx=n_tx, pos=pos,
+                            out=pool[:, n:2 * n])
+    torch.cuda.synchronize()
+    assert _kernels.launch_counts["channel_values"] == before + 1
+    want = ct.channel_values_plain(bits, start, channel, noise, n_tx, pos)
+    assert perf.bit_identical(out, want)
+    assert torch.isnan(pool[:, :n]).all() and torch.isnan(pool[:, 2 * n:]).all()
+    natural = ct.channel_values(bits, start, channel, noise)
+    full = ct.channel_values_plain(bits, start, channel, noise)
+    assert perf.bit_identical(natural, full)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("channel", ["bsc", "erasure", "awgn"])
+def test_pool_on_card_matches_host_and_cpu(cuda_device, channel):
+    """create_pool_device on a CUDA decoder goes through D1 and D2 (one
+    launch each per chunk) and equals the CPU decoder's pool (AWGN: bits,
+    syndromes and words exact, values within 2 ulps of the CPU's log and
+    cos) and, for BSC and erasure, the host datagen's upload, erased tail
+    included (the small p41 code punctures 4 Z-blocks)."""
+    from ldpc_decoder_tpu_torch.channels import (
+        BIAWGNChannel as Awgn,
+        BSCChannel,
+        ErasureChannel,
+    )
+    from ldpc_decoder_tpu_torch.ops import _kernels
+    from ldpc_decoder_tpu_torch.runtime.datagen_device import (
+        create_pool_device,
+    )
+
+    code, s = p41_code(**SMALL)
+    ch = {"bsc": BSCChannel(0.05), "erasure": ErasureChannel(0.3),
+          "awgn": Awgn(0.8)}[channel]
+    sp = StaticParams(parallel_factor_user=32)
+    dec = LDPCDecoder(code, ch, sp, qc=s, device=cuda_device)
+    cpu = LDPCDecoder(code, ch, sp, qc=s, device="cpu")
+    before = dict(_kernels.launch_counts)
+    pool = create_pool_device(dec, ch, 7, 128, chunk_frames=64)
+    torch.cuda.synchronize()
+    for name in ("chacha_bits", "channel_values"):
+        assert _kernels.launch_counts[name] - before[name] == 2
+    ref = create_pool_device(cpu, ch, 7, 128, chunk_frames=128)
+    assert torch.equal(pool.syn_sorted.cpu(), ref.syn_sorted)
+    assert torch.equal(pool.ref_packed.cpu(), ref.ref_packed)
+    if channel == "awgn":
+        torch.testing.assert_close(pool.values_sorted.cpu(),
+                                   ref.values_sorted, rtol=2.4e-7, atol=5e-7)
+        return
+    assert perf.bit_identical(pool.values_sorted.cpu(), ref.values_sorted)
+    batch = create_data(code, ch, 7, 128, backend="numpy")
+    pv, ps = cpu.upload_pools(batch.values, batch.syndromes)
+    assert perf.bit_identical(pool.values_sorted.cpu(), pv)
+    assert torch.equal(pool.syn_sorted.cpu(), ps)

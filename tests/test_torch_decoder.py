@@ -376,3 +376,86 @@ def test_fetch_results_false_leaves_results_on_the_device(regular):
     assert on_dev.shape == (N, dec.n_words) and on_dev.dtype == torch.int32
     res, _ = dec.decode_presorted(dyn, N, pv, ps)
     np.testing.assert_array_equal(on_dev.numpy().view(np.uint32), res)
+
+
+def test_set_erased_variables_matches_jax():
+    """JAX's tests/test_runtime.py::test_set_erased_variables on the port,
+    held to the JAX decoder after the same call: the erased mask in natural
+    order, ``n_erased_vars``, and the decode of the same frames (the
+    trailing 32 variables' channel values 0) to the same words and
+    per-frame iterations, without error."""
+    from ldpc_decoder_tpu.codes.generate import make_regular_code as jmake
+
+    from ldpc_decoder_tpu_torch.codes.generate import make_regular_code
+
+    jdec = JaxLDPCDecoder(jmake(512, 3, 6, seed=6), JaxBIAWGN(0.55),
+                          jparams.StaticParams(max_log_parallel_factor_user=3))
+    dec = LDPCDecoder(make_regular_code(512, 3, 6, seed=6),
+                      BIAWGNChannel(0.55), StaticParams(
+                          max_log_parallel_factor_user=3,
+                          device_memory_bytes=1 << 30), device="cpu")
+    jdec.set_erased_variables(32)
+    dec.set_erased_variables(32)
+    assert dec.code.n_erased_vars == jdec.code.n_erased_vars == 32
+
+    def natural(mask, order):
+        out = np.empty(mask.shape[0], bool)
+        out[np.asarray(order)] = np.asarray(mask)[:, 0]
+        return out
+
+    mask = natural(dec.tables.erased_mask_sorted.numpy(), dec._vn_order_io)
+    np.testing.assert_array_equal(mask, natural(
+        jdec.tables.erased_mask_sorted, jdec._vn_order_io))
+    assert mask[-32:].all() and not mask[:-32].any()
+    n = dec.parallel_factor()
+    assert n == jdec.parallel_factor()
+    batch = create_data(jdec.code, JaxBIAWGN(0.55), 0, n)
+    assert (batch.values[-32:] == 0.0).all()
+    dyn = dict(num_iter_max=60, num_iter_check_parity=5, loading_factor=1)
+    res, st = dec.decode(DynamicParams(**dyn), n, batch.values,
+                         batch.syndromes)
+    jres, jst = jdec.decode(jparams.DynamicParams(**dyn), n, batch.values,
+                            batch.syndromes)
+    np.testing.assert_array_equal(res, np.asarray(jres))
+    np.testing.assert_array_equal(st.iterations, jst.iterations)
+    assert np.bitwise_count(batch.ref_bits_packed() ^ res).sum() == 0
+    dec.set_erased_variables(0)
+    assert not dec.tables.erased_mask_sorted.any()
+    with pytest.raises(ValueError, match="outside"):
+        dec.set_erased_variables(513)
+
+
+def test_bsc_harness_matches_jax():
+    """A BSC decode end to end, held to the JAX decoder: JAX's
+    tests/test_runtime.py::test_bsc_end_to_end_harness through the port's
+    harness on the CPU gives the JAX harness's report (errors, frames in
+    error, iterations)."""
+    import io
+
+    from ldpc_decoder_tpu.channels import BSCChannel as JaxBSC
+    from ldpc_decoder_tpu.codes.generate import make_regular_code as jmake
+    from ldpc_decoder_tpu.runtime.harness import do_test as jax_do_test
+
+    from ldpc_decoder_tpu_torch.channels import BSCChannel
+    from ldpc_decoder_tpu_torch.codes.generate import make_regular_code
+    from ldpc_decoder_tpu_torch.runtime.harness import do_test
+
+    dyn = dict(num_iter_max=50, loading_factor=2, target_errors=15)
+    jrep = jax_do_test(jmake(512, 3, 6, seed=21), JaxBSC(0.02), num_runs=2,
+                       static_params=jparams.StaticParams(
+                           max_log_parallel_factor_user=3),
+                       dyn_params=jparams.DynamicParams(**dyn),
+                       start_index=0, log_level=0, out=io.StringIO())
+    code, ch = make_regular_code(512, 3, 6, seed=21), BSCChannel(0.02)
+    sp = StaticParams(max_log_parallel_factor_user=3,
+                      device_memory_bytes=1 << 30)
+    out = io.StringIO()
+    rep = do_test(code, ch, 2, sp, DynamicParams(**dyn), start_index=0,
+                  log_level=3, out=out,
+                  decoder=LDPCDecoder(code, ch, sp, device="cpu"))
+    assert rep.num_bit_errors == jrep.num_bit_errors == 0
+    assert rep.vectors_with_errors == jrep.vectors_with_errors == 0
+    for f in ("num_vectors_per_run", "avg_iter", "min_iter", "max_iter"):
+        assert getattr(rep, f) == getattr(jrep, f), f
+    assert "Decoding throughput:" in rep.report
+    assert "frame batch 1 / 2" in out.getvalue()

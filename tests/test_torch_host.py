@@ -255,6 +255,9 @@ def test_port_imports_no_jax():
         "import ldpc_decoder_tpu_torch.runtime.perf\n"
         "import ldpc_decoder_tpu_torch.probes\n"
         "import ldpc_decoder_tpu_torch.probes.__main__\n"
+        "import ldpc_decoder_tpu_torch.rng.chacha_torch\n"
+        "import ldpc_decoder_tpu_torch.runtime.datagen_device\n"
+        "import ldpc_decoder_tpu_torch.codes.samples\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'ldpc_decoder_tpu' or m.startswith('ldpc_decoder_tpu.')]\n"
         "assert not bad, bad\n"
