@@ -72,7 +72,8 @@ Phases:
    any other qc_minsum kernel that spills named; the parity kernels'
    registers and spills by (family, lanes per thread), none spilling;
    the pool kernels' (csrc/datagen.cu) registers, stack frames and
-   spills, none spilling;
+   spills, none spilling; the probes' window kernels' registers by kernel
+   and phi policy, none spilling or keeping a stack frame;
 3. the numerics smoke (``runtime.smoke.cuda_numerics_smoke``): phi on the
    device, through check-node launches of the grouped kernels' fast and
    accurate phi and the regular kernel's fast one, against float64 (max
@@ -154,11 +155,16 @@ Phases:
     phase 11's band, phase timings printed), and a subprocess on a small
     QC code.
 30. the probes: every mode of both probe kernels against its plain version
-    at full size, then each probe's headline point through the probe
-    entry point's functions, its records printed, its launches counted
-    like a path's (row 11: the grouped kernels' fresh outputs bit-identical
-    to the in-place run over 14 iterations; its one-iteration check against
-    the plain passes runs their accurate phi).
+    at full size (the window kernels on the accurate phi by compare_msgs,
+    on the fast phi by compare_msgs_fast, bit for bit where no phi runs),
+    then each probe's headline point through the probe entry point's
+    functions, its records printed, its launches counted like a path's
+    (row 11: the grouped kernels' fresh outputs bit-identical to the
+    in-place run over 14 iterations; its one-iteration check against the
+    plain passes runs their accurate phi); the window probes' accurate-phi
+    record heads the entry, their stubbed and fast-phi times beside it,
+    each by both probe timers (single launch, and queued behind a spin of
+    the card).
 31. device datagen: the pool kernels of csrc/datagen.cu against their
     plain versions at full size, bit for bit (reference bits and packed
     words; BI-AWGN values at p41 x 512 in the decoder's sorted order with
@@ -186,8 +192,11 @@ entries with their fast-phi time as ``ms`` and the accurate one as
 parity entries with their one-lane instantiation's time as
 ``one_lane_ms``, the parity entries with each grid slice's as
 ``slice_ms``; the pool kernels with p41 x 512 BI-AWGN as ``ms`` and the
-reg36 erasure and BSC values as ``erasure_ms`` and ``bsc_ms``). Imports
-nothing of JAX.
+reg36 erasure and BSC values as ``erasure_ms`` and ``bsc_ms``; the window
+probes with the accurate phi as ``ms``, phi stubbed as ``stub_ms`` and the
+fast phi as ``fast_ms`` where measured, each also by the probes' queued
+timer as ``queued_ms``, ``stub_queued_ms`` and ``fast_queued_ms``, and
+``copy_`` by it as ``queued_library_ms``). Imports nothing of JAX.
 """
 
 import contextlib
@@ -450,6 +459,46 @@ def parity_report(name, entries):
         assert spill == 0, f"{name}: parity kernels spill ({line})"
 
 
+# a window kernel's name, template arguments (D, K, MODE, OUT, LIVE) and
+# phi policy in a mangled probes-library name
+WINDOW_ENTRY = re.compile(
+    r"(window_staged_kernel|window_kernel)I13__nv_bfloat16((?:Li\d+E)+)"
+    r"Lb(\d)EN4ldpc\d+(PhiFast|PhiAccurate)E")
+
+
+def probes_report(path):
+    """The probes library's window kernels' registers, stack frames and
+    spills by kernel and phi policy, and the copy's kernel (row 14b)
+    alone, asserting no window kernel spills or keeps a stack frame (a
+    batch of rows left in local memory)."""
+    with open(path + ".log") as f:
+        text = f.read()
+    rows = {}
+    for chunk in text.split("Compiling entry function '")[1:]:
+        m = WINDOW_ENTRY.search(chunk.split("'", 1)[0])
+        if m is None:
+            continue
+        kernel, args, live, policy = m.groups()
+        regs = int(re.search(r"Used (\d+) registers", chunk).group(1))
+        frame, stores, loads = map(int, re.search(
+            r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) "
+            r"bytes spill loads", chunk).groups())
+        targs = args.replace("Li", "").rstrip("E").replace("E", ", ")
+        label = f"{kernel}<{targs}, {live}, {policy}>"
+        assert frame == 0 and stores + loads == 0, (
+            f"{label}: {frame} bytes stack frame, {stores + loads} spill "
+            f"bytes")
+        if label.startswith("window_kernel<1, 0, 0, 0"):
+            log(f"    {label} (the copy, row 14b): {regs} registers")
+        r = rows.setdefault((kernel, policy), [0, 0])
+        r[0] = max(r[0], regs)
+        r[1] += 1
+    assert rows, "probes: no window kernel in the ptxas log"
+    for (kernel, policy), (regs, n) in sorted(rows.items()):
+        log(f"    {kernel} {policy}: {n} instantiations, max {regs} "
+            f"registers, no stack frame, no spill")
+
+
 # the channels of channel_values_kernel, by template argument
 CHANNEL_NAMES = ("BSC", "erasure", "AWGN")
 # the SASS instructions that can carry a ChaCha8 XOR or rotation, all on
@@ -538,6 +587,8 @@ def phase_build():
             parity_report(name, entries)
         if name == "datagen":
             datagen_report(path)
+        if name == "probes":
+            probes_report(path)
 
 
 # (kernel, element type, degree, lanes per thread, phi policy) in a mangled
@@ -1890,8 +1941,23 @@ def phase_probes(torch, dev, code, s, batch, s36):
             "max_abs_err": head["max_abs_err"], "ms": head["ms"],
             "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
             "bound_by": head["bound_by"], "library_ms": head["library_ms"]})
+        # the window probes: the queued timer's readings, then the other
+        # phi records (stubbed and the fast policy) by both timers
+        for key in ("queued_ms", "queued_library_ms"):
+            if head.get(key) is not None:
+                entries[-1][key] = head[key]
+        for rec in recs[1:]:
+            phi = rec["params"].get("phi")
+            if phi in ("stub", "fast"):
+                entries[-1][f"{phi}_ms"] = rec["ms"]
+                entries[-1][f"{phi}_queued_ms"] = rec["queued_ms"]
         log(f"  {probe}: {head['ms']:.3f} ms, bound {head['bound_ms']:.3f} "
-            f"ms ({head['bound_by']}), {entries[-1]['launches']} launches, "
+            f"ms ({head['bound_by']}, {head['bound_ms'] / head['ms']:.1%})"
+            + "".join(f", {k} {entries[-1][k]:.3f}" for k in
+                      ("queued_ms", "stub_ms", "stub_queued_ms", "fast_ms",
+                       "fast_queued_ms", "library_ms", "queued_library_ms")
+                      if entries[-1].get(k) is not None)
+            + f", {entries[-1]['launches']} launches, "
             f"{time.perf_counter() - t0:.1f} s")
         torch.cuda.empty_cache()
     return entries

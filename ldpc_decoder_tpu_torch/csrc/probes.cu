@@ -2,13 +2,6 @@
 // TPU measurement kernels in scripts/ (PERF.md section 6, rows 12-16). None
 // runs in a decode; `python -m ldpc_decoder_tpu_torch.probes` measures them.
 //
-// Two templates, both bound by bytes (each source row read once, each
-// output row written once); window_stream by operations only where K phi
-// evaluations per element (K >= 2) outweigh its bytes. A probe exists to
-// measure that bound, so neither has any design beyond coalesced access:
-// vector loads and stores in row_copy, one lane per thread along the frame
-// axis in window_stream, as the decode kernels read.
-//
 // row_copy_kernel<V, MODE> (rows 12, 13 and 15). Replaces
 // scripts/micro2.py:109 copy_kernel (pallas_call :132), the rotated-read copy
 // roofline; scripts/micro3.py:50 kernel (:70), copy bandwidth against the
@@ -22,32 +15,66 @@
 // Each thread moves sizeof(V) = 1, 2, 4, 8 or 16 contiguous bytes per load
 // and store (the bytes per thread, whatever the element type: a copy moves
 // bytes); the threads of a block walk one or more rows side by side, and a
-// thread past the row's end does nothing.
+// thread past the row's end does nothing. Bound by bytes: each source row
+// read once, each output row written once.
 //
-// window_kernel<T, D, K, MODE, OUT, LIVE> and window_staged_kernel<T, D, K,
-// OUT, LIVE>, the window stream (rows 14 and 16). Replaces
+// The window stream (rows 14 and 16). Replaces
 // scripts/micro_overlap2.py:52 make_kernel (:90), micro_overlap3.py:41 build
 // (:63), micro_overlap4.py:55 build (:116), micro_overlap6.py:58 build
 // (:172): does phi hide under memory traffic; scripts/proto_window.py:39,
 // 52, 65 kern_a/b/c (:86): a rotated window read three ways. Output node i
-// reads D windows w_s = src[blocks[i*D+s]][(z + shifts[i*D+s]) mod Z] as
-// float32, through
-//   MODE 0 (aligned): the row computed once per block and advanced row by
-//                     row (the TPU's tile-aligned read, the ceiling);
-//   MODE 1 (direct):  (z + s) mod Z on every row, the decode kernels' read;
-//   MODE 2 (staged):  a tile pair of 2 * kStageRows rows staged in shared
-//                     memory as float32, then read at the shift's offset
-//                     within the tile (kern_a's scratch and dynamic slice);
-// and writes
+// reads D windows w_s = src[blocks[i*D+s]][(z + shifts[i*D+s]) mod Z] of
+// src [NB, Z, W] as float32 and writes
 //   OUT 0 (sum): v = 0 + w_0 + w_1 + ... (left to right), then K times
 //                v = step(v), to out[i];
 //   OUT 1 (leave-one-out, K = 1): the check-node algebra of
 //                micro_overlap6.py:86-100: a_s = |w_s|, X = syn << 31 xor
 //                the sign bits, ext = a_0 + a_1 + ..., out[i*D+s] =
 //                step(ext - a_s) | (sign(w_s) xor X).
-// step(v) = phi_abs(|v| + 0.125) (LIVE, the decode kernels' phi_abs of
-// common.cuh, clamped to [pre, 80]) or v + 0.125 (phi stubbed). K = 0 with
-// D = 1 is a plain copy.
+// step(v) = Phi::abs(|v| + 0.125) under a phi policy of sum_product.cuh
+// (PhiAccurate, common.cuh's phi_abs, the plain version's arithmetic; or
+// PhiFast, the MUFU phi every sum-product decode runs), clamped to
+// [pre, 80]; or v + 0.125 (phi stubbed). K = 0 with D = 1 is a plain copy.
+// What bounds it on this card: bytes, the D windows read once and the
+// outputs written once; phi's operations only where K >= 2 steps per value
+// outweigh them. The accurate phi (tanhf, logf, expf, both branches where
+// a warp diverges at x = 5) takes several times the fast phi's 21
+// instructions and is issue-bound at rows 14c and 14d (PERF.md).
+//
+// Both kernels move 16 bytes of lanes per load and store (8 bfloat16
+// lanes, VecLanes of sum_product.cuh at D <= 6, the decode kernels' lanes),
+// so a warp moves 512 contiguous bytes per window and row (one lane a
+// thread moved 64, at 17-52 % of the copy rate; PERF.md); W must be a
+// multiple of 8 and every pointer 16-byte aligned (the wrapper raises
+// otherwise; there is no one-lane path).
+//
+// window_kernel<T, D, K, MODE, OUT, LIVE, Phi> (modes 0 and 1): a thread
+// owns 8 lanes of node i and walks `rows` rows blockDim.y apart, so a block
+// reads blockDim.y whole rows of each window per step, and it reads
+// row_batch() rows before it computes, kRowLoads = 8 loads of 16 bytes in
+// flight (one row at a time under the accurate phi); the leave-one-out
+// keeps 3 blocks an SM (at most 168 registers: 128 threads of 48 values):
+//   MODE 0 (aligned): the row computed once per thread and advanced (the
+//                     TPU's tile-aligned read, the ceiling);
+//   MODE 1 (direct):  (z + s) mod Z on every row, the decode kernels' read.
+// window_staged_kernel<T, D, K, OUT, LIVE, Phi> (mode 2, staged): a block
+// owns R whole rows of node i. Per window it stages exactly those R rows,
+// (z0 + shift) ... (z0 + shift + R - 1) mod Z, at most two contiguous runs
+// of src (a wrap splits the run), each by one 1-D bulk copy of the Tensor
+// Memory Accelerator (cp.async.bulk, completion counted on an mbarrier: no
+// tensor map, no driver API, no registers spent on the copy). Rows stay
+// bfloat16 in shared memory and are read back 16 bytes a thread. The
+// leave-one-out keeps all D windows (its outputs need them: 6 x 8 KB), the
+// sum a ring of 3: the copies of the next windows run while the block sums
+// the current one; 48 KB a block at most, four blocks an SM. This staged
+// read replaces kern_a's f32 VMEM scratch and dynamic slice; its question:
+// does staging through shared memory by TMA read as fast as the direct
+// rotated load? A block takes whole rows because a bulk copy moves one
+// contiguous run (cp.async 16 bytes a thread would serve a slice of lanes,
+// which no probe needs): W up to 8192 for the sums, 4096 for the
+// leave-one-out. The launch shapes come from window_plan, which
+// ldpc_probe_window_plan exports; probes/kernels.py window_plan and
+// stage_runs mirror it and stage_runs, checked against the library at load.
 //
 // Offsets are 64-bit (the window sources reach 3.2 GB, the gathers 2.4 GB).
 // Kernels launch on the caller's stream, allocate nothing and never
@@ -55,26 +82,40 @@
 // never built with --use_fast_math.
 
 #include <cstdint>
+#include <type_traits>
 
 #include "common.cuh"
+#include "sum_product.cuh"
 
 namespace {
 
 using ldpc::from_f32;
 using ldpc::kPhiHigh;
 using ldpc::kSignBit;
-using ldpc::phi_abs;
+using ldpc::load_pack;
+using ldpc::Pack;
+using ldpc::PhiAccurate;
+using ldpc::PhiFast;
 using ldpc::rotate;
+using ldpc::store_pack;
 using ldpc::to_f32;
 
 constexpr int kMaxDegree = 6;       // windows per output node
 constexpr int kCopyThreads = 256;   // row_copy threads per block
-constexpr int kLaneThreads = 128;   // window threads per block (direct)
-constexpr int kStageRows = 32;      // staged tile height (the pair: 64)
-constexpr int kStageLanes = 64;     // staged tile width
-constexpr int kStageThreads = 256;  // 4 rows of 64 lanes at a time
-constexpr int kStageSubs = kStageThreads / kStageLanes;
-constexpr int kStagePair = 2 * kStageRows * kStageLanes;  // floats
+constexpr int kLanes = ldpc::VecLanes<__nv_bfloat16, kMaxDegree>::value;
+constexpr int kLaneThreads = 128;   // window_kernel threads per block
+constexpr int kStageThreads = 256;  // window_staged_kernel threads per block
+constexpr int kRing = 3;            // staged windows of a sum, in flight
+constexpr int kBlockStageBytes = 48 * 1024;  // staged bytes per block
+constexpr int kWindowStageBytes = 16 * 1024;  // staged bytes per window
+constexpr int kStageMaxRows = 64;   // rows per staged block, at most
+constexpr int kMaxRowLanes = 1 << 24;  // W, at most
+constexpr int kRowLoads = 8;        // window_kernel: 16-byte loads in flight
+constexpr int kLooMinBlocks = 3;    // window_kernel: leave-one-out blocks/SM
+
+static_assert(kLanes == 8, "16 bytes of bfloat16 lanes per thread");
+static_assert(ldpc::VecLanes<__nv_bfloat16, 1>::value == kLanes,
+              "every degree takes the same lanes");
 
 enum { kAligned = 0, kDirect = 1, kStaged = 2 };
 enum { kSum = 0, kLeaveOneOut = 1 };
@@ -143,201 +184,436 @@ int row_copy_mode(int mode, const void* src, void* out, const void* blocks,
   }
 }
 
-// ---- window stream ----------------------------------------------------------
+// ---- window stream: the launch plan -----------------------------------------
 
-template <bool LIVE>
-__device__ __forceinline__ float step(float v, float pre) {
-  return LIVE ? phi_abs(fabsf(v) + 0.125f, pre, kPhiHigh) : v + 0.125f;
+// Windows a staged block holds at once: all D for the leave-one-out, a ring
+// of up to kRing for the sum.
+__host__ __device__ constexpr int stage_count(int D, int out_mode) {
+  return out_mode == kLeaveOneOut ? D : (D < kRing ? D : kRing);
 }
 
-// v (the window sum) through K steps, stored in T.
-template <typename T, int K, bool LIVE>
-__device__ __forceinline__ T finish_sum(float v, float pre) {
-#pragma unroll
-  for (int k = 0; k < K; ++k) v = step<LIVE>(v, pre);
-  return from_f32<T>(v);
+// Bytes of one staged window (R rows of W lanes) at most.
+__host__ __device__ constexpr int window_stage_bytes(int D, int out_mode) {
+  return kBlockStageBytes / stage_count(D, out_mode) < kWindowStageBytes
+             ? kBlockStageBytes / stage_count(D, out_mode)
+             : kWindowStageBytes;
 }
 
-// The leave-one-out outputs of one row: out[s * stride], s < D.
-template <typename T, int D, bool LIVE>
-__device__ __forceinline__ void leave_one_out(const float (&w)[D],
-                                              uint32_t X, T* out,
-                                              size_t stride, float pre) {
-  float a[D];
-  uint32_t sb[D];
-#pragma unroll
-  for (int s = 0; s < D; ++s) {
-    sb[s] = __float_as_uint(w[s]) & kSignBit;
-    a[s] = fabsf(w[s]);
-    X ^= sb[s];
+// The rows z0 .. z0 + n - 1 of a window with shift `shift` (< Z) read src
+// rows (z0 + shift) mod Z onward: one run, or two where they pass Z.
+// Writes (start, length) per run; returns the number of runs.
+__host__ __device__ inline int stage_runs(int Z, int z0, int n, int shift,
+                                          int* start, int* len) {
+  int s0 = z0 + shift;
+  if (s0 >= Z) s0 -= Z;
+  const int first = Z - s0 < n ? Z - s0 : n;
+  start[0] = s0;
+  len[0] = first;
+  if (first == n) return 1;
+  start[1] = 0;
+  len[1] = n - first;
+  return 2;
+}
+
+struct Plan {
+  int block_x, block_y;
+  long long grid_x;
+  int grid_y, grid_z;
+  int smem;        // dynamic shared memory bytes (staged rows)
+  int stage_rows;  // R, rows per staged block (0: not staged)
+  int stages;      // windows staged at once (0: not staged)
+};
+
+// The launch of ldpc_probe_window for a shape; false where no launch
+// takes it (W not a multiple of kLanes, too many nodes, a staged row too
+// wide for shared memory, rows outside 1..Z).
+bool window_plan(int mode, int degree, int out_mode, int Z, int W,
+                 int n_nodes, int rows, Plan* p) {
+  if (degree < 1 || degree > kMaxDegree || Z < 1 || W < kLanes ||
+      W > kMaxRowLanes || W % kLanes != 0 || n_nodes < 1 ||
+      n_nodes > 65535 || (out_mode != kSum && out_mode != kLeaveOneOut))
+    return false;
+  const int vectors = W / kLanes;
+  if (mode == kStaged) {
+    const int row_bytes = W * 2;
+    int R = window_stage_bytes(degree, out_mode) / row_bytes;
+    if (R > kStageMaxRows) R = kStageMaxRows;
+    if (R > Z) R = Z;
+    if (R < 1) return false;
+    const int S = stage_count(degree, out_mode);
+    *p = {kStageThreads, 1, (static_cast<long long>(Z) + R - 1) / R, 1,
+          n_nodes, S * R * row_bytes, R, S};
+    return true;
   }
-  float ext = a[0];
+  if ((mode != kAligned && mode != kDirect) || rows < 1 || rows > Z)
+    return false;
+  const int lanes = vectors < kLaneThreads ? vectors : kLaneThreads;
+  const int side = kLaneThreads / lanes;
+  const long long span = static_cast<long long>(side) * rows;
+  const int grid_y = (vectors + lanes - 1) / lanes;
+  if (grid_y > 65535) return false;
+  *p = {lanes, side, (Z + span - 1) / span, grid_y, n_nodes, 0, 0, 0};
+  return true;
+}
+
+// ---- window stream: the rows ------------------------------------------------
+
+template <typename Phi, bool LIVE>
+__device__ __forceinline__ float step(float v, float lo) {
+  return LIVE ? Phi::abs(fabsf(v) + 0.125f, lo, kPhiHigh) : v + 0.125f;
+}
+
+// V window sums through K steps, stored in T.
+template <typename T, int V, int K, typename Phi, bool LIVE>
+__device__ __forceinline__ Pack<T, V> finish_sum(const float (&v)[V],
+                                                 float lo) {
+  Pack<T, V> o;
 #pragma unroll
-  for (int s = 1; s < D; ++s) ext = ext + a[s];
+  for (int i = 0; i < V; ++i) {
+    float x = v[i];
 #pragma unroll
-  for (int s = 0; s < D; ++s) {
-    const float res = step<LIVE>(ext - a[s], pre);
-    out[s * stride] =
-        from_f32<T>(__uint_as_float(__float_as_uint(res) | (sb[s] ^ X)));
+    for (int k = 0; k < K; ++k) x = step<Phi, LIVE>(x, lo);
+    o.v[i] = from_f32<T>(x);
+  }
+  return o;
+}
+
+// X = syn << 31 for V lanes (0 without a syndrome).
+template <int V>
+__device__ __forceinline__ void syn_bits(const int8_t* syn, size_t at,
+                                         uint32_t (&X)[V]) {
+  if (syn == nullptr) {
+#pragma unroll
+    for (int i = 0; i < V; ++i) X[i] = 0u;
+    return;
+  }
+  const Pack<int8_t, V> s = load_pack<int8_t, V>(syn + at);
+#pragma unroll
+  for (int i = 0; i < V; ++i)
+    X[i] = static_cast<uint32_t>(static_cast<uint8_t>(s.v[i])) << 31;
+}
+
+// Window w into the leave-one-out's ext (a_0 + a_1 + ..., left to right)
+// and sign word X.
+template <typename T, int V>
+__device__ __forceinline__ void loo_accumulate(const Pack<T, V>& w,
+                                               bool first, float (&ext)[V],
+                                               uint32_t (&X)[V]) {
+#pragma unroll
+  for (int i = 0; i < V; ++i) {
+    const float x = to_f32(w.v[i]);
+    ext[i] = first ? fabsf(x) : ext[i] + fabsf(x);
+    X[i] ^= __float_as_uint(x) & kSignBit;
   }
 }
 
-__device__ __forceinline__ uint32_t syn_bit(const int8_t* syn, size_t at) {
-  return syn == nullptr
-             ? 0u
-             : static_cast<uint32_t>(static_cast<uint8_t>(syn[at])) << 31;
+// The leave-one-out output of window w: step(ext - a) | (sign(w) xor X).
+template <typename T, int V, typename Phi, bool LIVE>
+__device__ __forceinline__ Pack<T, V> loo_output(const Pack<T, V>& w,
+                                                 const float (&ext)[V],
+                                                 const uint32_t (&X)[V],
+                                                 float lo) {
+  Pack<T, V> o;
+#pragma unroll
+  for (int i = 0; i < V; ++i) {
+    const float x = to_f32(w.v[i]);
+    const float res = step<Phi, LIVE>(ext[i] - fabsf(x), lo);
+    o.v[i] = from_f32<T>(__uint_as_float(
+        __float_as_uint(res) | ((__float_as_uint(x) & kSignBit) ^ X[i])));
+  }
+  return o;
 }
 
-// Aligned and direct reads: a thread owns lane b of node i and walks `rows`
-// rows; blocks cover (row chunk, lane chunk, node).
-template <typename T, int D, int K, int MODE, int OUT, bool LIVE>
-__global__ void __launch_bounds__(kLaneThreads)
+// ---- window stream: aligned and direct reads --------------------------------
+
+// Rows a thread reads together: kRowLoads loads of 16 bytes in flight for
+// traffic (a copy, the sums, the fast phi); one row at a time under the
+// accurate phi, whose libm calls hold the registers that more rows would
+// take (8 rows ran at 251 registers and slower at row 14a; PERF.md).
+template <int D, int K, bool LIVE, typename Phi>
+__host__ __device__ constexpr int row_batch() {
+  if (LIVE && K > 0 && std::is_same<Phi, PhiAccurate>::value) return 1;
+  return D >= kRowLoads ? 1 : kRowLoads / D;
+}
+
+// U rows of node i from row z on, blockDim.y (side) apart: every load
+// first, then the arithmetic and the stores.
+template <typename T, int D, int K, int MODE, int OUT, bool LIVE,
+          typename Phi, int U>
+__device__ __forceinline__ void window_rows(const T* const (&p)[D],
+                                            int (&row)[D], int z, int side,
+                                            int advance, int Z, int W,
+                                            size_t ZW, const int8_t* sy,
+                                            T* o, float lo) {
+  constexpr int V = kLanes;
+  Pack<T, V> w[U][D];
+#pragma unroll
+  for (int u = 0; u < U; ++u) {
+#pragma unroll
+    for (int s = 0; s < D; ++s) {
+      const int r = MODE == kAligned ? row[s] : rotate(z + u * side, row[s], Z);
+      w[u][s] = load_pack<T, V>(p[s] + static_cast<size_t>(r) * W);
+      if (MODE == kAligned) row[s] = rotate(row[s], advance, Z);
+    }
+  }
+#pragma unroll
+  for (int u = 0; u < U; ++u) {
+    const size_t at = static_cast<size_t>(z + u * side) * W;
+    if (OUT == kSum) {
+      float v[V];
+#pragma unroll
+      for (int i = 0; i < V; ++i) v[i] = 0.0f;
+#pragma unroll
+      for (int s = 0; s < D; ++s) {
+#pragma unroll
+        for (int i = 0; i < V; ++i) v[i] = v[i] + to_f32(w[u][s].v[i]);
+      }
+      store_pack<T, V>(o + at, finish_sum<T, V, K, Phi, LIVE>(v, lo));
+    } else {
+      float ext[V];
+      uint32_t X[V];
+      syn_bits<V>(sy, at, X);
+#pragma unroll
+      for (int s = 0; s < D; ++s)
+        loo_accumulate<T, V>(w[u][s], s == 0, ext, X);
+#pragma unroll
+      for (int s = 0; s < D; ++s)
+        store_pack<T, V>(o + s * ZW + at,
+                         loo_output<T, V, Phi, LIVE>(w[u][s], ext, X, lo));
+    }
+  }
+}
+
+template <typename T, int D, int K, int MODE, int OUT, bool LIVE,
+          typename Phi>
+__global__ void __launch_bounds__(kLaneThreads,
+                                  OUT == kLeaveOneOut ? kLooMinBlocks : 1)
 window_kernel(const T* __restrict__ src, const int8_t* __restrict__ syn,
               T* __restrict__ out, const int* __restrict__ blocks,
               const int* __restrict__ shifts, int Z, int W, int rows,
               float pre) {
-  const int b = blockIdx.y * kLaneThreads + threadIdx.x;
-  if (b >= W) return;
+  constexpr int U = row_batch<D, K, LIVE, Phi>();
+  const int b = (blockIdx.y * blockDim.x + threadIdx.x) * kLanes;
+  const int side = blockDim.y;
+  const int z_first = blockIdx.x * side * rows + threadIdx.y;
+  if (b >= W || z_first >= Z) return;
   const int node = blockIdx.z;
   const size_t ZW = static_cast<size_t>(Z) * W;
-  const int z0 = blockIdx.x * rows;
-  const int z1 = min(z0 + rows, Z);
   const T* p[D];
-  int sh[D];
+  int row[D];  // aligned: the row of the next read; direct: the shift
 #pragma unroll
   for (int s = 0; s < D; ++s) {
     p[s] = src + static_cast<size_t>(blocks[node * D + s]) * ZW + b;
-    sh[s] = MODE == kAligned ? rotate(z0, shifts[node * D + s], Z)
-                             : shifts[node * D + s];
+    row[s] = MODE == kAligned ? rotate(z_first, shifts[node * D + s], Z)
+                              : shifts[node * D + s];
   }
-  const size_t node_row = static_cast<size_t>(node) * ZW + b;  // syn too
+  const int advance = side % Z;
+  const int8_t* sy =
+      syn == nullptr ? nullptr : syn + static_cast<size_t>(node) * ZW + b;
   T* o = out + static_cast<size_t>(node) * (OUT == kSum ? 1 : D) * ZW + b;
-  for (int z = z0; z < z1; ++z) {
-    float w[D];
+  const float lo = Phi::floor(pre);
+  // whole batches of U rows, then the rest one row at a time
+  int j = 0, z = z_first;
+  for (; j + U <= rows && z + (U - 1) * side < Z; j += U, z += U * side)
+    window_rows<T, D, K, MODE, OUT, LIVE, Phi, U>(p, row, z, side, advance,
+                                                  Z, W, ZW, sy, o, lo);
+  for (; U > 1 && j < rows && z < Z; ++j, z += side)
+    window_rows<T, D, K, MODE, OUT, LIVE, Phi, 1>(p, row, z, side, advance,
+                                                  Z, W, ZW, sy, o, lo);
+}
+
+// ---- window stream: staged reads (bulk copies into shared memory) -----------
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_addr(bar)),
+               "r"(count)
+               : "memory");
+}
+
+// One arrival that also expects `bytes` of copies before the phase ends.
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar,
+                                               uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
+          smem_addr(bar)),
+      "r"(bytes)
+      : "memory");
+}
+
+// Wait until the phase of parity `phase` has completed.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t phase) {
+  const uint32_t a = smem_addr(bar);
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n\t.reg .pred p;\n\t"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
+        "selp.u32 %0, 1, 0, p;\n\t}"
+        : "=r"(done)
+        : "r"(a), "r"(phase)
+        : "memory");
+  } while (!done);
+}
+
+// `bytes` (a multiple of 16, both addresses 16-byte aligned) from global to
+// shared memory by the TMA unit, completion counted on `bar`.
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];" ::"r"(smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+// Window `at` (blocks[at], shifts[at]) rows z0 .. z0 + n - 1 into `tile`.
+template <typename T>
+__device__ __forceinline__ void stage_window(const T* src, int block,
+                                             int shift, int Z, int W, int z0,
+                                             int n, T* tile, uint64_t* bar) {
+  const T* base = src + static_cast<size_t>(block) * Z * W;
+  int start[2], len[2];
+  const int runs = stage_runs(Z, z0, n, shift, start, len);
+  mbar_expect_tx(bar, static_cast<uint32_t>(n) * W * sizeof(T));
 #pragma unroll
-    for (int s = 0; s < D; ++s) {
-      int row;
-      if (MODE == kAligned) {
-        row = sh[s] + (z - z0);
-        if (row >= Z) row -= Z;
-      } else {
-        row = rotate(z, sh[s], Z);
-      }
-      w[s] = to_f32(p[s][static_cast<size_t>(row) * W]);
-    }
-    const size_t at = static_cast<size_t>(z) * W;
-    if (OUT == kSum) {
-      float v = 0.0f;
-#pragma unroll
-      for (int s = 0; s < D; ++s) v = v + w[s];
-      o[at] = finish_sum<T, K, LIVE>(v, pre);
-    } else {
-      leave_one_out<T, D, LIVE>(w, syn_bit(syn, node_row + at), o + at, ZW,
-                                pre);
-    }
+  for (int r = 0; r < 2; ++r) {
+    if (r == runs) break;
+    bulk_copy(tile, base + static_cast<size_t>(start[r]) * W,
+              static_cast<uint32_t>(len[r]) * W * sizeof(T), bar);
+    tile += static_cast<size_t>(len[r]) * W;
   }
 }
 
-// Staged reads: a block owns kStageRows rows and kStageLanes lanes of node
-// i. Per window it stages the tile pair that holds the shifted rows (tiles
-// (z0 + s - s % kStageRows) mod Z and the next) in shared memory as float32
-// and reads it at offset s % kStageRows; the sum stages one window at a
-// time, the leave-one-out all D.
-template <typename T, int D, int K, int OUT, bool LIVE>
+// A block owns rows z0 .. z0 + R - 1 (fewer in the last block) of node
+// blockIdx.z, all W lanes; thread t takes the block's 8-lane vectors t, t +
+// kStageThreads, ... Thread 0 stages the windows and refills the ring; all
+// threads wait on each window's mbarrier.
+template <typename T, int D, int K, int OUT, bool LIVE, typename Phi>
 __global__ void __launch_bounds__(kStageThreads)
 window_staged_kernel(const T* __restrict__ src,
                      const int8_t* __restrict__ syn, T* __restrict__ out,
                      const int* __restrict__ blocks,
-                     const int* __restrict__ shifts, int Z, int W,
+                     const int* __restrict__ shifts, int Z, int W, int R,
                      float pre) {
-  extern __shared__ float stage[];  // [OUT == kSum ? 1 : D][2 * rows][lanes]
-  constexpr int kRows = kStageRows / kStageSubs;  // rows per thread
-  const int lane = threadIdx.x % kStageLanes;
-  const int sub = threadIdx.x / kStageLanes;
-  const int b = blockIdx.y * kStageLanes + lane;
-  const bool valid = b < W;
+  constexpr int V = kLanes;
+  constexpr int S = stage_count(D, OUT);
+  constexpr int kSlots =
+      window_stage_bytes(D, OUT) / (V * sizeof(T)) / kStageThreads;
+  extern __shared__ __align__(128) unsigned char staged[];
+  __shared__ uint64_t full[S];
+  T* tiles = reinterpret_cast<T*>(staged);
   const int node = blockIdx.z;
-  const int z0 = blockIdx.x * kStageRows;
-  const size_t ZW = static_cast<size_t>(Z) * W;
-  float acc[kRows];
-  int fine[D];
+  const int z0 = blockIdx.x * R;
+  const int n = min(R, Z - z0);
+  const size_t tile = static_cast<size_t>(R) * W;
+  if (threadIdx.x == 0) {
 #pragma unroll
-  for (int i = 0; i < kRows; ++i) acc[i] = 0.0f;
+    for (int s = 0; s < S; ++s) mbar_init(&full[s], 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+#pragma unroll
+    for (int s = 0; s < S; ++s)
+      stage_window(src, blocks[node * D + s], shifts[node * D + s], Z, W, z0,
+                   n, tiles + s * tile, &full[s]);
+  }
+  __syncthreads();
+  const int vectors = W / V;
+  const size_t ZW = static_cast<size_t>(Z) * W;
+  int row[kSlots], off[kSlots];  // row in the block (>= n: none), lane
+#pragma unroll
+  for (int j = 0; j < kSlots; ++j) {
+    const int slot = threadIdx.x + j * kStageThreads;
+    row[j] = slot / vectors;
+    off[j] = (slot - row[j] * vectors) * V;
+  }
+  const float lo = Phi::floor(pre);
+  float acc[kSlots][V];  // sums, or the leave-one-out's ext
+  uint32_t X[kSlots][V];
+#pragma unroll
+  for (int j = 0; j < kSlots; ++j) {
+#pragma unroll
+    for (int i = 0; i < V; ++i) acc[j][i] = 0.0f;
+    if (OUT == kLeaveOneOut && row[j] < n)
+      syn_bits<V>(syn,
+                  static_cast<size_t>(node) * ZW +
+                      static_cast<size_t>(z0 + row[j]) * W + off[j],
+                  X[j]);
+  }
 #pragma unroll
   for (int s = 0; s < D; ++s) {
-    float* buf = stage + (OUT == kSum ? 0 : s * kStagePair);
-    const int sh = shifts[node * D + s];
-    fine[s] = sh % kStageRows;
-    const int tile0 = rotate(z0, sh - fine[s], Z);
-    const T* p = src + static_cast<size_t>(blocks[node * D + s]) * ZW + b;
-    if (OUT == kSum && s > 0) __syncthreads();  // window s-1 fully read
-    for (int r = sub; r < 2 * kStageRows; r += kStageSubs) {
-      int row = tile0 + r;
-      if (row >= Z) row -= Z;
-      buf[r * kStageLanes + lane] =
-          valid ? to_f32(p[static_cast<size_t>(row) * W]) : 0.0f;
-    }
-    if (OUT == kSum) {
-      __syncthreads();
+    mbar_wait(&full[s % S], (s / S) & 1);
+    const T* t = tiles + (s % S) * tile;
 #pragma unroll
-      for (int i = 0; i < kRows; ++i) {
-        const int r = sub + i * kStageSubs;
-        acc[i] = acc[i] + buf[(fine[s] + r) * kStageLanes + lane];
+    for (int j = 0; j < kSlots; ++j) {
+      if (row[j] >= n) continue;
+      const Pack<T, V> w =
+          load_pack<T, V>(t + static_cast<size_t>(row[j]) * W + off[j]);
+      if (OUT == kSum) {
+#pragma unroll
+        for (int i = 0; i < V; ++i) acc[j][i] = acc[j][i] + to_f32(w.v[i]);
+      } else {
+        loo_accumulate<T, V>(w, s == 0, acc[j], X[j]);
       }
+    }
+    if (OUT == kSum && s + S < D) {
+      __syncthreads();  // every thread is done with stage s % S
+      if (threadIdx.x == 0)
+        stage_window(src, blocks[node * D + s + S], shifts[node * D + s + S],
+                     Z, W, z0, n, tiles + (s % S) * tile, &full[s % S]);
     }
   }
-  if (OUT == kLeaveOneOut) __syncthreads();
-  if (!valid) return;
-  const size_t node_row = static_cast<size_t>(node) * ZW + b;  // syn too
-  T* o = out + static_cast<size_t>(node) * (OUT == kSum ? 1 : D) * ZW + b;
 #pragma unroll
-  for (int i = 0; i < kRows; ++i) {
-    const int r = sub + i * kStageSubs;
-    const size_t at = static_cast<size_t>(z0 + r) * W;
+  for (int j = 0; j < kSlots; ++j) {
+    if (row[j] >= n) continue;
+    const size_t at = static_cast<size_t>(z0 + row[j]) * W + off[j];
     if (OUT == kSum) {
-      o[at] = finish_sum<T, K, LIVE>(acc[i], pre);
+      store_pack<T, V>(out + static_cast<size_t>(node) * ZW + at,
+                       finish_sum<T, V, K, Phi, LIVE>(acc[j], lo));
     } else {
-      float w[D];
-#pragma unroll
+      // one window at a time: 8 phi in flight, not 48 (59 registers, no
+      // spill; 0.99 against 1.10 ms at row 14c on the accurate phi)
+#pragma unroll 1
       for (int s = 0; s < D; ++s) {
-        w[s] = stage[s * kStagePair + (fine[s] + r) * kStageLanes + lane];
+        const Pack<T, V> w = load_pack<T, V>(
+            tiles + s * tile + static_cast<size_t>(row[j]) * W + off[j]);
+        store_pack<T, V>(out + static_cast<size_t>(node * D + s) * ZW + at,
+                         loo_output<T, V, Phi, LIVE>(w, acc[j], X[j], lo));
       }
-      leave_one_out<T, D, LIVE>(w, syn_bit(syn, node_row + at), o + at, ZW,
-                                pre);
     }
   }
 }
 
-template <typename T, int D, int K, int OUT, bool LIVE>
+template <typename T, int D, int K, int OUT, bool LIVE, typename Phi>
 int launch_window(int mode, const void* src, const void* syn, void* out,
                   const int* blocks, const int* shifts, int n_nodes, int Z,
                   int W, int rows, float pre, cudaStream_t s) {
+  Plan p;
+  if (!window_plan(mode, D, OUT, Z, W, n_nodes, rows, &p))
+    return cudaErrorInvalidValue;
+  if ((reinterpret_cast<uintptr_t>(src) | reinterpret_cast<uintptr_t>(syn) |
+       reinterpret_cast<uintptr_t>(out)) % 16 != 0)
+    return cudaErrorMisalignedAddress;
   const T* x = static_cast<const T*>(src);
   const int8_t* sy = static_cast<const int8_t*>(syn);
   T* o = static_cast<T*>(out);
+  const dim3 grid(static_cast<unsigned>(p.grid_x), p.grid_y, p.grid_z);
+  const dim3 block(p.block_x, p.block_y);
   if (mode == kStaged) {
-    const int smem = (OUT == kSum ? 1 : D) * kStagePair *
-                     static_cast<int>(sizeof(float));
     const cudaError_t e = cudaFuncSetAttribute(
-        window_staged_kernel<T, D, K, OUT, LIVE>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+        window_staged_kernel<T, D, K, OUT, LIVE, Phi>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, p.smem);
     if (e != cudaSuccess) return static_cast<int>(e);
-    const dim3 grid(Z / kStageRows, (W + kStageLanes - 1) / kStageLanes,
-                    n_nodes);
-    window_staged_kernel<T, D, K, OUT, LIVE><<<grid, kStageThreads, smem, s>>>(
-        x, sy, o, blocks, shifts, Z, W, pre);
+    window_staged_kernel<T, D, K, OUT, LIVE, Phi><<<grid, block, p.smem, s>>>(
+        x, sy, o, blocks, shifts, Z, W, p.stage_rows, pre);
+  } else if (mode == kAligned) {
+    window_kernel<T, D, K, kAligned, OUT, LIVE, Phi><<<grid, block, 0, s>>>(
+        x, sy, o, blocks, shifts, Z, W, rows, pre);
   } else {
-    const dim3 grid((Z + rows - 1) / rows,
-                    (W + kLaneThreads - 1) / kLaneThreads, n_nodes);
-    if (mode == kAligned) {
-      window_kernel<T, D, K, kAligned, OUT, LIVE><<<grid, kLaneThreads, 0, s>>>(
-          x, sy, o, blocks, shifts, Z, W, rows, pre);
-    } else if (mode == kDirect) {
-      window_kernel<T, D, K, kDirect, OUT, LIVE><<<grid, kLaneThreads, 0, s>>>(
-          x, sy, o, blocks, shifts, Z, W, rows, pre);
-    } else {
-      return cudaErrorInvalidValue;
-    }
+    window_kernel<T, D, K, kDirect, OUT, LIVE, Phi><<<grid, block, 0, s>>>(
+        x, sy, o, blocks, shifts, Z, W, rows, pre);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -382,38 +658,72 @@ int ldpc_probe_row_copy(const void* src, void* out, const void* blocks,
   }
 }
 
+// The launch ldpc_probe_window makes for a shape: plan = [block x, block y,
+// grid x, grid y, grid z, dynamic shared bytes, staged rows per block,
+// windows staged at once] (the last three 0 unless staged). Returns 0, or
+// cudaErrorInvalidValue where no launch takes the shape.
+int ldpc_probe_window_plan(int mode, int degree, int out_mode, int Z, int W,
+                           int n_nodes, int rows, long long* plan) {
+  Plan p;
+  if (!window_plan(mode, degree, out_mode, Z, W, n_nodes, rows, &p))
+    return cudaErrorInvalidValue;
+  const long long v[8] = {p.block_x, p.block_y, p.grid_x, p.grid_y,
+                          p.grid_z,  p.smem,    p.stage_rows, p.stages};
+  for (int i = 0; i < 8; ++i) plan[i] = v[i];
+  return 0;
+}
+
+// The runs a staged block copies for rows z0 .. z0 + n - 1 of a window
+// with shift `shift`: runs = [start, length, start, length]; returns their
+// number (1 or 2).
+int ldpc_probe_stage_runs(int Z, int z0, int n, int shift, int* runs) {
+  int start[2], len[2];
+  const int count = stage_runs(Z, z0, n, shift, start, len);
+  for (int r = 0; r < count; ++r) {
+    runs[2 * r] = start[r];
+    runs[2 * r + 1] = len[r];
+  }
+  return count;
+}
+
 // src [NB, Z, W] bfloat16 (dtype code 1), blocks/shifts int32 [n_nodes *
 // degree], syn int8 [n_nodes, Z, W] or null (leave-one-out only), out
-// [n_nodes, Z, W] (sum) or [n_nodes * degree, Z, W] (leave-one-out). mode 0
-// aligned, 1 direct, 2 staged (Z a multiple of kStageRows, at least two
-// tiles); out_mode 0 sum, 1 leave-one-out. Instantiated: sums of degree 1,
-// 2 and 6 with k 0 (phi irrelevant), 1, 2 and 4; the leave-one-out of
-// degree 6 with k 1.
+// [n_nodes, Z, W] (sum) or [n_nodes * degree, Z, W] (leave-one-out), each
+// 16-byte aligned, W a multiple of 8. mode 0 aligned, 1 direct, 2 staged;
+// out_mode 0 sum, 1 leave-one-out; phi 0 PhiFast, 1 PhiAccurate (read only
+// with phi live and k >= 1). Instantiated: sums of degree 1, 2 and 6 with k
+// 0 (phi irrelevant), 1, 2 and 4, and the leave-one-out of degree 6 with k
+// 1, on PhiAccurate; PhiFast at the live headline shapes, the sum of degree
+// 1 with k 1 and the leave-one-out.
 int ldpc_probe_window(const void* src, const void* syn, void* out,
                       const void* blocks, const void* shifts, int n_nodes,
                       int degree, int k, int mode, int out_mode, int phi_live,
-                      int Z, int W, int rows, float pre, int dtype,
+                      int phi, int Z, int W, int rows, float pre, int dtype,
                       void* stream) {
-  if (dtype != 1 || n_nodes < 1 || n_nodes > 65535 || rows < 1)
-    return cudaErrorInvalidValue;
+  if (dtype != 1) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* bl = static_cast<const int*>(blocks);
   const int* sh = static_cast<const int*>(shifts);
   const bool live = phi_live != 0 || k == 0;
-#define LDPC_WINDOW(D, K, OUT, LIVE)                                          \
-  if (degree == D && k == K && out_mode == OUT && live == LIVE)               \
-    return launch_window<__nv_bfloat16, D, K, OUT, LIVE>(                     \
+  const bool fast = phi_live != 0 && k > 0 && phi == 0;
+#define LDPC_WINDOW(D, K, OUT, LIVE, FAST)                                    \
+  if (degree == D && k == K && out_mode == OUT && live == LIVE &&             \
+      fast == FAST)                                                           \
+    return launch_window<__nv_bfloat16, D, K, OUT, LIVE,                      \
+                         std::conditional_t<FAST, PhiFast, PhiAccurate>>(     \
         mode, src, syn, out, bl, sh, n_nodes, Z, W, rows, pre, s);
 #define LDPC_SUM_DEGREE(D)                                                    \
-  LDPC_WINDOW(D, 0, kSum, true)                                               \
-  LDPC_WINDOW(D, 1, kSum, false) LDPC_WINDOW(D, 1, kSum, true)                \
-  LDPC_WINDOW(D, 2, kSum, false) LDPC_WINDOW(D, 2, kSum, true)                \
-  LDPC_WINDOW(D, 4, kSum, false) LDPC_WINDOW(D, 4, kSum, true)
+  LDPC_WINDOW(D, 0, kSum, true, false)                                        \
+  LDPC_WINDOW(D, 1, kSum, false, false) LDPC_WINDOW(D, 1, kSum, true, false)  \
+  LDPC_WINDOW(D, 2, kSum, false, false) LDPC_WINDOW(D, 2, kSum, true, false)  \
+  LDPC_WINDOW(D, 4, kSum, false, false) LDPC_WINDOW(D, 4, kSum, true, false)
   LDPC_SUM_DEGREE(1)
   LDPC_SUM_DEGREE(2)
   LDPC_SUM_DEGREE(6)
-  LDPC_WINDOW(6, 1, kLeaveOneOut, false)
-  LDPC_WINDOW(6, 1, kLeaveOneOut, true)
+  LDPC_WINDOW(1, 1, kSum, true, true)
+  LDPC_WINDOW(6, 1, kLeaveOneOut, false, false)
+  LDPC_WINDOW(6, 1, kLeaveOneOut, true, false)
+  LDPC_WINDOW(6, 1, kLeaveOneOut, true, true)
 #undef LDPC_SUM_DEGREE
 #undef LDPC_WINDOW
   return cudaErrorInvalidValue;

@@ -162,7 +162,9 @@ _SIGNATURES = {
     "probes": {
         "ldpc_probe_row_copy": [_p, _p, _p, _p, _p, _i, _ll, _i, _i, _i, _p],
         "ldpc_probe_window": [_p, _p, _p, _p, _p, _i, _i, _i, _i, _i, _i, _i,
-                              _i, _i, _f, _i, _p],
+                              _i, _i, _i, _f, _i, _p],
+        "ldpc_probe_window_plan": [_i, _i, _i, _i, _i, _i, _i, _p],
+        "ldpc_probe_stage_runs": [_i, _i, _i, _i, _p],
     },
     "datagen": {
         "ldpc_chacha_bits": [_p, _p, ctypes.c_uint, _i, _i, _i, _p],
@@ -599,16 +601,18 @@ def probe_row_copy(src, out, blocks, shifts, index, n_rows: int, Z: int,
 
 
 def probe_window(src, syn, out, blocks, shifts, degree: int, k: int,
-                 mode: int, out_mode: int, phi_live: bool, rows: int,
-                 pre: float) -> None:
+                 mode: int, out_mode: int, phi_live: bool, phi: str,
+                 rows: int, pre: float) -> None:
     """The window-stream probe over ``blocks.numel() // degree`` output
-    nodes of src [NB, Z, W]; ``syn`` may be None."""
+    nodes of src [NB, Z, W]; ``syn`` may be None; ``phi`` the policy of a
+    live φ."""
     lib = load("probes")
     _, Z, W = src.shape
     err = lib.ldpc_probe_window(
         _ptr(src), _ptr(syn), _ptr(out), _ptr(blocks), _ptr(shifts),
         blocks.numel() // degree, degree, k, mode, out_mode, int(phi_live),
-        Z, W, rows, pre, DTYPE_CODES[src.dtype], _stream(src))
+        PHI_POLICIES[phi], Z, W, rows, pre, DTYPE_CODES[src.dtype],
+        _stream(src))
     _check(lib, err, "window-stream probe")
     launch_counts["probe_window"] += 1
 

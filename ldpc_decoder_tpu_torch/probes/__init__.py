@@ -30,6 +30,7 @@ from ldpc_decoder_tpu_torch.probes import (
 from ldpc_decoder_tpu_torch.probes import _common as C
 from ldpc_decoder_tpu_torch.probes.kernels import (
     BYTES_PER_THREAD,
+    FAST_SHAPES,
     WINDOW_SHAPES,
     row_copy,
     row_copy_plain,
@@ -58,7 +59,9 @@ def check_template_modes(dev: torch.device, small: bool = False) -> dict:
     (the probes' own shapes): the row copy by table, int32 and int64 index
     at every bytes-per-thread; the window stream's sums of every degree and
     k, φ live and stubbed, and its leave-one-out, each aligned, direct and
-    staged. Returns {mode: max absolute error}."""
+    staged, live on the accurate φ and, at the fast φ's shapes, on the
+    fast one. Bit for bit where no φ runs, live φ by compare_msgs (accurate)
+    or compare_msgs_fast (fast). Returns {mode: max absolute error}."""
     errs = {}
     Z, W = (256, 128) if small else (32768, 256)
     src = C.randn((96, Z, W), torch.bfloat16, dev, seed=1)
@@ -85,21 +88,24 @@ def check_template_modes(dev: torch.device, small: bool = False) -> dict:
     src = C.randn((NB, Z, W), torch.bfloat16, dev, seed=6, offset=1.5)
     perm = C.permutation(NB, dev, seed=7)
     syn = C.randn((nodes, Z, W), torch.int8, dev, seed=8).bitwise_and_(1)
-    cases = [("sum", d, k, live) for d, k in sorted(WINDOW_SHAPES["sum"])
+    cases = [("sum", d, k, live, "accurate")
+             for d, k in sorted(WINDOW_SHAPES["sum"])
              for live in ((True,) if k == 0 else (True, False))]
-    cases += [("loo", d, k, live) for d, k in sorted(WINDOW_SHAPES["loo"])
+    cases += [("loo", d, k, live, "accurate")
+              for d, k in sorted(WINDOW_SHAPES["loo"])
               for live in (True, False)]
-    for out, d, k, live in cases:
+    cases += [(out, d, k, True, "fast") for out in ("sum", "loo")
+              for d, k in sorted(FAST_SHAPES[out])]
+    for out, d, k, live, phi in cases:
         blocks = perm[:nodes * d].contiguous()
         shifts = C.integers(nodes * d, Z, dev, seed=9 + d)
         s = syn if out == "loo" else None
         ref = window_stream_plain(src, blocks, shifts, d, k, out, live, s)
+        check = C.window_rule(k, live, phi)
         for mode in ("aligned", "direct", "staged"):
             what = (f"window {out} d={d} k={k} "
-                    f"{'live' if live else 'stub'} {mode}")
+                    f"{phi if live else 'stub'} {mode}")
             res = window_stream(src, blocks, shifts, d, k, mode, out, live,
-                                s)
-            errs[what] = (C.assert_bit_equal(res, ref, what)
-                          if k == 0 or not live
-                          else C.assert_msgs_match(res, ref, what))
+                                s, phi=phi)
+            errs[what] = check(res, ref, what)
     return errs

@@ -3,10 +3,14 @@ JSON record.
 
 A probe times its kernel on the card with CUDA events
 (:func:`ldpc_decoder_tpu_torch.runtime.perf.cuda_ms`, the median of ten
-runs after one warm-up, as ``chip_smoke.py`` times the decode kernels). On
-the CPU, where the probes run their plain versions at a small size for the
-tests, no time is taken: a CPU number is no device metric, so the record's
-times are null there.
+runs after one warm-up, as ``chip_smoke.py`` times the decode kernels:
+:func:`timed`, each run launched on an idle card, so the host's enqueue of
+the call counts). The window probes also take :func:`queued_timed`, after
+0.1 s of warm-up runs with each run queued behind a spin of the card, so
+the host's enqueue falls outside the events (the record's ``queued_ms``).
+On the CPU, where the probes run their plain versions at a small size for
+the tests, no time is taken: a CPU number is no device metric, so the
+record's times are null there.
 
 The bound is the least time the card could take for the probe's work: the
 larger of its unique bytes (each input byte read once, each output byte
@@ -14,13 +18,15 @@ written once) over the H100's 3.35 TB/s and its float32 operations over
 67 TFLOP/s (:func:`ldpc_decoder_tpu_torch.runtime.perf.bound`, the
 decode kernels' bound). A kernel is held to its plain version by the
 decode kernels' rules (:func:`~ldpc_decoder_tpu_torch.runtime.perf.
-compare_msgs` and :func:`~ldpc_decoder_tpu_torch.runtime.perf.
+compare_msgs`, on the fast φ :func:`~ldpc_decoder_tpu_torch.runtime.perf.
+compare_msgs_fast`, and :func:`~ldpc_decoder_tpu_torch.runtime.perf.
 bit_identical`).
 """
 
 from __future__ import annotations
 
 import subprocess
+import time
 
 import torch
 
@@ -58,6 +64,40 @@ def timed(dev: torch.device, fn, reps: int = 10,
     """:func:`~ldpc_decoder_tpu_torch.runtime.perf.cuda_ms` on the card;
     None on the CPU."""
     return perf.cuda_ms(fn, reps, setup) if dev.type == "cuda" else None
+
+
+# cycles the card spins (``torch.cuda._sleep``) before each queued run:
+# about 1 ms at the H100's 1.98 GHz, longer than any probe's host enqueue
+QUEUE_CYCLES = 2_000_000
+# seconds of warm-up runs before the queued ones: right after
+# ``torch.cuda.empty_cache`` frees tens of GB, the card moves memory slower
+# for a while, the kernels and ``Tensor.copy_`` alike (PERF.md)
+WARMUP_S = 0.1
+
+
+def queued_timed(dev: torch.device, fn, reps: int = 10,
+                 setup=None) -> float | None:
+    """:func:`~ldpc_decoder_tpu_torch.runtime.perf.cuda_ms` on the card,
+    after :data:`WARMUP_S` of warm-up runs, with the card kept busy
+    (``torch.cuda._sleep``) while the host records the start event and
+    enqueues ``fn``, so the time is the device's and not the Python
+    wrapper's enqueue, which is longer for a ctypes launch than for
+    ``Tensor.copy_``; None on the CPU."""
+    if dev.type != "cuda":
+        return None
+    start = time.perf_counter()
+    while time.perf_counter() - start < WARMUP_S:
+        if setup is not None:
+            setup()
+        fn()
+        torch.cuda.synchronize()
+
+    def queued():
+        if setup is not None:
+            setup()
+        torch.cuda._sleep(QUEUE_CYCLES)
+
+    return perf.cuda_ms(fn, reps, queued)
 
 
 def record(probe: str, replaces: str, params: dict, n_bytes: int,
@@ -119,3 +159,21 @@ def assert_msgs_match(k: torch.Tensor, p: torch.Tensor, what: str) -> float:
     :func:`~ldpc_decoder_tpu_torch.runtime.perf.compare_msgs`; returns the
     max absolute difference."""
     return perf.compare_msgs(what, k, p)[0]
+
+
+def assert_msgs_match_fast(k: torch.Tensor, p: torch.Tensor,
+                           what: str) -> float:
+    """A fast-φ kernel's outputs against plain ones by
+    :func:`~ldpc_decoder_tpu_torch.runtime.perf.compare_msgs_fast`;
+    returns the max absolute difference."""
+    return perf.compare_msgs_fast(what, k, p)[0]
+
+
+def window_rule(k: int, phi_live: bool, phi: str):
+    """The rule a window-stream output is held to its plain version by:
+    bit for bit where no φ runs (k = 0 or φ stubbed), else
+    :func:`assert_msgs_match` on the accurate φ and
+    :func:`assert_msgs_match_fast` on the fast one."""
+    if k == 0 or not phi_live:
+        return assert_bit_equal
+    return assert_msgs_match_fast if phi == "fast" else assert_msgs_match

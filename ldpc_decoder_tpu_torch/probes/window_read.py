@@ -8,9 +8,12 @@ tile offset t in [0, 340) and a fine offset f in [0, 512), shift t·512 + f,
 as the script's table (its source blocks drawn here without replacement,
 18 of the 36, so every byte read is a unique byte).
 
-- A: staged, the TPU kernel's way: the tile pair holding the window staged
-  in shared memory as float32, then read at the fine offset (``kern_a``'s
-  scratch and dynamic slice);
+- A: staged, the counterpart of the TPU kernel's way (``kern_a``'s f32
+  scratch and dynamic slice): each block's rows of the window, at most two
+  contiguous runs (a wrap splits the run), copied into shared memory by the
+  TMA unit (``cp.async.bulk``) in bfloat16, then read 16 bytes a thread.
+  Its question on this card: does staging through shared memory by TMA
+  read as fast as the direct rotated load (B)?
 - B: direct, ``(z + s) mod Z`` on every row, the counterpart of ``kern_b``'s
   ``pltpu.roll`` of the tile pair and the port's own design;
 - C: aligned, shift t·512 only, the row index advanced from one rotation

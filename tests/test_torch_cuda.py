@@ -1009,19 +1009,21 @@ def test_probe_kernels_match_plain(cuda_device):
     """Every mode of both probe kernels (csrc/probes.cu) against its plain
     version: the row copy by table and int32/int64 index at every bytes per
     thread, the window stream's sums and leave-one-out, aligned, direct and
-    staged (the leave-one-out stages 96 KB of shared memory). Copies, sums
-    and stubbed φ bit for bit, live φ by the one-ulp share rule."""
+    staged (the leave-one-out stages six windows by bulk copies), on the
+    accurate φ and, at its two shapes, the fast one. Copies, sums and
+    stubbed φ bit for bit, live φ by the one-ulp share rule
+    (compare_msgs, compare_msgs_fast on the fast φ)."""
     from ldpc_decoder_tpu_torch import probes
     from ldpc_decoder_tpu_torch.ops import _kernels
 
     before = dict(_kernels.launch_counts)
     errs = probes.check_template_modes(cuda_device, small=True)
     torch.cuda.synchronize()
-    assert len(errs) == 84
+    assert len(errs) == 90
     assert _kernels.launch_counts["probe_row_copy"] - before[
         "probe_row_copy"] == 15
     assert _kernels.launch_counts["probe_window"] - before[
-        "probe_window"] == 69
+        "probe_window"] == 75
 
 
 @pytest.mark.cuda
@@ -1046,6 +1048,119 @@ def test_probe_window_ragged_lanes(cuda_device):
             ref = window_stream_plain(src, blocks, shifts, 6, 1, out, False,
                                       s)
             C.assert_bit_equal(res, ref, f"{mode} {out}")
+
+
+def _window_case(device, Z, W, degree, seed, shifts=None):
+    from ldpc_decoder_tpu_torch.probes import _common as C
+
+    n = 2
+    src = C.randn((16, Z, W), torch.bfloat16, device, seed=seed, offset=1.5)
+    blocks = C.permutation(16, device, seed=seed + 1)[:n * degree].contiguous()
+    if shifts is None:
+        shifts = C.integers(n * degree, Z, device, seed=seed + 2)
+    syn = C.randn((n, Z, W), torch.int8, device,
+                  seed=seed + 3).bitwise_and_(1)
+    return src, blocks, shifts, syn
+
+
+def _check_window(src, blocks, shifts, syn, degree, mode, rows=8):
+    """Sum and leave-one-out, φ stubbed (bit for bit) and live (accurate:
+    compare_msgs; fast where instantiated: compare_msgs_fast)."""
+    from ldpc_decoder_tpu_torch.probes import _common as C
+    from ldpc_decoder_tpu_torch.probes.kernels import (
+        FAST_SHAPES,
+        WINDOW_SHAPES,
+        window_stream,
+        window_stream_plain,
+    )
+
+    for out, s in (("sum", None), ("loo", syn)):
+        if (degree, 1) not in WINDOW_SHAPES[out]:
+            continue
+        for live, phi in ((False, "accurate"), (True, "accurate"),
+                          (True, "fast")):
+            if phi == "fast" and (degree, 1) not in FAST_SHAPES[out]:
+                continue
+            res = window_stream(src, blocks, shifts, degree, 1, mode, out,
+                                live, s, rows=rows, phi=phi)
+            ref = window_stream_plain(src, blocks, shifts, degree, 1, out,
+                                      live, s)
+            C.window_rule(1, live, phi)(res, ref, f"{mode} {out} "
+                                        f"live={live} {phi}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("degree", [1, 6])
+def test_staged_window_wraps_past_z(cuda_device, degree):
+    """Staged windows whose rows pass Z inside a block: each block copies
+    two runs (shifts Z - 1, Z - 5, Z - R + 1 and 1, beside 0), and every
+    mode agrees with plain."""
+    from ldpc_decoder_tpu_torch.probes.kernels import window_plan
+
+    Z, W = 512, 128
+    R = window_plan("staged", degree, "loo" if degree == 6 else "sum", Z, W,
+                    2)["stage_rows"]
+    pick = [Z - 1, Z - 5, Z - R + 1, 1, 0, Z // 2][:2 * degree]
+    shifts = torch.tensor((pick * 2)[:2 * degree], dtype=torch.int32,
+                          device=cuda_device)
+    case = _window_case(cuda_device, Z, W, degree, 40, shifts)
+    for mode in ("staged", "direct", "aligned"):
+        _check_window(*case, degree, mode)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Z", [100, 33, 1000])
+def test_window_partial_last_block(cuda_device, Z):
+    """A Z whose last row block is partial (staged blocks of 64 and 32
+    rows at W = 128; 8 rows per thread, 8 rows side by side, aligned and
+    direct)."""
+    for degree in (1, 6):
+        case = _window_case(cuda_device, Z, 128, degree, 50)
+        for mode in ("staged", "direct", "aligned"):
+            _check_window(*case, degree, mode)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["aligned", "direct", "staged"])
+def test_window_refuses_what_the_lanes_cannot_take(cuda_device, mode):
+    """On the card a W off the 8-lane vectors, or a tensor off a 16-byte
+    boundary, raises ValueError: there is no one-lane kernel to fall back
+    to, and nothing is launched."""
+    from ldpc_decoder_tpu_torch.ops import _kernels
+    from ldpc_decoder_tpu_torch.probes.kernels import window_stream
+
+    before = _kernels.launch_counts["probe_window"]
+    src, blocks, shifts, syn = _window_case(cuda_device, 64, 36, 6, 60)
+    for out, s in (("sum", None), ("loo", syn)):
+        with pytest.raises(ValueError, match="multiple"):
+            window_stream(src, blocks, shifts, 6, 1, mode, out, True, s)
+    src, blocks, shifts, syn = _window_case(cuda_device, 64, 32, 6, 61)
+    flat = torch.empty(src.numel() + 8, dtype=src.dtype, device=cuda_device)
+    odd = flat[1:1 + src.numel()].view(src.shape).copy_(src)
+    with pytest.raises(ValueError, match="aligned"):
+        window_stream(odd, blocks, shifts, 6, 1, mode, "sum")
+    flat8 = torch.empty(syn.numel() + 16, dtype=torch.int8,
+                        device=cuda_device)
+    odd_syn = flat8[8:8 + syn.numel()].view(syn.shape).copy_(syn)
+    with pytest.raises(ValueError, match="aligned"):
+        window_stream(src, blocks, shifts, 6, 1, mode, "loo", True, odd_syn)
+    res = torch.empty((2, 64, 32), dtype=src.dtype, device=cuda_device)
+    flat_out = torch.empty(res.numel() + 8, dtype=src.dtype,
+                           device=cuda_device)
+    with pytest.raises(ValueError, match="aligned"):
+        window_stream(src, blocks, shifts, 6, 1, mode, "sum",
+                      result=flat_out[4:4 + res.numel()].view(res.shape))
+    assert _kernels.launch_counts["probe_window"] == before
+
+
+@pytest.mark.cuda
+def test_probe_library_matches_its_mirror(cuda_device):
+    """The library's launch plans and staged runs equal the Python mirror
+    (checked at load; again here explicitly)."""
+    from ldpc_decoder_tpu_torch.ops import _kernels
+    from ldpc_decoder_tpu_torch.probes.kernels import check_library
+
+    check_library(_kernels.load("probes"))
 
 
 @pytest.mark.cuda

@@ -21,6 +21,12 @@ with numpy from a seed.
 - The leave-one-out sign algebra against a numpy statement of
   ``micro_overlap6.py:86-100``: signs exact, φ stubbed bit for bit.
 - The gather against ``jnp.take``, bit for bit.
+- The window kernels' launch plan and the staged blocks' bulk-copy runs
+  (``probes.kernels.window_plan``, ``stage_runs``, the Python mirrors that
+  the library is checked against when it loads): the runs cover exactly
+  the rotated rows, a wrap included; a staged model built from them
+  equals the plain window stream bit for bit; every instantiated shape
+  fits the H100's 227 KB of shared memory and the grid's limits.
 - Row 11's fresh-output iterations against the in-place ones (bit for
   bit) and against the JAX package's grouped passes in interpret mode, on
   the small p41-shaped code (it has a degree-1 group).
@@ -55,6 +61,7 @@ from ldpc_decoder_tpu_torch.convert import (  # noqa: E402
     grouped_state_from_jax,
     structure_from_numpy,
 )
+from ldpc_decoder_tpu_torch.ops import _kernels  # noqa: E402
 from ldpc_decoder_tpu_torch.ops import qc_grouped as qg  # noqa: E402
 from ldpc_decoder_tpu_torch.ops.phi import phi_abs_np  # noqa: E402
 from ldpc_decoder_tpu_torch.ops.qc_decode import QCDecodeTables  # noqa: E402
@@ -62,6 +69,7 @@ from ldpc_decoder_tpu_torch.probes import _common as C  # noqa: E402
 from ldpc_decoder_tpu_torch.probes import noalias  # noqa: E402
 from ldpc_decoder_tpu_torch.probes import phi_overlap  # noqa: E402
 from ldpc_decoder_tpu_torch.probes.__main__ import main  # noqa: E402
+from ldpc_decoder_tpu_torch.probes import kernels as K  # noqa: E402
 from ldpc_decoder_tpu_torch.probes.kernels import (  # noqa: E402
     BYTES_PER_THREAD,
     row_copy,
@@ -362,6 +370,9 @@ def test_entry_point_runs_every_probe_on_the_cpu(capsys):
     assert {r["probe"] for r in recs} == set(probes.PROBES)
     for r in recs:
         assert r["ms"] is None and r["gbps"] is None
+        if r["probe"] in ("overlap2", "overlap3", "overlap4", "overlap6",
+                          "window_read"):
+            assert r["queued_ms"] is None and "queued_library_ms" in r
         assert r["card"] == "cpu" and r["bound_ms"] > 0
         assert r["bound_by"] in ("bytes", "operations")
         assert r["max_abs_err"] == 0.0
@@ -380,7 +391,7 @@ def test_entry_point_needs_a_card(monkeypatch, capsys):
 
 def test_check_template_modes_small():
     errs = probes.check_template_modes(torch.device("cpu"), small=True)
-    assert len(errs) == 15 + 3 * (3 * 7 + 2)
+    assert len(errs) == 15 + 3 * (3 * 7 + 2 + 2)
     assert all(e == 0.0 for e in errs.values())
 
 
@@ -481,3 +492,264 @@ def test_card_is_found_by_uuid(monkeypatch):
     Props.uuid = "cccc-3"
     with pytest.raises(RuntimeError, match="no card"):
         C.card(torch.device("cuda", 0))
+
+
+# ---- the window kernels' launch plan and staged runs ------------------------
+
+# (Z, rows per staged block): whole blocks, a partial last block, Z below
+# one block, Z = 1, the probes' Z
+STAGE_CASES = [(1024, 32), (1024, 64), (256, 64), (100, 64), (100, 32),
+               (7, 7), (1, 1), (200, 3), (18432, 16), (174080, 32)]
+_SHAPES = sorted({(out, d) for out in ("sum", "loo")
+                  for d, _ in K.WINDOW_SHAPES[out]})
+SHARED_BYTES = 232448  # shared memory a block can use on an H100
+
+
+@pytest.mark.parametrize("Z,R", STAGE_CASES)
+def test_stage_runs_cover_the_rotated_rows(Z, R):
+    """Every block's runs, laid end to end in shared memory, are the rows
+    (z0 + i + shift) mod Z, i < n: one run, or two where they pass Z."""
+    rng = np.random.default_rng(Z * 7 + R)
+    shifts = sorted({0, Z - 1, Z // 2, *rng.integers(0, Z, 6).tolist()})
+    blocks = range(0, Z, R) if Z // R <= 64 else [0, R, (Z - 1) // R * R]
+    wraps = 0
+    for z0 in blocks:
+        n = min(R, Z - z0)
+        for shift in shifts:
+            runs = K.stage_runs(Z, z0, n, shift)
+            assert 1 <= len(runs) <= 2
+            assert all(0 <= a and 0 < m and a + m <= Z for a, m in runs)
+            rows = np.concatenate([np.arange(a, a + m) for a, m in runs])
+            np.testing.assert_array_equal(
+                rows, (z0 + np.arange(n) + shift) % Z)
+            wraps += len(runs) == 2
+    assert wraps > 0 or Z == 1
+
+
+def _staged_model(src, blocks, shifts, degree, out, syn):
+    """The staged kernel's data movement in numpy: per block of the plan,
+    each window's rows assembled from its runs, then the plain arithmetic
+    on the assembled tiles."""
+    NB, Z, W = src.shape
+    n_nodes = len(blocks) // degree
+    plan = K.window_plan("staged", degree, out, Z, W, n_nodes)
+    R = plan["stage_rows"]
+    assert plan["grid"] == (-(-Z // R), 1, n_nodes)
+    tiles = np.empty((n_nodes, degree, Z, W), src.dtype)
+    for node in range(n_nodes):
+        for z0 in range(0, Z, R):
+            n = min(R, Z - z0)
+            for s in range(degree):
+                at = node * degree + s
+                tiles[node, s, z0:z0 + n] = np.concatenate(
+                    [src[blocks[at], a:a + m] for a, m in K.stage_runs(
+                        Z, z0, n, int(shifts[at]))])
+    # the tiles are the windows: the plain version of an identity table
+    flat = _t(tiles.reshape(n_nodes * degree, Z, W))
+    ident = torch.arange(n_nodes * degree, dtype=torch.int32)
+    return window_stream_plain(flat, ident, torch.zeros_like(ident), degree,
+                               1, out, False, None if syn is None
+                               else _t(syn))
+
+
+@pytest.mark.parametrize("Z", [256, 100, 33])
+@pytest.mark.parametrize("out,degree", _SHAPES)
+def test_staged_schedule_reproduces_the_window_stream(Z, out, degree):
+    """Windows staged by the plan's blocks and stage_runs, then summed or
+    taken leave-one-out, equal the plain window stream bit for bit (φ
+    stubbed): the copies land every rotated row where the kernel reads
+    it, partial last blocks and wraps included."""
+    W, NB = 16, 12
+    rng = np.random.default_rng(Z + degree)
+    src = rng.standard_normal((NB, Z, W)).astype(np.float32)
+    n_nodes = 2
+    blocks = rng.permutation(NB)[:n_nodes * degree].astype(np.int32)
+    shifts = rng.integers(0, Z, n_nodes * degree).astype(np.int32)
+    syn = (rng.integers(0, 2, (n_nodes, Z, W)).astype(np.int8)
+           if out == "loo" else None)
+    ref = window_stream_plain(_t(src), _t(blocks), _t(shifts), degree, 1,
+                              out, False, None if syn is None else _t(syn))
+    res = _staged_model(src, blocks, shifts, degree, out, syn)
+    np.testing.assert_array_equal(res.numpy().view(np.uint32),
+                                  ref.numpy().view(np.uint32))
+
+
+@pytest.mark.parametrize("mode", sorted(K.MODES))
+@pytest.mark.parametrize("out,degree", _SHAPES)
+def test_window_plans_fit_the_card(mode, out, degree):
+    """Every instantiated shape, at every W the lanes take up to 16384 and
+    several Z: the staged rows and the barriers fit the H100's 227 KB of
+    shared memory, each window's rows fit one ring stage, the grid's y and
+    z stay <= 65,535 and its blocks cover every row and lane once."""
+    taken = 0
+    for W in range(K.WINDOW_LANES, 16384 + 1, K.WINDOW_LANES):
+        for Z, n_nodes, rows in ((1, 1, 1), (100, 3, 7), (18432, 16, 8),
+                                 (174080, 65535, 32)):
+            plan = K.window_plan(mode, degree, out, Z, W, n_nodes, rows)
+            if plan is None:  # only a staged row wider than a stage
+                assert mode == "staged" and 2 * W > min(
+                    K.STAGE_WINDOW_BYTES,
+                    K.STAGE_BLOCK_BYTES // K.stage_count(degree, out))
+                continue
+            taken += 1
+            (bx, by), (gx, gy, gz) = plan["block"], plan["grid"]
+            assert gy <= K.GRID_YZ and gz == n_nodes <= K.GRID_YZ
+            assert gx < 2**31
+            vectors = W // K.WINDOW_LANES
+            if mode == "staged":
+                R, S = plan["stage_rows"], plan["stages"]
+                assert (bx, by, gy) == (K.STAGE_THREADS, 1, 1)
+                assert S == K.stage_count(degree, out)
+                assert plan["smem"] == S * R * 2 * W
+                assert plan["smem"] + 8 * S <= SHARED_BYTES
+                assert plan["smem"] <= K.STAGE_BLOCK_BYTES
+                # a stage's 8-lane vectors fill the kernel's slots: at most
+                # (window bytes / 16) per block
+                assert R * 2 * W <= min(K.STAGE_WINDOW_BYTES,
+                                        K.STAGE_BLOCK_BYTES // S)
+                assert 1 <= R <= min(K.STAGE_MAX_ROWS, Z)
+                assert (gx - 1) * R < Z <= gx * R
+            else:
+                assert bx == min(vectors, K.LANE_THREADS)
+                assert by == K.LANE_THREADS // bx and plan["smem"] == 0
+                assert (gy - 1) * bx < vectors <= gy * bx
+                assert (gx - 1) * by * rows < Z <= gx * by * rows
+    assert taken > 0
+
+
+@pytest.mark.parametrize("mode", sorted(K.MODES))
+def test_window_plans_refuse(mode):
+    """No launch for a W off the 16-byte lanes, too many nodes, rows
+    outside 1..Z (aligned, direct) or a staged row wider than a stage."""
+    assert K.window_plan(mode, 6, "loo", 256, 200, 2) is not None
+    for W in (0, 4, 12, 36, 201):
+        assert K.window_plan(mode, 6, "loo", 256, W, 2) is None
+    assert K.window_plan(mode, 1, "sum", 256, 128, K.GRID_YZ + 1) is None
+    assert K.window_plan(mode, 1, "sum", 256, 128, 0) is None
+    if mode == "staged":
+        assert K.window_plan(mode, 1, "sum", 256, 8200, 1) is None
+        assert K.window_plan(mode, 6, "loo", 256, 4104, 1) is None
+        assert K.window_plan(mode, 1, "sum", 256, 128, 1, rows=999) is not None
+    else:
+        assert K.window_plan(mode, 1, "sum", 256, 8200, 1) is not None
+        assert K.window_plan(mode, 1, "sum", 256, 128, 1, rows=257) is None
+        assert K.window_plan(mode, 1, "sum", 256, 128, 1, rows=0) is None
+
+
+@pytest.mark.parametrize("name,mode,degree,out,Z,W,n", [
+    ("overlap2", "aligned", 1, "sum", 1024, 128, 4096),
+    ("overlap2 staged", "staged", 1, "sum", 1024, 128, 4096),
+    ("overlap4 v1", "aligned", 6, "sum", 1024, 128, 512),
+    ("overlap4 v4", "staged", 6, "loo", 1024, 128, 512),
+    ("overlap6", "direct", 6, "loo", 18432, 256, 16),
+    ("window_read A", "staged", 6, "sum", 174080, 256, 3),
+    ("window_read B", "direct", 6, "sum", 174080, 256, 3),
+    ("check_template_modes", "staged", 6, "loo", 18432, 256, 16),
+    ("ragged card test", "staged", 6, "loo", 256, 200, 2)])
+def test_probe_shapes_take_the_vector_kernels(name, mode, degree, out, Z, W,
+                                              n):
+    """Every probe's full-size shape has a launch; the staged ones hold
+    48 KB of rows a block (four blocks an SM) or less."""
+    plan = K.window_plan(mode, degree, out, Z, W, n)
+    assert plan is not None, name
+    assert plan["smem"] <= K.STAGE_BLOCK_BYTES
+
+
+def test_window_stream_phi_policies():
+    """The fast φ exists for live φ at FAST_SHAPES only; on the CPU both
+    policies run the one plain version."""
+    src = torch.randn((8, 64, 16)).to(torch.bfloat16)
+    tab = torch.arange(6, dtype=torch.int32)
+    one = torch.arange(1, dtype=torch.int32)
+    for degree, out, t in ((1, "sum", one), (6, "loo", tab)):
+        a = window_stream(src, t, t, degree, 1, out=out)
+        f = window_stream(src, t, t, degree, 1, out=out, phi="fast")
+        assert torch.equal(a.view(torch.int16), f.view(torch.int16))
+    with pytest.raises(ValueError, match="fast"):
+        window_stream(src, tab, tab, 6, 1, phi="fast")  # sum of degree 6
+    with pytest.raises(ValueError, match="fast"):
+        window_stream(src, one, one, 1, 1, phi_live=False, phi="fast")
+    with pytest.raises(ValueError, match="fast"):
+        window_stream(src, one, one, 1, 2, phi="fast")
+    with pytest.raises(ValueError, match="phi policy"):
+        window_stream(src, one, one, 1, 1, phi="rough")
+
+
+@pytest.mark.parametrize("name", sorted(_kernels.SOURCES))
+def test_every_library_builds_with_one_flag_set(monkeypatch, name):
+    """Every library, the probes included, builds with the same nvcc flags
+    (its instantiations compiled in parallel, --split-compile=0)."""
+    seen = {}
+    monkeypatch.setattr(_kernels, "_nvcc", lambda: "nvcc")
+    monkeypatch.setattr(_kernels, "build_shared_library",
+                        lambda lib, sources, cmd, **kw: seen.update(
+                            lib=lib, sources=sources, cmd=cmd) or "built")
+    assert _kernels.library_path(name) == "built"
+    assert seen == {"lib": name, "sources": _kernels.SOURCES[name],
+                    "cmd": ["nvcc", *_kernels.NVCC_FLAGS]}
+    assert "--split-compile=0" in _kernels.NVCC_FLAGS
+
+
+class _MirrorLibrary:
+    """A stand-in for the probes library whose launch plans and staged runs
+    are the Python mirrors' (``runs_off`` shifts every run start by one)."""
+
+    def __init__(self, runs_off: int = 0):
+        self.plan_calls, self.runs_off = 0, runs_off
+        self.modes = {v: k for k, v in K.MODES.items()}
+        self.outs = {v: k for k, v in K.OUTS.items()}
+
+    def ldpc_probe_window_plan(self, mode, degree, out, Z, W, n, rows, plan):
+        self.plan_calls += 1
+        p = K.window_plan(self.modes[mode], degree, self.outs[out], Z, W, n,
+                          rows)
+        if p is None:
+            return 1
+        plan[0:8] = [*p["block"], *p["grid"], p["smem"], p["stage_rows"],
+                     p["stages"]]
+        return 0
+
+    def ldpc_probe_stage_runs(self, Z, z0, n, shift, runs):
+        got = K.stage_runs(Z, z0, n, shift)
+        for r, (start, length) in enumerate(got):
+            runs[2 * r], runs[2 * r + 1] = start + self.runs_off, length
+        return len(got)
+
+
+def test_probe_library_is_checked_once_before_its_first_launch(monkeypatch):
+    """``kernels.library`` holds the loaded library to the mirrors once;
+    a library whose staged runs differ is refused."""
+    lib = _MirrorLibrary()
+    monkeypatch.setattr(_kernels, "load", lambda name: lib)
+    monkeypatch.setattr(K, "_library_checked", False)
+    assert K.library() is lib and lib.plan_calls > 0
+    calls = lib.plan_calls
+    assert K.library() is lib and lib.plan_calls == calls
+    bad = _MirrorLibrary(runs_off=1)
+    monkeypatch.setattr(_kernels, "load", lambda name: bad)
+    monkeypatch.setattr(K, "_library_checked", False)
+    with pytest.raises(RuntimeError, match="stage_runs"):
+        K.library()
+
+
+def test_probe_timers(monkeypatch):
+    """``timed`` is the decode kernels' single-launch timer, the caller's
+    set-up unchanged; ``queued_timed`` spins the card before each run, after
+    the caller's set-up; both return None on the CPU."""
+    calls = []
+    monkeypatch.setattr(perf, "cuda_ms",
+                        lambda fn, reps, setup=None: calls.append(
+                            (fn, reps, setup)) or 1.5)
+    slept = []
+    monkeypatch.setattr(torch.cuda, "_sleep", slept.append)
+    monkeypatch.setattr(C, "WARMUP_S", 0.0)
+    cpu, cuda = torch.device("cpu"), torch.device("cuda")
+    fn, order = (lambda: None), []
+    assert C.timed(cpu, fn) is None and C.queued_timed(cpu, fn) is None
+    assert calls == []
+    assert C.timed(cuda, fn, 3, order.append) == 1.5
+    assert calls[-1] == (fn, 3, order.append)
+    assert C.queued_timed(cuda, fn, 4, lambda: order.append("setup")) == 1.5
+    _, reps, queued = calls[-1]
+    queued()
+    assert reps == 4 and order == ["setup"] and slept == [C.QUEUE_CYCLES]
