@@ -72,7 +72,10 @@ Phases:
    any other qc_minsum kernel that spills named; the parity kernels'
    registers and spills by (family, lanes per thread), none spilling;
    the pool kernels' (csrc/datagen.cu) registers, stack frames and
-   spills, none spilling; the probes' window kernels' registers by kernel
+   spills (D1, and D2 per channel at four frames a store and at one),
+   none spilling, each one's SASS split by class and held to at least its
+   ChaCha8 blocks' XORs and rotations (D2 also to runtime/perf.py's issue
+   term); the probes' window kernels' registers by kernel
    and phi policy, none spilling or keeping a stack frame;
 3. the numerics smoke (``runtime.smoke.cuda_numerics_smoke``): phi on the
    device, through check-node launches of the grouped kernels' fast and
@@ -167,9 +170,11 @@ Phases:
     the card).
 31. device datagen: the pool kernels of csrc/datagen.cu against their
     plain versions at full size, bit for bit (reference bits and packed
-    words; BI-AWGN values at p41 x 512 in the decoder's sorted order with
-    the erased tail, erasure and BSC values at reg36 x 256), each one's
-    time beside its bound and the plain time; then create_pool_device
+    words; BI-AWGN values at p41 x 512 and at create_pool_device's
+    64-frame chunk in the decoder's sorted order with the erased tail,
+    erasure and BSC values at reg36 x 512), every D2 launch at four
+    frames a store, each one's time beside its bound (D2 also beside its
+    issue bound) and the plain time; then create_pool_device
     against the host datagen: p41 BI-AWGN x 512 against phase 4's frames
     (bits, syndromes and packed words equal, the erased tail 0.0, the
     noise's mean and std), reg36 erasure x 256 against phase 8's and a
@@ -181,8 +186,9 @@ Phases:
     BSC at p = 0.05; FER(>0) = 0 and BER = 0 required at 0.94, 0.40 and
     0.05, the others recorded (a point that loses frames is decoded again
     with the passes bound to the accurate phi); every pool through the two
-    pool kernels (one launch each per pool), every decode through its
-    family's kernels on the fast phi.
+    pool kernels (one launch each per pool, D2 at four frames a store:
+    channel_values_vec), every decode through its family's kernels on the
+    fast phi.
 
 Every phase must pass: any failure raises, and the script exits nonzero
 without its result line. The last line of stdout is the result object; the
@@ -191,8 +197,11 @@ entries with their fast-phi time as ``ms`` and the accurate one as
 ``accurate_ms``; the grouped and general min-sum check entries and the
 parity entries with their one-lane instantiation's time as
 ``one_lane_ms``, the parity entries with each grid slice's as
-``slice_ms``; the pool kernels with p41 x 512 BI-AWGN as ``ms`` and the
-reg36 erasure and BSC values as ``erasure_ms`` and ``bsc_ms``; the window
+``slice_ms``; the pool kernels with p41 x 512 BI-AWGN as ``ms``, the
+64-frame chunk as ``chunk_ms`` (its bound ``chunk_bound_ms``), D2's issue
+bound as ``issue_bound_ms`` (``chunk_issue_bound_ms``) beside the integer
+one, and the reg36 erasure and BSC values as ``erasure_ms`` and
+``bsc_ms``; the window
 probes with the accurate phi as ``ms``, phi stubbed as ``stub_ms`` and the
 fast phi as ``fast_ms`` where measured, each also by the probes' queued
 timer as ``queued_ms``, ``stub_queued_ms`` and ``fast_queued_ms``, and
@@ -251,6 +260,9 @@ REG36_FP8_AVG_ITERS = (40.0, 50.0)
 # is p = 0.084)
 PLAIN_CHUNK = 64
 BSC_P = 0.05
+# create_pool_device's default chunk (runtime/datagen_device.py), at which
+# phase 31 also holds and times the pool kernels
+CHUNK_FRAMES = 64
 # phase 32, the qualification (scripts/fer_stats_torch.py's protocol):
 # frames per point and the points; FER(>0) = 0 and BER = 0 are required at
 # SIGMA, EPSILON and BSC_P, the others are recorded beside the JAX record
@@ -506,22 +518,75 @@ CHANNEL_NAMES = ("BSC", "erasure", "AWGN")
 XOR_ROTATE_SASS = ("LOP3", "SHF", "PRMT", "LEA")
 
 
+# the pool kernels' SASS by class: integer ALU and IMAD instructions (which
+# carry ChaCha8's additions, XORs and rotations, and the addressing);
+# float, conversion and MUFU ones (the units and the libm calls); tests and
+# selects; loads and stores; the rest (moves, control, special registers)
+SASS_CLASSES = (
+    ("integer", ("IADD3", "IADD", "IMAD", "LOP3", "LOP", "SHF", "PRMT",
+                 "LEA", "IABS", "IMNMX", "FLO", "POPC", "BMSK", "SGXT")),
+    ("float", ("FADD", "FMUL", "FFMA", "MUFU", "I2F", "I2FP", "F2I", "F2IP",
+               "FRND", "F2F", "FMNMX", "FCHK", "FSWZADD")),
+    ("tests", ("ISETP", "FSETP", "SEL", "FSEL", "PLOP3", "P2R", "R2P",
+               "VOTE")),
+    ("memory", ("LDG", "STG", "LD", "ST", "LDS", "STS", "LDC", "ULDC",
+                "LDGSTS", "SHFL")),
+)
+
+
 def datagen_kernel_label(name):
-    m = re.search(r"channel_values_kernelILi(\d)E", name)
-    return "chacha_bits_kernel" if m is None else (
-        f"channel_values_kernel<{CHANNEL_NAMES[int(m.group(1))]}>")
+    """chacha_bits_kernel, or channel_values_kernel<channel, vector or one
+    lane> (template arguments Channel and Vec; a parent's build, one
+    instantiation per channel, gives the channel alone)."""
+    m = re.search(r"channel_values_kernelILi(\d)E(?:Lb(\d)E)?", name)
+    if m is None:
+        return "chacha_bits_kernel"
+    label = f"channel_values_kernel<{CHANNEL_NAMES[int(m.group(1))]}"
+    if m.group(2) is not None:
+        label += ", vector" if m.group(2) == "1" else ", one lane"
+    return label + ">"
+
+
+def datagen_sass_split(fn, label):
+    """One pool kernel's static SASS split by SASS_CLASSES: {"total",
+    "chacha" (the bound's additions, XORs and rotations of the thread's
+    one ChaCha8 block), "other_integer" (the integer instructions beyond
+    them: addressing, division, the units' masks), "float", "tests",
+    "memory", "rest"}."""
+    ops = [op.split(".")[0] for op in sass_ops(fn)]
+    _, adds, alu = perf.chacha8_block_ops(
+        key1=0 if label == "chacha_bits_kernel" else 1)
+    count = {name: sum(ops.count(op) for op in members)
+             for name, members in SASS_CLASSES}
+    chacha = min(count["integer"], adds + alu)
+    return {"total": len(ops), "chacha": chacha,
+            "other_integer": count["integer"] - chacha,
+            "float": count["float"], "tests": count["tests"],
+            "memory": count["memory"],
+            "rest": len(ops) - sum(count.values())}
+
+
+def sass_split_text(split):
+    return (f"{split['total']} instructions: ChaCha8 {split['chacha']}, "
+            f"other integer {split['other_integer']}, float/conversion/MUFU "
+            f"{split['float']}, tests/selects {split['tests']}, loads/stores "
+            f"{split['memory']}, rest {split['rest']}")
 
 
 def datagen_report(path):
     """The pool kernels' registers, stack frames and spills (D1 and each
-    channel of D2), asserting none spills; then each kernel's integer
-    instructions in its SASS (one ChaCha8 block a thread, unrolled) against
-    the block that runtime/perf.py's bound counts, asserting the kernel
-    issues at least the bound's XORs and rotations on the ALU pipe."""
+    channel of D2 at four frames a store and at one), asserting none
+    spills; then each kernel's SASS split (datagen_sass_split) and its
+    integer instructions against the ChaCha8 block (one a thread) that
+    runtime/perf.py's bound counts, asserting the kernel holds at least the
+    bound's XORs and rotations on the ALU pipe, and each D2 instantiation
+    at least the issue term's instructions (the block's integer
+    operations, and per value the unit conversions and the accurate logf,
+    cosf and sqrtf fast paths, runtime/perf.py channel_values_issue)."""
     with open(path + ".log") as f:
         text = f.read()
     chunks = text.split("Compiling entry function '")[1:]
-    assert len(chunks) == 4, f"datagen: {len(chunks)} kernels, expected 4"
+    assert len(chunks) == 7, f"datagen: {len(chunks)} kernels, expected 7"
     for chunk in chunks:
         label = datagen_kernel_label(chunk.split("'", 1)[0])
         regs = int(re.search(r"Used (\d+) registers", chunk).group(1))
@@ -532,7 +597,7 @@ def datagen_report(path):
             f"{stores + loads} spill bytes")
         assert stores + loads == 0, f"{label} spills"
     functions = sass_of(path).split("Function : ")[1:]
-    assert len(functions) == 4, f"datagen SASS: {len(functions)} functions"
+    assert len(functions) == 7, f"datagen SASS: {len(functions)} functions"
     for fn in functions:
         label = datagen_kernel_label(fn.split(None, 1)[0])
         ops = [op.split(".")[0] for op in sass_ops(fn)]
@@ -544,9 +609,19 @@ def datagen_report(path):
             + ", ".join(f"{v} {k}" for k, v in count.items())
             + f"; the bound's block: {alu} XORs and rotations, {adds} "
             f"additions")
+        log(f"    {label} SASS split: "
+            f"{sass_split_text(datagen_sass_split(fn, label))}")
         assert xor_rotate >= alu, (
             f"{label}: {xor_rotate} XOR or rotation instructions, fewer "
             f"than the bound's {alu}")
+        if label != "chacha_bits_kernel":
+            channel = {"BSC": "bsc", "erasure": "erasure", "AWGN": "awgn"}[
+                label.split("<")[1].split(",")[0]]
+            issue = perf.channel_values_issue(channel)
+            log(f"    {label}: the issue term's {issue} instructions")
+            assert len(ops) >= issue, (
+                f"{label}: {len(ops)} instructions, fewer than the issue "
+                f"term's {issue}")
 
 
 def phase_build():
@@ -619,8 +694,8 @@ def sass_of(path):
 
 def sass_ops(function):
     """The instruction mnemonics of one function of a SASS listing
-    (predicates dropped)."""
-    return re.findall(r"/\*[0-9a-f]{4}\*/\s+(?:@!?U?P\w+\s+)?"
+    (predicates dropped; addresses of four hex digits or more)."""
+    return re.findall(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?"
                       r"([A-Z][A-Z0-9_.]*)", function)
 
 
@@ -1967,8 +2042,10 @@ def datagen_kernels(torch, dev, label, dec, channel, noise, n, start):
     """D1 and D2 at ``dec``'s code, n frames from ``start``, against their
     plain versions on the card (run by PLAIN_CHUNK frames: the plain
     versions' int64 keystream takes 16 words of 8 bytes per block), bit for
-    bit; each kernel's time beside its bound and the plain time. Returns
-    {"chacha_bits": ..., "channel_values": ...} records."""
+    bit; each kernel's time beside its bound (D2 also beside its issue
+    bound) and the plain time; every D2 launch at four frames a store.
+    Returns {"chacha_bits": ..., "channel_values": ...} records."""
+    from ldpc_decoder_tpu_torch.ops import _kernels
     from ldpc_decoder_tpu_torch.rng import chacha_torch as ct
     from ldpc_decoder_tpu_torch.runtime.datagen_device import _pool_tables
 
@@ -1976,6 +2053,7 @@ def datagen_kernels(torch, dev, label, dec, channel, noise, n, start):
     n_vars, n_tx = code.n_vars, code.n_vars - code.n_erased_vars
     n_words = dec.n_words
     pos = _pool_tables(dec).pos
+    before = dict(_kernels.launch_counts)
     bits, packed = ct.reference_bits_packed(start, n_vars, n, dev)
     vals = ct.channel_values(bits, start, channel, noise, n_tx=n_tx, pos=pos)
     torch.cuda.synchronize()
@@ -2019,13 +2097,26 @@ def datagen_kernels(torch, dev, label, dec, channel, noise, n, start):
              plain_values)):
         ms = cuda_ms(fn)
         plain_ms = cuda_ms(plain, reps=3)
-        b = bound(*work[name], perf.INT32_OPS_PER_S)
+        n_bytes, n_int = work[name][:2]
+        b = bound(n_bytes, n_int, perf.INT32_OPS_PER_S)
         out[name] = {"ms": ms, "plain_ms": plain_ms, "bound": b,
                      "max_abs_err": max_err if name == "channel_values"
                      else 0.0}
-        log(f"  {label} {name}: {ms:.3f} ms, bound {b[0]:.3f} ms ({b[1]}, "
-            f"{b[0] / ms:.1%}), plain {plain_ms:.3f} ms; equal to plain")
+        text = f"bound {b[0]:.3f} ms ({b[1]}, {b[0] / ms:.1%})"
+        if name == "channel_values":
+            ib = bound(n_bytes, work[name][2], perf.ISSUE_OPS_PER_S)
+            out[name]["issue_bound"] = ib
+            text += (f", issue bound {ib[0]:.3f} ms ({ib[1]}, "
+                     f"{ib[0] / ms:.1%})")
+        log(f"  {label} {name}: {ms:.3f} ms, {text}, plain {plain_ms:.3f} "
+            f"ms; equal to plain")
         torch.cuda.empty_cache()
+    # every launch above at four frames a store where n allows it
+    vec = _kernels.launch_counts["channel_values_vec"] - before[
+        "channel_values_vec"]
+    total = _kernels.launch_counts["channel_values"] - before[
+        "channel_values"]
+    assert vec == total, f"{label}: {total - vec} one-lane D2 launches"
     del bits, packed, vals
     torch.cuda.empty_cache()
     return out
@@ -2045,7 +2136,7 @@ def timed_pool(torch, dec, channel, n):
     pool = create_pool_device(dec, channel, 0, n, chunk_frames=n)
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
-    for name in ("chacha_bits", "channel_values"):
+    for name in ("chacha_bits", "channel_values", "channel_values_vec"):
         assert _kernels.launch_counts[name] - before[name] == 1, name
     return pool, secs
 
@@ -2076,6 +2167,16 @@ def phase_datagen(torch, np, dev, code, s, batch, host_s, code36, s36,
     n = fer.pool_frames(dec)
     out = datagen_kernels(torch, dev, f"p41 x {n} BI-AWGN", dec, "awgn",
                           SIGMA, n, 0)
+    out["channel_values"]["issue_bound_ms"] = out["channel_values"][
+        "issue_bound"][0]
+    # create_pool_device's default chunk
+    chunk = datagen_kernels(torch, dev, f"p41 x {CHUNK_FRAMES} BI-AWGN",
+                            dec, "awgn", SIGMA, CHUNK_FRAMES, 0)
+    for name in ("chacha_bits", "channel_values"):
+        out[name]["chunk_ms"] = chunk[name]["ms"]
+        out[name]["chunk_bound_ms"] = chunk[name]["bound"][0]
+    out["channel_values"]["chunk_issue_bound_ms"] = chunk["channel_values"][
+        "issue_bound"][0]
     extra = {}
     for channel, idx, noise in (("erasure", 2, EPSILON), ("bsc", 1, BSC_P)):
         dec36, _ = fer.qualification_decoder(code36, s36, idx, noise, dev)
@@ -2156,13 +2257,14 @@ def qualification(torch, dev, code, s, code36, s36):
 
     fer = load_fer_stats()
     pools = QUAL_FRAMES // 512  # pools of 2B = 512 frames
-    totals = {"chacha_bits": 0, "channel_values": 0}
+    totals = {"chacha_bits": 0, "channel_values": 0,
+              "channel_values_vec": 0}
     records = []
 
     def read_launches(label, kernels, accurate):
         launches = dict(_kernels.launch_counts)
         for name, count in launches.items():
-            if name in ("chacha_bits", "channel_values"):
+            if name in totals:  # D2 at four frames a store each time
                 assert count == pools, f"{label}: {name} {count} launches"
                 totals[name] += count
             elif name in kernels:
@@ -2207,6 +2309,7 @@ def qualification(torch, dev, code, s, code36, s36):
         records.append(rec)
         torch.cuda.empty_cache()
     log(json.dumps({"qualification": records}))
+    log(f"  pool launches: {totals}")
     return totals
 
 

@@ -40,9 +40,10 @@ launches again under ``cn_group_minsum_vec``, ``cn_general_minsum_vec``,
 ``parity_vec`` and ``parity_regular_vec``, so a run shows which
 instantiation it took; the probes count ``probe_row_copy`` and
 ``probe_window``, the pool generators ``chacha_bits`` and
-``channel_values``. Every sum-product launch of the accurate φ also counts
-under ``phi_accurate``, which no decode touches. Argument checking is the
-callers' job (:mod:`ldpc_decoder_tpu_torch.ops.qc_grouped`,
+``channel_values`` (its four-frame vector launches again under
+``channel_values_vec``). Every sum-product launch of the accurate φ also
+counts under ``phi_accurate``, which no decode touches. Argument checking
+is the callers' job (:mod:`ldpc_decoder_tpu_torch.ops.qc_grouped`,
 :mod:`ldpc_decoder_tpu_torch.ops.qc_regular`,
 :mod:`ldpc_decoder_tpu_torch.ops.general`,
 :mod:`ldpc_decoder_tpu_torch.probes.kernels`,
@@ -109,6 +110,7 @@ launch_counts = {"cn": 0, "vn": 0, "parity": 0,
                  "cn_regular_minsum": 0, "vn_regular_minsum": 0,
                  "probe_row_copy": 0, "probe_window": 0,
                  "chacha_bits": 0, "channel_values": 0,
+                 "channel_values_vec": 0,
                  "phi_accurate": 0}
 
 _p, _i, _f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -169,7 +171,10 @@ _SIGNATURES = {
     "datagen": {
         "ldpc_chacha_bits": [_p, _p, ctypes.c_uint, _i, _i, _i, _p],
         "ldpc_channel_values": [_p, _p, _p, ctypes.c_uint, _i, _i, _i, _ll,
-                                _i, _f, _p],
+                                _i, _f, _i, _p],
+        "ldpc_channel_values_vec_frames": [],
+        "ldpc_chacha_bits_plan": [_i, _i, _p],
+        "ldpc_channel_values_plan": [_i, _i, _i, _i, _p],
     },
 }
 # message dtype codes of every library's C entries (each takes the ones
@@ -633,13 +638,20 @@ def chacha_bits(bits, packed, start: int, n_vars: int, n_frames: int,
 
 
 def channel_values(values, bits, pos, start: int, n_vars: int, n_tx: int,
-                   n_frames: int, channel: str, noise: float) -> None:
+                   n_frames: int, channel: str, noise: float,
+                   frames: int) -> None:
     """D2: channel values of ``n_frames`` frames into the rows of
     ``values`` (row pos[v], or v when ``pos`` is None; its row stride taken
-    from the tensor), 0.0 from variable ``n_tx`` on."""
+    from the tensor), 0.0 from variable ``n_tx`` on; ``frames`` a store,
+    4 (the vector instantiation, counted again under
+    ``channel_values_vec``) or 1 (the C entry refuses 4 where the rows or
+    the bits are not aligned for it)."""
     lib = load("datagen")
     err = lib.ldpc_channel_values(
         _ptr(values), _ptr(bits), _ptr(pos), start, n_vars, n_tx, n_frames,
-        values.stride(0), CHANNEL_CODES[channel], noise, _stream(values))
+        values.stride(0), CHANNEL_CODES[channel], noise, frames,
+        _stream(values))
     _check(lib, err, "channel-values kernel")
     launch_counts["channel_values"] += 1
+    if frames > 1:
+        launch_counts["channel_values_vec"] += 1

@@ -28,10 +28,17 @@ The entry points (:func:`reference_bits_packed`, :func:`reference_bits`,
 arguments: on the CPU they run the plain versions; on a CUDA device they
 launch ``csrc/datagen.cu``'s kernels (D1 ``chacha_bits_kernel``, D2
 ``channel_values_kernel``) or raise. There is no fallback from one to the
-other.
+other. :func:`chacha_bits_plan` and :func:`channel_values_plan` mirror the
+kernels' launches (the library's ``bits_plan`` and ``values_plan``, held to
+them by :func:`check_library` before the first launch), and
+:func:`channel_values_frames` picks D2's instantiation: four frames a
+store (16-byte stores) where the output rows and the bits allow it, else
+one.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import numpy as np
 import torch
@@ -180,6 +187,128 @@ def _channel_values_natural(ref_bits, start, channel, noise):
     return torch.where(hit, -tx if channel == "bsc" else 0.0, tx)
 
 
+# ---- the kernels' launch plans (csrc/datagen.cu) ---------------------------
+
+BITS_MAX_GROUPS = 16  # D1: groups of a tile, at most
+BITS_MIN_BLOCKS = 16  # D1: ChaCha blocks of a tile, at least
+BITS_THREADS = 256    # D1: a tile's threads, at least
+BITS_MAX_SMEM = 64 * 1024  # D1: a tile's shared bytes, at most
+VALUE_THREADS = 256   # D2: threads a block
+VEC_FRAMES = 4        # D2: frames a store in the vector instantiation
+_INT31 = 2**31 - 1
+
+
+def chacha_bits_plan(n_vars: int, n_frames: int) -> dict | None:
+    """D1's launch (``bits_plan``), or None where no launch takes the
+    shape: ``groups`` G (the tile's 32-frame groups, threadIdx.x: the group
+    count up to 16; above it its largest divisor in [8, 16], else 16),
+    ``blocks`` TB (its ChaCha blocks, threadIdx.y: the least power of two
+    >= 16 with G * TB >= 256 threads in whole warps, so each frame's run is
+    TB / 2 >= 8 words), ``grid`` (x over the variables, y over the groups)
+    and ``smem`` (bytes: the tile's variable words [16 TB][G | 1] with a
+    one-word skew every 16 rows, then its frame words [32 G][TB / 2])."""
+    if n_vars < 1 or n_frames < 32 or n_frames % 32:
+        return None
+    n_groups = n_frames // 32
+    g = n_groups
+    if n_groups > BITS_MAX_GROUPS:
+        g = next((d for d in range(BITS_MAX_GROUPS, 7, -1)
+                  if n_groups % d == 0), BITS_MAX_GROUPS)
+    tb = BITS_MIN_BLOCKS
+    while g * tb < BITS_THREADS or (g * tb) % 32:
+        tb *= 2
+    grid = (-(-(-(-n_vars // 16)) // tb), -(-n_groups // g))
+    smem = 4 * (16 * tb * (g | 1) + tb + 16 * g * tb)
+    if grid[1] > 65535 or smem > BITS_MAX_SMEM:
+        return None
+    return dict(groups=g, blocks=tb, grid=grid, smem=smem)
+
+
+def channel_values_plan(channel: str, n_vars: int, n_frames: int,
+                        frames: int) -> dict | None:
+    """D2's launch (``values_plan``) with ``frames`` frames a store (4: the
+    vector instantiation, or 1), or None where none takes it: ``vars``
+    (variables of a ChaCha block: 8 for AWGN, 16 else), ``frames``,
+    ``threads`` (one per frame and ChaCha block) and ``grid`` (blocks of
+    VALUE_THREADS)."""
+    if (n_vars < 1 or n_frames < 1 or channel not in CHANNELS
+            or frames not in (1, VEC_FRAMES) or n_frames % frames):
+        return None
+    per = 8 if channel == "awgn" else 16
+    threads = n_frames * -(-n_vars // per)
+    grid = -(-threads // VALUE_THREADS)
+    if grid * VALUE_THREADS > _INT31:
+        return None
+    return dict(vars=per, frames=frames, threads=threads, grid=grid)
+
+
+def channel_values_frames(values: torch.Tensor, bits: torch.Tensor) -> int:
+    """D2's frames a store for rows ``values`` [n_vars, n_frames] (its row
+    stride taken from the tensor) and ``bits`` [n_vars, n_frames]: 4 where
+    n_frames is a multiple of 4, each row of values starts on 16 bytes and
+    bits on 4 (one 4-byte load of a variable's four bits, one 16-byte store
+    of its four values); else 1."""
+    n_frames = values.shape[1]
+    vec = (n_frames % VEC_FRAMES == 0 and values.data_ptr() % 16 == 0
+           and values.stride(0) % 4 == 0 and bits.data_ptr() % 4 == 0)
+    return VEC_FRAMES if vec else 1
+
+
+# shapes the load check compares with the library: 1, 2, 3, 16, 64, 17,
+# 20 and 34 groups; ragged and one-block variable counts; p41 and reg36;
+# frame counts D1 refuses; a grid D2 refuses at one frame a thread
+_PLAN_SHAPES = [(1, 32), (16, 64), (1031, 96), (4101, 512), (512, 2048),
+                (100, 544), (100, 640), (100, 1088), (1032192, 512),
+                (1048576, 64), (7, 5), (7, 6), (1 << 28, 64)]
+
+
+def check_library(lib) -> None:
+    """Raise RuntimeError unless the library's launch plans are
+    :func:`chacha_bits_plan`'s and :func:`channel_values_plan`'s and its
+    vector frames VEC_FRAMES."""
+    if lib.ldpc_channel_values_vec_frames() != VEC_FRAMES:
+        raise RuntimeError("datagen library and VEC_FRAMES disagree")
+    bits_out = (ctypes.c_int * 5)()
+    vals_out = (ctypes.c_longlong * 4)()
+    for n_vars, n_frames in _PLAN_SHAPES:
+        err = lib.ldpc_chacha_bits_plan(n_vars, n_frames, bits_out)
+        got = None if err else dict(groups=bits_out[0], blocks=bits_out[1],
+                                    grid=(bits_out[2], bits_out[3]),
+                                    smem=bits_out[4])
+        if got != chacha_bits_plan(n_vars, n_frames):
+            raise RuntimeError(f"datagen library and chacha_bits_plan "
+                               f"disagree at {n_vars} x {n_frames}: {got}")
+        for channel, code in (("bsc", 0), ("erasure", 1), ("awgn", 2)):
+            for frames in (1, VEC_FRAMES):
+                err = lib.ldpc_channel_values_plan(code, n_vars, n_frames,
+                                                   frames, vals_out)
+                got = None if err else dict(
+                    vars=vals_out[0], frames=vals_out[1],
+                    threads=vals_out[2], grid=vals_out[3])
+                want = channel_values_plan(channel, n_vars, n_frames, frames)
+                if got != want:
+                    raise RuntimeError(
+                        f"datagen library and channel_values_plan disagree "
+                        f"at {channel} {n_vars} x {n_frames}, {frames} "
+                        f"frames: {got} != {want}")
+
+
+_library_checked = False
+
+
+def _library():
+    """The datagen library (``_kernels.load("datagen")``), held to the
+    plans by :func:`check_library` the first time."""
+    global _library_checked
+    from ldpc_decoder_tpu_torch.ops import _kernels
+
+    lib = _kernels.load("datagen")
+    if not _library_checked:
+        check_library(lib)
+        _library_checked = True
+    return lib
+
+
 # ---- the entry points: plain on the CPU, kernels on the card ---------------
 
 def _check_frames(n_frames: int) -> None:
@@ -209,6 +338,7 @@ def reference_bits_packed(start: int, n_vars: int, n_frames: int,
         return bits, pack_rows(bits, n_words)
     from ldpc_decoder_tpu_torch.ops import _kernels
 
+    _library()
     bits = torch.empty((n_vars, n_frames), dtype=torch.int8, device=device)
     packed = torch.empty((n_frames, n_words), dtype=torch.int32,
                          device=device)
@@ -262,9 +392,11 @@ def channel_values(ref_bits: torch.Tensor, start: int, channel: str,
                          "contiguous pos")
     from ldpc_decoder_tpu_torch.ops import _kernels
 
+    _library()
     with torch.cuda.device(ref_bits.device):
         _kernels.channel_values(out, ref_bits, pos, start & MASK32, n_vars,
-                                n_tx, n_frames, channel, noise)
+                                n_tx, n_frames, channel, noise,
+                                channel_values_frames(out, ref_bits))
     return out
 
 

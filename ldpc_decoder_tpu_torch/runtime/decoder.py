@@ -619,7 +619,9 @@ class LDPCDecoder:
 
         t1 = run_k(1)
         tk = run_k(k) if k > 1 else t1
-        per_iter = (tk - t1) / (k - 1) if k > 1 else t1
+        # clamped like the differences below: on a loaded host the k-iteration
+        # run can read faster than the one-iteration run
+        per_iter = max((tk - t1) / (k - 1), 0.0) if k > 1 else t1
         t_init = timeit(lambda: self._init_messages(st.llr, t,
                                                     self.msg_dtype, pre))
         try:

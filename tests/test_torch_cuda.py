@@ -1289,20 +1289,26 @@ def test_parity_one_lane_matches_vector(cuda_device, family):
 
 # ---- pool generation (csrc/datagen.cu) --------------------------------------
 
-# (n_vars, n_tx, start): a whole number of blocks; a ragged n_vars with an
-# erased tail; a start whose seeds wrap past 2^32
-DATAGEN_SHAPES = [(512, 512, 9), (1031, 900, 2**32 - 40), (4101, 4101, 3)]
+# (n_vars, n_tx, start, n_frames): a whole number of blocks; a ragged
+# n_vars with an erased tail; a start whose seeds wrap past 2^32; D1 at 1,
+# 2, 3, 16 and 64 groups of 32 frames (its tiles: every lane computes at
+# any group count) and at 17 (a last tile of one group), 64 the pools'
+# chunk, 512 and 2048 the qualification's
+DATAGEN_SHAPES = [(512, 512, 9, 96), (1031, 900, 2**32 - 40, 64),
+                  (4101, 4101, 3, 96), (1031, 1031, 5, 32),
+                  (777, 700, 11, 512), (300, 300, 2**32 - 1000, 2048),
+                  (4101, 4000, 7, 64), (257, 200, 13, 544)]
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n_vars,n_tx,start", DATAGEN_SHAPES)
-def test_chacha_bits_kernel_matches_plain(cuda_device, n_vars, n_tx, start):
+@pytest.mark.parametrize("n_vars,n_tx,start,n", DATAGEN_SHAPES)
+def test_chacha_bits_kernel_matches_plain(cuda_device, n_vars, n_tx, start,
+                                          n):
     """D1: the bits and the packed words equal the plain version's on the
     card and the CPU's, one launch a call."""
     from ldpc_decoder_tpu_torch.ops import _kernels
     from ldpc_decoder_tpu_torch.rng import chacha_torch as ct
 
-    n = 96
     before = _kernels.launch_counts["chacha_bits"]
     bits, packed = ct.reference_bits_packed(start, n_vars, n, cuda_device)
     torch.cuda.synchronize()
@@ -1315,30 +1321,37 @@ def test_chacha_bits_kernel_matches_plain(cuda_device, n_vars, n_tx, start):
     assert torch.equal(packed.cpu(), cpu_packed)
 
 
+def _values_case(ct, device, n_vars, start, n):
+    """Reference bits of n frames (a multiple of 32 or not) and a sorted
+    order for them."""
+    bits = ct.reference_bits(start, n_vars, -(-n // 32) * 32, device)
+    pos = torch.from_numpy(np.random.default_rng(n_vars).permutation(
+        n_vars).astype(np.int32)).to(device)
+    return bits[:, :n].contiguous(), pos
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("channel,noise", [("bsc", 0.07), ("erasure", 0.3),
                                            ("awgn", 0.9)])
-@pytest.mark.parametrize("n_vars,n_tx,start", DATAGEN_SHAPES)
+@pytest.mark.parametrize("n_vars,n_tx,start,n", DATAGEN_SHAPES)
 def test_channel_values_kernel_matches_plain(cuda_device, channel, noise,
-                                             n_vars, n_tx, start):
-    """D2 equals its plain version on the card bit for bit (AWGN too: the
-    plain version's log and cos are the same CUDA library functions),
-    with the erased tail 0.0 and each variable in its sorted row; written
-    into a column slice of a wider pool, it leaves the other columns
-    alone."""
+                                             n_vars, n_tx, start, n):
+    """D2's vector instantiation (four frames a store) equals its plain
+    version on the card bit for bit (AWGN too: the plain version's log and
+    cos are the same CUDA library functions), with the erased tail 0.0 and
+    each variable in its sorted row; written into an aligned column slice
+    of a wider pool, it leaves the other columns alone."""
     from ldpc_decoder_tpu_torch.ops import _kernels
     from ldpc_decoder_tpu_torch.rng import chacha_torch as ct
 
-    n = 64
-    bits = ct.reference_bits(start, n_vars, n, cuda_device)
-    pos = torch.from_numpy(np.random.default_rng(n_vars).permutation(
-        n_vars).astype(np.int32)).to(cuda_device)
+    bits, pos = _values_case(ct, cuda_device, n_vars, start, n)
     pool = torch.full((n_vars, 3 * n), float("nan"), device=cuda_device)
-    before = _kernels.launch_counts["channel_values"]
+    before = dict(_kernels.launch_counts)
     out = ct.channel_values(bits, start, channel, noise, n_tx=n_tx, pos=pos,
                             out=pool[:, n:2 * n])
     torch.cuda.synchronize()
-    assert _kernels.launch_counts["channel_values"] == before + 1
+    for name in ("channel_values", "channel_values_vec"):
+        assert _kernels.launch_counts[name] == before[name] + 1, name
     want = ct.channel_values_plain(bits, start, channel, noise, n_tx, pos)
     assert perf.bit_identical(out, want)
     assert torch.isnan(pool[:, :n]).all() and torch.isnan(pool[:, 2 * n:]).all()
@@ -1348,13 +1361,56 @@ def test_channel_values_kernel_matches_plain(cuda_device, channel, noise,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("channel,noise", [("bsc", 0.07), ("erasure", 0.3),
+                                           ("awgn", 0.9)])
+@pytest.mark.parametrize("n_vars,n_tx,start,n,offset", [
+    (1031, 900, 2**32 - 40, 62, 0),   # n_frames not a multiple of 4
+    (777, 700, 11, 64, 1),            # a column slice at an odd offset
+    (4101, 4000, 7, 64, 2),           # 8 bytes in: rows not on 16 bytes
+    (300, 300, 3, 7, 5)])
+def test_channel_values_one_lane_matches_plain(cuda_device, channel, noise,
+                                               n_vars, n_tx, start, n,
+                                               offset):
+    """D2's one-lane instantiation takes what the vector one cannot (its
+    launches not counted under channel_values_vec) and equals the plain
+    version bit for bit, and the vector instantiation on the same frames
+    where their count allows it."""
+    from ldpc_decoder_tpu_torch.ops import _kernels
+    from ldpc_decoder_tpu_torch.rng import chacha_torch as ct
+
+    bits, pos = _values_case(ct, cuda_device, n_vars, start, n)
+    pool = torch.full((n_vars, n + 8), float("nan"), device=cuda_device)
+    out = pool[:, offset:offset + n]
+    assert ct.channel_values_frames(out, bits) == 1
+    before = dict(_kernels.launch_counts)
+    ct.channel_values(bits, start, channel, noise, n_tx=n_tx, pos=pos,
+                      out=out)
+    torch.cuda.synchronize()
+    assert _kernels.launch_counts["channel_values"] == before[
+        "channel_values"] + 1
+    assert _kernels.launch_counts["channel_values_vec"] == before[
+        "channel_values_vec"]
+    want = ct.channel_values_plain(bits, start, channel, noise, n_tx, pos)
+    assert perf.bit_identical(out.contiguous(), want)
+    assert torch.isnan(pool[:, :offset]).all()
+    assert torch.isnan(pool[:, offset + n:]).all()
+    if n % 4 == 0:
+        vec = ct.channel_values(bits, start, channel, noise, n_tx=n_tx,
+                                pos=pos)
+        assert _kernels.launch_counts["channel_values_vec"] == before[
+            "channel_values_vec"] + 1
+        assert perf.bit_identical(vec, out.contiguous())
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("channel", ["bsc", "erasure", "awgn"])
 def test_pool_on_card_matches_host_and_cpu(cuda_device, channel):
     """create_pool_device on a CUDA decoder goes through D1 and D2 (one
-    launch each per chunk) and equals the CPU decoder's pool (AWGN: bits,
-    syndromes and words exact, values within 2 ulps of the CPU's log and
-    cos) and, for BSC and erasure, the host datagen's upload, erased tail
-    included (the small p41 code punctures 4 Z-blocks)."""
+    launch each per chunk, D2's vector instantiation) and equals the CPU
+    decoder's pool (AWGN: bits, syndromes and words exact, values within 2
+    ulps of the CPU's log and cos) and, for BSC and erasure, the host
+    datagen's upload, erased tail included (the small p41 code punctures 4
+    Z-blocks)."""
     from ldpc_decoder_tpu_torch.channels import (
         BIAWGNChannel as Awgn,
         BSCChannel,
@@ -1374,7 +1430,7 @@ def test_pool_on_card_matches_host_and_cpu(cuda_device, channel):
     before = dict(_kernels.launch_counts)
     pool = create_pool_device(dec, ch, 7, 128, chunk_frames=64)
     torch.cuda.synchronize()
-    for name in ("chacha_bits", "channel_values"):
+    for name in ("chacha_bits", "channel_values", "channel_values_vec"):
         assert _kernels.launch_counts[name] - before[name] == 2
     ref = create_pool_device(cpu, ch, 7, 128, chunk_frames=128)
     assert torch.equal(pool.syn_sorted.cpu(), ref.syn_sorted)
