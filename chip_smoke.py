@@ -52,6 +52,11 @@ the channel values from csrc/datagen.cu, the syndromes in plain PyTorch)
 and decodes 2048 of them per noise point: p41 over BI-AWGN, reg36 over the
 erasure channel and the BSC.
 
+The host-fed stream (``LDPCDecoder.decode_streamed``) decodes p41 at the
+p41 path's settings, 1024 frames in four chunks of B = 256 with two in
+flight, and the general code's 768 frames in two chunks of its B = 384,
+each against a serial ``decode()`` of every chunk.
+
 The probes (``python -m ldpc_decoder_tpu_torch.probes``, the counterparts
 of the TPU measurement kernels in scripts/) run one headline point each at
 full size: the grouped kernels writing fresh outputs at p41 x B = 256
@@ -188,7 +193,23 @@ Phases:
     with the passes bound to the accurate phi); every pool through the two
     pool kernels (one launch each per pool, D2 at four frames a store:
     channel_values_vec), every decode through its family's kernels on the
-    fast phi.
+    fast phi;
+33. the host-fed stream: p41 (phase 7's decoder settings) over phase 4's
+    512 frames and 512 more generated on the host from index 512, in four
+    chunks of 256, and the general sum-product decoder of phase 16 over
+    phase 13's 768 frames in two chunks of 384, each through
+    decode_streamed at depth 2 (once to warm its pinned ring, then timed,
+    its launch counts set to 0 just before and read just after: the
+    family's kernels and no other) and through a serial decode() per
+    chunk; every chunk's words and per-frame iterations equal, FER 0 and
+    BER 0, and on p41 at least one chunk's upload starting on the card
+    before the chunk before it finished decoding (CUDA events on the copy
+    and compute streams; recorded on the general code, whose chunks decode
+    in about the time the host takes to stage the next); bench.py's
+    e2e_streamed_mbps and e2e_serial_chunked_mbps, the per-chunk spans
+    and the card's busy share over the streamed wall printed beside the
+    card's name and power limit, and one chunk's staging timed against
+    the numpy gather and pageable copy it replaced.
 
 Every phase must pass: any failure raises, and the script exits nonzero
 without its result line. The last line of stdout is the result object; the
@@ -270,6 +291,13 @@ CHUNK_FRAMES = 64
 QUAL_FRAMES = 2048
 QUAL_SIGMAS = (SIGMA, 0.95)
 QUAL_EPSILONS = (EPSILON, 0.42)
+# phase 33, the host-fed stream: p41 chunks of B = 256 frames (phase 4's
+# 512 frames, then 512 more from start index 512), the general code's 768
+# frames of phase 13 in chunks of its B = 384, decode_streamed's depth
+STREAM_CHUNK = 256
+STREAM_FRAMES = 1024
+GENERAL_STREAM_CHUNK = 384
+STREAM_DEPTH = 2
 # the small QC code of the CLI's subprocess run (git-ignored cache)
 CLI_SMALL_ALIST = os.path.join(REPO, "codes_cache", "cli_qc36_z128.alist")
 # per-degree alpha of the p41 check degrees (3, 6, 7), with the fallback
@@ -2313,6 +2341,141 @@ def qualification(torch, dev, code, s, code36, s36):
     return totals
 
 
+def host_chunks(batches, size):
+    """The batches' frames as contiguous (values, syndromes) chunks of
+    ``size`` frames, made before the clocks start (bench.py:262-264)."""
+    import numpy as np
+
+    return [(np.ascontiguousarray(b.values[:, i:i + size]),
+             np.ascontiguousarray(b.syndromes[:, i:i + size]))
+            for b in batches for i in range(0, b.values.shape[1], size)]
+
+
+def stream_phase(torch, dec, dyn, chunks, ref, kernels, label, smi,
+                 gate_overlap=True):
+    """Phase 33 for one decoder: the chunks through ``decode_streamed``
+    (depth STREAM_DEPTH; once to warm the pinned ring, then timed with the
+    launch counts set to 0 just before and read just after) and through a
+    serial ``decode()`` per chunk, timed; each chunk's words and per-frame
+    iterations equal in all three, FER 0 and BER 0 against ``ref``, every
+    kernel of ``kernels`` launched and no other, and with ``gate_overlap``
+    at least one chunk's upload starting on the card's clock before the
+    chunk before it has finished decoding (else recorded). Prints
+    bench.py's e2e_streamed_mbps and e2e_serial_chunked_mbps
+    (bench.py:278-280), the per-chunk spans and the card's busy share over
+    the streamed wall, each beside ``smi``. Also times the staging route
+    (``upload_pools``; its host copy on STAGE_THREADS threads and on one)
+    against the numpy permutation and pageable upload that it replaced,
+    on the first chunk."""
+    import numpy as np
+
+    from ldpc_decoder_tpu_torch.ops import _kernels
+    from ldpc_decoder_tpu_torch.runtime import decoder
+
+    n_frames = sum(v.shape[1] for v, _ in chunks)
+    bits = dec.code.n_vars * n_frames / 1048576.0
+    warm = list(dec.decode_streamed(dyn, iter(chunks), depth=STREAM_DEPTH))
+    walls, serial = [], []
+    for v, syn in chunks:
+        t0 = time.perf_counter()
+        serial.append(dec.decode(dyn, v.shape[1], v, syn))
+        walls.append(time.perf_counter() - t0)
+    wall_serial = sum(walls)
+    _kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    streamed = list(dec.decode_streamed(dyn, iter(chunks),
+                                        depth=STREAM_DEPTH))
+    wall_stream = time.perf_counter() - t0
+    launches = dict(_kernels.launch_counts)
+    for run in (warm, streamed):
+        assert len(run) == len(chunks)
+        for i, ((res, st), (sres, sst)) in enumerate(zip(run, serial)):
+            assert np.array_equal(res, sres), \
+                f"{label}: streamed chunk {i}'s words differ from decode()"
+            assert np.array_equal(st.iterations, sst.iterations), \
+                f"{label}: streamed chunk {i}'s iterations differ"
+    errors = bit_errors(ref, np.concatenate([r for r, _ in streamed]))
+    fer1 = float((errors > 0).mean())
+    ber = float(errors.sum()) / (dec.code.n_vars * n_frames)
+    for name, count in launches.items():
+        if name in kernels:
+            assert count > 0, f"{label}: {name} kernel never launched"
+        else:
+            assert count == 0, f"{label}: {name} kernel launched off its path"
+    if "parity_vec" in kernels:
+        assert launches["parity_vec"] == launches["parity"], \
+            f"{label}: a parity launch took one lane"
+    # the chunks' CUDA events, in ms from the first upload's start
+    base = streamed[0][1].events["upload_start"]
+    spans = [{k: round(base.elapsed_time(e), 3)
+              for k, e in st.events.items()} for _, st in streamed]
+    overlapped = [i for i in range(len(spans) - 1)
+                  if spans[i + 1]["upload_start"] < spans[i]["decode_end"]]
+    clocks = [st.decode_seconds for _, st in streamed]
+    record = {
+        "path": label, "frames": n_frames, "chunks": len(chunks),
+        "B": dec.parallel_factor(), "depth": STREAM_DEPTH,
+        "e2e_streamed_mbps": round(bits / wall_stream, 2),
+        "e2e_serial_chunked_mbps": round(bits / wall_serial, 2),
+        "wall_streamed_s": wall_stream, "wall_serial_s": wall_serial,
+        "serial_walls_s": walls,
+        "serial_clocks_s": [st.elapsed_seconds for _, st in serial],
+        "chunk_spans_s": [st.elapsed_seconds for _, st in streamed],
+        "chunk_clocks_s": clocks,
+        "busy_share": sum(clocks) / wall_stream,
+        "event_spans_ms": spans, "overlapped_pairs": overlapped,
+        "fer1": fer1, "ber": ber, "avg_iter": float(np.mean(
+            [st.avg_iter for _, st in streamed])),
+        "launches": {k: launches[k] for k in kernels}, "card": smi}
+    v, syn = chunks[0]
+    threads = decoder.STAGE_THREADS
+    try:
+        for key, n_threads in (("stage_route_s", threads),
+                               ("stage_one_thread_s", 1)):
+            decoder.STAGE_THREADS = n_threads
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            pv, ps = dec.upload_pools(v, syn)
+            torch.cuda.synchronize()
+            record[key] = time.perf_counter() - t0
+            del pv, ps
+    finally:
+        decoder.STAGE_THREADS = threads
+    t0 = time.perf_counter()  # the route before: numpy gather, pageable copy
+    pv = torch.from_numpy(np.ascontiguousarray(
+        v[dec._vn_order_io], dtype=np.float32)).to(dec.device)
+    ps = torch.from_numpy(np.ascontiguousarray(
+        syn[dec._cn_order_io], dtype=np.int8)).to(dec.device)
+    torch.cuda.synchronize()
+    record["stage_numpy_pageable_s"] = time.perf_counter() - t0
+    del pv, ps
+    log(f"  {label}: {len(chunks)} chunks x {chunks[0][0].shape[1]} frames, "
+        f"depth {STREAM_DEPTH}, streamed == serial decode() (words and "
+        f"iterations, both streamed runs); FER(>0) {fer1}, BER {ber:.3e}; "
+        f"launches {record['launches']}")
+    log(f"  {label}: e2e_streamed_mbps {record['e2e_streamed_mbps']} "
+        f"(wall {wall_stream:.3f} s), e2e_serial_chunked_mbps "
+        f"{record['e2e_serial_chunked_mbps']} (wall {wall_serial:.3f} s), "
+        f"busy share {record['busy_share']:.3f}; {smi}")
+    log(f"  {label}: staging one chunk: route {record['stage_route_s']:.3f} "
+        f"s ({threads} copy threads; one: "
+        f"{record['stage_one_thread_s']:.3f} s), numpy gather + pageable "
+        f"copy {record['stage_numpy_pageable_s']:.3f} s; {smi}")
+    for i, (sp, (_, st)) in enumerate(zip(spans, streamed)):
+        log(f"  {label} chunk {i}: upload {sp['upload_start']:.1f}-"
+            f"{sp['upload_end']:.1f} ms, decode {sp['decode_start']:.1f}-"
+            f"{sp['decode_end']:.1f} ms, readback done "
+            f"{sp['readback_end']:.1f} ms; clock {st.decode_seconds:.3f} s, "
+            f"span {st.elapsed_seconds:.3f} s; serial decode() wall "
+            f"{walls[i]:.3f} s; {smi}")
+    log(json.dumps({"stream": record}))
+    assert fer1 == 0.0 and ber == 0.0, f"{label}: FER(>0) {fer1}, BER {ber}"
+    assert overlapped or not gate_overlap, (
+        f"{label}: no chunk's upload started before the chunk before it "
+        f"finished decoding: {spans}")
+    return record
+
+
 def main():
     import numpy as np
     import torch
@@ -2494,7 +2657,7 @@ def main():
                                  GENERAL_MS, "general int8 min-sum", ref=gref)
     lo, hi = GENERAL_MINSUM_AVG_ITERS
     assert lo <= mstats.avg_iter <= hi, mstats.avg_iter
-    del mdec, gbatch, gcc
+    del mdec  # the code and frames stay for phase 33
     torch.cuda.empty_cache()
 
     phase(18, "grouped min-sum kernels vs plain at p41 x B = 256, int8")
@@ -2595,10 +2758,35 @@ def main():
     phase(31, "device datagen: the pool kernels and pools at full size")
     timings.update(phase_datagen(torch, np, dev, code, s, batch, host_s,
                                  code36, s36, batch_bec, bec_host_s))
-    del batch, batch_bec
+    del batch_bec  # phase 4's frames stay for phase 33
 
     phase(32, f"qualification: {QUAL_FRAMES} frames per point")
     launches.update(qualification(torch, dev, code, s, code36, s36))
+
+    phase(33, "host-fed stream: decode_streamed against decode()")
+    t0 = time.perf_counter()
+    more = create_data(code, ch, N_FRAMES, STREAM_FRAMES - N_FRAMES,
+                       backend=backend)
+    log(f"  create_data: {STREAM_FRAMES - N_FRAMES} frames from index "
+        f"{N_FRAMES} at sigma {SIGMA}, {backend} backend, "
+        f"{time.perf_counter() - t0:.1f} s")
+    ref = np.concatenate([batch.ref_bits_packed(), more.ref_bits_packed()])
+    chunks = host_chunks((batch, more), STREAM_CHUNK)
+    del batch, more
+    dec = LDPCDecoder(code, ch, sp, qc=s)
+    assert dec.parallel_factor() == STREAM_CHUNK
+    stream_phase(torch, dec, dyn, chunks, ref, GROUPED, "p41 stream", smi)
+    del dec, chunks, ref
+    torch.cuda.empty_cache()
+    gchunks = host_chunks((gbatch,), GENERAL_STREAM_CHUNK)
+    del gbatch
+    gdec = LDPCDecoder(gcc, gch, StaticParams(
+        parallel_factor_user=GENERAL_STREAM_CHUNK, message_dtype="bfloat16",
+        qc_autodetect=False))
+    stream_phase(torch, gdec, gdyn, gchunks, gref, GENERAL_SP,
+                 "general stream", smi, gate_overlap=False)
+    del gdec, gchunks, gcc
+    torch.cuda.empty_cache()
     log(f"  all phases passed in {time.perf_counter() - t_all:.1f} s")
 
     launches.update({name: launches36[name] for name in REGULAR})

@@ -51,6 +51,16 @@ unflagged lane runs the plain iteration either way, and the grouped
 family's degree-1 blocks already hold the init messages of every unchanged
 lane), which ``tests/test_torch_decoder.py`` checks against the JAX
 decoder.
+
+Host frames reach the device by one route (:meth:`LDPCDecoder._stage`):
+copied into a pinned host buffer, sent on the decoder's copy stream, and
+permuted into the sorted layouts there by a row gather. ``decode()`` takes
+it for one batch; :meth:`LDPCDecoder.decode_streamed` keeps ``depth``
+chunks in flight over it, as the reference's streams do
+(ldpc_decoder_gpu.cu:218-273, 464-611): the decode runs in a worker thread
+on its own compute stream, and every wait of the decode loop (the clock's
+syncs, the flag read, the small index uploads) is scoped to the current
+stream, so the copies of the chunks before and after it go on beside it.
 """
 
 from __future__ import annotations
@@ -59,6 +69,8 @@ import dataclasses
 import logging
 import math
 import time
+from collections import deque
+from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
 from functools import partial
 
@@ -111,6 +123,13 @@ class DecodeStats:
     total_iterations: int  # global BP iterations executed
     elapsed_seconds: float
     batch_size: int
+    # a streamed chunk (decode_streamed): elapsed_seconds spans its
+    # submission to the end of its readback, overlapping other chunks;
+    # decode_seconds is its decode clock, and on the card ``events`` holds
+    # its CUDA events (upload_start, upload_end on the copy stream,
+    # decode_start, decode_end on the compute stream, readback_end)
+    decode_seconds: float | None = None
+    events: dict | None = None
 
     @property
     def min_iter(self) -> int:
@@ -174,8 +193,57 @@ def _detect_qc(code: LDPCCode):
 
 
 def _sync(dev: torch.device) -> None:
+    """Wait for the current stream of ``dev``: the decode's own work, not
+    the copies that a stream of chunks runs beside it."""
     if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
+        torch.cuda.current_stream(dev).synchronize()
+
+
+# the name prefix of decode_streamed's worker thread and of the staging
+# copy's helper threads
+STREAM_THREAD = "ldpc-decode-stream"
+# a host array of at least STAGE_SPLIT_BYTES is cast into its pinned buffer
+# by STAGE_THREADS threads at once, a block of rows each (np.copyto releases
+# the GIL; one thread copies 1 GB in about 0.12 s on the card's host)
+STAGE_THREADS = 4
+STAGE_SPLIT_BYTES = 1 << 24
+
+
+def _copy_into(dst: np.ndarray, src: np.ndarray) -> None:
+    """``np.copyto(dst, src, casting="unsafe")`` (the cast ``astype``
+    makes), split by rows over STAGE_THREADS threads for a large ``dst``;
+    the threads are joined before it returns."""
+    parts = min(STAGE_THREADS, dst.shape[0])
+    if dst.nbytes < STAGE_SPLIT_BYTES or parts < 2:
+        np.copyto(dst, src, casting="unsafe")
+        return
+    rows = np.linspace(0, dst.shape[0], parts + 1).astype(int)
+    with ThreadPoolExecutor(parts - 1,
+                            thread_name_prefix=STREAM_THREAD) as helpers:
+        rest = [helpers.submit(np.copyto, dst[a:b], src[a:b],
+                               casting="unsafe")
+                for a, b in zip(rows[1:-1], rows[2:])]
+        np.copyto(dst[:rows[1]], src[:rows[1]], casting="unsafe")
+        for done in rest:
+            done.result()
+
+
+class _Slot:
+    """One entry of the pinned staging ring: host buffers for a chunk's
+    values, syndromes and results, each grown to the largest chunk seen
+    and reused. ``uploaded`` is the event after the last upload from it."""
+
+    def __init__(self):
+        self._bufs: dict[str, torch.Tensor] = {}
+        self.uploaded: torch.cuda.Event | None = None
+
+    def buffer(self, name: str, shape, dtype: torch.dtype) -> torch.Tensor:
+        n = math.prod(shape)
+        buf = self._bufs.get(name)
+        if buf is None or buf.numel() < n:
+            buf = self._bufs[name] = torch.empty(n, dtype=dtype,
+                                                 pin_memory=True)
+        return buf[:n].view(shape)
 
 
 @dataclass
@@ -270,6 +338,11 @@ class LDPCDecoder:
             self._init_general(cc or compile_code(self.code))
         else:
             self._init_qc(qc, perm_v, perm_c)
+        # the I/O orders as gather indices on the device (_stage)
+        self._io_orders = tuple(torch.from_numpy(o).to(self.device)
+                                for o in (self._vn_order_io,
+                                          self._cn_order_io))
+        self._streams = None  # copy, compute, readback (_cuda_streams)
         self._parallel_factor = self._choose_parallel_factor()
 
     def _init_qc(self, qc: QCStructure, perm_v=None, perm_c=None) -> None:
@@ -442,15 +515,176 @@ class LDPCDecoder:
                                      progress=progress,
                                      input_is_llr=input_is_llr)
 
+    def decode_streamed(
+        self,
+        dyn_params: DynamicParams,
+        chunks,  # iterable of (values [n_vars, n], syndromes [n_checks, n])
+        input_is_llr: bool = False,
+        depth: int = 2,
+    ):
+        """Host-fed pipeline over an iterable of natural-order frame chunks
+        (the JAX decoder's ``decode_streamed``, in its arguments and
+        yields): yields ``(results, stats)`` per chunk, in order, each
+        bit-identical to a ``decode()`` of that chunk, ``results`` uint32
+        [n, n_words] in natural per-frame layout, a fresh array.
+
+        Up to ``depth`` chunks are in flight: the next chunk is taken from
+        the iterator, staged (:meth:`_stage`, through a ring of ``depth``
+        pinned slots) and uploaded while a worker thread decodes the one
+        before it on its own compute stream, and a finished chunk's results
+        come back on a readback stream into its slot's pinned buffer. Chunk
+        i is yielded once its readback is done, and not before chunk
+        i + depth - 1 has been taken from the iterator (or the iterator is
+        exhausted); ``depth`` = 1 runs the chunks strictly in turn. On the
+        CPU the same pipeline runs without pinning and streams.
+
+        ``stats.elapsed_seconds`` spans the chunk's submission to the end
+        of its readback, and these spans OVERLAP: for throughput divide
+        the stream's bits by its wall time. ``stats.decode_seconds`` is
+        the chunk's decode clock, ``stats.events`` its CUDA events.
+
+        A bad chunk shape raises ValueError; an exception of the iterator
+        or of the worker reaches the caller; closing the generator (or
+        leaving the loop) joins the worker. One stream at a time per
+        decoder: a stream and ``decode()`` share the copy stream."""
+        if depth < 1:
+            raise ValueError(f"depth must be >= 1, got {depth}")
+        ring = [_Slot() for _ in range(depth)]
+        streams = (self._cuda_streams() if self.device.type == "cuda"
+                   else None)
+        inflight: deque = deque()
+        worker = ThreadPoolExecutor(1, thread_name_prefix=STREAM_THREAD)
+        try:
+            for i, (values, syndromes) in enumerate(chunks):
+                n = values.shape[1] if values.ndim == 2 else 0
+                if values.shape != (self.code.n_vars, n) or n < 1:
+                    raise ValueError(
+                        f"chunk values must be [{self.code.n_vars}, n], "
+                        f"n >= 1, got {values.shape}")
+                if syndromes.shape != (self.code.n_checks, n):
+                    raise ValueError(
+                        f"chunk syndromes must be [{self.code.n_checks}, "
+                        f"{n}], got {syndromes.shape}")
+                t0 = time.perf_counter()
+                slot = ring[i % depth]
+                pool_values, pool_syn, uploaded = self._stage(
+                    values, syndromes, slot)
+                if streams is not None:  # consumed on the compute stream
+                    pool_values.record_stream(streams[1])
+                    pool_syn.record_stream(streams[1])
+                inflight.append((worker.submit(
+                    self._decode_chunk, dyn_params, n, pool_values,
+                    pool_syn, input_is_llr, slot, uploaded, streams), t0))
+                del pool_values, pool_syn
+                if len(inflight) >= depth:
+                    yield self._finish_chunk(*inflight.popleft())
+            while inflight:
+                yield self._finish_chunk(*inflight.popleft())
+        finally:
+            worker.shutdown(wait=True, cancel_futures=True)
+            if streams is not None:
+                for stream in streams:
+                    stream.synchronize()
+
+    def _decode_chunk(self, dyn_params, n, pool_values, pool_syn,
+                      input_is_llr, slot, uploaded, streams):
+        """decode_streamed's worker: decode one chunk on the compute stream
+        once its upload is done, then queue its results' copy into the
+        slot's pinned buffer on the readback stream. Returns (results,
+        stats, events); on the card the results are ready when
+        ``events["readback_end"]`` is."""
+        if streams is None:
+            res, stats = self.decode_presorted(
+                dyn_params, n, pool_values, pool_syn, fetch_results=False,
+                input_is_llr=input_is_llr)
+            return res.numpy().view(np.uint32), stats, None
+        _, compute, readback = streams
+        events = {"upload_start": uploaded[0], "upload_end": uploaded[1]}
+        for name in ("decode_start", "decode_end", "readback_end"):
+            events[name] = torch.cuda.Event(enable_timing=True)
+        with torch.cuda.device(self.device), torch.cuda.stream(compute):
+            compute.wait_event(uploaded[1])
+            events["decode_start"].record(compute)
+            res, stats = self.decode_presorted(
+                dyn_params, n, pool_values, pool_syn, fetch_results=False,
+                input_is_llr=input_is_llr)
+            events["decode_end"].record(compute)
+        out = slot.buffer("results", (n, self.n_words), torch.int32)
+        with torch.cuda.device(self.device), torch.cuda.stream(readback):
+            readback.wait_event(events["decode_end"])
+            res.record_stream(readback)
+            out.copy_(res, non_blocking=True)
+            events["readback_end"].record(readback)
+        return out, stats, events
+
+    def _finish_chunk(self, future, t0: float):
+        """The next chunk in order: its worker's result (or exception), its
+        readback waited for, the results copied out of the pinned slot
+        that a later chunk reuses."""
+        results, stats, events = future.result()
+        if events is not None:
+            events["readback_end"].synchronize()
+            results = results.numpy().copy().view(np.uint32)
+        return results, dataclasses.replace(
+            stats, elapsed_seconds=time.perf_counter() - t0,
+            decode_seconds=stats.elapsed_seconds, events=events)
+
     def upload_pools(self, values: np.ndarray, syndromes: np.ndarray):
         """Natural-order host arrays -> the device pools in the decoder's
         sorted layouts, as :meth:`decode_presorted` and
-        :meth:`profile_phases` take them."""
-        pool_values = torch.from_numpy(np.ascontiguousarray(
-            values[self._vn_order_io], dtype=np.float32)).to(self.device)
-        pool_syn = torch.from_numpy(np.ascontiguousarray(
-            syndromes[self._cn_order_io], dtype=np.int8)).to(self.device)
+        :meth:`profile_phases` take them, ready for the current stream."""
+        pool_values, pool_syn, events = self._stage(values, syndromes,
+                                                    _Slot())
+        if events is not None:
+            stream = torch.cuda.current_stream(self.device)
+            stream.wait_event(events[1])
+            pool_values.record_stream(stream)
+            pool_syn.record_stream(stream)
         return pool_values, pool_syn
+
+    def _cuda_streams(self):
+        """(copy, compute, readback) streams of this decoder, made together
+        so that PyTorch's stream pool gives three distinct ones."""
+        if self._streams is None:
+            self._streams = tuple(torch.cuda.Stream(self.device)
+                                  for _ in range(3))
+        return self._streams
+
+    def _stage(self, values: np.ndarray, syndromes: np.ndarray,
+               slot: _Slot):
+        """The one route of host frames to the device: (pool_values,
+        pool_syn, events) in the sorted layouts. On the card the natural
+        arrays are cast into ``slot``'s pinned buffers (:func:`_copy_into`,
+        as ``astype`` casts, without the GIL), copied asynchronously on the
+        copy stream and permuted there by a row gather; ``events`` is
+        (start, end) on the copy stream, and the pools belong to it until
+        a consumer waits on ``end`` and records its stream on them. On the
+        CPU the same gather runs at once and ``events`` is None."""
+        vn_order, cn_order = self._io_orders
+        if self.device.type != "cuda":
+            return (torch.from_numpy(np.ascontiguousarray(
+                        values, dtype=np.float32)).index_select(0, vn_order),
+                    torch.from_numpy(np.ascontiguousarray(
+                        syndromes, dtype=np.int8)).index_select(0, cn_order),
+                    None)
+        if slot.uploaded is not None:  # the slot's last upload has left it
+            slot.uploaded.synchronize()
+        host_v = slot.buffer("values", values.shape, torch.float32)
+        host_s = slot.buffer("syndromes", syndromes.shape, torch.int8)
+        _copy_into(host_v.numpy(), values)
+        _copy_into(host_s.numpy(), syndromes)
+        copy = self._cuda_streams()[0]
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        with torch.cuda.stream(copy):
+            start.record(copy)
+            pool_values = host_v.to(self.device, non_blocking=True
+                                    ).index_select(0, vn_order)
+            pool_syn = host_s.to(self.device, non_blocking=True
+                                 ).index_select(0, cn_order)
+            end.record(copy)
+        slot.uploaded = end
+        return pool_values, pool_syn, (start, end)
 
     def _start(self, pool_values, pool_syn, n_pool: int, pre: float,
                input_is_llr: bool = False) -> _Lanes:

@@ -25,6 +25,7 @@ the CPU for every bfloat16 input.
 """
 
 import functools
+import threading
 
 import numpy as np
 import pytest
@@ -1444,3 +1445,135 @@ def test_pool_on_card_matches_host_and_cpu(cuda_device, channel):
     pv, ps = cpu.upload_pools(batch.values, batch.syndromes)
     assert perf.bit_identical(pool.values_sorted.cpu(), pv)
     assert torch.equal(pool.syn_sorted.cpu(), ps)
+
+
+# ---- the host-fed stream (decode_streamed) ----------------------------------
+
+STREAM_SIZES = (64, 29, 40, 7)  # two fills, under B, a refill, the last
+
+
+def _stream_threads():
+    from ldpc_decoder_tpu_torch.runtime.decoder import STREAM_THREAD
+
+    return [t for t in threading.enumerate()
+            if t.name.startswith(STREAM_THREAD)]
+
+
+def _stream_case(small_code, device):
+    code, s = small_code
+    ch = BIAWGNChannel(0.7)
+    batch = create_data(code, ch, 0, sum(STREAM_SIZES), backend="numpy")
+    edges = np.cumsum((0,) + STREAM_SIZES)
+    chunks = [(batch.values[:, a:b], batch.syndromes[:, a:b])
+              for a, b in zip(edges[:-1], edges[1:])]
+    dec = LDPCDecoder(code, ch, StaticParams(parallel_factor_user=32),
+                      qc=s, device=device)
+    dyn = DynamicParams(num_iter_max=60, num_iter_check_parity=5,
+                        num_iter_first_check=7)
+    return dec, dyn, chunks, batch.ref_bits_packed(), edges
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("depth", [1, 2, 3])
+def test_streamed_matches_serial_on_card(small_code, cuda_device, depth):
+    """decode_streamed on the card: every chunk's words and per-frame
+    iterations equal a serial decode() of it, the arrays kept to the end
+    still equal and disjoint, each chunk's events in stream order
+    (upload, then decode, then readback), the worker joined."""
+    dec, dyn, chunks, ref, edges = _stream_case(small_code, cuda_device)
+    serial = [dec.decode(dyn, v.shape[1], v, s) for v, s in chunks]
+    kept = list(dec.decode_streamed(dyn, iter(chunks), depth=depth))
+    assert not _stream_threads()
+    for i, ((res, st), (sres, sst)) in enumerate(zip(kept, serial)):
+        np.testing.assert_array_equal(res, sres)
+        np.testing.assert_array_equal(st.iterations, sst.iterations)
+        np.testing.assert_array_equal(res, ref[edges[i]:edges[i + 1]])
+        ev = st.events
+        assert ev["upload_end"].elapsed_time(ev["decode_start"]) >= 0
+        assert ev["decode_start"].elapsed_time(ev["decode_end"]) > 0
+        assert ev["decode_end"].elapsed_time(ev["readback_end"]) >= 0
+        assert st.decode_seconds <= st.elapsed_seconds
+        for other, _ in kept[:i]:
+            assert not np.shares_memory(res, other)
+
+
+@pytest.mark.cuda
+def test_streamed_staging_is_pinned(small_code, cuda_device):
+    """The ring holds depth slots of pinned host buffers (values,
+    syndromes, results), reused across chunks; the route's gather on the
+    card equals numpy's permutation bit for bit."""
+    dec, dyn, chunks, _, _ = _stream_case(small_code, cuda_device)
+    slots = []
+    stage = dec._stage
+
+    def spy(values, syndromes, slot):
+        slots.append(slot)
+        return stage(values, syndromes, slot)
+
+    dec._stage = spy
+    list(dec.decode_streamed(dyn, iter(chunks), depth=2))
+    assert len(slots) == len(chunks) and len({id(x) for x in slots}) == 2
+    for slot in slots:
+        assert sorted(slot._bufs) == ["results", "syndromes", "values"]
+        assert all(buf.is_pinned() for buf in slot._bufs.values())
+    v, s = chunks[1]
+    pv, ps = dec.upload_pools(v, s)
+    np.testing.assert_array_equal(
+        pv.cpu().numpy().view(np.uint32),
+        v[dec._vn_order_io].astype(np.float32).view(np.uint32))
+    np.testing.assert_array_equal(ps.cpu().numpy(),
+                                  s[dec._cn_order_io].astype(np.int8))
+
+
+@pytest.mark.cuda
+def test_streamed_copy_and_compute_streams_are_distinct(small_code,
+                                                        cuda_device):
+    """Three distinct non-default streams; the decode loop runs on the
+    compute one, in the worker thread."""
+    dec, dyn, chunks, _, _ = _stream_case(small_code, cuda_device)
+    copy, compute, readback = dec._cuda_streams()
+    handles = {x.cuda_stream for x in (copy, compute, readback)}
+    assert len(handles) == 3
+    assert torch.cuda.default_stream(cuda_device).cuda_stream not in handles
+    seen = set()
+    superstep = dec._superstep
+
+    def spy(*args, **kw):
+        seen.add(torch.cuda.current_stream(cuda_device).cuda_stream)
+        return superstep(*args, **kw)
+
+    dec._superstep = spy
+    list(dec.decode_streamed(dyn, iter(chunks)))
+    assert seen == {compute.cuda_stream}
+
+
+@pytest.mark.cuda
+def test_streamed_worker_failure_fails_the_consumer(small_code, cuda_device):
+    """A failure injected into the worker's decode of the second chunk
+    reaches the consumer there, after the first chunk's words; nothing
+    carries on, the worker is joined and the decoder still decodes."""
+    dec, dyn, chunks, ref, edges = _stream_case(small_code, cuda_device)
+    superstep = dec._superstep
+    starts = []
+    start = dec._start
+
+    def counting_start(*args, **kw):
+        starts.append(1)
+        return start(*args, **kw)
+
+    def failing(*args, **kw):
+        if len(starts) == 2:
+            raise RuntimeError("injected worker failure")
+        return superstep(*args, **kw)
+
+    dec._start, dec._superstep = counting_start, failing
+    gen = dec.decode_streamed(dyn, iter(chunks), depth=2)
+    res, _ = next(gen)
+    np.testing.assert_array_equal(res, ref[:edges[1]])
+    with pytest.raises(RuntimeError, match="injected worker failure"):
+        next(gen)
+    assert not _stream_threads()
+    dec._start, dec._superstep = start, superstep
+    v, s = chunks[2]
+    res, _ = dec.decode(dyn, v.shape[1], v, s)
+    np.testing.assert_array_equal(res, ref[edges[2]:edges[3]])
