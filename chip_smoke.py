@@ -209,7 +209,33 @@ Phases:
     e2e_streamed_mbps and e2e_serial_chunked_mbps, the per-chunk spans
     and the card's busy share over the streamed wall printed beside the
     card's name and power limit, and one chunk's staging timed against
-    the numpy gather and pageable copy it replaced.
+    the numpy gather and pageable copy it replaced;
+34. the BSC rate-0.9 sample code (codes/samples.py get_bsc_code, n =
+    983,040, d_v = 3, d_c = 30; its host time logged): the regular check
+    kernel at d_c = 30 (two lanes a thread), the variable kernel (d_v = 3)
+    and the parity at its run-time degree against their plain versions on
+    a BSC p = 0.007 state at B = 256, by the rules of phases 5 and 9, the
+    one-lane instantiations too; each timed beside its bound, the accurate
+    phi, the plain version and the one-lane instantiation; their registers
+    and spills from phase 2;
+35. qualification where the JAX record has frame errors
+    (scripts/fer_stats_torch.py's qualify_point, 2048 frames a point, the
+    launch counts read as in phase 32): p41 at sigma = 0.952 and 0.953
+    (first check 70), on the fast phi and again on the accurate one, and
+    the rate-0.9 code over the BSC at p = 0.004, 0.006, 0.007 and 0.0075
+    (first check 0; 0.0075 on both policies), held to
+    scripts/out/fer_frontier_r5.json and fer_stats_bsc_r5.json: where the
+    record has k > 0 FER(>0) events, the port's count within 3 sqrt(k) + 3
+    and average iterations within 0.5; where it has none, FER 0, BER 0 and
+    average iterations within 0.1. p41 float8_e5m2 at sigma = 0.94 on
+    phase 32's frames, recorded beside bfloat16 (only its kernels gated);
+36. scripts/bench_interleaved_torch.py on reg36 (both decoders' pools,
+    both decoding rates and their ratio, then phase 8's 512 frames through
+    the aligned decoder and, renumbered, through the interleaved one
+    detected onto the regular family: words and per-frame iterations
+    equal) and scripts/eval_proto_torch.py's p41 candidate at Z = 2048,
+    256 frames, sigma 0.92, 0.93, 0.94 (the P-EXIT threshold, the lift,
+    the scan; recorded, not gated) on the grouped kernels.
 
 Every phase must pass: any failure raises, and the script exits nonzero
 without its result line. The last line of stdout is the result object; the
@@ -218,7 +244,11 @@ entries with their fast-phi time as ``ms`` and the accurate one as
 ``accurate_ms``; the grouped and general min-sum check entries and the
 parity entries with their one-lane instantiation's time as
 ``one_lane_ms``, the parity entries with each grid slice's as
-``slice_ms``; the pool kernels with p41 x 512 BI-AWGN as ``ms``, the
+``slice_ms``; the regular sum-product and parity entries with phase 34's
+rate-0.9 times as ``rate09_ms``, ``rate09_accurate_ms``,
+``rate09_one_lane_ms``, ``rate09_plain_ms``, ``rate09_bound_ms`` and
+their launches per rate-0.9 decode as ``rate09_launches``; the pool
+kernels with p41 x 512 BI-AWGN as ``ms``, the
 64-frame chunk as ``chunk_ms`` (its bound ``chunk_bound_ms``), D2's issue
 bound as ``issue_bound_ms`` (``chunk_issue_bound_ms``) beside the integer
 one, and the reg36 erasure and BSC values as ``erasure_ms`` and
@@ -232,6 +262,7 @@ timer as ``queued_ms``, ``stub_queued_ms`` and ``fast_queued_ms``, and
 import contextlib
 import functools
 import json
+import math
 import os
 import re
 import subprocess
@@ -242,6 +273,7 @@ import time
 # the sample codes (bench.py's cache files and headers)
 from ldpc_decoder_tpu_torch.codes.samples import (
     REG36_ALIST,
+    get_bsc_code,
     get_code,
     get_reg36_code,
 )
@@ -298,6 +330,27 @@ STREAM_CHUNK = 256
 STREAM_FRAMES = 1024
 GENERAL_STREAM_CHUNK = 384
 STREAM_DEPTH = 2
+# phase 34: the BSC rate-0.9 sample code (codes/samples.py get_bsc_code:
+# regular, d_v = 3, d_c = 30, n = 983,040), its regular kernels held and
+# timed on a BSC state at this p, B = 256
+RATE09_P = 0.007
+# phase 35, qualification where the JAX record has frame errors (2048
+# frames a point): p41 at the bench's frontier sigmas (first check 70) and
+# the rate-0.9 code over the BSC (first check 0), each held to its JAX
+# record; at a point with k FER(>0) events there, the port's count within
+# 3 sqrt(k) + 3 and its average iterations within ITER_TOL_ERRORS; at a
+# FER 0 point, FER 0, BER 0 and average iterations within ITER_TOL_CLEAN
+FRONTIER_SIGMAS = (0.952, 0.953)
+RATE09_PS = (0.004, 0.006, 0.007, 0.0075)
+FRONTIER_RECORD = os.path.join(REPO, "scripts", "out",
+                               "fer_frontier_r5.json")
+RATE09_RECORD = os.path.join(REPO, "scripts", "out", "fer_stats_bsc_r5.json")
+ITER_TOL_ERRORS = 0.5
+ITER_TOL_CLEAN = 0.1
+# phase 36: scripts/eval_proto_torch.py's p41 candidate (Z, frames, sigmas)
+EVAL_Z = 2048
+EVAL_FRAMES = 256
+EVAL_SIGMAS = (0.92, 0.93, 0.94)
 # the small QC code of the CLI's subprocess run (git-ignored cache)
 CLI_SMALL_ALIST = os.path.join(REPO, "codes_cache", "cli_qc36_z128.alist")
 # per-degree alpha of the p41 check degrees (3, 6, 7), with the fallback
@@ -652,6 +705,11 @@ def datagen_report(path):
                 f"term's {issue}")
 
 
+# each library's ptxas entries (kernel, registers, spill bytes), from
+# phase 2; phase 34 reads the d_c = 30 regular kernels' rows
+PTXAS_ENTRIES = {}
+
+
 def phase_build():
     """All libraries at once (one nvcc each), then loaded and checked."""
     from ldpc_decoder_tpu_torch.ops import _kernels
@@ -678,6 +736,7 @@ def phase_build():
         _kernels.load(name)
         with open(path + ".log") as f:
             entries = ptxas_entries(f.read())
+        PTXAS_ENTRIES[name] = entries
         log(f"  {name} -> {os.path.relpath(path, REPO)} in "
             f"{secs[name]:.1f} s; {len(entries)} kernels, max "
             f"{max((r for _, r, _ in entries), default=0)} registers, "
@@ -2169,15 +2228,20 @@ def timed_pool(torch, dec, channel, n):
     return pool, secs
 
 
-def load_fer_stats():
-    """scripts/fer_stats_torch.py as a module."""
+def load_script(name):
+    """scripts/<name>.py as a module."""
     import importlib.util
 
     spec = importlib.util.spec_from_file_location(
-        "fer_stats_torch", os.path.join(REPO, "scripts", "fer_stats_torch.py"))
-    fer = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(fer)
-    return fer
+        name, os.path.join(REPO, "scripts", f"{name}.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def load_fer_stats():
+    """scripts/fer_stats_torch.py as a module."""
+    return load_script("fer_stats_torch")
 
 
 def phase_datagen(torch, np, dev, code, s, batch, host_s, code36, s36,
@@ -2274,13 +2338,40 @@ def phase_datagen(torch, np, dev, code, s, batch, host_s, code36, s36,
     return out
 
 
+def read_qual_launches(label, kernels, accurate, pools, totals):
+    """The launch counts since the last reset, after one qualification run
+    of ``pools`` pools: D1 and D2 once a pool (D2 at four frames a store),
+    added into ``totals``; every kernel of ``kernels`` launched and no
+    other; with ``accurate`` every sum-product launch (the first two of
+    ``kernels``) counted under phi_accurate, else none. Returns the
+    counts."""
+    from ldpc_decoder_tpu_torch.ops import _kernels
+
+    launches = dict(_kernels.launch_counts)
+    for name, count in launches.items():
+        if name in totals:
+            assert count == pools, f"{label}: {name} {count} launches"
+            totals[name] += count
+        elif name in kernels:
+            assert count > 0, f"{label}: {name} never launched"
+        elif name != "phi_accurate":
+            assert count == 0, f"{label}: {name} launched off its path"
+    sum_product = launches[kernels[0]] + launches[kernels[1]]
+    want = sum_product if accurate else 0
+    assert launches["phi_accurate"] == want, (
+        f"{label}: {launches['phi_accurate']} accurate-phi launches of "
+        f"{sum_product} sum-product ones")
+    return launches
+
+
 def qualification(torch, dev, code, s, code36, s36):
     """Phase 32: scripts/fer_stats_torch.py's points, 2048 frames each,
     the launch counts set to 0 before each run of a point and read after;
     FER 0 and BER 0 required at the gated points, the others recorded and
     decoded again with every sum-product pass on the accurate phi (each of
     those launches counted under phi_accurate, none in the first run).
-    Returns the launches of D1 and D2 summed over the runs."""
+    Returns (the launches of D1 and D2 summed over the runs, the
+    records)."""
     from ldpc_decoder_tpu_torch.ops import _kernels
 
     fer = load_fer_stats()
@@ -2288,23 +2379,6 @@ def qualification(torch, dev, code, s, code36, s36):
     totals = {"chacha_bits": 0, "channel_values": 0,
               "channel_values_vec": 0}
     records = []
-
-    def read_launches(label, kernels, accurate):
-        launches = dict(_kernels.launch_counts)
-        for name, count in launches.items():
-            if name in totals:  # D2 at four frames a store each time
-                assert count == pools, f"{label}: {name} {count} launches"
-                totals[name] += count
-            elif name in kernels:
-                assert count > 0, f"{label}: {name} never launched"
-            elif name != "phi_accurate":
-                assert count == 0, f"{label}: {name} launched off its path"
-        sum_product = launches[kernels[0]] + launches[kernels[1]]
-        want = sum_product if accurate else 0
-        assert launches["phi_accurate"] == want, (
-            f"{label}: {launches['phi_accurate']} accurate-phi launches of "
-            f"{sum_product} sum-product ones")
-
     points = [("p41 BI-AWGN", code, s, 0, x, GROUPED, x == SIGMA)
               for x in QUAL_SIGMAS]
     points += [("reg36 erasure", code36, s36, 2, x, REGULAR, x == EPSILON)
@@ -2316,7 +2390,7 @@ def qualification(torch, dev, code, s, code36, s36):
         pt = fer.qualify_point(c, st, ch_idx, x, QUAL_FRAMES, fc, dev,
                                log=lambda m: log(f"  {label} {m}"))
         torch.cuda.synchronize()
-        read_launches(label, kernels, accurate=False)
+        read_qual_launches(label, kernels, False, pools, totals)
         rec = {"point": label, "x": x, **{k: pt[k] for k in (
             "fer1", "fer1_events", "fer15", "ber", "avg_iters", "max_iters",
             "dec_mbps", "datagen_s")}}
@@ -2330,7 +2404,8 @@ def qualification(torch, dev, code, s, code36, s36):
                     c, st, ch_idx, x, QUAL_FRAMES, fc, dev,
                     log=lambda m: log(f"  {label} (accurate phi) {m}"))
             torch.cuda.synchronize()
-            read_launches(f"{label} (accurate phi)", kernels, accurate=True)
+            read_qual_launches(f"{label} (accurate phi)", kernels, True,
+                               pools, totals)
             rec["accurate_phi"] = {k: acc[k] for k in (
                 "fer1_events", "fer15", "ber", "avg_iters", "max_iters",
                 "dec_mbps")}
@@ -2338,7 +2413,7 @@ def qualification(torch, dev, code, s, code36, s36):
         torch.cuda.empty_cache()
     log(json.dumps({"qualification": records}))
     log(f"  pool launches: {totals}")
-    return totals
+    return totals, records
 
 
 def host_chunks(batches, size):
@@ -2474,6 +2549,308 @@ def stream_phase(torch, dec, dyn, chunks, ref, kernels, label, smi,
         f"{label}: no chunk's upload started before the chunk before it "
         f"finished decoding: {spans}")
     return record
+
+
+def rate09_registers():
+    """The registers and spills (phase 2's ptxas log) of the regular
+    sum-product kernels that the rate-0.9 code launches: the check kernel
+    at d_c = 30, the variable kernel at d_v = 3, bfloat16, each at its
+    vector and one-lane instantiation and both phi policies."""
+    pattern = CN_VN_ENTRIES["qc_regular"][0]
+    rows = []
+    for kname, regs, spill in PTXAS_ENTRIES.get("qc_regular", []):
+        m = pattern.search(kname)
+        if m is None:
+            continue
+        kernel, dtype, degree, lanes, phi = m.groups()
+        if dtype == "13__nv_bfloat16" and (kernel, int(degree)) in (
+                ("cn", 30), ("vn", 3)):
+            rows.append((kernel, int(degree), int(lanes), phi, regs, spill))
+    assert rows, "no d_c = 30 regular kernel in phase 2's ptxas log"
+    for kernel, degree, lanes, phi, regs, spill in sorted(rows):
+        log(f"    {kernel}_regular_kernel<bf16, {degree}, V = {lanes}, "
+            f"{phi}>: {regs} registers, {spill} spill bytes")
+        assert spill == 0, f"{kernel}_regular_kernel at degree {degree} spills"
+
+
+def phase_rate09_kernels(torch, dev, code, s, smi):
+    """Phase 34: the rate-0.9 code's regular kernels (the check kernel at
+    d_c = 30, V = 2; the variable kernel at d_v = 3, V = 8; the parity at
+    its run-time degree, 30 slots) against their plain versions by the
+    rules of phases 5 and 9, on a BSC p = RATE09_P state at B = 256 (the
+    qualification decoder's pool, 4 iterations in); the one-lane
+    instantiations against plain too. Each is timed beside the bound, the
+    accurate phi, the plain version and its one-lane instantiation, and
+    the registers and spills of phase 2 are logged. Returns the records,
+    keyed rate09_* for the regular kernels' entries in the kernels line."""
+    from ldpc_decoder_tpu_torch.ops import _kernels
+    from ldpc_decoder_tpu_torch.ops import qc_regular as qr
+    from ldpc_decoder_tpu_torch.rng import chacha_torch as ct
+    from ldpc_decoder_tpu_torch.runtime.datagen_device import (
+        create_pool_device,
+    )
+
+    fer = load_fer_stats()
+    dec, ch = fer.qualification_decoder(code, s, 1, RATE09_P, dev)
+    t, B = dec.tables, dec.parallel_factor()
+    assert isinstance(t, qr.QCRegularTables) and B == 256, (type(t), B)
+    assert (t.d_c, t.d_v) == (30, 3), (t.d_c, t.d_v)
+    v_cn = _kernels.lanes_per_thread(B, torch.bfloat16, t.d_c)
+    v_vn = _kernels.lanes_per_thread(B, torch.bfloat16, t.d_v)
+    log(f"  rate-0.9: {t.R} x {t.Z} checks of degree {t.d_c}, {t.C} x "
+        f"{t.Z} variables of degree {t.d_v}, {t.n_edges} edges; B = {B}: "
+        f"check kernel V = {v_cn} ({2 * v_cn} bytes a slot), variable "
+        f"kernel V = {v_vn}")
+    assert (v_cn, v_vn) == (2, 8), (v_cn, v_vn)
+    rate09_registers()
+    pool = create_pool_device(dec, ch, 0, B, chunk_frames=B)
+    llr = dec._lane_llr(pool.values_sorted)
+    syn = pool.syn_sorted.view(t.R, t.Z, B)
+    msgs = qr.init_messages_qc_regular(llr, t, torch.bfloat16)
+    msgs, _, _ = qr.run_iterations_qc_regular(msgs, llr, syn, t, 4)
+    mv, rc = msgs
+    fresh = torch.zeros(B, dtype=torch.bool, device=dev)
+    fresh[::5] = True
+    label = f"rate-0.9, B = {B}, bf16, BSC p = {RATE09_P}"
+    rk, emitted, err = sum_product_policies(torch, "regular", mv, rc, llr,
+                                            syn, t, fresh, label)
+
+    # the one-lane instantiations against plain (fast rule) and against
+    # the vector ones
+    pre = qr.PRE_THRESHOLD
+    rp = qr.cn_pass_plain(mv, syn, torch.empty_like(rk), t)
+    rv = qr.cn_pass_regular(mv, syn, torch.empty_like(rk), t)
+    r1 = torch.empty_like(rk)
+    _kernels.cn_regular(mv, syn, r1, t, pre, "fast", lanes=1)
+    compare_fast(f"r_c one lane vs plain ({label})", r1, rp)
+    bp = torch.full((t.C, t.Z, B), -1, dtype=torch.int8, device=dev)
+    mp = qr.vn_pass_plain(rk, llr, mv.clone(), t, bits=bp, fresh=fresh)
+    b1, bv = torch.full_like(bp, -1), torch.full_like(bp, -1)
+    m1, m_v = mv.clone(), mv.clone()
+    _kernels.vn_regular(rk, llr, m1, b1, fresh, t, pre, "fast", lanes=1)
+    qr.vn_pass_regular(rk, llr, m_v, t, bits=bv, fresh=fresh)
+    compare_fast(f"msgs_v one lane vs plain ({label}, emit + fresh)", m1,
+                 mp)
+    assert torch.equal(b1, bp), "one-lane hard bits differ"
+    log(f"  one lane == vector bit for bit: check "
+        f"{bit_identical(r1, rv)}, variable {bit_identical(m1, m_v)}")
+    del rp, rv, mp, bp, b1, bv, m_v
+
+    out = {"cn_regular": dict(max_abs_err=err["cn"]),
+           "vn_regular": dict(max_abs_err=err["vn"])}
+    passes = perf.regular_bytes(t, B, 2, 2)  # bf16 messages and llr
+    mk = mv.clone()
+    tlabel = f"{label}; {smi}"
+    time_policies(out, "cn_regular", lambda phi: qr.cn_pass_regular(
+        mv, syn, rk, t, _phi=phi), lambda: qr.cn_pass_plain(mv, syn, rk, t),
+        passes["cn"], OPS_PER_MESSAGE * t.n_edges * B, tlabel)
+    time_policies(out, "vn_regular", lambda phi: qr.vn_pass_regular(
+        rk, llr, mk, t, _phi=phi), lambda: qr.vn_pass_plain(rk, llr, mk, t),
+        passes["vn"], OPS_PER_MESSAGE * t.n_edges * B, tlabel)
+    out["cn_regular"]["one_lane_ms"] = cuda_ms(lambda: _kernels.cn_regular(
+        mv, syn, r1, t, pre, "fast", lanes=1), 10)
+    out["vn_regular"]["one_lane_ms"] = cuda_ms(lambda: _kernels.vn_regular(
+        rk, llr, m1, None, None, t, pre, "fast", lanes=1), 10)
+    for name in ("cn_regular", "vn_regular"):
+        r = out[name]
+        b = r["bound"][0]
+        log(f"  {name}: one lane {r['one_lane_ms']:.3f} ms "
+            f"({b / r['one_lane_ms']:.1%} of the bound), vector "
+            f"{r['ms']:.3f} ms ({b / r['ms']:.1%}) ({tlabel})")
+    del mk, m1, r1
+
+    bits = ct.reference_bits(0, code.n_vars, B, dev)
+    ref = bits[dec._io_orders[0]].view(t.C, t.Z, B)
+    out["parity_regular"] = parity_block(torch, "regular", t, emitted, syn,
+                                         ref, passes["parity"], tlabel)
+    del bits, ref, pool, dec
+    torch.cuda.empty_cache()
+    records = {}
+    for name, r in out.items():
+        rec = {"rate09_ms": r["ms"], "rate09_plain_ms": r["plain_ms"],
+               "rate09_bound_ms": r["bound"][0],
+               "rate09_bound_by": r["bound"][1],
+               "rate09_one_lane_ms": r["one_lane_ms"],
+               "rate09_max_abs_err": r["max_abs_err"]}
+        if "accurate_ms" in r:
+            rec["rate09_accurate_ms"] = r["accurate_ms"]
+        records[name] = rec
+    return records
+
+
+def band_gate(label, pt, rec, smi):
+    """Holds a qualification point ``pt`` to its JAX record ``rec``: with
+    k > 0 FER(>0) events there, the port's count within 3 sqrt(k) + 3 and
+    average iterations within ITER_TOL_ERRORS; with none, FER 0, BER 0 and
+    average iterations within ITER_TOL_CLEAN. Logs the comparison; returns
+    the failures (empty when the point passes)."""
+    k, kj = pt["fer1_events"], rec["fer1_events"]
+    d_it = pt["avg_iters"] - rec["avg_iters"]
+    if kj:
+        half = 3 * math.sqrt(kj) + 3
+        lo, hi = math.ceil(kj - half), math.floor(kj + half)
+        fails = ([] if lo <= k <= hi
+                 else [f"{k} events outside {max(lo, 0)}-{hi}"])
+        tol = ITER_TOL_ERRORS
+        what = f"{k} events (JAX {kj}, band {max(lo, 0)}-{hi})"
+    else:
+        fails = ([] if k == 0 and pt["ber"] == 0.0
+                 else [f"FER(>0) {pt['fer1']}, BER {pt['ber']}"])
+        tol = ITER_TOL_CLEAN
+        what = f"{k} events, BER {pt['ber']:.3e} (JAX 0, gated 0)"
+    if abs(d_it) > tol:
+        fails.append(f"avg iterations {pt['avg_iters']} vs JAX "
+                     f"{rec['avg_iters']} (tolerance {tol})")
+    log(f"  {label}: {what}; FER(>15) {pt['fer15_events']} (JAX "
+        f"{rec['fer15_events']}); BER {pt['ber']:.3e} (JAX {rec['ber']:.3e});"
+        f" avg iterations {pt['avg_iters']} (JAX {rec['avg_iters']}, "
+        f"{d_it:+.2f}); {pt['dec_mbps']} Mb/s; {smi}"
+        + (f" -- FAILED: {'; '.join(fails)}" if fails else ""))
+    return fails
+
+
+def frontier_qualification(torch, dev, code, s, code09, s09, bf16_094, smi):
+    """Phase 35: scripts/fer_stats_torch.py's qualify_point, 2048 frames a
+    point, where the JAX record has frame errors. p41 at FRONTIER_SIGMAS on
+    the fast phi, then again on the accurate one, and the rate-0.9 code
+    over the BSC at RATE09_PS (0.0075 on both policies), each held by
+    band_gate; p41 float8_e5m2 at sigma 0.94 on phase 32's frames,
+    recorded beside its bfloat16 point ``bf16_094``. The launch counts are
+    set to 0 before each run and read after (read_qual_launches). Every
+    point runs before any gate fails. Returns the regular kernels'
+    launches per rate-0.9 decode (a pool of 2B frames) at p = RATE09_P."""
+    from ldpc_decoder_tpu_torch.ops import _kernels
+
+    fer = load_fer_stats()
+    with open(FRONTIER_RECORD) as f:
+        jax_frontier = {p["sigma"]: p for p in json.load(f)["points"]}
+    with open(RATE09_RECORD) as f:
+        jax_rate09 = {p["sigma"]: p for p in json.load(f)["points"]}
+    pools = QUAL_FRAMES // 512
+    totals = {"chacha_bits": 0, "channel_values": 0,
+              "channel_values_vec": 0}
+    records, failures, per_decode = [], [], {}
+
+    def run(label, c, st, ch_idx, x, kernels, accurate, **kw):
+        fc = fer.first_check_for(ch_idx, x)
+        _kernels.reset_launch_counts()
+        with phi_policy("accurate") if accurate else contextlib.nullcontext():
+            pt = fer.qualify_point(c, st, ch_idx, x, QUAL_FRAMES, fc, dev,
+                                   log=lambda m: log(f"  {label} {m}"),
+                                   **kw)
+        torch.cuda.synchronize()
+        launches = read_qual_launches(label, kernels, accurate, pools,
+                                      totals)
+        return pt, launches
+
+    cases = [("p41 BI-AWGN", code, s, 0, x, GROUPED, jax_frontier[x], True)
+             for x in FRONTIER_SIGMAS]
+    cases += [("rate-0.9 BSC", code09, s09, 1, p, REGULAR, jax_rate09[p],
+               jax_rate09[p]["fer1_events"] > 0) for p in RATE09_PS]
+    for name, c, st, ch_idx, x, kernels, jrec, both in cases:
+        rec = {"point": name, "x": x, "jax": {k: jrec[k] for k in (
+            "fer1_events", "fer15_events", "ber", "avg_iters", "max_iters")}}
+        for policy in ("fast", "accurate") if both else ("fast",):
+            label = f"{name} {x} ({policy} phi)"
+            pt, launches = run(label, c, st, ch_idx, x, kernels,
+                               policy == "accurate")
+            failures += [f"{label}: {m}" for m in band_gate(label, pt, jrec,
+                                                            smi)]
+            rec[policy] = {k: pt[k] for k in (
+                "fer1_events", "fer15_events", "fer1", "fer15", "ber",
+                "bit_errors", "avg_iters", "max_iters", "dec_mbps")}
+            if ch_idx == 1 and x == RATE09_P and policy == "fast":
+                per_decode = {k: launches[k] / pools for k in REGULAR}
+                log(f"  rate-0.9 launches per decode (one pool of "
+                    f"{QUAL_FRAMES // pools} frames) at p = {x}: "
+                    f"{per_decode}")
+            torch.cuda.empty_cache()
+        if both:
+            fa, ac = rec["fast"], rec["accurate"]
+            log(f"  {name} {x} fast | accurate phi: events "
+                f"{fa['fer1_events']} | {ac['fer1_events']}, FER(>15) "
+                f"{fa['fer15']:.5f} | {ac['fer15']:.5f}, BER "
+                f"{fa['ber']:.3e} | {ac['ber']:.3e}, avg iterations "
+                f"{fa['avg_iters']} | {ac['avg_iters']}; {smi}")
+        records.append(rec)
+
+    label = f"p41 float8_e5m2 {SIGMA}"
+    pt, _ = run(label, code, s, 0, SIGMA, FP8_GROUPED, False,
+                message_dtype="float8_e5m2")
+    fp8 = {k: pt[k] for k in ("fer1_events", "fer15_events", "fer1", "fer15",
+                              "ber", "bit_errors", "avg_iters", "max_iters",
+                              "dec_mbps")}
+    log(f"  p41 sigma {SIGMA}, the same {QUAL_FRAMES} frames: float8_e5m2 "
+        f"{fp8['fer1_events']} events, FER(>15) {fp8['fer15']:.5f}, BER "
+        f"{fp8['ber']:.3e}, avg iterations {fp8['avg_iters']} (max "
+        f"{fp8['max_iters']}), {fp8['dec_mbps']} Mb/s | bfloat16 (phase 32) "
+        f"{bf16_094['fer1_events']} events, FER(>15) {bf16_094['fer15']:.5f},"
+        f" BER {bf16_094['ber']:.3e}, avg iterations "
+        f"{bf16_094['avg_iters']} (max {bf16_094['max_iters']}), "
+        f"{bf16_094['dec_mbps']} Mb/s; {smi}")
+    records.append({"point": "p41 BI-AWGN float8_e5m2", "x": SIGMA,
+                    "fp8": fp8, "bf16": {k: bf16_094[k] for k in (
+                        "fer1_events", "fer15", "ber", "avg_iters",
+                        "max_iters", "dec_mbps")}})
+    log(json.dumps({"frontier": records, "card": smi}))
+    log(f"  pool launches: {totals}")
+    assert not failures, "qualification gates failed: " + "; ".join(failures)
+    return per_decode
+
+
+def check_launches(label, launches, kernels):
+    """Every kernel of ``kernels`` and the pool kernels launched, no
+    other."""
+    pool_kernels = ("chacha_bits", "channel_values", "channel_values_vec")
+    for name, count in launches.items():
+        if name in kernels or name in pool_kernels:
+            assert count > 0, f"{label}: {name} never launched"
+        else:
+            assert count == 0, f"{label}: {name} launched off its path"
+
+
+def design_phase(torch, dev, code36, s36, batch36, smi):
+    """Phase 36: scripts/bench_interleaved_torch.py on the full reg36 code
+    (both decoders' pools, then phase 8's frames through both: words and
+    per-frame iterations equal, the interleaved decoder on the regular
+    family), then scripts/eval_proto_torch.py's p41 candidate at Z =
+    EVAL_Z (P-EXIT threshold, the two-stage lift, a scan of EVAL_SIGMAS,
+    recorded, not gated) on the grouped family; launches counted for
+    each."""
+    from ldpc_decoder_tpu_torch.ops import _kernels
+
+    bi = load_script("bench_interleaved_torch")
+    _kernels.reset_launch_counts()
+    rec = bi.run(code36, s36, REG36_SIGMA, N_FRAMES, dev,
+                 log=lambda m: log(f"  {m}"), batch=batch36)
+    torch.cuda.synchronize()
+    check_launches("interleaved reg36", dict(_kernels.launch_counts),
+                   REGULAR)
+    assert rec["tables"] == "QCRegularTables", rec["tables"]
+    same = rec["same_frames"]
+    assert same["fer1"] == 0.0, same["fer1"]
+    log(json.dumps({"interleaved": {
+        "aligned_mbps": rec["aligned"]["dec_mbps"],
+        "interleaved_mbps": rec["interleaved"]["dec_mbps"],
+        "ratio": rec["ratio"],
+        "same_frames_aligned_mbps": same["aligned"]["dec_mbps"],
+        "same_frames_interleaved_mbps": same["interleaved"]["dec_mbps"],
+        "same_frames_avg_iters": same["aligned"]["avg_iters"],
+        "detect_s": rec["detect_s"], "renumber_s": rec["renumber_s"],
+        "card": smi}}))
+
+    ep = load_script("eval_proto_torch")
+    _kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    erec = ep.evaluate("p41", EVAL_Z, EVAL_FRAMES, EVAL_SIGMAS, dev,
+                       log=lambda m: log(f"  {m}"))
+    torch.cuda.synchronize()
+    check_launches("eval_proto p41", dict(_kernels.launch_counts), GROUPED)
+    assert all(p["tables"] == "GroupedQCTables" for p in erec["points"])
+    log(json.dumps({"eval_proto": {
+        "name": "p41", "Z": EVAL_Z, "threshold": erec["threshold"],
+        "points": erec["points"], "wall_s": time.perf_counter() - t0,
+        "card": smi}}))
 
 
 def main():
@@ -2737,7 +3114,7 @@ def main():
                                            FP8_REGULAR, "reg36 fp8")
     lo, hi = REG36_FP8_AVG_ITERS
     assert lo <= stats_fp8.avg_iter <= hi, stats_fp8.avg_iter
-    del dec_fp8, batch36
+    del dec_fp8  # the frames stay for phase 36
     torch.cuda.empty_cache()
 
     phase(28, "p41 float8_e5m2 path (recorded, not gated)")
@@ -2761,7 +3138,8 @@ def main():
     del batch_bec  # phase 4's frames stay for phase 33
 
     phase(32, f"qualification: {QUAL_FRAMES} frames per point")
-    launches.update(qualification(torch, dev, code, s, code36, s36))
+    totals, qual_records = qualification(torch, dev, code, s, code36, s36)
+    launches.update(totals)
 
     phase(33, "host-fed stream: decode_streamed against decode()")
     t0 = time.perf_counter()
@@ -2786,6 +3164,27 @@ def main():
     stream_phase(torch, gdec, gdyn, gchunks, gref, GENERAL_SP,
                  "general stream", smi, gate_overlap=False)
     del gdec, gchunks, gcc
+    torch.cuda.empty_cache()
+
+    phase(34, "rate-0.9 code: regular kernels vs plain at d_c = 30")
+    t0 = time.perf_counter()
+    code09, s09, how = get_bsc_code()
+    log(f"  rate-0.9: n = {code09.n_vars}, {s09.n_base_rows} x "
+        f"{s09.n_base_cols} base, {s09.n_base_edges} circulants of Z = "
+        f"{s09.Z} ({how}, {time.perf_counter() - t0:.1f} s of host time)")
+    rate09 = phase_rate09_kernels(torch, dev, code09, s09, smi)
+
+    phase(35, "qualification where the record has errors")
+    per_decode = frontier_qualification(torch, dev, code, s, code09, s09,
+                                        qual_records[0], smi)
+    for name in ("cn_regular", "vn_regular", "parity_regular"):
+        rate09[name]["rate09_launches"] = per_decode[name]
+        timings[name].update(rate09[name])
+    del code09, s09
+
+    phase(36, "code design and interleaved reg36 at full size")
+    design_phase(torch, dev, code36, s36, batch36, smi)
+    del batch36
     torch.cuda.empty_cache()
     log(f"  all phases passed in {time.perf_counter() - t_all:.1f} s")
 
@@ -2812,6 +3211,8 @@ def main():
                       "slice_ms"):
             if extra in r:
                 entry[extra] = r[extra]
+        # phase 34's times at the rate-0.9 code's d_c = 30
+        entry.update({k: v for k, v in r.items() if k.startswith("rate09_")})
         kernels.append(entry)
     for name, rep in DATAGEN_KERNELS:
         r = timings[name]

@@ -426,13 +426,16 @@ def parity_group(bits, syn, flags, src, shift, g, Z: int, B: int,
 
 
 def cn_regular(msgs_v, syn, r_c, tables, pre: float,
-               phi: str = "fast") -> None:
+               phi: str = "fast", lanes: int | None = None) -> None:
     """Regular check-node kernel over all R checks (one launch); φ's clamp
     is :func:`~ldpc_decoder_tpu_torch.ops.phi.phi_high` of the message
-    dtype, compiled into the kernel; ``phi`` as in :func:`cn_group`."""
+    dtype, compiled into the kernel; ``phi`` as in :func:`cn_group`.
+    ``lanes``: None picks the instantiation by layout (:func:`_lanes`), 1
+    asks for the one-lane one (chip_smoke times it beside the vector)."""
     lib = load("qc_regular")
     B = msgs_v.shape[-1]
-    lanes = _lanes(B, tables.d_c, msgs_v, syn, r_c)
+    if lanes is None:
+        lanes = _lanes(B, tables.d_c, msgs_v, syn, r_c)
     err = lib.ldpc_cn_regular(
         _ptr(msgs_v), _ptr(syn), _ptr(r_c), _ptr(tables.cn_read), tables.R,
         tables.d_c, tables.d_v, tables.Z, B, pre, DTYPE_CODES[msgs_v.dtype],
@@ -442,12 +445,14 @@ def cn_regular(msgs_v, syn, r_c, tables, pre: float,
 
 
 def vn_regular(r_c, llr, msgs_v, bits, fresh, tables, pre: float,
-               phi: str = "fast") -> None:
+               phi: str = "fast", lanes: int | None = None) -> None:
     """Regular variable-node kernel over all C variables (one launch);
-    ``bits`` and ``fresh`` may be None; ``phi`` as in :func:`cn_group`."""
+    ``bits`` and ``fresh`` may be None; ``phi`` and ``lanes`` as in
+    :func:`cn_regular`."""
     lib = load("qc_regular")
     B = r_c.shape[-1]
-    lanes = _lanes(B, tables.d_v, r_c, llr, msgs_v, bits, fresh)
+    if lanes is None:
+        lanes = _lanes(B, tables.d_v, r_c, llr, msgs_v, bits, fresh)
     err = lib.ldpc_vn_regular(
         _ptr(r_c), _ptr(llr), _ptr(msgs_v), _ptr(bits), _ptr(fresh),
         _ptr(tables.vn_read), tables.C, tables.d_v, tables.d_c, tables.Z, B,

@@ -8,7 +8,8 @@ bfloat16 sum-product messages, k = 14, at most 120 iterations, loading
 factor 2; per point FER(>0), FER(>15), BER, exact event counts, average and
 maximum iterations, the steady-state decoding throughput
 n / (avg_iter · itpv · 2^20) (``test_report.cpp:133``), and, beside them,
-the seconds the pools took to generate (``datagen_s``).
+the seconds the pools took to generate (``datagen_s``); on the card the
+record also names the card and its power limit (``card``).
 
     [FRAMES=2048] [SIGMAS=0.94,0.95] [CHANNEL=0] [FIRST_CHECK=auto]
     [FER_ALIST=path] [FER_OUT=path] python scripts/fer_stats_torch.py
@@ -52,9 +53,12 @@ def first_check_for(channel_idx: int, x: float, rule: str = "auto") -> int:
     return int(rule)
 
 
-def qualification_decoder(code, qc, channel_idx: int, x: float, device):
+def qualification_decoder(code, qc, channel_idx: int, x: float, device,
+                          message_dtype: str = "bfloat16"):
     """(the protocol's decoder, its channel) at noise ``x``: B <= 256 lanes
-    of bfloat16 sum-product messages on ``device``."""
+    of sum-product messages on ``device``, bfloat16 as the JAX script's
+    unless ``message_dtype`` names another (``"float8_e5m2"``: the
+    callers that record it beside bfloat16; the script has no option)."""
     import torch
 
     from ldpc_decoder_tpu_torch.channels import (
@@ -69,7 +73,7 @@ def qualification_decoder(code, qc, channel_idx: int, x: float, device):
     device = torch.device(device)
     memory = CPU_MEMORY_BYTES if device.type == "cpu" else None
     dec = LDPCDecoder(code, ch, StaticParams(
-        max_log_parallel_factor_user=8, message_dtype="bfloat16",
+        max_log_parallel_factor_user=8, message_dtype=message_dtype,
         device_memory_bytes=memory), qc=qc, device=device)
     return dec, ch
 
@@ -80,9 +84,11 @@ def pool_frames(dec) -> int:
 
 
 def qualify_point(code, qc, channel_idx: int, x: float, frames: int,
-                  first_check: int, device, log=print) -> dict:
+                  first_check: int, device, log=print,
+                  message_dtype: str = "bfloat16") -> dict:
     """Decode ``frames`` frames (frames 0 .. frames, pools of 2B) at noise
-    ``x`` and return the point's record."""
+    ``x`` and return the point's record; ``message_dtype`` as in
+    :func:`qualification_decoder`."""
     import torch
 
     from ldpc_decoder_tpu_torch.runtime.datagen_device import (
@@ -92,7 +98,8 @@ def qualify_point(code, qc, channel_idx: int, x: float, frames: int,
     from ldpc_decoder_tpu_torch.runtime.params import DynamicParams
 
     device = torch.device(device)
-    dec, ch = qualification_decoder(code, qc, channel_idx, x, device)
+    dec, ch = qualification_decoder(code, qc, channel_idx, x, device,
+                                    message_dtype)
     dyn = DynamicParams(num_iter_max=MAX_ITER, num_iter_check_parity=14,
                         num_iter_first_check=first_check, loading_factor=2)
     errs, iters, itpvs = [], [], []
@@ -187,6 +194,10 @@ def main(argv=None) -> int:
               log=lambda m: print(m, flush=True))
     out["device"] = (torch.cuda.get_device_name(0) if args.device == "cuda"
                      else "cpu")
+    if args.device == "cuda":  # the name and power limit beside the rates
+        from ldpc_decoder_tpu_torch.probes._common import card
+
+        out["card"] = card(torch.device("cuda", 0))
     path = os.environ.get("FER_OUT", os.path.join(
         REPO, "scripts", "out", "fer_stats_torch.json"))
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)

@@ -1577,3 +1577,161 @@ def test_streamed_worker_failure_fails_the_consumer(small_code, cuda_device):
     v, s = chunks[2]
     res, _ = dec.decode(dyn, v.shape[1], v, s)
     np.testing.assert_array_equal(res, ref[edges[2]:edges[3]])
+
+
+# ---- the rate-0.9 code's shape (d_c = 30) and the qualification script ----
+
+def _fer_stats():
+    """scripts/fer_stats_torch.py as a module."""
+    import importlib.util
+    import os
+
+    path = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
+        __file__))), "scripts", "fer_stats_torch.py")
+    spec = importlib.util.spec_from_file_location("fer_stats_torch", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@functools.lru_cache(maxsize=None)
+def _rate09_small():
+    """The BSC rate-0.9 code's base (regular_base(8, 80, 3, 30, seed=3),
+    d_c = 30) lifted at Z = 256 by the girth repair, as
+    codes/samples.py get_bsc_code lifts it at Z = 12,288."""
+    from ldpc_decoder_tpu_torch.codes.protographs import regular_base
+    from ldpc_decoder_tpu_torch.codes.qc import (
+        make_qc_structure_repair,
+        qc_to_code,
+    )
+
+    s = make_qc_structure_repair(regular_base(8, 80, 3, 30, seed=3), Z=256,
+                                 seed=1)
+    return qc_to_code(s), s
+
+
+@pytest.mark.cuda
+def test_rate09_regular_kernels_match_plain(cuda_device):
+    """The rate-0.9 shape on a BSC decode state at B = 256 (the
+    qualification decoder's pool at p = 0.0058, 4 iterations in): the check
+    kernel at d_c = 30 (two lanes a thread), the variable kernel (d_v = 3,
+    eight lanes) with emit and fresh lanes, each on both phi policies and
+    at its one-lane instantiation, against the plain passes (accurate by
+    compare_msgs, fast by compare_msgs_fast; hard bits exact); the parity
+    at its run-time degree (30 slots) on the decode state, on the
+    codewords and with two checks flipped, vector and one lane: flags
+    exact."""
+    from ldpc_decoder_tpu_torch.ops import _kernels
+    from ldpc_decoder_tpu_torch.rng import chacha_torch as ct
+    from ldpc_decoder_tpu_torch.runtime.datagen_device import (
+        create_pool_device,
+    )
+
+    code, s = _rate09_small()
+    dec, ch = _fer_stats().qualification_decoder(code, s, 1, 0.0058,
+                                                 cuda_device)
+    t, nb = dec.tables, dec.parallel_factor()
+    assert isinstance(t, qr.QCRegularTables) and nb == 256
+    assert (t.d_c, t.d_v) == (30, 3)
+    assert _kernels.lanes_per_thread(nb, torch.bfloat16, 30) == 2
+    pool = create_pool_device(dec, ch, 0, nb, chunk_frames=nb)
+    llr = dec._lane_llr(pool.values_sorted)
+    syn = pool.syn_sorted.view(t.R, t.Z, nb)
+    mv, rc = qr.run_iterations_qc_regular(
+        qr.init_messages_qc_regular(llr, t, torch.bfloat16), llr, syn, t,
+        4)[0]
+    pre = qr.PRE_THRESHOLD
+    before = dict(_kernels.launch_counts)
+    rp = qr.cn_pass_plain(mv, syn, torch.empty_like(rc), t)
+    for phi in ("accurate", "fast"):
+        rk = qr.cn_pass_regular(mv, syn, torch.empty_like(rc), t, _phi=phi)
+        (perf.compare_msgs if phi == "accurate" else perf.compare_msgs_fast)(
+            f"r_c {phi}", rk, rp)
+    r1 = torch.empty_like(rc)
+    with torch.cuda.device(cuda_device):
+        _kernels.cn_regular(mv, syn, r1, t, pre, "fast", lanes=1)
+    perf.compare_msgs_fast("r_c one lane", r1, rp)
+    fresh = torch.arange(nb, device=cuda_device) % 5 == 0
+    bp = torch.full((t.C, t.Z, nb), -1, dtype=torch.int8, device=cuda_device)
+    mp = qr.vn_pass_plain(rp, llr, mv.clone(), t, bits=bp, fresh=fresh)
+    for phi, lanes in (("accurate", None), ("fast", None), ("fast", 1)):
+        bk = torch.full_like(bp, -1)
+        mk = mv.clone()
+        with torch.cuda.device(cuda_device):
+            _kernels.vn_regular(rp, llr, mk, bk, fresh, t, pre, phi,
+                                lanes=lanes)
+        (perf.compare_msgs if phi == "accurate" else perf.compare_msgs_fast)(
+            f"msgs_v {phi} lanes {lanes}", mk, mp)
+        assert torch.equal(bk, bp), (phi, lanes)
+    ref = ct.reference_bits(0, code.n_vars, nb, cuda_device)[
+        dec._io_orders[0]].view(t.C, t.Z, nb)
+    bad = syn.clone()
+    bad[t.R - 1, t.Z - 1, [4, 201]] ^= 1
+    for bits, sy, want in ((bp, syn, None), (ref, syn, []),
+                           (ref, bad, [4, 201])):
+        plain = qr.parity_pass_plain(bits, sy, t)
+        assert torch.equal(qr.parity_pass_regular(bits, sy, t), plain)
+        one = qr.parity_kernel_flags(bits, sy, t, lanes=1)
+        assert torch.equal(one != 0, plain)
+        if want is not None:
+            assert torch.nonzero(plain).flatten().tolist() == want
+    torch.cuda.synchronize()
+    counts = {n: _kernels.launch_counts[n] - before[n] for n in (
+        "cn_regular", "vn_regular", "parity_regular", "parity_regular_vec",
+        "phi_accurate")}
+    # 4 iterations x (check, variable, parity) before; then 3 check, 3
+    # variable and 6 parity launches
+    assert counts == {"cn_regular": 3, "vn_regular": 3, "parity_regular": 6,
+                      "parity_regular_vec": 3, "phi_accurate": 2}, counts
+
+
+@pytest.mark.cuda
+def test_rate09_decode_on_card_matches_cpu(cuda_device):
+    """A rate-0.9-shaped decode (the base at Z = 256) over the BSC at p =
+    0.0058, bfloat16, the qualification decoder's settings (B = 256, k =
+    14): the card on the fast phi (the decoder's) against the plain passes
+    on the CPU, the same host frames, by the fast-phi decode rule of
+    test_general_decode_on_card_matches_cpu: every frame the CPU decodes to
+    its reference bits decodes to the same bits on the card, and the
+    average iterations are within 5 of the CPU's."""
+    from ldpc_decoder_tpu_torch.channels import BSCChannel
+
+    code, s = _rate09_small()
+    fer = _fer_stats()
+    n = 96
+    batch = create_data(code, BSCChannel(0.0058), 0, n, backend="numpy")
+    dyn = DynamicParams(num_iter_max=fer.MAX_ITER, num_iter_check_parity=14,
+                        loading_factor=2)
+    out = {}
+    for dev in ("cpu", cuda_device):
+        dec, _ = fer.qualification_decoder(code, s, 1, 0.0058, dev)
+        assert isinstance(dec.tables, qr.QCRegularTables)
+        out[str(dev)] = dec.decode(dyn, n, batch.values, batch.syndromes)
+    (res_c, st_c), (res_g, st_g) = out["cpu"], out[str(cuda_device)]
+    good = (res_c == batch.ref_bits_packed()).all(axis=1)
+    assert good.sum() >= n - 4, int(good.sum())
+    np.testing.assert_array_equal(res_g[good], res_c[good])
+    assert abs(st_g.avg_iter - st_c.avg_iter) <= 5
+    print(f"fast phi: {int((res_g != res_c).any(axis=1).sum())} frames "
+          f"differ in words, {int((st_g.iterations != st_c.iterations).sum())}"
+          f" in iterations from the CPU's ({int((~good).sum())} frames the "
+          f"CPU does not decode)")
+
+
+@pytest.mark.cuda
+def test_fp8_qualify_point_on_card_matches_cpu(small_code, cuda_device):
+    """qualify_point(message_dtype="float8_e5m2") on the small p41 (the
+    grouped family) at sigma 0.8, 64 frames: the card against the plain
+    passes on the CPU, by the fp8 decode rule (equal words: no bit error
+    on either side, the same event counts; iterations within one check
+    period)."""
+    code, s = small_code
+    fer = _fer_stats()
+    pts = [fer.qualify_point(code, s, 0, 0.8, 64, 0, dev, log=lambda m: None,
+                             message_dtype="float8_e5m2")
+           for dev in ("cpu", cuda_device)]
+    for k in ("frames", "fer1_events", "fer15_events", "bit_errors"):
+        assert pts[0][k] == pts[1][k], k
+    assert pts[1]["bit_errors"] == 0
+    assert abs(pts[0]["avg_iters"] - pts[1]["avg_iters"]) <= 14
+    assert abs(pts[0]["max_iters"] - pts[1]["max_iters"]) <= 14

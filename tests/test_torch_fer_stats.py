@@ -113,3 +113,113 @@ def test_point_equals_a_hand_driven_decode(alist):
     assert st.min_iter >= 20
     assert pt["avg_iters"] == round(float(np.mean(st.iterations)), 2)
     assert pt["max_iters"] == st.max_iter
+
+
+# ---- against the JAX script's protocol -------------------------------------
+
+def _jax_record(jcode, js, channel_idx, x, frames, first_check, dtype):
+    """A point of scripts/fer_stats.py's record, computed as that script
+    computes it (the JAX decoder at max_log_parallel_factor_user=8, pools
+    of 2B frames from create_pool_device, k = 14, loading factor 2), its QC
+    passes through the XLA ops that the Pallas kernels are held to (the
+    Pallas kernels in interpret mode take minutes at these shapes)."""
+    from ldpc_decoder_tpu.channels import (
+        BIAWGNChannel,
+        BSCChannel,
+        ErasureChannel,
+    )
+    from ldpc_decoder_tpu.runtime.datagen_device import (
+        count_bit_errors,
+        create_pool_device,
+    )
+    from ldpc_decoder_tpu.runtime.decoder import LDPCDecoder
+    from ldpc_decoder_tpu.runtime.params import DynamicParams, StaticParams
+
+    ch = {0: BIAWGNChannel, 1: BSCChannel, 2: ErasureChannel}[channel_idx](x)
+    dec = LDPCDecoder(jcode, ch, StaticParams(
+        max_log_parallel_factor_user=8, message_dtype=dtype,
+        kernel_impl="xla"), qc=js)
+    B = dec.parallel_factor()
+    dyn = DynamicParams(num_iter_max=120, num_iter_check_parity=14,
+                        num_iter_first_check=first_check, loading_factor=2)
+    errs, iters = [], []
+    for lo in range(0, frames, 2 * B):
+        n = min(2 * B, frames - lo)
+        pool = create_pool_device(dec.cc, dec.tables, ch, lo, n)
+        res, st = dec.decode_presorted(dyn, n, pool.values_sorted,
+                                       pool.syn_sorted, fetch_results=False)
+        errs.append(np.asarray(count_bit_errors(res, pool.ref_packed)))
+        iters.append(st.iterations)
+    errors, iters = np.concatenate(errs), np.concatenate(iters)
+    return {"frames": int(errors.size),
+            "fer1_events": int((errors > 0).sum()),
+            "fer15_events": int((errors > 15).sum()),
+            "bit_errors": int(errors.sum()),
+            "avg_iters": round(float(iters.mean()), 2),
+            "max_iters": int(iters.max())}, B
+
+
+def test_regular_dc30_bsc_point_equals_the_jax_record():
+    """The rate-0.9 code's base (regular_base(8, 80, 3, 30, seed=3),
+    d_c = 30) lifted at Z = 256 by the girth repair: the port's regular
+    family at its d_c = 30 instantiations, the BSC at p = 0.0058 (iterations
+    14 to 56, no frame error), equal to the JAX script's record of the same
+    code and frames, exactly (BSC values are exact)."""
+    from ldpc_decoder_tpu.codes import qc as jqc
+    from ldpc_decoder_tpu.codes.protographs import regular_base as jrb
+
+    from ldpc_decoder_tpu_torch.codes.protographs import regular_base
+    from ldpc_decoder_tpu_torch.codes.qc import (
+        make_qc_structure_repair,
+        qc_to_code,
+    )
+    from ldpc_decoder_tpu_torch.ops.qc_regular import QCRegularTables
+
+    s = make_qc_structure_repair(regular_base(8, 80, 3, 30, seed=3), Z=256,
+                                 seed=1)
+    js = jqc.make_qc_structure_repair(jrb(8, 80, 3, 30, seed=3), Z=256,
+                                      seed=1)
+    np.testing.assert_array_equal(s.edge_shift, js.edge_shift)
+    code = qc_to_code(s)
+    dec, _ = FER.qualification_decoder(code, s, 1, 0.0058, "cpu")
+    assert isinstance(dec.tables, QCRegularTables)
+    assert dec.tables.d_c == 30 and dec.tables.d_v == 3
+    pt = FER.qualify_point(code, s, 1, 0.0058, 64, 0, "cpu",
+                           log=lambda m: None)
+    want, B = _jax_record(jqc.qc_to_code(js), js, 1, 0.0058, 64, 0,
+                          "bfloat16")
+    assert B == dec.parallel_factor() == 256
+    assert {k: pt[k] for k in want} == want
+    assert pt["fer1"] == 0.0 and pt["max_iters"] > 14
+
+
+def test_fp8_point_matches_the_jax_decoder():
+    """qualify_point(message_dtype="float8_e5m2") on the small p41 (the
+    grouped family) at sigma 0.8 against the JAX decoder's float8_e5m2
+    decode of the same pool, by tests/test_torch_qc_fp8.py's decode rule:
+    equal words (every frame decoded to its reference bits on both sides,
+    the same error counts) and iterations equal or one check period (14)
+    apart; the bfloat16 point of the same frames beside it."""
+    from ldpc_decoder_tpu.codes.protographs import p41_code as jax_p41
+
+    from ldpc_decoder_tpu_torch.codes.protographs import p41_code
+    from ldpc_decoder_tpu_torch.ops.qc_grouped import GroupedQCTables
+
+    small = dict(Z=128, m=4, coarse=64, fine_mod=16)
+    code, s = p41_code(**small)
+    dec, _ = FER.qualification_decoder(code, s, 0, 0.8, "cpu",
+                                       message_dtype="float8_e5m2")
+    assert isinstance(dec.tables, GroupedQCTables)
+    assert dec.msg_dtype == torch.float8_e5m2
+    pt = FER.qualify_point(code, s, 0, 0.8, 64, 0, "cpu", log=lambda m: None,
+                           message_dtype="float8_e5m2")
+    jcode, js = jax_p41(**small)
+    want, _ = _jax_record(jcode, js, 0, 0.8, 64, 0, "float8_e5m2")
+    for k in ("frames", "fer1_events", "fer15_events", "bit_errors"):
+        assert pt[k] == want[k], k
+    assert pt["bit_errors"] == 0
+    assert abs(pt["avg_iters"] - want["avg_iters"]) <= 14
+    assert abs(pt["max_iters"] - want["max_iters"]) <= 14
+    bf16 = FER.qualify_point(code, s, 0, 0.8, 64, 0, "cpu",
+                             log=lambda m: None)
+    assert bf16["bit_errors"] == 0 and bf16["frames"] == pt["frames"]
