@@ -23,7 +23,11 @@ scripts/bench_general.py code) at sigma = 0.84, 768 frames, k = 10, through
 the general kernels (csrc/general.cuh, min-sum csrc/general.cu):
 
 - sum-product, bfloat16, B = 384 (two fills, so the refill runs);
-- int8 min-sum (alpha 0.8, offset 0, scale 4), B = 768 (one fill).
+- int8 min-sum (alpha 0.8, offset 0, scale 4), B = 768 (one fill);
+- sum-product on float8_e5m2 messages (a bfloat16 LLR state), B = 384,
+  through the general kernels' float8 instantiations (csrc/general_fp8.cu);
+- min-sum on float8_e5m2 with the CLI's defaults (alpha 1, offset 0.5,
+  clamp 64), B = 768.
 
 The QC min-sum paths decode reg36 rebuilt as a plain code (no structure
 given: the decoder detects it) with offset min-sum at the defaults (alpha
@@ -56,6 +60,12 @@ The host-fed stream (``LDPCDecoder.decode_streamed``) decodes p41 at the
 p41 path's settings, 1024 frames in four chunks of B = 256 with two in
 flight, and the general code's 768 frames in two chunks of its B = 384,
 each against a serial ``decode()`` of every chunk.
+
+The multi-device paths decode p41 at the p41 path's settings over a
+``BatchMesh`` of two replicas of the card (``LDPCDecoder.decode_sharded``,
+B = 128 each, 512 frames), and reg36 at sigma = 0.87, 512 frames, across two
+processes on the card under gloo
+(``parallel.multiprocess.decode_multiprocess``, B = 256 each).
 
 The probes (``python -m ldpc_decoder_tpu_torch.probes``, the counterparts
 of the TPU measurement kernels in scripts/) run one headline point each at
@@ -235,7 +245,28 @@ Phases:
     detected onto the regular family: words and per-frame iterations
     equal) and scripts/eval_proto_torch.py's p41 candidate at Z = 2048,
     256 frames, sigma 0.92, 0.93, 0.94 (the P-EXIT threshold, the lift,
-    the scan; recorded, not gated) on the grouped kernels.
+    the scan; recorded, not gated) on the grouped kernels;
+37. the general kernels' float8_e5m2 instantiations against their plain
+    versions at the general path's shapes on phase 13's code and frames
+    (four iterations in): sum-product at B = 384 on both phi policies (the
+    accurate instantiation bit for bit, the fast one by
+    compare_msgs_fast; signs, signed zeros and hard bits exact), min-sum
+    with the CLI's defaults at B = 768 bit for bit, the check kernel's one
+    lane bit for bit equal to its vector; each timed beside its bound and
+    its plain version, their registers and spills from phase 2;
+38. the general float8_e5m2 paths on phase 13's 768 frames: sum-product
+    (B = 384) and min-sum (B = 768), each twice, FER 0 and BER 0
+    required, the float8 general kernels launched and no other; average
+    iterations beside phases 16 and 17;
+39. multi-device: p41 on a BatchMesh of two replicas of the card, B = 128
+    each, phase 4's 512 frames (two pool frames a lane): words and
+    per-frame iterations equal to decode() of each replica's dealt frames,
+    FER 0, BER 0, the grouped kernels launched and no other; the clock,
+    the e2e Mb/s and the card's busy share (a profiled run) printed with
+    the card's name and power limit; then two processes, each one replica
+    of the card, under gloo: decode_multiprocess on reg36 at sigma 0.87,
+    512 frames, their words, frame ids and statistics equal to a
+    one-process decode_multiprocess on a mesh of two replicas, 0 errors.
 
 Every phase must pass: any failure raises, and the script exits nonzero
 without its result line. The last line of stdout is the result object; the
@@ -252,7 +283,7 @@ kernels with p41 x 512 BI-AWGN as ``ms``, the
 64-frame chunk as ``chunk_ms`` (its bound ``chunk_bound_ms``), D2's issue
 bound as ``issue_bound_ms`` (``chunk_issue_bound_ms``) beside the integer
 one, and the reg36 erasure and BSC values as ``erasure_ms`` and
-``bsc_ms``; the window
+``bsc_ms``; the general float8 entries with phase 37's times; the window
 probes with the accurate phi as ``ms``, phi stubbed as ``stub_ms`` and the
 fast phi as ``fast_ms`` where measured, each also by the probes' queued
 timer as ``queued_ms``, ``stub_queued_ms`` and ``fast_queued_ms``, and
@@ -353,6 +384,13 @@ EVAL_FRAMES = 256
 EVAL_SIGMAS = (0.92, 0.93, 0.94)
 # the small QC code of the CLI's subprocess run (git-ignored cache)
 CLI_SMALL_ALIST = os.path.join(REPO, "codes_cache", "cli_qc36_z128.alist")
+# phase 39: p41 on a mesh of two replicas of the card, B lanes each; the
+# statistics the two-process decode must share with the one-process one
+SHARDED_REPLICAS = 2
+SHARDED_B = 128
+MP_STATS = ("min_iter", "max_iter", "avg_iter", "bit_errors",
+            "frames_with_errors", "frames_above_target", "max_frame_errors",
+            "total_supersteps", "batch_size", "n_vecs")
 # per-degree alpha of the p41 check degrees (3, 6, 7), with the fallback
 MINSUM_ALPHA_TABLE = {3: 0.8, 6: 0.75, 7: 0.75, 0: 0.8}
 # the parity kernels' grid slices timed in phases 5 and 9 (lanes per
@@ -370,9 +408,10 @@ PARITY_SOURCE = "ldpc_decoder_tpu_torch/csrc/parity.cuh"
 # dispatch them)
 GROUPED_CN_VN_SOURCE = "ldpc_decoder_tpu_torch/csrc/qc_grouped.cuh"
 REGULAR_CN_VN_SOURCE = "ldpc_decoder_tpu_torch/csrc/qc_regular.cuh"
-GENERAL_SOURCE = "ldpc_decoder_tpu_torch/csrc/general.cu"
-# the min-sum check kernels, on csrc/minsum.cuh
-GENERAL_MS_CN_SOURCE = "ldpc_decoder_tpu_torch/csrc/general_minsum.cu"
+# the general min-sum check and variable kernels (general_minsum.cu and
+# general.cu dispatch them; the check row on csrc/minsum.cuh)
+GENERAL_MS_SOURCE = "ldpc_decoder_tpu_torch/csrc/general_minsum.cuh"
+# the min-sum check kernel of the grouped family, on csrc/minsum.cuh
 MINSUM_CN_SOURCE = "ldpc_decoder_tpu_torch/csrc/qc_minsum_cn.cu"
 # the general sum-product check and variable kernels (general.cu
 # dispatches them)
@@ -406,9 +445,9 @@ KERNELS = [
      "ldpc_decoder_tpu/ops/general_pallas.py:252"),  # _cn_kernel
     ("vn_general", GENERAL_CN_VN_SOURCE,
      "ldpc_decoder_tpu/ops/general_pallas.py:280"),  # _vn_kernel
-    ("cn_general_minsum", GENERAL_MS_CN_SOURCE,
+    ("cn_general_minsum", GENERAL_MS_SOURCE,
      "ldpc_decoder_tpu/ops/general_pallas.py:308"),  # _cn_kernel_minsum
-    ("vn_general_minsum", GENERAL_SOURCE,
+    ("vn_general_minsum", GENERAL_MS_SOURCE,
      "ldpc_decoder_tpu/ops/general_pallas.py:350"),  # _vn_kernel_minsum
     # the min-sum and int8 branches of kernels 1, 2, 4 and 5
     ("cn_group_minsum", MINSUM_CN_SOURCE,
@@ -428,6 +467,17 @@ KERNELS = [
      "ldpc_decoder_tpu/ops/qc_pallas.py:412"),  # _cn_kernel
     ("vn_regular_fp8", REGULAR_CN_VN_SOURCE,
      "ldpc_decoder_tpu/ops/qc_pallas.py:469"),  # _vn_kernel
+    # the float8_e5m2 branches of kernels 7-10 (csrc/general_fp8.cu
+    # compiles them; the JAX package runs this case on its XLA path,
+    # ops/decode.py)
+    ("cn_general_fp8", GENERAL_CN_VN_SOURCE,
+     "ldpc_decoder_tpu/ops/general_pallas.py:252"),  # _cn_kernel
+    ("vn_general_fp8", GENERAL_CN_VN_SOURCE,
+     "ldpc_decoder_tpu/ops/general_pallas.py:280"),  # _vn_kernel
+    ("cn_general_minsum_fp8", GENERAL_MS_SOURCE,
+     "ldpc_decoder_tpu/ops/general_pallas.py:308"),  # _cn_kernel_minsum
+    ("vn_general_minsum_fp8", GENERAL_MS_SOURCE,
+     "ldpc_decoder_tpu/ops/general_pallas.py:350"),  # _vn_kernel_minsum
 ]
 # (every parity launch of a path must take the vector instantiation,
 # counted again under parity_vec and parity_regular_vec; so must the
@@ -446,6 +496,9 @@ QC_MS_GROUPED = ("cn_group_minsum", "vn_group_minsum", "parity",
 FP8_GROUPED = ("cn_fp8", "vn_fp8", "parity", "parity_vec")
 FP8_REGULAR = ("cn_regular_fp8", "vn_regular_fp8", "parity_regular",
                "parity_regular_vec")
+GENERAL_FP8_SP = ("cn_general_fp8", "vn_general_fp8")
+GENERAL_FP8_MS = ("cn_general_minsum_fp8", "vn_general_minsum_fp8",
+                  "cn_general_minsum_fp8_vec")
 # the probes of rows 11-16: (name in the kernels line, probe of
 # ldpc_decoder_tpu_torch.probes.PROBES, source, launch counters)
 PROBE_ROWS = [
@@ -2853,6 +2906,361 @@ def design_phase(torch, dev, code36, s36, batch36, smi):
         "card": smi}}))
 
 
+def phase_general_fp8_kernels(torch, np, dev, cc, batch):
+    """Phase 37: the general kernels' float8_e5m2 instantiations
+    (csrc/general_fp8.cu) against their plain versions at the general
+    path's full width on real decode states (four iterations in, phase
+    13's frames): sum-product at B = 384 on both phi policies by
+    general_policies (the accurate kernels by compare_msgs, the fast ones
+    by compare_msgs_fast; signs, signed zeros and hard bits exact), the
+    accurate ones then bit for bit, min-sum
+    with the CLI's defaults at B = 768 bit for bit, its check kernel's one
+    lane equal to the vector bit for bit; each timed beside its bound
+    (runtime/perf.py general_bytes: one byte a message, two a bfloat16
+    llr) and its plain version, with its registers from phase 2."""
+    from ldpc_decoder_tpu_torch.channels import BIAWGNChannel
+    from ldpc_decoder_tpu_torch.ops import _kernels
+    from ldpc_decoder_tpu_torch.ops import general as G
+    from ldpc_decoder_tpu_torch.runtime import perf
+    from ldpc_decoder_tpu_torch.runtime.params import StaticParams
+
+    fp8 = torch.float8_e5m2
+    t = G.GeneralTables.from_compiled(cc, dev)
+    ch = BIAWGNChannel(GENERAL_SIGMA)
+    E, out = t.n_edges, {}
+    log("  sum-product, fp8, B = 384:")
+    B = 384
+    llr, syn = general_lane_state(torch, np, dev, t, ch, batch, B, fp8)
+    msgs = G.init_messages_general(llr, t, fp8)
+    (mv, rc), _, _ = G.run_iterations_general(msgs, llr, syn, t, 4)
+    before = dict(_kernels.launch_counts)
+    rk, err = general_policies(torch, G, t, mv, rc, llr, syn, B)
+    for name in ("cn_general", "vn_general"):
+        assert _kernels.launch_counts[name] == before[name], name
+    # on the accurate phi the float8 stores are exact: bit for bit
+    assert bit_identical(rk, G.cn_pass_general_plain(
+        mv, syn, torch.empty_like(rc), t)), "fp8 r_c (accurate) not exact"
+    for emit in (False, True):
+        bk = torch.full((t.n_vars, B), -1, dtype=torch.int8, device=dev)
+        bp = bk.clone()
+        mk = G.vn_pass_general(rc, llr, torch.empty_like(mv), t,
+                               bits=bk if emit else None, _phi="accurate")
+        mp = G.vn_pass_general_plain(rc, llr, torch.empty_like(mv), t,
+                                     bits=bp if emit else None)
+        assert bit_identical(mk, mp) and torch.equal(bk, bp), \
+            f"fp8 msgs_v (accurate, emit {emit}) not exact"
+    del mk, mp
+    log("  accurate phi: r_c and msgs_v bit for bit equal to plain")
+    stored = rk.view(torch.uint8)
+    log(f"  r_c (accurate): {int((stored == 0x80).sum())} -0 and "
+        f"{int((stored == 0x00).sum())} +0 of {stored.numel()} messages, "
+        f"signs equal to plain")
+    passes = perf.general_bytes(t, B, 1, 2)
+    where = f"general, fp8, B = {B}"
+    r = {"cn_general_fp8": dict(max_abs_err=err["cn"]),
+         "vn_general_fp8": dict(max_abs_err=err["vn"])}
+    mk = mv.clone()
+    time_policies(r, "cn_general_fp8", lambda phi: G.cn_pass_general(
+        mv, syn, rk, t, _phi=phi),
+        lambda: G.cn_pass_general_plain(mv, syn, rk, t), passes["cn"],
+        OPS_PER_MESSAGE * E * B, where)
+    time_policies(r, "vn_general_fp8", lambda phi: G.vn_pass_general(
+        rc, llr, mk, t, _phi=phi),
+        lambda: G.vn_pass_general_plain(rc, llr, mk, t), passes["vn"],
+        OPS_PER_MESSAGE * E * B, where)
+    out.update(r)
+    del mv, rc, rk, mk, msgs, llr, syn
+    torch.cuda.empty_cache()
+
+    sp = StaticParams()  # the CLI's min-sum defaults
+    ms = dict(alpha=sp.minsum_alpha, beta=sp.minsum_offset,
+              clamp=sp.minsum_clamp, qscale=sp.minsum_qscale)
+    B = 768
+    tag = f"min-sum, fp8, B = {B}, alpha {ms['alpha']}, offset {ms['beta']}"
+    log(f"  {tag}:")
+    llr, syn = general_lane_state(torch, np, dev, t, ch, batch, B, fp8)
+    msgs = G.init_messages_general(llr, t, fp8, alg="min-sum",
+                                   clamp=ms["clamp"], qscale=ms["qscale"])
+    (mv, rc), _, _ = G.run_iterations_general(msgs, llr, syn, t, 4,
+                                              alg="min-sum", **ms)
+
+    def cn(impl, r):
+        return impl(mv, syn, r, t, ms["alpha"], ms["beta"], ms["qscale"])
+
+    def vn(impl, m, bits=None):
+        return impl(rc, llr, m, t, ms["clamp"], ms["qscale"], bits=bits)
+
+    def compare(name, k, p):
+        assert bit_identical(k, p), f"{name} ({tag}): not bitwise"
+        log(f"  {name}: bitwise equal")
+        return float((k.float() - p.float()).abs().max())
+
+    cnk, cnp = G.cn_pass_general_minsum, G.cn_pass_general_minsum_plain
+    vnk, vnp = G.vn_pass_general_minsum, G.vn_pass_general_minsum_plain
+    rk, rp = torch.empty_like(rc), torch.empty_like(rc)
+    before = dict(_kernels.launch_counts)
+    cn(cnk, rk)
+    minsum_cn_lanes("cn_general_minsum_fp8", before, B, fp8,
+                    len(t.cn_buckets))
+    cn(cnp, rp)
+    err_cn = compare("r_c", rk, rp)
+
+    def one_lane(r):
+        return minsum_cn_one_lane("general", t, mv, syn, r, ms["alpha"],
+                                  ms["beta"], ms["qscale"])
+
+    compare("r_c (one lane) vs vector", one_lane(torch.empty_like(rc)), rk)
+    del rp
+    errs = []
+    mk, mp = torch.empty_like(mv), torch.empty_like(mv)
+    for emit in (False, True):
+        bk = torch.full((t.n_vars, B), -1, dtype=torch.int8, device=dev)
+        bp = bk.clone()
+        vn(vnk, mk, bk if emit else None)
+        vn(vnp, mp, bp if emit else None)
+        errs.append(compare(f"msgs_v ({'emit' if emit else 'no emit'})",
+                            mk, mp))
+        assert torch.equal(bk, bp), f"hard bits differ ({tag})"
+    log("  hard bits (emit): equal")
+    del mp
+    passes = perf.general_bytes(t, B, 1, 2)
+    ops = OPS_PER_MINSUM_MESSAGE
+    r = {
+        "cn_general_minsum_fp8": dict(
+            max_abs_err=err_cn, ms=cuda_ms(lambda: cn(cnk, rk), 10),
+            one_lane_ms=cuda_ms(lambda: one_lane(rk), 10),
+            plain_ms=cuda_ms(lambda: cn(cnp, rk), 3),
+            bound=bound(passes["cn"], ops * E * B)),
+        "vn_general_minsum_fp8": dict(
+            max_abs_err=max(errs), ms=cuda_ms(lambda: vn(vnk, mk), 10),
+            plain_ms=cuda_ms(lambda: vn(vnp, mk), 3),
+            bound=bound(passes["vn"], ops * E * B)),
+    }
+    for name, v in r.items():
+        log(f"  {name}: kernel {v['ms']:.3f} ms per pass "
+            f"({v['bound'][0] / v['ms']:.1%} of the bound)"
+            + (f", one lane {v['one_lane_ms']:.3f} ms "
+               f"({v['bound'][0] / v['one_lane_ms']:.1%})"
+               if "one_lane_ms" in v else "")
+            + f", plain {v['plain_ms']:.3f} ms, bound "
+            f"{v['bound'][0]:.3f} ms ({v['bound'][1]}) (general, {tag})")
+    out.update(r)
+    fp8_registers()
+    del mv, rc, rk, mk, msgs, llr, syn
+    torch.cuda.empty_cache()
+    return out
+
+
+def fp8_registers():
+    """The general library's float8_e5m2 kernels' registers and spills
+    from phase 2's ptxas log, by (kernel, lanes per thread, phi): a spill
+    is logged as a finding."""
+    rows = {}
+    for kname, regs, spill in PTXAS_ENTRIES.get("general", []):
+        if "13__nv_fp8_e5m2" not in kname:
+            continue
+        m = re.search(r"(cn_general|vn_general|cn_general_minsum|"
+                      r"vn_general_minsum)_kernelI13__nv_fp8_e5m2Li(\d+)E"
+                      r"(?:Li(\d+)E)?(?:\w*?(PhiFast|PhiAccurate))?", kname)
+        if m is None:
+            continue
+        kernel, degree, lanes, phi = m.groups()
+        r = rows.setdefault((kernel, int(lanes or 1), phi or ""),
+                            [0, 0, []])
+        r[0] = max(r[0], regs)
+        r[1] += max(spill, 0)
+        r[2].append(int(degree))
+    for (kernel, lanes, phi), (regs, spill, degrees) in sorted(rows.items()):
+        log(f"  registers (phase 2): {kernel} fp8 V = {lanes} {phi}: "
+            f"degrees {min(degrees)}-{max(degrees)}, max {regs} registers, "
+            f"{spill} spill bytes")
+
+
+def general_fp8_paths(torch, gcc, gch, gbatch, gref, gdyn, bf16_iters,
+                      int8_iters):
+    """Phase 38: the general float8_e5m2 path at full width on phase 13's
+    768 frames: sum-product at B = 384 (two fills) and min-sum with the
+    CLI's defaults at B = 768, each decoded twice (run_path), FER 0 and
+    BER 0 required, only the float8 general kernels launched; their
+    average iterations logged beside phase 16's bfloat16 and phase 17's
+    int8 min-sum ones. Returns ({name: launches}, {label: avg
+    iterations})."""
+    from ldpc_decoder_tpu_torch.ops.general import GeneralTables
+    from ldpc_decoder_tpu_torch.runtime.decoder import LDPCDecoder
+    from ldpc_decoder_tpu_torch.runtime.params import StaticParams
+
+    launches, iters = {}, {}
+    for label, B, alg, kernels in (
+            ("general fp8 sum-product", 384, "sum-product", GENERAL_FP8_SP),
+            ("general fp8 min-sum", 768, "min-sum", GENERAL_FP8_MS)):
+        dec = LDPCDecoder(gcc, gch, StaticParams(
+            parallel_factor_user=B, message_dtype="float8_e5m2",
+            algorithm=alg, qc_autodetect=False))
+        assert isinstance(dec.tables, GeneralTables)
+        stats, got = run_path(dec, gdyn, gbatch, N_GENERAL_FRAMES, kernels,
+                              label, ref=gref)
+        launches.update({name: got[name] for name in kernels})
+        iters[label] = stats.avg_iter
+        del dec
+        torch.cuda.empty_cache()
+    log(f"  average iterations: fp8 sum-product "
+        f"{iters['general fp8 sum-product']:.2f} (bf16, phase 16: "
+        f"{bf16_iters:.2f}), fp8 min-sum "
+        f"{iters['general fp8 min-sum']:.2f} (int8 min-sum, alpha 0.8, "
+        f"offset 0, phase 17: {int8_iters:.2f})")
+    return launches, iters
+
+
+def busy_and_span_us(events):
+    """(busy, span) in microseconds over device events: the union of their
+    intervals, and last end minus first start."""
+    iv = sorted((e.time_range.start, e.time_range.end) for e in events
+                if e.device_type.name == "CUDA")
+    if not iv:
+        return 0.0, 0.0
+    busy, lo, hi = 0.0, iv[0][0], iv[0][1]
+    for a, b in iv[1:]:
+        if a > hi:
+            busy += hi - lo
+            lo, hi = a, b
+        else:
+            hi = max(hi, b)
+    busy += hi - lo
+    return busy, max(b for _, b in iv) - iv[0][0]
+
+
+def profiled_busy(torch, fn):
+    """(fn(), busy ms, span ms): fn run under torch.profiler, the union of
+    its device events' intervals and their first-to-last span."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    busy, span = busy_and_span_us(prof.events())
+    assert busy > 0, "the profiler saw no device event"
+    return out, busy / 1e3, span / 1e3
+
+
+def multi_device_phase(torch, np, dev, code, s, batch, smi):
+    """Phase 39: p41 at full size on a BatchMesh of two replicas of the
+    card, B = 128 each, phase 4's 512 frames (two pool frames a lane):
+    words and per-frame iterations equal to decode() of each replica's
+    dealt frames, FER 0, BER 0, the grouped kernels launched and no other;
+    the wall, the Mb/s, and the card's busy share (a profiled run). Then two
+    processes, each one replica of cuda:0, under gloo:
+    decode_multiprocess on reg36 at sigma 0.87, 512 frames; their words,
+    frame ids and eight statistics equal to a one-process
+    decode_multiprocess on a mesh of two replicas of the card, 0 errors."""
+    import tempfile
+
+    from ldpc_decoder_tpu_torch.channels import BIAWGNChannel
+    from ldpc_decoder_tpu_torch.ops import _kernels
+    from ldpc_decoder_tpu_torch.parallel import dryrun
+    from ldpc_decoder_tpu_torch.parallel import multiprocess as mp
+    from ldpc_decoder_tpu_torch.parallel.mesh import BatchMesh, deal
+    from ldpc_decoder_tpu_torch.runtime.decoder import LDPCDecoder
+    from ldpc_decoder_tpu_torch.runtime.params import (
+        DynamicParams,
+        StaticParams,
+    )
+
+    dec = LDPCDecoder(code, BIAWGNChannel(SIGMA), StaticParams(
+        parallel_factor_user=SHARDED_B, message_dtype="bfloat16"), qc=s)
+    dyn = DynamicParams(num_iter_max=120, num_iter_check_parity=14,
+                        num_iter_first_check=70, loading_factor=2)
+    mesh = BatchMesh((dev,) * SHARDED_REPLICAS)
+    n = N_FRAMES
+    dec.decode_sharded(dyn, n, batch.values, batch.syndromes, mesh)  # warm
+    _kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    res, st = dec.decode_sharded(dyn, n, batch.values, batch.syndromes, mesh)
+    wall = time.perf_counter() - t0
+    launches = dict(_kernels.launch_counts)
+    for name, count in launches.items():
+        if name in GROUPED:
+            assert count > 0, f"p41 sharded: {name} never launched"
+        else:
+            assert count == 0, f"p41 sharded: {name} launched off its path"
+    assert launches["parity_vec"] == launches["parity"]
+    errors = bit_errors(batch.ref_bits_packed(), res)
+    assert not errors.any(), f"p41 sharded: {int(errors.sum())} bit errors"
+    bits = code.n_vars
+    e2e = bits * n / 1048576.0 / st.elapsed_seconds
+    log(f"  p41 on {SHARDED_REPLICAS} replicas of {dev}, B = {SHARDED_B} "
+        f"each: {st.elapsed_seconds:.3f} s on the clock ({wall:.3f} s "
+        f"wall with the deal and upload), {st.total_supersteps} supersteps, "
+        f"{st.total_iterations} iterations, avg iterations "
+        f"{st.avg_iter:.2f}, FER 0/{n}, BER 0; e2e {e2e:.2f} Mb/s; "
+        f"launches {launches}; {smi}")
+    serial = 0.0
+    for g, idx in enumerate(deal(n, SHARDED_REPLICAS)):
+        real = idx[idx < n]
+        r, s_ = dec.decode(dyn, real.size,
+                           np.ascontiguousarray(batch.values[:, real]),
+                           np.ascontiguousarray(batch.syndromes[:, real]))
+        assert np.array_equal(res[real], r), f"replica {g}: words differ"
+        assert np.array_equal(st.iterations[real], s_.iterations), \
+            f"replica {g}: per-frame iterations differ"
+        serial += s_.elapsed_seconds
+    log(f"  each replica's dealt frames through decode(): words and "
+        f"per-frame iterations equal; the two decodes take {serial:.3f} s "
+        f"on their clocks, {bits * n / 1048576.0 / serial:.2f} Mb/s")
+    (_, st_p), busy_ms, span_ms = profiled_busy(
+        torch, lambda: dec.decode_sharded(dyn, n, batch.values,
+                                          batch.syndromes, mesh))
+    log(f"  profiled: the card busy {busy_ms:.1f} ms of the {span_ms:.1f} ms "
+        f"from its first device event to its last (the upload included), "
+        f"busy share {busy_ms / span_ms:.3f}; clock "
+        f"{st_p.elapsed_seconds * 1e3:.1f} ms under the profiler")
+    record = {"sharded": "p41", "replicas": SHARDED_REPLICAS,
+              "B": SHARDED_B, "frames": n,
+              "elapsed_s": st.elapsed_seconds, "wall_s": wall,
+              "e2e_mbps": e2e, "replica_decode_s": serial,
+              "busy_share": busy_ms / span_ms,
+              "avg_iter": st.avg_iter, "card": smi}
+    log(json.dumps(record))
+    del dec, res
+    torch.cuda.empty_cache()
+
+    args = ["--code", "reg36", "--sigma", str(REG36_SIGMA), "--lanes", "256",
+            "--dtype", "bfloat16", "--k", "10", "--max-iter", "120",
+            "--frames", str(N_FRAMES)]
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        outs = dryrun.spawn_workers(2, [
+            "--devices", str(dev), "--out",
+            os.path.join(tmp, "rank{rank}.npz"), *args], timeout=300)
+        log(f"  two gloo processes on {dev}: {time.perf_counter() - t0:.1f} "
+            f"s wall (start, reg36 from its cache, frames, decode)")
+        for out in outs:
+            log("  " + [ln for ln in out.splitlines()
+                        if ln.startswith("MP_OK")][0])
+        parsed = mp.worker_parser().parse_args(
+            ["--worker", "--init-method", "unused", "--world-size", "1",
+             "--rank", "0", *args])
+        one = mp.worker_decoder(parsed, dev)
+        res, ids, stats = mp.decode_multiprocess(
+            one, mp.worker_dyn(parsed), N_FRAMES,
+            mesh=BatchMesh((dev, dev)))
+        assert stats.bit_errors == 0 and stats.frames_with_errors == 0
+        for r in range(2):
+            z = np.load(os.path.join(tmp, f"rank{r}.npz"))
+            assert np.array_equal(z["results"][0], res[r]), \
+                f"rank {r}: words differ from the one-process run"
+            assert np.array_equal(z["ids"][0], ids[r])
+            got = json.loads(str(z["stats"]))
+            for name in MP_STATS:
+                assert got[name] == getattr(stats, name), (r, name)
+    log(f"  one process, two replicas: {stats.elapsed_seconds:.3f} s, "
+        f"{stats.total_supersteps} supersteps, avg iterations "
+        f"{stats.avg_iter:.2f}, 0 bit errors; both ranks' words, frame ids "
+        f"and statistics equal to it")
+    del one
+    torch.cuda.empty_cache()
+    return record
+
+
 def main():
     import numpy as np
     import torch
@@ -3150,20 +3558,19 @@ def main():
         f"{time.perf_counter() - t0:.1f} s")
     ref = np.concatenate([batch.ref_bits_packed(), more.ref_bits_packed()])
     chunks = host_chunks((batch, more), STREAM_CHUNK)
-    del batch, more
+    del more  # phase 4's frames stay for phase 39
     dec = LDPCDecoder(code, ch, sp, qc=s)
     assert dec.parallel_factor() == STREAM_CHUNK
     stream_phase(torch, dec, dyn, chunks, ref, GROUPED, "p41 stream", smi)
     del dec, chunks, ref
     torch.cuda.empty_cache()
     gchunks = host_chunks((gbatch,), GENERAL_STREAM_CHUNK)
-    del gbatch
     gdec = LDPCDecoder(gcc, gch, StaticParams(
         parallel_factor_user=GENERAL_STREAM_CHUNK, message_dtype="bfloat16",
         qc_autodetect=False))
     stream_phase(torch, gdec, gdyn, gchunks, gref, GENERAL_SP,
                  "general stream", smi, gate_overlap=False)
-    del gdec, gchunks, gcc
+    del gdec, gchunks  # the general code and frames stay for phase 37
     torch.cuda.empty_cache()
 
     phase(34, "rate-0.9 code: regular kernels vs plain at d_c = 30")
@@ -3185,6 +3592,21 @@ def main():
     phase(36, "code design and interleaved reg36 at full size")
     design_phase(torch, dev, code36, s36, batch36, smi)
     del batch36
+    torch.cuda.empty_cache()
+
+    phase(37, "general float8_e5m2 kernels vs plain at full width")
+    timings.update(phase_general_fp8_kernels(torch, np, dev, gcc, gbatch))
+
+    phase(38, "general float8_e5m2 paths")
+    fp8_launches, _ = general_fp8_paths(torch, gcc, gch, gbatch, gref, gdyn,
+                                        gstats.avg_iter, mstats.avg_iter)
+    launches.update(fp8_launches)
+    del gcc, gbatch, gref
+    torch.cuda.empty_cache()
+
+    phase(39, "multi-device: p41 on two replicas, two gloo processes")
+    multi_device_phase(torch, np, dev, code, s, batch, smi)
+    del batch
     torch.cuda.empty_cache()
     log(f"  all phases passed in {time.perf_counter() - t_all:.1f} s")
 

@@ -1,11 +1,13 @@
 // General (any-alist) LDPC sum-product kernels for NVIDIA Hopper (sm_90a).
 //
-// Files: this header holds the check and variable kernels and their
-// launchers (templates in ldpc::general); sum_product.cuh the fast phi, the
-// phi policies and the vectors of lanes, which the QC families share;
-// general.cu the min-sum kernels, the dispatch, the C entries and the
-// PhiFast instantiations; general_accurate.cu the PhiAccurate ones. The two
-// sources compile in parallel into one library (ops/_kernels.py).
+// Files: this header holds the sum-product check and variable kernels and
+// their launchers (templates in ldpc::general); sum_product.cuh the fast
+// phi, the phi policies and the vectors of lanes, which the QC families
+// share; general_minsum.cuh the min-sum kernels; general.cu the dispatch,
+// the C entries and the PhiFast instantiations of float32 and bfloat16;
+// general_accurate.cu their PhiAccurate ones; general_fp8.cu every
+// float8_e5m2 instantiation. The sources compile in parallel into one
+// library (ops/_kernels.py).
 //
 // Layout (ldpc_decoder_tpu_torch/ops/general.py): frames (lanes) on the
 // last, fastest axis. Edge arrays [E, B] are plane-major per degree bucket:
@@ -43,10 +45,16 @@
 // the decoder launches (MUFU ex2/lg2 and FMAs), and PhiAccurate, common.cuh's
 // phi_abs (accurate tanhf/logf/expf), bit-identical to the plain PyTorch
 // passes' arithmetic, for the tests and chip_smoke.py. The input clamp is
-// kPhiHigh (80) for both message dtypes, as the JAX kernels' _phi_high
-// gives for float32 and bfloat16. Sums run left to right in float32 in slot
-// order; no product or sum is contracted into an FMA outside phi. No
-// source including this header is built with --use_fast_math.
+// kPhiHigh (80) for every message dtype: the JAX kernels' _phi_high for
+// float32 and bfloat16, and ops/phi.py's HIGH_THRESHOLD on the XLA path
+// that the JAX package runs for float8_e5m2 without QC structure
+// (ops/decode.py). phi(80) = 3.6e-35 rounds to a signed zero in
+// float8_e5m2; the sign is OR-ed in before the store, which keeps it.
+// Messages are float32, bfloat16 or float8_e5m2 (widened exactly on
+// read); the llr is the message dtype, bfloat16 for float8_e5m2 (Llr).
+// Sums run left to right in float32 in slot order; no product or sum is
+// contracted into an FMA outside phi. No source including this header is
+// built with --use_fast_math.
 
 #pragma once
 
@@ -185,7 +193,8 @@ cn_general_kernel(const T* __restrict__ msgs_v,
 // XLA gather r_v = take(r_c, perm_c2v) before it. For variable i and lane b:
 //   r_k   = r_c[perm_c2v[row_k]][b]
 //   tot   = llr + (r_0 + r_1 + ...)         (the r sum first, slot order)
-//   tq    = tot rounded through the message dtype (RNE for bf16)
+//   tq    = tot rounded through the message dtype (RNE for bf16 and
+//           float8_e5m2: ops/decode.py bp_iteration's t_edge)
 //   msgs_v[row_k][b] = phi_abs(|tq - r_k|) | signbit(tq - r_k)
 //   bits (emit only) = !signbit(tot)         (-0 decodes as 0)
 // No degree-1 special case: a lone slot gets phi(tq - r_0).
@@ -194,10 +203,12 @@ cn_general_kernel(const T* __restrict__ msgs_v,
 // kernel; the llr and the hard bits move as vectors too.
 template <typename T, int D, int V, typename Phi>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
-vn_general_kernel(const T* __restrict__ r_c, const T* __restrict__ llr,
+vn_general_kernel(const T* __restrict__ r_c,
+                  const typename Llr<T>::type* __restrict__ llr,
                   T* __restrict__ msgs_v, int8_t* __restrict__ bits,
                   const int* __restrict__ perm_c2v, int node_start,
                   int count, int edge_start, int B, int nodes, float pre) {
+  using L = typename Llr<T>::type;
   __shared__ int src[D * kNodesPerBlock];
   const int n0 = blockIdx.x * nodes;
   const int n_here = min(nodes, count - n0);
@@ -218,7 +229,7 @@ vn_general_kernel(const T* __restrict__ r_c, const T* __restrict__ llr,
 #pragma unroll
       for (int v = 0; v < V; ++v) tot[v] = tot[v] + to_f32(p.v[v]);
     }
-    const Pack<T, V> lp = load_pack<T, V>(llr + node);
+    const Pack<L, V> lp = load_pack<L, V>(llr + node);
     float tq[V];
 #pragma unroll
     for (int v = 0; v < V; ++v) {
@@ -270,7 +281,8 @@ void run_vn(const void* r_c, const void* llr, void* msgs_v, void* bits,
   int nodes;
   general_shape<V>(B, count, &grid, &block, &nodes);
   vn_general_kernel<T, D, V, Phi><<<grid, block, 0, s>>>(
-      static_cast<const T*>(r_c), static_cast<const T*>(llr),
+      static_cast<const T*>(r_c),
+      static_cast<const typename Llr<T>::type*>(llr),
       static_cast<T*>(msgs_v), static_cast<int8_t*>(bits), perm, node_start,
       count, edge_start, B, nodes, pre);
 }
@@ -280,10 +292,10 @@ void run_vn(const void* r_c, const void* llr, void* msgs_v, void* bits,
   F(13) F(14) F(15) F(16) F(17) F(18) F(19) F(20) F(21) F(22)      \
   F(23) F(24) F(25) F(26) F(27) F(28) F(29) F(30) F(31) F(32)
 
-// The PhiAccurate launchers of one degree, for both message dtypes and
+// The PhiAccurate launchers of one degree, for float32 and bfloat16 and
 // both lane widths: defined (LDPC_EXTERN empty) in general_accurate.cu,
-// declared extern in general.cu, so each source compiles half of the
-// sum-product kernels.
+// declared extern in general.cu, so each source compiles half of those
+// sum-product kernels (float8_e5m2's: general_minsum.cuh LDPC_FP8_DEGREE).
 #define LDPC_CN_PARAMS                                                       \
   const void*, const void*, void*, const int*, int, int, int, int, float,   \
       cudaStream_t

@@ -10,9 +10,11 @@ kernels in ``qc_regular.cuh``), ``qc_minsum`` (the
 min-sum check and variable kernels of both QC families, int8 messages in
 the grouped one: ``qc_minsum.cu`` and, in parallel, ``qc_minsum_cn.cu``,
 the grouped check kernel), ``general`` (the general any-alist path, one
-launch per degree bucket: ``general.cu``, with the min-sum variable
-kernel, ``general_accurate.cu`` and ``general_minsum.cu``, the min-sum
-check kernel, in parallel, the sum-product kernels in ``general.cuh``) and
+launch per degree bucket: ``general.cu``, the sum-product dispatch and
+the min-sum variable one, ``general_accurate.cu``, ``general_minsum.cu``,
+the min-sum check dispatch, and ``general_fp8.cu``, every float8_e5m2
+instantiation, in parallel, the sum-product kernels in ``general.cuh``,
+the min-sum ones in ``general_minsum.cuh``) and
 ``probes.cu`` (the measurement probes of
 :mod:`ldpc_decoder_tpu_torch.probes`, which no decode runs) and
 ``datagen.cu`` (a frame pool's ChaCha8 reference bits and channel values,
@@ -31,10 +33,13 @@ carries the decoder.
 Each launch function below launches one kernel on the current torch
 stream and adds one to its entry of :data:`launch_counts` (the port's only
 global state), so a run can show that its main path went through the
-kernels. The QC sum-product kernels count their float8_e5m2 launches
-apart (``cn_fp8``, ``vn_fp8``, ``cn_regular_fp8``, ``vn_regular_fp8``),
-since those are the float8 branches of other TPU kernels' rows; the
-min-sum kernels count every message dtype under one name, and the two
+kernels. The sum-product kernels count their float8_e5m2 launches apart
+(``cn_fp8``, ``vn_fp8``, ``cn_regular_fp8``, ``vn_regular_fp8``,
+``cn_general_fp8``, ``vn_general_fp8``), since those are the float8
+branches of other TPU kernels' rows, and so do the general min-sum kernels
+(``cn_general_minsum_fp8``, ``vn_general_minsum_fp8``: the general path's
+float8 decode has no other kernel); the QC min-sum kernels count every
+message dtype under one name, and the two
 min-sum check kernels and the two parity kernels count their vector
 launches again under ``cn_group_minsum_vec``, ``cn_general_minsum_vec``,
 ``parity_vec`` and ``parity_regular_vec``, so a run shows which
@@ -80,11 +85,14 @@ SOURCES["general"].append(os.path.join(CSRC, "general_accurate.cu"))
 # after the other three (chip_smoke phase 2, PERF.md)
 SOURCES["general"].append(os.path.join(CSRC, "general_minsum.cu"))
 SOURCES["qc_minsum"].append(os.path.join(CSRC, "qc_minsum_cn.cu"))
+# every float8_e5m2 instantiation of the general library (352 kernels) in a
+# fourth source, compiled beside the other three
+SOURCES["general"].append(os.path.join(CSRC, "general_fp8.cu"))
 # every header a source includes: hashed into each library's build key, so
 # an edited header rebuilds
 HEADERS = tuple(os.path.join(CSRC, h) for h in (
     "common.cuh", "sum_product.cuh", "qc_grouped.cuh", "qc_regular.cuh",
-    "general.cuh", "minsum.cuh", "parity.cuh"))
+    "general.cuh", "general_minsum.cuh", "minsum.cuh", "parity.cuh"))
 # --split-compile=0: nvcc optimizes a source's template instantiations in
 # parallel, one thread per CPU. On an H100 host with 8 cores the four
 # libraries, built together, take 49.6 s with it on the three large
@@ -104,7 +112,10 @@ launch_counts = {"cn": 0, "vn": 0, "parity": 0,
                  "cn_fp8": 0, "vn_fp8": 0,
                  "cn_regular_fp8": 0, "vn_regular_fp8": 0,
                  "cn_general": 0, "vn_general": 0,
+                 "cn_general_fp8": 0, "vn_general_fp8": 0,
                  "cn_general_minsum": 0, "vn_general_minsum": 0,
+                 "cn_general_minsum_fp8": 0, "vn_general_minsum_fp8": 0,
+                 "cn_general_minsum_fp8_vec": 0,
                  "cn_group_minsum": 0, "vn_group_minsum": 0,
                  "cn_general_minsum_vec": 0, "cn_group_minsum_vec": 0,
                  "cn_regular_minsum": 0, "vn_regular_minsum": 0,
@@ -279,7 +290,8 @@ def _stream(t: torch.Tensor) -> int:
 
 
 def _fp8(name: str, dtype: torch.dtype) -> str:
-    """The launch-count name of a sum-product kernel for ``dtype``."""
+    """The launch-count name of a kernel that counts its float8_e5m2
+    launches apart, for ``dtype``."""
     return f"{name}_fp8" if dtype == torch.float8_e5m2 else name
 
 
@@ -522,7 +534,7 @@ def cn_general_minsum(msgs_v, syn, r_c, perm_v2c, bucket, alpha: float,
         bucket.count, bucket.degree, bucket.edge_start, B, alpha, beta,
         qscale, DTYPE_CODES[msgs_v.dtype], lanes, _stream(msgs_v))
     _check(lib, err, "general min-sum check-node kernel")
-    _count_lanes("cn_general_minsum", lanes)
+    _count_lanes(_fp8("cn_general_minsum", msgs_v.dtype), lanes)
 
 
 def vn_general_minsum(r_c, llr, msgs_v, bits, perm_c2v, bucket,
@@ -535,7 +547,7 @@ def vn_general_minsum(r_c, llr, msgs_v, bits, perm_c2v, bucket,
         bucket.row_start, bucket.count, bucket.degree, bucket.edge_start,
         r_c.shape[-1], clamp, qscale, DTYPE_CODES[r_c.dtype], _stream(r_c))
     _check(lib, err, "general min-sum variable-node kernel")
-    launch_counts["vn_general_minsum"] += 1
+    launch_counts[_fp8("vn_general_minsum", r_c.dtype)] += 1
 
 
 def cn_group_minsum(msgs_v, syn, r_c, src, shift, g, Z: int, B: int,

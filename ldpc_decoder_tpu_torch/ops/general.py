@@ -45,7 +45,16 @@ Check and variable rules (``general_pallas.py:252-367``):
   clipped to ±clamp.
 
 int8 messages (min-sum only) are dequantized on read (× 1/qscale) and
-quantized on write (:func:`.qc_decode.quantize_msgs`).
+quantized on write (:func:`.qc_decode.quantize_msgs`). float8_e5m2 messages
+(sum-product and min-sum, with a bfloat16 llr: :func:`.qc_decode.llr_dtype`)
+are widened exactly on read and rounded to nearest even on write, a value
+that rounds to zero keeping its sign; the variable total is rounded through
+float8_e5m2 before tot − r_k. The JAX package runs float8_e5m2 without QC
+structure on its XLA path (``ldpc_decoder_tpu/ops/decode.py``: φ clamped to
+[pre, 80], ``bp_iteration``'s ``t_edge``, ``cn_update_minsum``,
+``vn_update_minsum``), which keeps its state in check-edge order; these
+passes compute the same values in the plane-major layout, and the kernels
+are their float8 instantiations (``csrc/general_fp8.cu``).
 """
 
 from __future__ import annotations
@@ -69,8 +78,8 @@ from ldpc_decoder_tpu_torch.ops.qc_decode import (
     store_msgs,
 )
 
-_SP_DTYPES = (torch.float32, torch.bfloat16)
-_MS_DTYPES = (torch.float32, torch.bfloat16, torch.int8)
+_SP_DTYPES = (torch.float32, torch.bfloat16, torch.float8_e5m2)
+_MS_DTYPES = (torch.float32, torch.bfloat16, torch.int8, torch.float8_e5m2)
 _SIGN = -(1 << 31)  # the float32 sign bit as an int32
 
 
@@ -251,8 +260,9 @@ def vn_pass_general_plain(r_c, llr, msgs_v, tables: GeneralTables,
 def vn_pass_general(r_c, llr, msgs_v, tables: GeneralTables,
                     pre: float = PRE_THRESHOLD, bits=None, *,
                     _phi: str = "fast") -> torch.Tensor:
-    """r_c [E, B] (check order), llr [n_vars, B] (message dtype) -> msgs_v
-    [E, B] (variable order) in place; returns msgs_v. ``bits`` ([n_vars, B]
+    """r_c [E, B] (check order), llr [n_vars, B] (message dtype; bfloat16
+    for float8_e5m2) -> msgs_v [E, B] (variable order) in place; returns
+    msgs_v. ``bits`` ([n_vars, B]
     int8 or None): emit hard decisions into it. ``_phi`` as in
     :func:`cn_pass_general`."""
     _kernels.check_phi(_phi)
@@ -295,8 +305,8 @@ def cn_pass_general_minsum_plain(msgs_v, syn, r_c, tables: GeneralTables,
 def cn_pass_general_minsum(msgs_v, syn, r_c, tables: GeneralTables,
                            alpha=1.0, beta: float = 0.0,
                            qscale: float = 4.0) -> torch.Tensor:
-    """Min-sum check pass: msgs_v [E, B] (f32, bf16 or int8) -> r_c [E, B]
-    in place; ``alpha`` a float or (degree, α) pairs; ``qscale`` is read for
+    """Min-sum check pass: msgs_v [E, B] (f32, bf16, int8 or float8_e5m2)
+    -> r_c [E, B] in place; ``alpha`` a float or (degree, α) pairs; ``qscale`` is read for
     int8 messages only. Returns r_c."""
     if _check_edges(msgs_v, syn, r_c, tables, _MS_DTYPES) == "cpu":
         return cn_pass_general_minsum_plain(msgs_v, syn, r_c, tables, alpha,
@@ -338,8 +348,9 @@ def vn_pass_general_minsum_plain(r_c, llr, msgs_v, tables: GeneralTables,
 def vn_pass_general_minsum(r_c, llr, msgs_v, tables: GeneralTables,
                            clamp: float = 64.0, qscale: float = 4.0,
                            bits=None) -> torch.Tensor:
-    """Min-sum variable pass: r_c [E, B] (f32, bf16 or int8), llr [n_vars,
-    B] (the message dtype; bfloat16 for int8) -> msgs_v [E, B] in place;
+    """Min-sum variable pass: r_c [E, B] (f32, bf16, int8 or float8_e5m2),
+    llr [n_vars, B] (the message dtype; bfloat16 for the 1-byte ones) ->
+    msgs_v [E, B] in place;
     ``bits`` as in :func:`vn_pass_general`. Returns msgs_v."""
     if _check_vars(r_c, llr, msgs_v, bits, tables, _MS_DTYPES) == "cpu":
         return vn_pass_general_minsum_plain(r_c, llr, msgs_v, tables, clamp,

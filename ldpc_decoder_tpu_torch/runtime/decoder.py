@@ -15,8 +15,9 @@ kernel family the way the JAX decoder does (``decoder.py:162-269``):
   messages included, any other base, and every int8 decode, the grouped
   one (:mod:`..ops.qc_grouped`);
 - a code without QC structure takes the general path
-  (:mod:`..ops.general`); float8_e5m2 messages are refused there (the JAX
-  package sends them to its XLA path, which is not ported).
+  (:mod:`..ops.general`), float8_e5m2 messages included (the JAX package
+  sends those to its XLA path, ``ops/decode.py``, whose arithmetic the
+  general kernels' float8 instantiations keep).
 
 Every family runs sum-product and min-sum and exposes the same init, burst
 and superstep functions. A pool of all frames of a run lives on the device
@@ -52,6 +53,17 @@ family's degree-1 blocks already hold the init messages of every unchanged
 lane), which ``tests/test_torch_decoder.py`` checks against the JAX
 decoder.
 
+A superstep has two halves, :meth:`LDPCDecoder._launch` (the k iterations
+and the flags' copy to the host, started) and :meth:`LDPCDecoder._finish`
+(the flag read, retire and refill), so that one host loop can drive several
+replicas in lockstep: :meth:`LDPCDecoder.decode_sharded` deals a pool over
+a :class:`..parallel.mesh.BatchMesh` (the JAX decoder's ``decode_sharded``
+and ``_mesh_decode_fn``), one replica of the decoder a mesh position, each
+on its device and its own streams, and the loop runs while the replicas'
+remaining frames sum to more than 0 (the JAX loop's psum);
+:func:`..parallel.multiprocess.decode_multiprocess` sums them across
+processes too.
+
 Host frames reach the device by one route (:meth:`LDPCDecoder._stage`):
 copied into a pinned host buffer, sent on the decoder's copy stream, and
 permuted into the sorted layouts there by a row gather. ``decode()`` takes
@@ -65,6 +77,8 @@ stream, so the copies of the chunks before and after it go on beside it.
 
 from __future__ import annotations
 
+import contextlib
+import copy
 import dataclasses
 import logging
 import math
@@ -105,6 +119,12 @@ from ldpc_decoder_tpu_torch.ops.qc_regular import (
     burst_iterations_qc_regular,
     init_messages_qc_regular,
     run_iterations_qc_regular,
+)
+from ldpc_decoder_tpu_torch.parallel.mesh import (
+    canonical_device,
+    deal,
+    pad_frames,
+    reassemble,
 )
 from ldpc_decoder_tpu_torch.rng.chacha_torch import pack_rows
 from ldpc_decoder_tpu_torch.runtime.params import DynamicParams, StaticParams
@@ -262,12 +282,39 @@ class _Lanes:
     results: torch.Tensor   # [n_pool, n_words] int32
     input_is_llr: bool = False  # the pool holds LLRs, not channel values
     fresh: torch.Tensor | None = None  # lanes refilled since the last step
+    # between the halves of a superstep (_launch, _finish): the last
+    # iteration's hard bits, and the [B] violated flags (on the card a pinned
+    # host buffer, ready when ``flags_ready`` is)
+    bits: torch.Tensor | None = None
+    flags: torch.Tensor | None = None
+    flags_ready: torch.cuda.Event | None = None
 
     @property
     def n_remaining(self) -> int:
         """Frames not yet retired: active lanes plus the pool's rest."""
         return int(self.active.sum()) + (self.iters_out.size
                                          - self.pool_next)
+
+
+def _as_bits(x: torch.Tensor) -> torch.Tensor:
+    """``x`` viewed as the integer dtype of its width: a lane-indexed write
+    then copies stored bits, for every message dtype on every device."""
+    if not x.dtype.is_floating_point:
+        return x
+    return x.view({1: torch.uint8, 2: torch.int16, 4: torch.int32}[
+        x.element_size()])
+
+
+def _on_device(x, device: torch.device):
+    """A tensor, a tuple of tensors or a dataclass of tables, its tensors
+    moved to ``device`` (None stays None)."""
+    if x is None or isinstance(x, torch.Tensor):
+        return None if x is None else x.to(device)
+    if isinstance(x, tuple):
+        return tuple(_on_device(v, device) for v in x)
+    return dataclasses.replace(x, **{
+        f.name: getattr(x, f.name).to(device) for f in dataclasses.fields(x)
+        if isinstance(getattr(x, f.name), torch.Tensor)})
 
 
 def _inverse(perm: np.ndarray) -> np.ndarray:
@@ -288,8 +335,8 @@ class LDPCDecoder:
     ``qc`` (a QCStructure) selects the QC kernels; without it the code is
     searched for QC structure (``StaticParams.qc_autodetect``, on by
     default) and takes the general path when it has none. Sum-product and
-    min-sum run on every family; int8 messages take the grouped QC family
-    or the general path; float8_e5m2 messages need QC structure.
+    min-sum run on every family, in float32, bfloat16 and float8_e5m2; int8
+    messages take the grouped QC family or the general path.
     ``detect_seconds`` is the detection's time.
     """
 
@@ -329,11 +376,6 @@ class LDPCDecoder:
         # the general runner re-initialises refilled lanes at once; the QC
         # runners reset them in-kernel (the ``fresh`` flags)
         self._lane_reset = qc is not None
-        if qc is None and self.msg_dtype == torch.float8_e5m2:
-            raise NotImplementedError(
-                "message_dtype='float8_e5m2' needs a QC code: the general "
-                "(any-alist) path has no float8_e5m2 kernels yet (ROADMAP "
-                "Queue 1 item 15); use bfloat16 or int8 here")
         if qc is None:
             self._init_general(cc or compile_code(self.code))
         else:
@@ -343,6 +385,9 @@ class LDPCDecoder:
                                 for o in (self._vn_order_io,
                                           self._cn_order_io))
         self._streams = None  # copy, compute, readback (_cuda_streams)
+        # decode_sharded's replicas, by (device, index among the mesh
+        # positions on that device)
+        self._replicas: dict[tuple[torch.device, int], LDPCDecoder] = {}
         self._parallel_factor = self._choose_parallel_factor()
 
     def _init_qc(self, qc: QCStructure, perm_v=None, perm_c=None) -> None:
@@ -387,16 +432,11 @@ class LDPCDecoder:
         self._node_shape = ((qct.n_vars // Z, Z), (qct.n_checks // Z, Z))
         vn_pos = qct.vn_pos.cpu().numpy()
         perm = _block_perm(vn_pos, Z)
-        self._block_perm = None
+        self._block_perm = self._pack_rows = None
         if perm is not None:
             self._block_perm = torch.from_numpy(perm).to(self.device)
-            self._pack = lambda bits: _pack_bits_natural(
-                bits, self._block_perm, self.n_words)
         else:  # gather rows: user variable u sits at sorted row vn_pos[u]
-            rows = qct.vn_pos.to(self.device)
-            self._pack = lambda bits: pack_rows(
-                bits.reshape(-1, bits.shape[-1]).index_select(0, rows),
-                self.n_words)
+            self._pack_rows = qct.vn_pos.to(self.device)
         self._vn_order_io = qct.vn_order.cpu().numpy()
         self._cn_order_io = qct.cn_order.cpu().numpy()
 
@@ -409,10 +449,19 @@ class LDPCDecoder:
         self._run_iterations = partial(run_iterations_general, **self._alg)
         self._run_burst = partial(burst_iterations_general, **self._alg)
         self._node_shape = ((t.n_vars,), (t.n_checks,))
-        self._pack = lambda bits: pack_rows(
-            bits.index_select(0, t.vn_pos), self.n_words)
+        self._block_perm = None
+        self._pack_rows = t.vn_pos
         self._vn_order_io = t.vn_order.cpu().numpy()
         self._cn_order_io = t.cn_order.cpu().numpy()
+
+    def _pack(self, bits: torch.Tensor) -> torch.Tensor:
+        """Hard bits [*node shape, n] in sorted order -> [n, n_words] int32
+        words in natural per-frame order: whole Z-blocks permuted where the
+        numbering is block-aligned, else a row gather."""
+        if self._block_perm is not None:
+            return _pack_bits_natural(bits, self._block_perm, self.n_words)
+        return pack_rows(bits.reshape(-1, bits.shape[-1]).index_select(
+            0, self._pack_rows), self.n_words)
 
     # ------------------------------------------------------------------
     def _device_memory(self) -> int:
@@ -468,6 +517,7 @@ class LDPCDecoder:
         mask = torch.from_numpy(erased_nat[self._vn_order_io])[:, None]
         self.tables = dataclasses.replace(
             self.tables, erased_mask_sorted=mask.to(self.device))
+        self._replicas = {}  # they hold the old tables
         self.code = dataclasses.replace(
             self.code, n_erased_vars=int(n_erased_inputs))
 
@@ -719,14 +769,43 @@ class LDPCDecoder:
         """k iterations, the parity flags' one host read, then retire the
         finished lanes (packing their bits into the results) and refill
         them from the pool; updates ``st`` in place."""
+        self._launch(st, k, pre)
+        self._finish(st, pool_values, pool_syn, max_iter, pre)
+
+    def _launch(self, st: _Lanes, k: int, pre: float) -> None:
+        """A superstep's first half: k iterations on the current stream, the
+        last one emitting hard decisions (kept in ``st.bits``), then the [B]
+        violated flags' copy to the host started: on the card into a pinned
+        buffer, asynchronously, behind the event ``st.flags_ready``, so
+        that the host can launch another replica's iterations before it
+        reads them (:meth:`_finish`)."""
+        extra = {"fresh": st.fresh} if self._lane_reset else {}
+        st.msgs, st.bits, violated = self._run_iterations(
+            st.msgs, st.llr, st.syn, self.tables, k, pre, **extra)
+        st.iters_done += k
+        if self.device.type != "cuda":
+            st.flags = violated
+            return
+        if st.flags is None:
+            st.flags = torch.empty(violated.shape, dtype=violated.dtype,
+                                   pin_memory=True)
+            st.flags_ready = torch.cuda.Event()
+        st.flags.copy_(violated, non_blocking=True)
+        st.flags_ready.record()
+
+    def _finish(self, st: _Lanes, pool_values, pool_syn, max_iter: int,
+                pre: float) -> None:
+        """A superstep's second half, on the stream of its :meth:`_launch`:
+        the flags' host read (the superstep's one wait), then retire the
+        finished lanes (packing their bits into the results) and refill
+        them from the pool; updates ``st`` in place."""
         t, dev = self.tables, self.device
         n_pool = st.iters_out.size
-        extra = {"fresh": st.fresh} if self._lane_reset else {}
-        st.msgs, bits, violated = self._run_iterations(
-            st.msgs, st.llr, st.syn, t, k, pre, **extra)
-        st.iters_done += k
-        viol = violated.cpu().numpy()  # the superstep's one host read
+        if st.flags_ready is not None:
+            st.flags_ready.synchronize()
+        viol = st.flags.numpy()
         done = st.active & (~viol | (st.iters_done >= max_iter))
+        bits, st.bits = st.bits, None
 
         if done.any():  # retire: pack the finished lanes' bits
             lanes = np.nonzero(done)[0]
@@ -754,8 +833,9 @@ class LDPCDecoder:
             if self._lane_reset:
                 st.fresh = torch.from_numpy(has_new).to(dev)
             else:  # the refilled lanes' messages start afresh now
-                st.msgs[0][:, lanes] = self._init_lanes(
-                    st.llr[:, lanes], t, self.msg_dtype, pre)
+                msgs = _as_bits(st.msgs[0])
+                msgs[:, lanes] = _as_bits(self._init_lanes(
+                    st.llr[:, lanes], t, self.msg_dtype, pre))
 
     def decode_presorted(
         self,
@@ -782,33 +862,14 @@ class LDPCDecoder:
         ready. ``progress``: called with the number of frames not yet
         retired after every superstep. ``input_is_llr``: the pool holds
         LLRs, not channel values (:meth:`decoding_input_is_llr`)."""
-        k = dyn_params.num_iter_check_parity
-        if k < 1:
-            raise ValueError(f"num_iter_check_parity must be >= 1, got {k}")
-        pre = pre_from_infinity_threshold(dyn_params.infinity_threshold)
-        burst = max(0, dyn_params.num_iter_first_check - k)
-
-        _sync(self.device)
-        t0 = time.perf_counter()
-        st = self._start(pool_values, pool_syn, n_vecs, pre, input_is_llr)
-        if host_poll:
-            _sync(self.device)
-            t0 = time.perf_counter()
-        if burst:
-            self._run_burst(st.msgs, st.llr, st.syn, self.tables, burst, pre)
-            st.iters_done += burst
-        supersteps = 0
-        while True:
-            self._superstep(st, pool_values, pool_syn, k,
-                            dyn_params.num_iter_max, pre)
-            supersteps += 1
-            n_remaining = st.n_remaining
-            if progress is not None:
-                progress(n_remaining)
-            if n_remaining == 0:
-                break
+        (st,), supersteps, t0 = self._lockstep(
+            [self], [(pool_values, pool_syn)], n_vecs, dyn_params,
+            input_is_llr=input_is_llr, host_poll=host_poll,
+            progress=progress)
         _sync(self.device)
         elapsed = time.perf_counter() - t0
+        k = dyn_params.num_iter_check_parity
+        burst = max(0, dyn_params.num_iter_first_check - k)
 
         stats = DecodeStats(
             iterations=st.iters_out,
@@ -820,6 +881,211 @@ class LDPCDecoder:
         if not fetch_results:
             return st.results, stats
         return st.results.cpu().numpy().view(np.uint32), stats
+
+    # ---- several devices ---------------------------------------------------
+    def decode_sharded(
+        self,
+        dyn_params: DynamicParams,
+        n_vecs: int,
+        values: np.ndarray,      # [n_vars, n_vecs] float32, natural order
+        syndromes: np.ndarray,   # [n_checks, n_vecs] 0/1, natural order
+        mesh,
+    ) -> tuple[np.ndarray, DecodeStats]:
+        """Decode with the frame pool dealt over ``mesh``'s positions (a
+        :class:`..parallel.mesh.BatchMesh` of this process), the JAX
+        decoder's ``decode_sharded`` in its arguments and return.
+
+        Frames are dealt round-robin (:func:`..parallel.mesh.deal`), padded
+        to a multiple of the mesh size with -1.0 frames, which decode at
+        their first check; each position refills its lanes only from its
+        own pool, so B lanes run on every position (``batch_size`` = B x
+        positions). One replica of this decoder runs each position, on its
+        device and its own streams (:meth:`_replica`, cached), and one host
+        loop drives them in lockstep while their remaining frames sum to
+        more than 0 (the JAX loop's psum). The libraries are loaded and the
+        pools uploaded before the clock, which then runs from the lanes'
+        first load to the results on the host. ``total_supersteps`` is the
+        loop's count, the JAX devices' maximum."""
+        if values.shape != (self.code.n_vars, n_vecs):
+            raise ValueError(f"values must be [{self.code.n_vars}, {n_vecs}]")
+        if syndromes.shape != (self.code.n_checks, n_vecs):
+            raise ValueError(
+                f"syndromes must be [{self.code.n_checks}, {n_vecs}]")
+        if len(mesh.local_positions()) != mesh.size:
+            raise ValueError("the mesh spans processes: use "
+                             "parallel.multiprocess.decode_multiprocess")
+        order = deal(n_vecs, mesh.size)
+        pools = []
+        for g, idx in enumerate(order):
+            # position g's frames g, g + n_dev, ... (a strided view), then
+            # its pads
+            n_real = int((idx < n_vecs).sum())
+            v = np.empty((self.code.n_vars, idx.size), np.float32)
+            s = np.empty((self.code.n_checks, idx.size), np.int8)
+            _copy_into(v[:, :n_real], values[:, g::mesh.size])
+            _copy_into(s[:, :n_real], syndromes[:, g::mesh.size])
+            v[:, n_real:], s[:, n_real:] = pad_frames(
+                self.code.n_vars, self.code.n_erased_vars, self.code.n_checks,
+                idx.size - n_real)
+            pools.append((v, s))
+        res, iters, supersteps, elapsed = self._decode_dealt(
+            mesh.devices, pools, dyn_params)
+        k = dyn_params.num_iter_check_parity
+        burst = max(0, dyn_params.num_iter_first_check - k)
+        return reassemble(res, order, n_vecs), DecodeStats(
+            iterations=reassemble(iters, order, n_vecs),
+            total_supersteps=supersteps,
+            total_iterations=supersteps * k + burst,
+            elapsed_seconds=elapsed,
+            batch_size=self._parallel_factor * mesh.size)
+
+    def _decode_dealt(self, devices, pools, dyn_params: DynamicParams,
+                      reduce=None, before_clock=None):
+        """Decode one host pool (values [n_vars, n], syndromes [n_checks,
+        n] in natural order, the same n for all) per device of ``devices``,
+        each on its replica, in lockstep (:meth:`_lockstep`, given
+        ``reduce`` and ``before_clock``) once every pool is on its device;
+        the clock stops with the results on the host. Returns (results [n,
+        n_words] uint32 per device, iterations [n] per device, supersteps,
+        seconds on the clock)."""
+        seen: dict[torch.device, int] = {}
+        reps = []
+        for d in devices:
+            d = canonical_device(d)
+            seen[d] = seen.get(d, 0) + 1
+            reps.append(self._replica(d, seen[d] - 1))
+        staged = []
+        for rep, (values, syndromes) in zip(reps, pools):
+            with rep._scope():
+                rep._load_libraries()
+                staged.append(rep.upload_pools(values, syndromes))
+        n = staged[0][0].shape[1] if staged else 0
+        states, supersteps, t0 = self._lockstep(
+            reps, staged, n, dyn_params, reduce=reduce,
+            before_clock=before_clock)
+        results = []
+        for rep, st in zip(reps, states):
+            with rep._scope():
+                results.append(st.results.cpu().numpy().view(np.uint32))
+        elapsed = time.perf_counter() - t0
+        return results, [st.iters_out for st in states], supersteps, elapsed
+
+    def _lockstep(self, reps, pools, n: int, dyn_params: DynamicParams,
+                  input_is_llr: bool = False, host_poll: bool = False,
+                  progress=None, reduce=None, before_clock=None):
+        """The decode loop, for this decoder alone and for its replicas:
+        ``reps[i]`` decodes ``pools[i]`` ((values, syndromes) of n frames on
+        its device, in the sorted layouts), this decoder on the current
+        stream and a replica in its own scope (:meth:`_scope`). After a
+        wait for every device and ``before_clock`` (or None; a barrier
+        across processes) the clock starts; with ``host_poll`` it restarts
+        after the lanes' first load and message init. Every superstep
+        launches the iterations of every decoder with frames left (a
+        drained one skips, which changes no result) before it reads any
+        decoder's flags; ``reduce`` (the sum across processes, or None)
+        turns their remaining frames into the loop's count, which
+        ``progress`` (or None) gets, and the loop ends when it is 0.
+        Returns (the lane states, supersteps, the clock's start)."""
+        k = dyn_params.num_iter_check_parity
+        if k < 1:
+            raise ValueError(f"num_iter_check_parity must be >= 1, got {k}")
+        pre = pre_from_infinity_threshold(dyn_params.infinity_threshold)
+        burst = max(0, dyn_params.num_iter_first_check - k)
+        scopes = [contextlib.nullcontext if rep is self else rep._scope
+                  for rep in reps]
+
+        def sync_all():
+            for rep, scope in zip(reps, scopes):
+                with scope():
+                    _sync(rep.device)
+
+        sync_all()
+        if before_clock is not None:
+            before_clock()
+        t0 = time.perf_counter()
+        states = []
+        for rep, scope, (pv, ps) in zip(reps, scopes, pools):
+            with scope():
+                states.append(rep._start(pv, ps, n, pre, input_is_llr))
+        if host_poll:
+            sync_all()
+            t0 = time.perf_counter()
+        if burst:
+            for rep, scope, st in zip(reps, scopes, states):
+                with scope():
+                    rep._run_burst(st.msgs, st.llr, st.syn, rep.tables,
+                                   burst, pre)
+                st.iters_done += burst
+        supersteps = 0
+        while True:
+            live = [i for i, st in enumerate(states) if st.n_remaining]
+            for i in live:
+                with scopes[i]():
+                    reps[i]._launch(states[i], k, pre)
+            for i in live:
+                with scopes[i]():
+                    reps[i]._finish(states[i], *pools[i],
+                                    dyn_params.num_iter_max, pre)
+            supersteps += 1
+            remaining = sum(st.n_remaining for st in states)
+            if reduce is not None:
+                remaining = reduce(remaining)
+            if progress is not None:
+                progress(remaining)
+            if remaining == 0:
+                break
+        return states, supersteps, t0
+
+    def _replica(self, device: torch.device, index: int) -> "LDPCDecoder":
+        """The decoder of the ``index``-th mesh position on ``device``: a
+        shallow copy of this one with its own streams, sharing the tables
+        (and the I/O and packing indices) of this decoder on its own device,
+        else a copy moved to ``device`` once and shared by that device's
+        replicas. Cached by (device, index)."""
+        key = (device, index)
+        rep = self._replicas.get(key)
+        if rep is not None:
+            return rep
+        rep = copy.copy(self)
+        rep._replicas, rep._streams = {}, None
+        if device != canonical_device(self.device):
+            twin = next((r for (d, _), r in self._replicas.items()
+                         if d == device), None)
+            for name in ("tables", "_io_orders", "_block_perm",
+                         "_pack_rows"):
+                value = getattr(twin, name) if twin is not None else \
+                    _on_device(getattr(self, name), device)
+                setattr(rep, name, value)
+            rep.device = device
+        self._replicas[key] = rep
+        return rep
+
+    def _scope(self):
+        """This decoder's device and compute stream made current (nothing
+        on the CPU)."""
+        if self.device.type != "cuda":
+            return contextlib.nullcontext()
+        scope = contextlib.ExitStack()
+        scope.enter_context(torch.cuda.device(self.device))
+        scope.enter_context(torch.cuda.stream(self._cuda_streams()[1]))
+        return scope
+
+    def _load_libraries(self) -> None:
+        """Load (building at first use) the kernel libraries this decoder
+        launches, so that no build falls inside a clock."""
+        if self.device.type != "cuda":
+            return
+        from ldpc_decoder_tpu_torch.ops import _kernels
+
+        if isinstance(self.tables, GeneralTables):
+            names = ["general"]
+        else:
+            names = ["qc_regular" if isinstance(self.tables, QCRegularTables)
+                     else "qc_grouped"]
+            if self.params.algorithm == "min-sum":
+                names.append("qc_minsum")
+        for name in names:
+            _kernels.load(name)
 
     def profile_phases(self, pool_values, pool_syn,
                        dyn_params: DynamicParams, n_vecs: int,

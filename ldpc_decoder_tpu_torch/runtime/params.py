@@ -35,9 +35,9 @@ class StaticParams:
     # exact lane count (None = memory model chooses a power of two capped
     # by max_log_parallel_factor_user); bypasses the memory model
     parallel_factor_user: int | None = None
-    # message storage dtype: "float32", "bfloat16", "float8_e5m2" (QC codes
-    # only; bfloat16 LLR state), or "int8" (fixed-point min-sum messages,
-    # see minsum_qscale)
+    # message storage dtype: "float32", "bfloat16", "float8_e5m2" (bfloat16
+    # LLR state), or "int8" (fixed-point min-sum messages, see
+    # minsum_qscale)
     message_dtype: str = "float32"
     # fraction of device memory kept free (ldpc_decoder_gpu.cu:84-88)
     memory_headroom: float = 0.10

@@ -58,24 +58,6 @@ def device_time_us(evt):
     return 0.0
 
 
-def busy_and_span_us(events):
-    """(busy, span) in microseconds over device events: the union of their
-    intervals, and last end minus first start."""
-    iv = sorted((e.time_range.start, e.time_range.end) for e in events
-                if e.device_type.name == "CUDA")
-    if not iv:
-        return 0.0, 0.0
-    busy, lo, hi = 0.0, iv[0][0], iv[0][1]
-    for a, b in iv[1:]:
-        if a > hi:
-            busy += hi - lo
-            lo, hi = a, b
-        else:
-            hi = max(hi, b)
-    busy += hi - lo
-    return busy, max(b for _, b in iv) - iv[0][0]
-
-
 def smi(query):
     return subprocess.run(
         ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
@@ -116,7 +98,7 @@ def profile_path(torch, label, dec, dyn, batch, n):
     # bench.py's metrics (chip_smoke.run_path), from the unprofiled decode
     bits = dec.code.n_vars
     itpv = stats_wall.iter_time_per_vector
-    busy_us, span_us = busy_and_span_us(prof.events())
+    busy_us, span_us = cs.busy_and_span_us(prof.events())
     elapsed_ms = stats.elapsed_seconds * 1e3
     out = {
         "path": label, "family": type(dec.tables).__name__,

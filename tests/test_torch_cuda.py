@@ -1536,13 +1536,13 @@ def test_streamed_copy_and_compute_streams_are_distinct(small_code,
     assert len(handles) == 3
     assert torch.cuda.default_stream(cuda_device).cuda_stream not in handles
     seen = set()
-    superstep = dec._superstep
+    launch = dec._launch
 
     def spy(*args, **kw):
         seen.add(torch.cuda.current_stream(cuda_device).cuda_stream)
-        return superstep(*args, **kw)
+        return launch(*args, **kw)
 
-    dec._superstep = spy
+    dec._launch = spy
     list(dec.decode_streamed(dyn, iter(chunks)))
     assert seen == {compute.cuda_stream}
 
@@ -1553,7 +1553,7 @@ def test_streamed_worker_failure_fails_the_consumer(small_code, cuda_device):
     reaches the consumer there, after the first chunk's words; nothing
     carries on, the worker is joined and the decoder still decodes."""
     dec, dyn, chunks, ref, edges = _stream_case(small_code, cuda_device)
-    superstep = dec._superstep
+    launch = dec._launch
     starts = []
     start = dec._start
 
@@ -1564,16 +1564,16 @@ def test_streamed_worker_failure_fails_the_consumer(small_code, cuda_device):
     def failing(*args, **kw):
         if len(starts) == 2:
             raise RuntimeError("injected worker failure")
-        return superstep(*args, **kw)
+        return launch(*args, **kw)
 
-    dec._start, dec._superstep = counting_start, failing
+    dec._start, dec._launch = counting_start, failing
     gen = dec.decode_streamed(dyn, iter(chunks), depth=2)
     res, _ = next(gen)
     np.testing.assert_array_equal(res, ref[:edges[1]])
     with pytest.raises(RuntimeError, match="injected worker failure"):
         next(gen)
     assert not _stream_threads()
-    dec._start, dec._superstep = start, superstep
+    dec._start, dec._launch = start, launch
     v, s = chunks[2]
     res, _ = dec.decode(dyn, v.shape[1], v, s)
     np.testing.assert_array_equal(res, ref[edges[2]:edges[3]])
@@ -1735,3 +1735,276 @@ def test_fp8_qualify_point_on_card_matches_cpu(small_code, cuda_device):
     assert pts[1]["bit_errors"] == 0
     assert abs(pts[0]["avg_iters"] - pts[1]["avg_iters"]) <= 14
     assert abs(pts[0]["max_iters"] - pts[1]["max_iters"]) <= 14
+
+
+# ---- float8_e5m2 on the general path ------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [64, B_GENERAL, 37])
+@pytest.mark.parametrize("phi", ["accurate", "fast"])
+def test_general_fp8_kernels_match_plain(cuda_device, phi, B):
+    """The general sum-product kernels' float8_e5m2 instantiations (a
+    bfloat16 llr) against the plain passes, at B = 64 and 40 (the vector
+    instantiations) and the ragged B = 37 (one lane), with and without
+    emit, on a state whose large messages make signed zeros (φ of a large
+    input rounds to ±0 in e5m2): signs exact, ±0 included; the accurate-φ
+    kernels by _fp8_close, the fast ones by the fast rule; hard bits exact.
+    Launches counted under the _fp8 names and no other."""
+    from ldpc_decoder_tpu_torch.ops import _kernels
+
+    t, st = _general_state(cuda_device, FP8, 12, B)
+    big = torch.from_numpy(np.random.default_rng(13).random(
+        st["mv"].shape) < 0.2).to(cuda_device)
+    st["mv"] = torch.where(big, st["mv"].float() * 16, st["mv"].float()).to(
+        FP8)
+    held = _fp8_close if phi == "accurate" else functools.partial(
+        perf.compare_msgs_fast, "general fp8 fast")
+    before = dict(_kernels.launch_counts)
+    rk = G.cn_pass_general(st["mv"], st["syn"], torch.empty_like(st["rc"]), t,
+                           _phi=phi)
+    rp = G.cn_pass_general_plain(st["mv"], st["syn"],
+                                 torch.empty_like(st["rc"]), t)
+    held(rk, rp)
+    zeros = (rk.view(torch.uint8) & 0x7F) == 0
+    assert zeros.any() and (rk.view(torch.uint8)[zeros] == 0x80).any()
+    for emit in (False, True):
+        bk = torch.full((t.n_vars, B), -1, dtype=torch.int8,
+                        device=cuda_device)
+        bp = bk.clone()
+        mk = G.vn_pass_general(st["rc"], st["llr"],
+                               torch.empty_like(st["mv"]), t,
+                               bits=bk if emit else None, _phi=phi)
+        mp = G.vn_pass_general_plain(st["rc"], st["llr"],
+                                     torch.empty_like(st["mv"]), t,
+                                     bits=bp if emit else None)
+        held(mk, mp)
+        assert torch.equal(bk, bp)
+    torch.cuda.synchronize()
+    counts = {n: _kernels.launch_counts[n] - before[n] for n in (
+        "cn_general_fp8", "vn_general_fp8", "cn_general", "vn_general")}
+    assert counts == {"cn_general_fp8": len(t.cn_buckets),
+                      "vn_general_fp8": 2 * len(t.vn_buckets),
+                      "cn_general": 0, "vn_general": 0}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", sorted(MINSUM_LAYOUTS))
+def test_general_fp8_minsum_kernels_match_plain(cuda_device, layout):
+    """The general min-sum kernels' float8_e5m2 instantiations, bitwise,
+    with a per-degree α table, an offset (zeros of both signs among the
+    outputs) and degree-1 variables and checks, at each layout of
+    MINSUM_LAYOUTS; launches counted under the _fp8 names, the check
+    kernel's vector ones again under cn_general_minsum_fp8_vec."""
+    from ldpc_decoder_tpu_torch.ops import _kernels
+
+    nb, offset = MINSUM_LAYOUTS[layout]
+    t, st = _general_state(cuda_device, FP8, 14, nb)
+    rng = np.random.default_rng(15)
+    st["mv"] = _msgs(rng, st["mv"].shape, FP8, cuda_device)
+    st["rc"] = _msgs(rng, st["rc"].shape, FP8, cuda_device)
+    if offset:
+        st["mv"] = _at_odd_offset(st["mv"])
+    alpha = ((1, 0.5), (5, 0.9), (0, 0.75))
+    before = dict(_kernels.launch_counts)
+    rk = G.cn_pass_general_minsum(st["mv"], st["syn"],
+                                  torch.empty_like(st["rc"]), t, alpha, 0.25)
+    rp = G.cn_pass_general_minsum_plain(st["mv"], st["syn"],
+                                        torch.empty_like(st["rc"]), t,
+                                        alpha, 0.25)
+    assert _same_bits(rk, rp)
+    assert (rk.view(torch.uint8) == 0x80).any()
+    for emit in (False, True):
+        bk = torch.full((t.n_vars, nb), -1, dtype=torch.int8,
+                        device=cuda_device)
+        bp = bk.clone()
+        mk = G.vn_pass_general_minsum(st["rc"], st["llr"],
+                                      torch.empty_like(st["rc"]), t, 20.0,
+                                      bits=bk if emit else None)
+        mp = G.vn_pass_general_minsum_plain(st["rc"], st["llr"],
+                                            torch.empty_like(st["rc"]), t,
+                                            20.0, bits=bp if emit else None)
+        assert _same_bits(mk, mp)
+        assert torch.equal(bk, bp)
+    torch.cuda.synchronize()
+    counts = {n: _kernels.launch_counts[n] - before[n] for n in (
+        "cn_general_minsum_fp8", "cn_general_minsum_fp8_vec",
+        "vn_general_minsum_fp8", "cn_general_minsum", "vn_general_minsum")}
+    n_cn = len(t.cn_buckets)
+    assert counts == {
+        "cn_general_minsum_fp8": n_cn,
+        "cn_general_minsum_fp8_vec": n_cn if _minsum_vector(layout, FP8)
+        else 0,
+        "vn_general_minsum_fp8": 2 * len(t.vn_buckets),
+        "cn_general_minsum": 0, "vn_general_minsum": 0}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("alg", ["sum-product", "min-sum"])
+def test_general_fp8_decode_on_card_matches_cpu(cuda_device, alg,
+                                                monkeypatch):
+    """A float8_e5m2 decode of a small non-QC (3,6) code, by the rule of
+    test_general_decode_on_card_matches_cpu: the kernels on the card
+    (sum-product on the accurate φ, bound onto the passes the runners
+    call) against the plain passes on the CPU, equal words and per-frame
+    iterations; then sum-product on the fast kernels, the decoder's: every
+    frame the CPU decodes to the reference bits decodes to the same bits,
+    the average iterations within 5. Only float8 general kernels launch."""
+    from ldpc_decoder_tpu_torch.ops import _kernels
+
+    code = make_regular_code(512, 3, 6, seed=21)
+    ch = BIAWGNChannel(0.72)
+    n = 3 * 32 + 8
+    batch = create_data(code, ch, 0, n, backend="numpy")
+    dyn = DynamicParams(num_iter_max=60, num_iter_check_parity=5)
+
+    def decode(dev):
+        dec = LDPCDecoder(code, ch, StaticParams(
+            parallel_factor_user=32, qc_autodetect=False,
+            message_dtype="float8_e5m2", algorithm=alg), device=dev)
+        assert isinstance(dec.tables, G.GeneralTables)
+        return dec.decode(dyn, n, batch.values, batch.syndromes)
+
+    res_c, st_c = decode("cpu")
+    _kernels.reset_launch_counts()
+    with monkeypatch.context() as m:
+        if alg == "sum-product":
+            for name in ("cn_pass_general", "vn_pass_general"):
+                m.setattr(G, name, functools.partial(getattr(G, name),
+                                                     _phi="accurate"))
+        res_g, st_g = decode(cuda_device)
+    launched = {k for k, v in _kernels.launch_counts.items() if v}
+    want = ({"cn_general_fp8", "vn_general_fp8", "phi_accurate"}
+            if alg == "sum-product" else
+            {"cn_general_minsum_fp8", "vn_general_minsum_fp8",
+             "cn_general_minsum_fp8_vec"})
+    assert launched == want, launched
+    np.testing.assert_array_equal(res_g, res_c)
+    np.testing.assert_array_equal(st_g.iterations, st_c.iterations)
+    ref = batch.ref_bits_packed()
+    assert (res_g == ref).all()
+    if alg == "min-sum":
+        return
+    res_f, st_f = decode(cuda_device)
+    good = (res_c == ref).all(axis=1)
+    np.testing.assert_array_equal(res_f[good], res_c[good])
+    assert abs(st_f.avg_iter - st_c.avg_iter) <= 5
+
+
+# ---- several devices: replicas of one card and gloo processes -----------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family", ["grouped", "general"])
+def test_decode_sharded_on_card_matches_replica_decodes(small_code,
+                                                        cuda_device, family):
+    """``decode_sharded`` on a mesh of two replicas of the card: each
+    position's words and per-frame iterations equal a ``decode()`` of its
+    dealt frames, 0 bit errors; the replicas run on distinct streams."""
+    from ldpc_decoder_tpu_torch.parallel.mesh import BatchMesh, deal
+
+    if family == "grouped":
+        (code, s), kw = small_code, dict(message_dtype="bfloat16")
+    else:
+        code, s = make_regular_code(512, 3, 6, seed=21), None
+        kw = dict(message_dtype="bfloat16", qc_autodetect=False)
+    ch = BIAWGNChannel(0.7)
+    n = 2 * 3 * 32 + 5
+    batch = create_data(code, ch, 0, n, backend="numpy")
+    dyn = DynamicParams(num_iter_max=60, num_iter_check_parity=5)
+    dec = LDPCDecoder(code, ch, StaticParams(parallel_factor_user=32, **kw),
+                      qc=s, device=cuda_device)
+    mesh = BatchMesh((cuda_device, cuda_device))
+    res, st = dec.decode_sharded(dyn, n, batch.values, batch.syndromes, mesh)
+    assert st.batch_size == 64
+    if family == "general":
+        assert (res == batch.ref_bits_packed()).all()
+    for idx in deal(n, 2):
+        real = idx[idx < n]
+        r, s_ = dec.decode(dyn, real.size,
+                           np.ascontiguousarray(batch.values[:, real]),
+                           np.ascontiguousarray(batch.syndromes[:, real]))
+        np.testing.assert_array_equal(res[real], r)
+        np.testing.assert_array_equal(st.iterations[real], s_.iterations)
+    reps = [dec._replica(mesh.devices[0], i) for i in range(2)]
+    streams = [rep._cuda_streams() for rep in reps]
+    assert len({x.cuda_stream for pair in streams for x in pair}) == 6
+    assert reps[0].tables is reps[1].tables is dec.tables
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("built_on", ["cuda", "cpu"])
+@pytest.mark.parametrize("family", ["grouped", "general"])
+def test_decode_sharded_on_mixed_mesh(small_code, cuda_device, family,
+                                      built_on):
+    """``decode_sharded`` on a mesh of the CPU and the card, by a decoder
+    built on either: the position on the other device runs a replica whose
+    tables and indices were moved there. Each position's words and
+    per-frame iterations equal a ``decode()`` of its dealt frames by a
+    decoder built on that position's device."""
+    from ldpc_decoder_tpu_torch.parallel.mesh import BatchMesh, deal
+
+    if family == "grouped":
+        (code, s), kw = small_code, dict(message_dtype="bfloat16")
+    else:
+        code, s = make_regular_code(512, 3, 6, seed=21), None
+        kw = dict(message_dtype="bfloat16", qc_autodetect=False)
+    ch = BIAWGNChannel(0.7)
+    n = 2 * 2 * 32 + 5
+    batch = create_data(code, ch, 0, n, backend="numpy")
+    dyn = DynamicParams(num_iter_max=60, num_iter_check_parity=5)
+    on = {kind: LDPCDecoder(code, ch, StaticParams(parallel_factor_user=32,
+                                                   **kw),
+                            qc=s, device=device)
+          for kind, device in (("cpu", "cpu"), ("cuda", cuda_device))}
+    dec = on[built_on]
+    mesh = BatchMesh(("cpu", cuda_device))
+    res, st = dec.decode_sharded(dyn, n, batch.values, batch.syndromes, mesh)
+    assert st.batch_size == 64
+    for device, idx in zip(mesh.devices, deal(n, 2)):
+        real = idx[idx < n]
+        r, s_ = on[device.type].decode(
+            dyn, real.size, np.ascontiguousarray(batch.values[:, real]),
+            np.ascontiguousarray(batch.syndromes[:, real]))
+        np.testing.assert_array_equal(res[real], r)
+        np.testing.assert_array_equal(st.iterations[real], s_.iterations)
+    moved = dec._replica(next(d for d in mesh.devices
+                              if d.type != built_on), 0)
+    assert moved.device.type != built_on
+    for x in (moved.tables.vn_pos, *moved._io_orders, moved._block_perm,
+              moved._pack_rows):
+        assert x is None or x.device.type == moved.device.type
+
+
+@pytest.mark.cuda
+def test_multiprocess_on_card(cuda_device, tmp_path):
+    """Two gloo processes, each one replica of cuda:0, against a
+    one-process ``decode_multiprocess`` on a mesh of two replicas of it:
+    the same words, frame ids and statistics, 0 bit errors."""
+    import json
+
+    from ldpc_decoder_tpu_torch.parallel import dryrun
+    from ldpc_decoder_tpu_torch.parallel import multiprocess as mp
+    from ldpc_decoder_tpu_torch.parallel.mesh import BatchMesh
+
+    args = ["--code", "small", "--sigma", "0.7", "--lanes", "32", "--dtype",
+            "bfloat16", "--k", "5", "--max-iter", "40", "--frames", "133"]
+    outs = dryrun.spawn_workers(2, ["--devices", "cuda:0", "--out",
+                                    str(tmp_path / "rank{rank}.npz"), *args],
+                                timeout=300)
+    parsed = mp.worker_parser().parse_args(
+        ["--worker", "--init-method", "unused", "--world-size", "1",
+         "--rank", "0", *args])
+    dec = mp.worker_decoder(parsed, cuda_device)
+    res, ids, stats = mp.decode_multiprocess(
+        dec, mp.worker_dyn(parsed), 133,
+        mesh=BatchMesh((cuda_device, cuda_device)))
+    assert stats.bit_errors == 0 and stats.total_supersteps > 2
+    for r in range(2):
+        assert f"MP_OK rank={r} errors=0" in outs[r], outs[r][-2000:]
+        z = np.load(tmp_path / f"rank{r}.npz")
+        np.testing.assert_array_equal(z["results"][0], res[r])
+        np.testing.assert_array_equal(z["ids"][0], ids[r])
+        got = json.loads(str(z["stats"]))
+        for name in ("min_iter", "max_iter", "avg_iter", "bit_errors",
+                     "frames_with_errors", "frames_above_target",
+                     "max_frame_errors", "total_supersteps", "batch_size"):
+            assert got[name] == getattr(stats, name), name

@@ -105,9 +105,11 @@ def test_general_lanes_follow_alignment():
 def test_general_sources_split_by_policy():
     """The general library compiles its fast and accurate instantiations
     in two sources, in parallel (beside a third, the min-sum check
-    kernel's), and its kernels' header is hashed into every build key."""
+    kernel's, and a fourth, every float8_e5m2 instantiation), and its
+    kernels' header is hashed into every build key."""
     assert [Path(f).name for f in _kernels.SOURCES["general"]] == [
-        "general.cu", "general_accurate.cu", "general_minsum.cu"]
+        "general.cu", "general_accurate.cu", "general_minsum.cu",
+        "general_fp8.cu"]
     assert "general.cuh" in {Path(h).name for h in _kernels.HEADERS}
     for name in ("general.cu", "general_accurate.cu"):
         assert '#include "general.cuh"' in (CSRC / name).read_text(), name

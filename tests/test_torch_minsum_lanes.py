@@ -305,7 +305,7 @@ def test_minsum_sources_and_signatures():
              for lib, srcs in _kernels.SOURCES.items()}
     assert names["qc_minsum"] == ["qc_minsum.cu", "qc_minsum_cn.cu"]
     assert names["general"] == ["general.cu", "general_accurate.cu",
-                                "general_minsum.cu"]
+                                "general_minsum.cu", "general_fp8.cu"]
     for src in ("qc_minsum_cn.cu", "general_minsum.cu"):
         text = (CSRC / src).read_text()
         assert '#include "minsum.cuh"' in text, src

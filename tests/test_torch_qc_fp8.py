@@ -47,6 +47,7 @@ from ldpc_decoder_tpu.runtime.decoder import (  # noqa: E402
 )
 
 from ldpc_decoder_tpu_torch.channels import BIAWGNChannel  # noqa: E402
+from ldpc_decoder_tpu_torch.codes.compiled import compile_code  # noqa: E402
 from ldpc_decoder_tpu_torch.codes.generate import make_regular_code  # noqa: E402
 from ldpc_decoder_tpu_torch.codes.protographs import p41_code  # noqa: E402
 from ldpc_decoder_tpu_torch.codes.qc import make_qc_code  # noqa: E402
@@ -490,19 +491,32 @@ def test_decode_fp8_matches_jax(case):
 
 
 def test_fp8_without_qc_structure_raises():
-    """The general path has no float8_e5m2 kernels: an explicit refusal,
-    never a fallback; detection still runs first."""
+    """A code without QC structure takes the general path's float8_e5m2
+    kernels (before they existed this raised NotImplementedError): never a
+    fallback to another dtype or family; detection still runs first, and
+    ``qc_autodetect=False`` keeps a QC code on the general path. A dtype the
+    general passes do not take still raises."""
+    from ldpc_decoder_tpu_torch.ops import general as G
+
+    fp8 = torch.float8_e5m2
     code = make_regular_code(256, 3, 6, seed=7)
-    with pytest.raises(NotImplementedError, match="float8_e5m2"):
-        LDPCDecoder(code, BIAWGNChannel(0.8),
-                    StaticParams(message_dtype="float8_e5m2"), device="cpu")
+    dec = LDPCDecoder(code, BIAWGNChannel(0.8), StaticParams(
+        message_dtype="float8_e5m2", parallel_factor_user=8), device="cpu")
+    assert isinstance(dec.tables, G.GeneralTables)
+    assert dec.msg_dtype == fp8 and dec._llr_dtype == torch.bfloat16
     qcode, _ = make_qc_code(np.ones((3, 6), np.int8), Z=64, seed=2)
-    with pytest.raises(NotImplementedError, match="float8_e5m2"):
-        LDPCDecoder(qcode, BIAWGNChannel(0.8), StaticParams(
-            message_dtype="float8_e5m2", qc_autodetect=False), device="cpu")
+    dec = LDPCDecoder(qcode, BIAWGNChannel(0.8), StaticParams(
+        message_dtype="float8_e5m2", qc_autodetect=False,
+        parallel_factor_user=8), device="cpu")
+    assert isinstance(dec.tables, G.GeneralTables) and dec.msg_dtype == fp8
     dec = LDPCDecoder(qcode, BIAWGNChannel(0.8), StaticParams(
         message_dtype="float8_e5m2", parallel_factor_user=8), device="cpu")
     assert isinstance(dec.tables, qr.QCRegularTables)  # detected
+    t = G.GeneralTables.from_compiled(compile_code(code), "cpu")
+    m = torch.zeros((t.n_edges, 4), dtype=torch.float16)
+    with pytest.raises(ValueError, match="dtype"):
+        G.cn_pass_general(m, torch.zeros((t.n_checks, 4), dtype=torch.int8),
+                          torch.empty_like(m), t)
 
 
 def test_lane_model_counts_fp8_as_one_byte(regular):
