@@ -266,7 +266,23 @@ Phases:
     the card's name and power limit; then two processes, each one replica
     of the card, under gloo: decode_multiprocess on reg36 at sigma 0.87,
     512 frames, their words, frame ids and statistics equal to a
-    one-process decode_multiprocess on a mesh of two replicas, 0 errors.
+    one-process decode_multiprocess on a mesh of two replicas, 0 errors;
+40. code design on the card: scripts/design_code_torch.py's main in
+    process (rate 0.5, n = 2^20, lift seed 3, --measure, 512 frames) with
+    its cache in a temporary directory: the recorded 4x7/1p optimum lifted
+    onto the coarse-1024 lattice (m = 3, Z = 57,344, n = 1,204,224 of which
+    172,032 punctured), its measure at sigma_op = 0.939 and its waterfall
+    at 0.939 and 0.949, each through the grouped kernels (launch counts
+    checked, no other kernel); a second measure_point of the seed gives
+    the same words and per-frame iterations; at sigma_op every frame is
+    counted and no frame passes its budget (120 iterations, rounded up to
+    the check period: 126). FER(>0), FER(>15), BER,
+    iterations and the decoding Mb/s are printed with the card's name and
+    power limit, recorded, not gated (no JAX record exists for this lift).
+    Then the grouped kernels against their plain versions at this lift's
+    shape (256 host frames, by phase 5's rules, timed), and the control:
+    the same base prelifted x8 at the same n (Z = 21,504) through the same
+    measure at sigma_op, FER 0 required.
 
 Every phase must pass: any failure raises, and the script exits nonzero
 without its result line. The last line of stdout is the result object; the
@@ -278,7 +294,10 @@ parity entries with their one-lane instantiation's time as
 ``slice_ms``; the regular sum-product and parity entries with phase 34's
 rate-0.9 times as ``rate09_ms``, ``rate09_accurate_ms``,
 ``rate09_one_lane_ms``, ``rate09_plain_ms``, ``rate09_bound_ms`` and
-their launches per rate-0.9 decode as ``rate09_launches``; the pool
+their launches per rate-0.9 decode as ``rate09_launches``; the grouped
+entries with phase 40's times at the designed lift as ``design_ms``,
+``design_accurate_ms``, ``design_plain_ms``, ``design_bound_ms`` and the
+launches of its design run as ``design_launches``; the pool
 kernels with p41 x 512 BI-AWGN as ``ms``, the
 64-frame chunk as ``chunk_ms`` (its bound ``chunk_bound_ms``), D2's issue
 bound as ``issue_bound_ms`` (``chunk_issue_bound_ms``) beside the integer
@@ -382,6 +401,13 @@ ITER_TOL_CLEAN = 0.1
 EVAL_Z = 2048
 EVAL_FRAMES = 256
 EVAL_SIGMAS = (0.92, 0.93, 0.94)
+# phase 40: scripts/design_code_torch.py's command line (the recorded 4x7/1p
+# optimum at rate 0.5, n = 2^20, one lift seed) and the lift it must give
+DESIGN_FRAMES = 512
+DESIGN_ARGV = ["--rate", "0.5", "--n", "1048576", "--measure", "--seeds", "3",
+               "--frames", str(DESIGN_FRAMES)]
+DESIGN_LIFT = {"n_vars": 1_204_224, "n_erased_vars": 172_032, "Z": 57_344,
+               "m": 3}
 # the small QC code of the CLI's subprocess run (git-ignored cache)
 CLI_SMALL_ALIST = os.path.join(REPO, "codes_cache", "cli_qc36_z128.alist")
 # phase 39: p41 on a mesh of two replicas of the card, B lanes each; the
@@ -1199,9 +1225,9 @@ def parity_block(torch, family, t, emitted, syn, ref, n_bytes, label,
     return r
 
 
-def phase_kernels(torch, np, dev, code, s, batch):
+def phase_kernels(torch, np, dev, code, s, batch, name="p41"):
     """Grouped kernels (both phi policies) vs plain at the p41 path's
-    shapes on a real decode state."""
+    shapes (or code ``name``'s) on a real decode state."""
     from ldpc_decoder_tpu_torch.channels import BIAWGNChannel
     from ldpc_decoder_tpu_torch.ops import qc_grouped as qg
     from ldpc_decoder_tpu_torch.ops.qc_decode import QCDecodeTables
@@ -1217,7 +1243,7 @@ def phase_kernels(torch, np, dev, code, s, batch):
     fresh = torch.zeros(B, dtype=torch.bool, device=dev)
     fresh[::5] = True
     rk, emitted, err = sum_product_policies(torch, "grouped", mv, rc, llr,
-                                            syn, t, fresh, "p41, bf16")
+                                            syn, t, fresh, f"{name}, bf16")
     out = {"cn": dict(max_abs_err=err["cn"]), "vn": dict(
         max_abs_err=err["vn"])}
     passes = perf.grouped_bytes(t, B, 2, 2)  # bf16 messages and llr
@@ -1225,7 +1251,7 @@ def phase_kernels(torch, np, dev, code, s, batch):
     # skipped
     blocks = sum(g.count * g.degree for g in t.col_groups if g.degree > 1)
     mk = mv.clone()
-    label = f"p41, B = {B}, bf16"
+    label = f"{name}, B = {B}, bf16"
     time_policies(out, "cn", lambda phi: qg.cn_pass_grouped(
         mv, syn, rk, t, _phi=phi), lambda: qg.cn_pass_plain(mv, syn, rk, t),
         passes["cn"], OPS_PER_MESSAGE * t.nb * t.Z * B, label)
@@ -2906,6 +2932,124 @@ def design_phase(torch, dev, code36, s36, batch36, smi):
         "card": smi}}))
 
 
+def design_code_phase(torch, np, dev, smi):
+    """Phase 40: scripts/design_code_torch.py's main in process on the card
+    (DESIGN_ARGV, its cache in a temporary directory), each measure_point
+    recorded; the lift, the tables, the launches (counts reset just before
+    main, read just after), a repeat of the seed's measure and the points
+    checked; the grouped kernels held to plain at the lift's shape; the m =
+    8 control; the figures printed with the card's name and power limit.
+    Returns the kernels' design_* keys for the kernels line."""
+    import io
+    import tempfile
+
+    from ldpc_decoder_tpu_torch.codes.qc import read_alist_params
+    from ldpc_decoder_tpu_torch.ops import _kernels
+
+    dc = load_script("design_code_torch")
+    measure, calls = dc.measure_point, []
+
+    def recorded(code, qc, sigma, frames, device, check_period=14):
+        rec = measure(code, qc, sigma, frames, device, check_period)
+        calls.append((code, qc, sigma, frames, rec))
+        return rec
+    dc.measure_point = recorded
+    out = io.StringIO()
+    with tempfile.TemporaryDirectory() as cache:
+        dc.CACHE = cache
+        t0 = time.perf_counter()
+        _kernels.reset_launch_counts()
+        with contextlib.redirect_stdout(out):
+            rc = dc.main(DESIGN_ARGV)
+        torch.cuda.synchronize()
+        launches = dict(_kernels.launch_counts)
+        wall = time.perf_counter() - t0
+        for line in out.getvalue().splitlines():
+            log(f"  {line}")
+        assert rc == 0, rc
+        summary = json.loads(out.getvalue().strip().splitlines()[-1])
+        params = read_alist_params(summary["final_alist"])
+    check_launches("design_code", launches, GROUPED)
+    code, qc, sigma_op, frames, rec = calls[0]
+    lift = {"n_vars": code.n_vars, "n_erased_vars": code.n_erased_vars,
+            "Z": qc.Z, "m": int(params["m"])}
+    assert lift == DESIGN_LIFT, lift
+    assert int(params["Z"]) == qc.Z
+    assert [c[2] for c in calls] == [sigma_op, sigma_op,
+                                     summary["threshold_target"]]
+    assert all(c[4]["tables"] == "GroupedQCTables" for c in calls)
+    # a frame that has not converged retires at the first parity check at
+    # or past 120 iterations (126 at k = 14), in JAX as here
+    budget = -(-120 // 14) * 14
+    assert rec["n"] == frames == DESIGN_FRAMES, rec["n"]
+    assert rec["max_iters"] <= budget, rec["max_iters"]
+    assert len(rec["iterations"]) == len(rec["errors"]) == rec["n"]
+    # frames with errors whose parity checks passed before the budget:
+    # decoded to another codeword
+    wrong = (rec["errors"] > 0) & (rec["iterations"] < budget)
+    t1 = time.perf_counter()
+    again = measure(code, qc, sigma_op, frames, dev)
+    repeat_s = time.perf_counter() - t1
+    assert torch.equal(again["results"], rec["results"])
+    assert (again["iterations"] == rec["iterations"]).all()
+
+    # the grouped kernels against their plain versions at this lift's
+    # shape, on 256 host frames at sigma_op
+    from ldpc_decoder_tpu_torch import native
+    from ldpc_decoder_tpu_torch.channels import BIAWGNChannel
+    from ldpc_decoder_tpu_torch.codes.protographs import (
+        make_protograph_code_two_stage,
+    )
+    from ldpc_decoder_tpu_torch.runtime.datagen import create_data
+
+    batch = create_data(code, BIAWGNChannel(sigma_op), 0, 256,
+                        backend="native" if native.available() else "numpy")
+    kernels = phase_kernels(torch, np, dev, code, qc, batch,
+                            name="designed m = 3")
+    del batch
+    torch.cuda.empty_cache()
+    # the control: the same base prelifted x8 (docs/DESIGNING_CODES.md
+    # section 2, p41's m) at the same n by design_code's Z rule, through
+    # the same measure; FER 0 required at sigma_op
+    base = np.asarray(summary["base"])
+    C, coarse = base.shape[1], int(params["coarse"])
+    code8, qc8 = make_protograph_code_two_stage(
+        base, (C - 1,), m=8, Z=code.n_vars // (C * 8) // coarse * coarse,
+        seed=int(params["seed"]), coarse=coarse,
+        fine_mod=int(params["fine_mod"]))
+    control = measure(code8, qc8, sigma_op, frames, dev)
+    assert control["tables"] == "GroupedQCTables"
+    assert control["fer1"] == 0.0 and control["n"] == frames, control["fer1"]
+    keys = ("fer1", "fer15", "ber", "avg_iters", "max_iters", "min_iters",
+            "itpv", "elapsed", "B", "n", "mbps")
+    log(json.dumps({"design_code": {
+        "argv": DESIGN_ARGV, "base": summary["base"], "lift": lift,
+        "edges": int(qc.edge_row.size) * qc.Z,
+        "sigma_op": sigma_op, "seed_mbps": rec["mbps"],
+        "points": [{"sigma": c[2], **{k: c[4][k] for k in keys}}
+                   for c in calls],
+        "wrong_codewords": {
+            "frames": int(wrong.sum()),
+            "bit_errors": sorted(rec["errors"][wrong].tolist()),
+            "iterations": sorted(rec["iterations"][wrong].tolist())},
+        "repeat": {k: again[k] for k in keys},
+        "launches": {k: launches[k] for k in GROUPED},
+        "control_m8": {"n_vars": code8.n_vars, "Z": qc8.Z,
+                       **{k: control[k] for k in keys}},
+        "wall_s": wall, "repeat_s": repeat_s,
+        "phase_s": time.perf_counter() - t0, "card": smi}}))
+    # the kernels' times at this lift, keyed design_* on the grouped
+    # entries of the kernels line; launches over the design run's decodes
+    return {name: {"design_ms": r["ms"], "design_plain_ms": r["plain_ms"],
+                   "design_bound_ms": r["bound"][0],
+                   "design_bound_by": r["bound"][1],
+                   "design_max_abs_err": r["max_abs_err"],
+                   "design_launches": launches[name],
+                   **({"design_accurate_ms": r["accurate_ms"]}
+                      if "accurate_ms" in r else {})}
+            for name, r in kernels.items()}
+
+
 def phase_general_fp8_kernels(torch, np, dev, cc, batch):
     """Phase 37: the general kernels' float8_e5m2 instantiations
     (csrc/general_fp8.cu) against their plain versions at the general
@@ -3608,6 +3752,11 @@ def main():
     multi_device_phase(torch, np, dev, code, s, batch, smi)
     del batch
     torch.cuda.empty_cache()
+
+    phase(40, "code design on the card: design_code_torch --measure")
+    for name, rec in design_code_phase(torch, np, dev, smi).items():
+        timings[name].update(rec)
+    torch.cuda.empty_cache()
     log(f"  all phases passed in {time.perf_counter() - t_all:.1f} s")
 
     launches.update({name: launches36[name] for name in REGULAR})
@@ -3633,8 +3782,10 @@ def main():
                       "slice_ms"):
             if extra in r:
                 entry[extra] = r[extra]
-        # phase 34's times at the rate-0.9 code's d_c = 30
-        entry.update({k: v for k, v in r.items() if k.startswith("rate09_")})
+        # phase 34's times at the rate-0.9 code's d_c = 30, phase 40's at
+        # the designed lift
+        entry.update({k: v for k, v in r.items()
+                      if k.startswith(("rate09_", "design_"))})
         kernels.append(entry)
     for name, rep in DATAGEN_KERNELS:
         r = timings[name]

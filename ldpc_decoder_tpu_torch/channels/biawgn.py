@@ -63,3 +63,18 @@ class BIAWGNChannel(Channel):
             f"Binary channel with Gaussian noise of std. deviation "
             f"{self.sigma:g}; SNR = {self.snr:g}"
         )
+
+
+def shannon_sigma(rate: float, tol: float = 1e-4) -> float:
+    """The Shannon-limit noise std for a given code rate on BI-AWGN:
+    the sigma where biawgn_capacity(sigma) == rate (bisection)."""
+    if not 0.0 < rate < 1.0:
+        raise ValueError("rate must be in (0, 1)")
+    lo, hi = 1e-3, 16.0
+    while hi - lo > tol:
+        mid = 0.5 * (lo + hi)
+        if biawgn_capacity(mid) > rate:
+            lo = mid
+        else:
+            hi = mid
+    return 0.5 * (lo + hi)

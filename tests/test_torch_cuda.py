@@ -2008,3 +2008,85 @@ def test_multiprocess_on_card(cuda_device, tmp_path):
                      "frames_with_errors", "frames_above_target",
                      "max_frame_errors", "total_supersteps", "batch_size"):
             assert got[name] == getattr(stats, name), name
+
+
+# ---- the code-design search ---------------------------------------------------
+
+def _design_code(monkeypatch, cache):
+    """scripts/design_code_torch.py as a module, its cache in ``cache``."""
+    import importlib.util
+    import os
+
+    path = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
+        __file__))), "scripts", "design_code_torch.py")
+    spec = importlib.util.spec_from_file_location("design_code_torch", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    monkeypatch.setattr(mod, "CACHE", str(cache))
+    return mod
+
+
+# the recorded 4x7/1p optimum lifted at n = 4096 (m = 3, Z = 192), its
+# threshold target 0.8: operating point 0.79
+DESIGN_SMALL = ["--rate", "0.5", "--n", "4096", "--coarse", "64",
+                "--fine-mod", "8", "--threshold", "0.8"]
+
+
+@pytest.mark.cuda
+def test_measure_point_on_card_matches_cpu(cuda_device, tmp_path,
+                                           monkeypatch):
+    """design_code_torch's measure_point on its small lift at sigma 0.79,
+    64 frames: the card (the grouped kernels, no plain pass) against the
+    plain passes on the CPU by the fast-phi decode rule of
+    test_general_decode_on_card_matches_cpu (every frame decodes on the
+    CPU, so every word is equal; average iterations within 5); the same
+    lanes and frames; the record names the card."""
+    from ldpc_decoder_tpu_torch.codes.protographs import P41_BASE
+    from ldpc_decoder_tpu_torch.ops import _kernels
+
+    dc = _design_code(monkeypatch, tmp_path)
+    code, s, _ = dc.lift(P41_BASE.astype(np.int64), 1, 4096, 3, 64, 8,
+                         "small.alist")
+    cpu = dc.measure_point(code, s, 0.79, 64, "cpu")
+    _kernels.reset_launch_counts()
+    card = dc.measure_point(code, s, 0.79, 64, cuda_device)
+    torch.cuda.synchronize()
+    counts = dict(_kernels.launch_counts)
+    for name in ("cn", "vn", "parity", "parity_vec"):
+        assert counts[name] > 0, name
+    assert counts["phi_accurate"] == 0
+    assert card["tables"] == cpu["tables"] == "GroupedQCTables"
+    assert (card["B"], card["n"]) == (cpu["B"], cpu["n"]) == (256, 64)
+    assert cpu["fer1"] == card["fer1"] == 0.0
+    np.testing.assert_array_equal(card["results"].cpu().numpy(),
+                                  cpu["results"].numpy())
+    assert abs(card["avg_iters"] - cpu["avg_iters"]) <= 5
+    assert card["max_iters"] <= 120 and card["mbps"] > 0
+    assert card["card"]["name"] == torch.cuda.get_device_name(cuda_device)
+    assert card["card"]["power_limit"]
+
+
+@pytest.mark.cuda
+def test_design_code_measure_on_card(cuda_device, tmp_path, monkeypatch,
+                                     capsys):
+    """``design_code_torch.main([... "--measure"])`` on the card (the
+    default device): it writes the alist with its #params header and
+    prints the summary with the seed's rate, the waterfall at 0.79 and
+    0.8 and the card's name and power limit."""
+    import json
+
+    from ldpc_decoder_tpu_torch.codes.qc import read_alist_params
+
+    dc = _design_code(monkeypatch, tmp_path)
+    assert dc.main(DESIGN_SMALL + ["--frames", "64", "--measure"]) == 0
+    out = capsys.readouterr().out
+    summary = json.loads(out.strip().splitlines()[-1])
+    path = summary["final_alist"]
+    assert path == str(tmp_path / "designed_r0.5_t0.8_4x7p1.alist")
+    assert read_alist_params(path)["Z"] == "192"
+    assert summary["best_seed"] == 3 and summary["mbps_at_op"] > 0
+    assert [p["sigma"] for p in summary["waterfall"]] == [0.79, 0.8]
+    assert summary["waterfall"][0]["fer1"] == 0.0
+    assert all(p["frames"] == 64 for p in summary["waterfall"])
+    assert summary["card"]["name"] == torch.cuda.get_device_name(0)
+    assert "seed 3: " in out and "waterfall sigma=0.8:" in out
