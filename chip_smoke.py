@@ -82,8 +82,10 @@ Phases:
    general sum-product check and variable kernels' registers and spills by
    (kernel, dtype, lanes per thread, phi policy), no kernel of those
    libraries spilling, and the fast phi's SASS instructions in each
-   (cuobjdump); the grouped and general min-sum check kernels' registers
-   and spills by (kernel, dtype, lanes per thread), none spilling, and
+   (cuobjdump); the general float8_e5m2 threshold kernels' registers and
+   spills by (kernel, lanes per thread), none spilling; the grouped and
+   general min-sum check kernels' registers and spills by (kernel, dtype,
+   lanes per thread), none spilling, and
    any other qc_minsum kernel that spills named; the parity kernels'
    registers and spills by (family, lanes per thread), none spilling;
    the pool kernels' (csrc/datagen.cu) registers, stack frames and
@@ -248,16 +250,23 @@ Phases:
     the scan; recorded, not gated) on the grouped kernels;
 37. the general kernels' float8_e5m2 instantiations against their plain
     versions at the general path's shapes on phase 13's code and frames
-    (four iterations in): sum-product at B = 384 on both phi policies (the
-    accurate instantiation bit for bit, the fast one by
-    compare_msgs_fast; signs, signed zeros and hard bits exact), min-sum
-    with the CLI's defaults at B = 768 bit for bit, the check kernel's one
-    lane bit for bit equal to its vector; each timed beside its bound and
-    its plain version, their registers and spills from phase 2;
+    (four iterations in): sum-product at B = 384, the accurate-phi
+    instantiation bit for bit, the decoder's (phi and the store as one
+    threshold lookup, csrc/general_e5m2.cuh) against the accurate plain
+    passes by compare_msgs_fast (signs, signed zeros and hard bits exact;
+    the share logged) and against its plain twins bit for bit, with and
+    without emit; min-sum with the CLI's defaults at B = 768 bit for bit,
+    the check kernel's one lane bit for bit equal to its vector; each
+    timed beside its bound and its plain version (the threshold kernels
+    also beside the issue bound of their SASS count: instructions a
+    message from scripts/general_fp8_sass_torch.py, compiled on the host
+    while phases 3-36 run, with the PhiFast design's and bfloat16's
+    beside them), their registers and spills from phase 2;
 38. the general float8_e5m2 paths on phase 13's 768 frames: sum-product
     (B = 384) and min-sum (B = 768), each twice, FER 0 and BER 0
     required, the float8 general kernels launched and no other; average
-    iterations beside phases 16 and 17;
+    iterations beside phases 16 and 17, the sum-product ones within 20-22
+    and within 0.1 of phase 16's bfloat16;
 39. multi-device: p41 on a BatchMesh of two replicas of the card, B = 128
     each, phase 4's 512 frames (two pool frames a lane): words and
     per-frame iterations equal to decode() of each replica's dealt frames,
@@ -302,7 +311,12 @@ kernels with p41 x 512 BI-AWGN as ``ms``, the
 64-frame chunk as ``chunk_ms`` (its bound ``chunk_bound_ms``), D2's issue
 bound as ``issue_bound_ms`` (``chunk_issue_bound_ms``) beside the integer
 one, and the reg36 erasure and BSC values as ``erasure_ms`` and
-``bsc_ms``; the general float8 entries with phase 37's times; the window
+``bsc_ms``; the general float8 entries with phase 37's times, the
+sum-product ones with their SASS count's issue bound as
+``issue_bound_ms``, their instructions a message as ``sass_per_message``
+(``phifast_sass_per_message``: the PhiFast design's), their plain twin's
+time as ``plain_ms`` and their largest difference from the accurate plain
+passes as ``accurate_plain_max_abs_err``; the window
 probes with the accurate phi as ``ms``, phi stubbed as ``stub_ms`` and the
 fast phi as ``fast_ms`` where measured, each also by the probes' queued
 timer as ``queued_ms``, ``stub_queued_ms`` and ``fast_queued_ms``, and
@@ -440,8 +454,10 @@ GENERAL_MS_SOURCE = "ldpc_decoder_tpu_torch/csrc/general_minsum.cuh"
 # the min-sum check kernel of the grouped family, on csrc/minsum.cuh
 MINSUM_CN_SOURCE = "ldpc_decoder_tpu_torch/csrc/qc_minsum_cn.cu"
 # the general sum-product check and variable kernels (general.cu
-# dispatches them)
+# dispatches them), and the float8_e5m2 ones that the decoder launches (φ
+# and the store as one threshold lookup; general_fp8.cu dispatches them)
 GENERAL_CN_VN_SOURCE = "ldpc_decoder_tpu_torch/csrc/general.cuh"
+GENERAL_E5M2_SOURCE = "ldpc_decoder_tpu_torch/csrc/general_e5m2.cuh"
 MINSUM_SOURCE = "ldpc_decoder_tpu_torch/csrc/qc_minsum.cu"
 PROBES_SOURCE = "ldpc_decoder_tpu_torch/csrc/probes.cu"
 # the pool kernels (no Pallas counterpart: they replace jnp code that XLA
@@ -496,9 +512,9 @@ KERNELS = [
     # the float8_e5m2 branches of kernels 7-10 (csrc/general_fp8.cu
     # compiles them; the JAX package runs this case on its XLA path,
     # ops/decode.py)
-    ("cn_general_fp8", GENERAL_CN_VN_SOURCE,
+    ("cn_general_fp8", GENERAL_E5M2_SOURCE,
      "ldpc_decoder_tpu/ops/general_pallas.py:252"),  # _cn_kernel
-    ("vn_general_fp8", GENERAL_CN_VN_SOURCE,
+    ("vn_general_fp8", GENERAL_E5M2_SOURCE,
      "ldpc_decoder_tpu/ops/general_pallas.py:280"),  # _vn_kernel
     ("cn_general_minsum_fp8", GENERAL_MS_SOURCE,
      "ldpc_decoder_tpu/ops/general_pallas.py:308"),  # _cn_kernel_minsum
@@ -824,6 +840,8 @@ def phase_build():
             cn_vn_kernel_report(name, path, entries)
         if name in ("qc_minsum", "general"):
             minsum_cn_report(name, path, entries)
+        if name == "general":
+            e5m2_registers(entries)
         if name in ("qc_grouped", "qc_regular"):
             parity_report(name, entries)
         if name == "datagen":
@@ -912,6 +930,31 @@ def cn_vn_kernel_report(name, path, entries):
             f"floating-point or MUFU"
             + (f"; the fast phi: {len(fp) - 2} ({' '.join(fp)})"
                if phi == "PhiFast" else ""))
+
+
+E5M2_ENTRY = re.compile(r"(cn|vn)_general_e5m2_kernelILi(\d+)ELi(\d+)E")
+
+
+def e5m2_registers(entries):
+    """The general float8_e5m2 threshold kernels' (csrc/general_e5m2.cuh)
+    registers and spills by (kernel, lanes per thread), from the general
+    library's ptxas log; asserts that none spills."""
+    rows = {}
+    for kname, regs, spill in entries:
+        m = E5M2_ENTRY.search(kname)
+        if m is None:
+            continue
+        kernel, degree, lanes = m.groups()
+        r = rows.setdefault((kernel, int(lanes)), [0, 0, []])
+        r[0] = max(r[0], regs)
+        r[1] += max(spill, 0)
+        r[2].append(int(degree))
+    assert len(rows) == 10, f"threshold kernels: {sorted(rows)}"
+    for (kernel, lanes), (regs, spill, degrees) in sorted(rows.items()):
+        log(f"    {kernel}_general_e5m2 V = {lanes}: degrees "
+            f"{min(degrees)}-{max(degrees)}, max {regs} registers, {spill} "
+            f"spill bytes")
+        assert spill == 0, f"{kernel}_general_e5m2 V = {lanes} spills"
 
 
 MINSUM_CN_ENTRY = re.compile(
@@ -3050,18 +3093,23 @@ def design_code_phase(torch, np, dev, smi):
             for name, r in kernels.items()}
 
 
-def phase_general_fp8_kernels(torch, np, dev, cc, batch):
+def phase_general_fp8_kernels(torch, np, dev, cc, batch, sass):
     """Phase 37: the general kernels' float8_e5m2 instantiations
     (csrc/general_fp8.cu) against their plain versions at the general
     path's full width on real decode states (four iterations in, phase
-    13's frames): sum-product at B = 384 on both phi policies by
-    general_policies (the accurate kernels by compare_msgs, the fast ones
-    by compare_msgs_fast; signs, signed zeros and hard bits exact), the
-    accurate ones then bit for bit, min-sum
-    with the CLI's defaults at B = 768 bit for bit, its check kernel's one
-    lane equal to the vector bit for bit; each timed beside its bound
-    (runtime/perf.py general_bytes: one byte a message, two a bfloat16
-    llr) and its plain version, with its registers from phase 2."""
+    13's frames): sum-product at B = 384 by general_policies (the
+    accurate-phi kernels by compare_msgs, then bit for bit; the decoder's,
+    the threshold-lookup kernels of csrc/general_e5m2.cuh, against the
+    accurate plain passes by compare_msgs_fast, the share logged; signs,
+    signed zeros and hard bits exact), the threshold kernels then against
+    their plain twins bit for bit (with and without emit), each timed
+    beside the byte bound, the issue bound of its SASS count (``sass``,
+    scripts/general_fp8_sass_torch.py: instructions a message at
+    the card's issue rate) and its twin; min-sum with the CLI's defaults at B =
+    768 bit for bit, its check kernel's one lane equal to the vector bit
+    for bit; each timed beside its bound (runtime/perf.py general_bytes:
+    one byte a message, two a bfloat16 llr) and its plain version, with
+    its registers from phase 2."""
     from ldpc_decoder_tpu_torch.channels import BIAWGNChannel
     from ldpc_decoder_tpu_torch.ops import _kernels
     from ldpc_decoder_tpu_torch.ops import general as G
@@ -3099,19 +3147,53 @@ def phase_general_fp8_kernels(torch, np, dev, cc, batch):
     log(f"  r_c (accurate): {int((stored == 0x80).sum())} -0 and "
         f"{int((stored == 0x00).sum())} +0 of {stored.numel()} messages, "
         f"signs equal to plain")
+    # the decoder's kernels (the threshold lookup) against their twins
+    twin_err = {}
+    rt = G.cn_pass_general(mv, syn, torch.empty_like(rc), t)
+    rp = G.cn_pass_general_e5m2_plain(mv, syn, torch.empty_like(rc), t)
+    assert bit_identical(rt, rp), "fp8 r_c (threshold) differs from its twin"
+    twin_err["cn"] = float((rt.float() - rp.float()).abs().max())
+    del rt, rp
+    for emit in (False, True):
+        bk = torch.full((t.n_vars, B), -1, dtype=torch.int8, device=dev)
+        bp = bk.clone()
+        mk = G.vn_pass_general(rc, llr, torch.empty_like(mv), t,
+                               bits=bk if emit else None)
+        mp = G.vn_pass_general_e5m2_plain(rc, llr, torch.empty_like(mv), t,
+                                          bits=bp if emit else None)
+        assert bit_identical(mk, mp) and torch.equal(bk, bp), \
+            f"fp8 msgs_v (threshold, emit {emit}) differs from its twin"
+        twin_err["vn"] = float((mk.float() - mp.float()).abs().max())
+    del mk, mp
+    log("  threshold kernels: r_c and msgs_v (emit and not) bit for bit "
+        "equal to their plain twins")
     passes = perf.general_bytes(t, B, 1, 2)
     where = f"general, fp8, B = {B}"
-    r = {"cn_general_fp8": dict(max_abs_err=err["cn"]),
-         "vn_general_fp8": dict(max_abs_err=err["vn"])}
+    r = {f"{k}_general_fp8": dict(max_abs_err=twin_err[k],
+                                  accurate_plain_max_abs_err=err[k])
+         for k in ("cn", "vn")}
     mk = mv.clone()
     time_policies(r, "cn_general_fp8", lambda phi: G.cn_pass_general(
         mv, syn, rk, t, _phi=phi),
-        lambda: G.cn_pass_general_plain(mv, syn, rk, t), passes["cn"],
+        lambda: G.cn_pass_general_e5m2_plain(mv, syn, rk, t), passes["cn"],
         OPS_PER_MESSAGE * E * B, where)
     time_policies(r, "vn_general_fp8", lambda phi: G.vn_pass_general(
         rc, llr, mk, t, _phi=phi),
-        lambda: G.vn_pass_general_plain(rc, llr, mk, t), passes["vn"],
+        lambda: G.vn_pass_general_e5m2_plain(rc, llr, mk, t), passes["vn"],
         OPS_PER_MESSAGE * E * B, where)
+    for k in ("cn", "vn"):
+        rec, old = sass[f"{k}_e5m2"], sass[f"{k}_fp8_phifast"]
+        v = r[f"{k}_general_fp8"]
+        v["issue_bound_ms"] = rec["issue_bound_ms"]
+        v["sass_per_message"] = rec["per_message"]
+        v["phifast_sass_per_message"] = old["per_message"]
+        log(f"  {k}_general_fp8: {v['ms']:.3f} ms, byte bound "
+            f"{v['bound'][0]:.3f} ms ({v['bound'][0] / v['ms']:.1%}), issue "
+            f"bound {rec['issue_bound_ms']:.3f} ms "
+            f"({rec['issue_bound_ms'] / v['ms']:.1%}): "
+            f"{rec['per_message']} instructions a message ({rec['split']}); "
+            f"the PhiFast design {old['per_message']} "
+            f"({old['issue_bound_ms']:.3f} ms)")
     out.update(r)
     del mv, rc, rk, mk, msgs, llr, syn
     torch.cuda.empty_cache()
@@ -3195,6 +3277,26 @@ def phase_general_fp8_kernels(torch, np, dev, cc, batch):
     return out
 
 
+# phase 2 starts scripts/general_fp8_sass_torch.py's count (nvcc and
+# nvdisasm on the host, while the card runs the phases between), phase 37
+# reads it
+GENERAL_FP8_SASS = {}
+
+
+def general_fp8_sass():
+    """The general float8_e5m2 kernels' instructions a message in their
+    SASS, and the PhiFast design's and bfloat16's beside them, into
+    GENERAL_FP8_SASS (the listing into the package's build/): "records", or
+    "error", which phase 37 raises."""
+    try:
+        GENERAL_FP8_SASS["records"] = load_script(
+            "general_fp8_sass_torch").measure(
+                os.path.join(REPO, "ldpc_decoder_tpu_torch", "build"),
+                check_plain=False)
+    except Exception as e:  # raised in phase 37, which needs the count
+        GENERAL_FP8_SASS["error"] = e
+
+
 def fp8_registers():
     """The general library's float8_e5m2 kernels' registers and spills
     from phase 2's ptxas log, by (kernel, lanes per thread, phi): a spill
@@ -3252,6 +3354,9 @@ def general_fp8_paths(torch, gcc, gch, gbatch, gref, gdyn, bf16_iters,
         f"{bf16_iters:.2f}), fp8 min-sum "
         f"{iters['general fp8 min-sum']:.2f} (int8 min-sum, alpha 0.8, "
         f"offset 0, phase 17: {int8_iters:.2f})")
+    sp = iters["general fp8 sum-product"]
+    assert 20 <= sp <= 22 and abs(sp - bf16_iters) <= 0.1, (
+        f"fp8 sum-product iterations {sp:.2f} (bf16 {bf16_iters:.2f})")
     return launches, iters
 
 
@@ -3428,6 +3533,8 @@ def main():
 
     phase(2, "build")
     phase_build()
+    sass_thread = threading.Thread(target=general_fp8_sass)
+    sass_thread.start()
 
     phase(3, "numerics smoke: phi on the device")
     from ldpc_decoder_tpu_torch.runtime.smoke import cuda_numerics_smoke
@@ -3739,7 +3846,16 @@ def main():
     torch.cuda.empty_cache()
 
     phase(37, "general float8_e5m2 kernels vs plain at full width")
-    timings.update(phase_general_fp8_kernels(torch, np, dev, gcc, gbatch))
+    sass_thread.join()
+    if "error" in GENERAL_FP8_SASS:
+        raise RuntimeError("the SASS count failed") from \
+            GENERAL_FP8_SASS["error"]
+    for rec in GENERAL_FP8_SASS["records"].values():
+        log(f"  SASS ({rec['design']}): {rec['kernel']} "
+            f"{rec['per_message']} instructions a message {rec['split']}, "
+            f"issue bound {rec['issue_bound_ms']:.3f} ms")
+    timings.update(phase_general_fp8_kernels(torch, np, dev, gcc, gbatch,
+                                             GENERAL_FP8_SASS["records"]))
 
     phase(38, "general float8_e5m2 paths")
     fp8_launches, _ = general_fp8_paths(torch, gcc, gch, gbatch, gref, gdyn,
@@ -3779,7 +3895,9 @@ def main():
                  "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
                  "bound_by": r["bound"][1], "library_ms": None}
         for extra in ("grouped_ms", "accurate_ms", "one_lane_ms",
-                      "slice_ms"):
+                      "slice_ms", "issue_bound_ms", "sass_per_message",
+                      "phifast_sass_per_message",
+                      "accurate_plain_max_abs_err"):
             if extra in r:
                 entry[extra] = r[extra]
         # phase 34's times at the rate-0.9 code's d_c = 30, phase 40's at

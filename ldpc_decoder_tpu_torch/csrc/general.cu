@@ -16,6 +16,7 @@
 // cudaGetLastError(), which the Python wrapper turns into an exception.
 
 #include <cstdint>
+#include <type_traits>
 
 #include "general.cuh"
 #include "general_minsum.cuh"
@@ -45,7 +46,12 @@ using ldpc::general::run_vn_minsum;
 //
 // The instantiation of a sum-product launch: lanes is 1 or VecLanes<T, D>
 // (ops/_kernels.py picks it by shape), phi 0 (PhiFast) or 1 (PhiAccurate);
-// any other value is refused.
+// any other value is refused, and so is phi 0 for float8_e5m2, whose
+// decoder phi is the threshold lookup of general_e5m2.cuh
+// (ldpc_cn_general_e5m2, ldpc_vn_general_e5m2 in general_fp8.cu).
+template <typename T>
+constexpr bool kHasPhiFast = !std::is_same_v<T, __nv_fp8_e5m2>;
+
 template <typename T, int D>
 int launch_cn(const void* msgs_v, const void* syn, void* r_c,
               const int* perm, int node_start, int count, int edge_start,
@@ -54,13 +60,13 @@ int launch_cn(const void* msgs_v, const void* syn, void* r_c,
 #define LDPC_RUN(VV, P)                                                     \
   run_cn<T, D, VV, P>(msgs_v, syn, r_c, perm, node_start, count,            \
                       edge_start, B, pre, s)
-  if (phi != 0 && phi != 1) return static_cast<int>(cudaErrorInvalidValue);
-  if (lanes == V) {
-    if (phi == 0) LDPC_RUN(V, PhiFast); else LDPC_RUN(V, PhiAccurate);
-  } else if (lanes == 1) {
-    if (phi == 0) LDPC_RUN(1, PhiFast); else LDPC_RUN(1, PhiAccurate);
-  } else {
+  if ((phi != 0 || !kHasPhiFast<T>) && phi != 1)
     return static_cast<int>(cudaErrorInvalidValue);
+  if (lanes != V && lanes != 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (phi == 1) {
+    if (lanes == V) LDPC_RUN(V, PhiAccurate); else LDPC_RUN(1, PhiAccurate);
+  } else if constexpr (kHasPhiFast<T>) {
+    if (lanes == V) LDPC_RUN(V, PhiFast); else LDPC_RUN(1, PhiFast);
   }
 #undef LDPC_RUN
   return 0;
@@ -74,13 +80,13 @@ int launch_vn(const void* r_c, const void* llr, void* msgs_v, void* bits,
 #define LDPC_RUN(VV, P)                                                     \
   run_vn<T, D, VV, P>(r_c, llr, msgs_v, bits, perm, node_start, count,      \
                       edge_start, B, pre, s)
-  if (phi != 0 && phi != 1) return static_cast<int>(cudaErrorInvalidValue);
-  if (lanes == V) {
-    if (phi == 0) LDPC_RUN(V, PhiFast); else LDPC_RUN(V, PhiAccurate);
-  } else if (lanes == 1) {
-    if (phi == 0) LDPC_RUN(1, PhiFast); else LDPC_RUN(1, PhiAccurate);
-  } else {
+  if ((phi != 0 || !kHasPhiFast<T>) && phi != 1)
     return static_cast<int>(cudaErrorInvalidValue);
+  if (lanes != V && lanes != 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (phi == 1) {
+    if (lanes == V) LDPC_RUN(V, PhiAccurate); else LDPC_RUN(1, PhiAccurate);
+  } else if constexpr (kHasPhiFast<T>) {
+    if (lanes == V) LDPC_RUN(V, PhiFast); else LDPC_RUN(1, PhiFast);
   }
 #undef LDPC_RUN
   return 0;
@@ -133,7 +139,8 @@ int ldpc_vec_lanes(int dtype, int degree) {
 // gathered msgs_v rows. dtype 0 (float32), 1 (bfloat16) or 3
 // (float8_e5m2). lanes: 1 or
 // ldpc_vec_lanes(dtype, degree), every pointer aligned to lanes elements
-// and B a multiple of lanes; phi: 0 fast, 1 accurate.
+// and B a multiple of lanes; phi: 0 fast, 1 accurate (float8_e5m2: 1 only;
+// its fast path is ldpc_cn_general_e5m2).
 int ldpc_cn_general(const void* msgs_v, const void* syn, void* r_c,
                     const void* perm_v2c, int node_start, int count,
                     int degree, int edge_start, int B, float pre, int dtype,

@@ -173,11 +173,13 @@ void run_vn_minsum(const void* r_c, const void* llr, void* msgs_v,
       count, edge_start, B, clamp, qscale, 1.0f / qscale);
 }
 
-// The float8_e5m2 launchers of one degree: the sum-product check and
-// variable ones (general.cuh) at both lane widths under both phi policies,
-// the min-sum check one at both lane widths and the min-sum variable one.
-// Defined (LDPC_EXTERN empty) in general_fp8.cu, declared extern in the
-// sources that dispatch them (general.cu, general_minsum.cu).
+// The float8_e5m2 launchers of one degree that other sources dispatch: the
+// sum-product check and variable ones (general.cuh) at both lane widths on
+// PhiAccurate (the decoder's phi runs the threshold kernels of
+// general_e5m2.cuh, dispatched in general_fp8.cu itself), the min-sum check
+// one at both lane widths and the min-sum variable one. Defined
+// (LDPC_EXTERN empty) in general_fp8.cu, declared extern in the sources
+// that dispatch them (general.cu, general_minsum.cu).
 #define LDPC_CN_MINSUM_PARAMS                                                \
   const void*, const void*, void*, const int*, int, int, int, int, float,   \
       float, float, cudaStream_t
@@ -185,14 +187,6 @@ void run_vn_minsum(const void* r_c, const void* llr, void* msgs_v,
   const void*, const void*, void*, void*, const int*, int, int, int, int,   \
       float, float, cudaStream_t
 #define LDPC_FP8_DEGREE(D)                                                   \
-  LDPC_EXTERN template void run_cn<__nv_fp8_e5m2, D, 1, PhiFast>(           \
-      LDPC_CN_PARAMS);                                                       \
-  LDPC_EXTERN template void run_cn<__nv_fp8_e5m2, D,                        \
-      VecLanes<__nv_fp8_e5m2, D>::value, PhiFast>(LDPC_CN_PARAMS);          \
-  LDPC_EXTERN template void run_vn<__nv_fp8_e5m2, D, 1, PhiFast>(           \
-      LDPC_VN_PARAMS);                                                       \
-  LDPC_EXTERN template void run_vn<__nv_fp8_e5m2, D,                        \
-      VecLanes<__nv_fp8_e5m2, D>::value, PhiFast>(LDPC_VN_PARAMS);          \
   LDPC_EXTERN template void run_cn<__nv_fp8_e5m2, D, 1, PhiAccurate>(       \
       LDPC_CN_PARAMS);                                                       \
   LDPC_EXTERN template void run_cn<__nv_fp8_e5m2, D,                        \

@@ -14,7 +14,11 @@ launch per degree bucket: ``general.cu``, the sum-product dispatch and
 the min-sum variable one, ``general_accurate.cu``, ``general_minsum.cu``,
 the min-sum check dispatch, and ``general_fp8.cu``, every float8_e5m2
 instantiation, in parallel, the sum-product kernels in ``general.cuh``,
-the min-sum ones in ``general_minsum.cuh``) and
+the float8_e5m2 ones that the decoder launches in ``general_e5m2.cuh``
+(φ and the store as one threshold lookup, on a table built by
+:func:`~ldpc_decoder_tpu_torch.ops.phi.phi_e5m2_table` and kept on each
+device by :func:`phi_e5m2_table`), the min-sum ones in
+``general_minsum.cuh``) and
 ``probes.cu`` (the measurement probes of
 :mod:`ldpc_decoder_tpu_torch.probes`, which no decode runs) and
 ``datagen.cu`` (a frame pool's ChaCha8 reference bits and channel values,
@@ -63,9 +67,11 @@ import os
 import shutil
 import threading
 
+import numpy as np
 import torch
 
 from ldpc_decoder_tpu_torch._build import build_shared_library
+from ldpc_decoder_tpu_torch.ops import phi as _phi
 
 CSRC = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "csrc")
@@ -92,7 +98,8 @@ SOURCES["general"].append(os.path.join(CSRC, "general_fp8.cu"))
 # an edited header rebuilds
 HEADERS = tuple(os.path.join(CSRC, h) for h in (
     "common.cuh", "sum_product.cuh", "qc_grouped.cuh", "qc_regular.cuh",
-    "general.cuh", "general_minsum.cuh", "minsum.cuh", "parity.cuh"))
+    "general.cuh", "general_e5m2.cuh", "general_minsum.cuh", "minsum.cuh",
+    "parity.cuh"))
 # --split-compile=0: nvcc optimizes a source's template instantiations in
 # parallel, one thread per CPU. On an H100 host with 8 cores the four
 # libraries, built together, take 49.6 s with it on the three large
@@ -171,6 +178,12 @@ _SIGNATURES = {
         "ldpc_minsum_vec_lanes": [_i, _i],
         "ldpc_vn_general_minsum": [_p, _p, _p, _p, _p, _i, _i, _i, _i, _i,
                                    _f, _f, _i, _p],
+        "ldpc_cn_general_e5m2": [_p, _p, _p, _p, _p, _i, _i, _i, _i, _i, _f,
+                                 _i, _p],
+        "ldpc_vn_general_e5m2": [_p, _p, _p, _p, _p, _p, _i, _i, _i, _i, _i,
+                                 _f, _i, _p],
+        "ldpc_phi_e5m2_buckets": [],
+        "ldpc_phi_e5m2_bucket": [ctypes.c_uint],
     },
     "probes": {
         "ldpc_probe_row_copy": [_p, _p, _p, _p, _p, _i, _ll, _i, _i, _i, _p],
@@ -214,6 +227,7 @@ PARITY_SLICE_LANES = 128
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
+_e5m2_tables: dict[torch.device, torch.Tensor] = {}
 
 
 def reset_launch_counts() -> None:
@@ -264,6 +278,8 @@ def load(name: str) -> ctypes.CDLL:
                 and lib.ldpc_parity_vec_lanes() != PARITY_VEC_LANES):
             raise RuntimeError(f"{name} library and PARITY_VEC_LANES "
                                f"disagree")
+        if "ldpc_phi_e5m2_buckets" in _SIGNATURES[name]:
+            _check_e5m2_layout(lib)
         if "ldpc_minsum_vec_lanes" in _SIGNATURES[name] and any(
                 lib.ldpc_minsum_vec_lanes(code, d) != minsum_vec_lanes(
                     dtype, d)
@@ -273,6 +289,35 @@ def load(name: str) -> ctypes.CDLL:
                                f"disagree")
         _libs[name] = lib
         return lib
+
+
+def _check_e5m2_layout(lib) -> None:
+    """The general library's threshold table layout against ops/phi.py:
+    the number of buckets, the upper clamp, and the bucket of the first
+    and the last float32 of every bucket."""
+    table = _phi.phi_e5m2_table()
+    lib.ldpc_phi_e5m2_zero.argtypes = []
+    lib.ldpc_phi_e5m2_zero.restype = ctypes.c_float
+    ok = (lib.ldpc_phi_e5m2_buckets() == len(table)
+          and lib.ldpc_phi_e5m2_zero() == _phi.phi_e5m2_zero())
+    probes = np.concatenate(_phi.phi_e5m2_bucket_bounds())
+    want = _phi.phi_e5m2_bucket_np(probes)
+    if not ok or any(lib.ldpc_phi_e5m2_bucket(int(b)) != int(w)
+                     for b, w in zip(probes, want)):
+        raise RuntimeError("general library and ops/phi.py disagree on the "
+                           "float8_e5m2 threshold table")
+
+
+def phi_e5m2_table(device: torch.device) -> torch.Tensor:
+    """The threshold table of the general float8_e5m2 kernels on
+    ``device`` ([buckets] int32, one word a bucket: a code and its
+    threshold's bits), built once per device from ops/phi.py."""
+    device = torch.device(device)
+    with _lock:
+        if device not in _e5m2_tables:
+            _e5m2_tables[device] = torch.from_numpy(
+                _phi.phi_e5m2_table().view("int32").copy()).to(device)
+        return _e5m2_tables[device]
 
 
 def _check(lib, err: int, what: str) -> None:
@@ -491,10 +536,20 @@ def parity_regular(bits, syn, flags, tables, lanes: int | None = None,
 def cn_general(msgs_v, syn, r_c, perm_v2c, bucket, pre: float,
                phi: str = "fast") -> None:
     """General sum-product check-node kernel for one check bucket; ``phi``
-    as in :func:`cn_group`."""
+    as in :func:`cn_group` (float8_e5m2 messages on "fast" take the
+    threshold-lookup kernel of csrc/general_e5m2.cuh)."""
     lib = load("general")
     B = msgs_v.shape[-1]
     lanes = _lanes(B, bucket.degree, msgs_v, syn, r_c)
+    if msgs_v.dtype == torch.float8_e5m2 and phi == "fast":
+        err = lib.ldpc_cn_general_e5m2(
+            _ptr(msgs_v), _ptr(syn), _ptr(r_c), _ptr(perm_v2c),
+            _ptr(phi_e5m2_table(msgs_v.device)), bucket.row_start,
+            bucket.count, bucket.degree, bucket.edge_start, B, pre, lanes,
+            _stream(msgs_v))
+        _check(lib, err, "general float8_e5m2 check-node kernel")
+        _count_sum_product("cn_general", msgs_v.dtype, phi)
+        return
     err = lib.ldpc_cn_general(
         _ptr(msgs_v), _ptr(syn), _ptr(r_c), _ptr(perm_v2c), bucket.row_start,
         bucket.count, bucket.degree, bucket.edge_start, B, pre,
@@ -506,10 +561,19 @@ def cn_general(msgs_v, syn, r_c, perm_v2c, bucket, pre: float,
 def vn_general(r_c, llr, msgs_v, bits, perm_c2v, bucket, pre: float,
                phi: str = "fast") -> None:
     """General sum-product variable-node kernel for one variable bucket;
-    ``bits`` may be None; ``phi`` as in :func:`cn_group`."""
+    ``bits`` may be None; ``phi`` as in :func:`cn_general`."""
     lib = load("general")
     B = r_c.shape[-1]
     lanes = _lanes(B, bucket.degree, r_c, llr, msgs_v, bits)
+    if r_c.dtype == torch.float8_e5m2 and phi == "fast":
+        err = lib.ldpc_vn_general_e5m2(
+            _ptr(r_c), _ptr(llr), _ptr(msgs_v), _ptr(bits), _ptr(perm_c2v),
+            _ptr(phi_e5m2_table(r_c.device)), bucket.row_start,
+            bucket.count, bucket.degree, bucket.edge_start, B, pre, lanes,
+            _stream(r_c))
+        _check(lib, err, "general float8_e5m2 variable-node kernel")
+        _count_sum_product("vn_general", r_c.dtype, phi)
+        return
     err = lib.ldpc_vn_general(
         _ptr(r_c), _ptr(llr), _ptr(msgs_v), _ptr(bits), _ptr(perm_c2v),
         bucket.row_start, bucket.count, bucket.degree, bucket.edge_start, B,

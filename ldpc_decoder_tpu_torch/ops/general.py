@@ -29,7 +29,13 @@ bucket). The pass functions dispatch on the tensors' device: CPU tensors
 take the plain version; CUDA tensors launch the kernel or raise — there is
 no fallback. The sum-product kernels evaluate φ from the card's MUFU
 operations (the decoder's); their internal ``_phi="accurate"`` keyword
-selects the plain version's φ instead, as on the QC passes.
+selects the plain version's φ instead, as on the QC passes. On
+float8_e5m2 messages the decoder's kernels (csrc/general_e5m2.cuh) take φ
+and the store as one lookup in a table of thresholds: φ correctly rounded
+to e5m2 (:func:`~.phi.phi_e5m2`). Their plain twins,
+:func:`cn_pass_general_e5m2_plain` and :func:`vn_pass_general_e5m2_plain`,
+give their bits; the CPU path keeps the plain passes above, which the CPU
+tests hold to the JAX package bit for bit.
 
 Check and variable rules (``general_pallas.py:252-367``):
 
@@ -67,7 +73,13 @@ import torch
 from ldpc_decoder_tpu_torch.codes.compiled import CompiledCode, DegreeBucket
 from ldpc_decoder_tpu_torch.ops import _kernels
 from ldpc_decoder_tpu_torch.ops._dispatch import backend, check
-from ldpc_decoder_tpu_torch.ops.phi import PRE_THRESHOLD, phi, phi_abs
+from ldpc_decoder_tpu_torch.ops.phi import (
+    PRE_THRESHOLD,
+    phi,
+    phi_abs,
+    phi_e5m2,
+    phi_e5m2_codes,
+)
 from ldpc_decoder_tpu_torch.ops.qc_decode import (
     llr_dtype,
     minsum_magnitudes,
@@ -193,6 +205,33 @@ def cn_pass_general_plain(msgs_v, syn, r_c, tables: GeneralTables,
     """Plain PyTorch sum-product check pass (the counterpart of the CUDA
     kernel): gather m_c = msgs_v[perm_v2c], then per bucket r_c[k] =
     φ_abs(Σ_j |m_j| − |m_k|) with the sign-bit algebra."""
+
+    def store(out, x, sign):
+        out.copy_(signed_f32(phi_abs(x, pre), sign))
+
+    return _cn_general_plain(msgs_v, syn, r_c, tables, store)
+
+
+def cn_pass_general_e5m2_plain(msgs_v, syn, r_c, tables: GeneralTables,
+                               pre: float = PRE_THRESHOLD) -> torch.Tensor:
+    """Plain version of the float8_e5m2 check kernel that the decoder
+    launches (csrc/general_e5m2.cuh), bit for bit: the sums and the sign
+    algebra of :func:`cn_pass_general_plain`, φ correctly rounded to e5m2
+    by the threshold table (:func:`~.phi.phi_e5m2_codes`) and the sign
+    bit OR-ed into the byte."""
+    check(msgs_v, "msgs_v", msgs_v.shape, (torch.float8_e5m2,))
+
+    def store(out, x, sign):
+        code = phi_e5m2_codes(x, pre) | ((sign != 0).to(torch.uint8) << 7)
+        out.view(torch.uint8).copy_(code)
+
+    return _cn_general_plain(msgs_v, syn, r_c, tables, store)
+
+
+def _cn_general_plain(msgs_v, syn, r_c, tables: GeneralTables, store):
+    """The check pass's gather, sums and sign algebra; ``store(out_k, x,
+    sign)`` writes slot k's message from x = ext − |m_k| (float32) and its
+    sign bit (int32, 0 or the sign bit)."""
     m_c = msgs_v.index_select(0, tables.perm_v2c)
     for b in tables.cn_buckets:
         d, m = b.degree, _planes(m_c, b)
@@ -207,8 +246,7 @@ def cn_pass_general_plain(msgs_v, syn, r_c, tables: GeneralTables,
             ext = mk.abs() if ext is None else ext + mk.abs()
         for k in range(d):
             mk = m[k].to(torch.float32)
-            res = phi_abs(ext - mk.abs(), pre)
-            out[k] = signed_f32(res, (mk.view(torch.int32) & _SIGN) ^ X)
+            store(out[k], ext - mk.abs(), (mk.view(torch.int32) & _SIGN) ^ X)
     return r_c
 
 
@@ -241,6 +279,36 @@ def vn_pass_general_plain(r_c, llr, msgs_v, tables: GeneralTables,
     kernel): gather r_v = r_c[perm_c2v], then per bucket tot = llr + (r_0
     + r_1 + ...), rounded through the message dtype; slot k gets
     φ(tot − r_k); bits = ¬signbit(tot)."""
+
+    def store(out, p):
+        out.copy_(phi(p, pre))
+
+    return _vn_general_plain(r_c, llr, msgs_v, tables, bits, store)
+
+
+def vn_pass_general_e5m2_plain(r_c, llr, msgs_v, tables: GeneralTables,
+                               pre: float = PRE_THRESHOLD,
+                               bits=None) -> torch.Tensor:
+    """Plain version of the float8_e5m2 variable kernel that the decoder
+    launches (csrc/general_e5m2.cuh), bit for bit: the sums, the total
+    rounded through float8_e5m2 and the hard bits of
+    :func:`vn_pass_general_plain`, slot k's message φ(tq − r_k) correctly
+    rounded to e5m2 by the threshold table (:func:`~.phi.phi_e5m2`), its
+    sign that of tq − r_k. The total rounds as torch rounds (±inf from
+    61440 up); the kernel saturates at 57344 instead, which gives the same
+    bytes (tests/test_torch_phi_e5m2.py)."""
+    check(r_c, "r_c", r_c.shape, (torch.float8_e5m2,))
+
+    def store(out, p):
+        out.view(torch.uint8).copy_(phi_e5m2(p, pre).view(torch.uint8))
+
+    return _vn_general_plain(r_c, llr, msgs_v, tables, bits, store)
+
+
+def _vn_general_plain(r_c, llr, msgs_v, tables: GeneralTables, bits, store):
+    """The variable pass's gather, sums, rounded total and hard bits;
+    ``store(out_k, p)`` writes slot k's message from p = tq − r_k
+    (float32)."""
     r_v = r_c.index_select(0, tables.perm_c2v)
     for b in tables.vn_buckets:
         r = _planes(r_v, b)
@@ -253,7 +321,7 @@ def vn_pass_general_plain(r_c, llr, msgs_v, tables: GeneralTables,
             _nodes(bits, b).copy_(~torch.signbit(tot))
         tq = tot.to(msgs_v.dtype).to(torch.float32)
         for k in range(b.degree):
-            out[k] = phi(tq - r[k].to(torch.float32), pre)
+            store(out[k], tq - r[k].to(torch.float32))
     return msgs_v
 
 

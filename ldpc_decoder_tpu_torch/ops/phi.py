@@ -17,11 +17,17 @@ both families evaluate it instead from the card's MUFU operations and FMAs
 (csrc/sum_product.cuh ``phi_abs_fast``); :func:`phi_abs_fast_np` is that
 function's float32 model, step for step, with the constants fitted by
 :mod:`ldpc_decoder_tpu_torch.ops.phi_fit`. φ is always evaluated in
-float32, whatever dtype the messages are stored in.
+float32, whatever dtype the messages are stored in, except by the general
+path's float8_e5m2 kernels (csrc/general_e5m2.cuh), which map the clamped
+float32 input straight to its float8_e5m2 code through a table of
+thresholds (:func:`phi_e5m2_thresholds`, :func:`phi_e5m2_table`): φ
+correctly rounded to e5m2, whose plain version is :func:`phi_e5m2` and
+whose lookup :func:`phi_e5m2_lookup_np` models step for step.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 
 import numpy as np
@@ -128,3 +134,174 @@ def phi_abs_fast_np(x, pre: float = PRE_THRESHOLD,
     small = _fma(np.log2(xm.astype(np.float64)).astype(f32), -f32(LN2_F32),
                  h)
     return np.where(xm < f32(PHI_FAST_SPLIT), small, mid).astype(f32)
+
+
+# ---- φ rounded to float8_e5m2 by thresholds (csrc/general_e5m2.cuh) ---------
+#
+# φ_abs is decreasing, so round_e5m2(φ_abs(x)) is a step function of x: it
+# steps down one code where φ_abs crosses the midpoint m_j between the
+# positive e5m2 values of codes j and j + 1, at t_j = min{x : φ_abs(x) <=
+# m_j}. For x in [FLT_MIN, 80] the code is #{j : x < t_j}: 86 thresholds,
+# from t_0 = 12.48 (above it every φ rounds to 0) down to t_85 = 1.2e-38
+# (φ(FLT_MIN) = 88.03 rounds to 96, code 86).
+
+E5M2_FINE_SHIFT = 17  # 64 buckets a binade: float32 bits >> 17
+E5M2_FINE_EXP = 123   # biased exponent of 2^-4, where the fine buckets start
+# the coarse buckets (one a binade, below 2^-4) sit just under the fine
+# ones: bucket = max(bits >> 17, (bits >> 23) + E5M2_COARSE_OFFSET)
+E5M2_COARSE_OFFSET = 63 * E5M2_FINE_EXP
+E5M2_FIRST_BUCKET = 1 + E5M2_COARSE_OFFSET  # the binade of FLT_MIN
+_FLT_MIN = float(np.finfo(np.float32).tiny)
+
+
+def _phi_abs_f64(x: float) -> float:
+    """The reference φ_abs in float64, with its tail past TAYLOR_LIMIT."""
+    if x > TAYLOR_LIMIT:
+        return 2.0 * math.exp(-x)
+    return -math.log(math.tanh(0.5 * x))
+
+
+def _e5m2_values() -> np.ndarray:
+    """The positive finite float8_e5m2 values, by code (0 .. 0x7B)."""
+    codes = torch.arange(0x7C, dtype=torch.uint8)
+    return codes.view(torch.float8_e5m2).double().numpy()
+
+
+@functools.lru_cache(maxsize=None)
+def phi_e5m2_thresholds() -> tuple[np.ndarray, np.ndarray]:
+    """(t64, t32): the thresholds t_j in float64 and rounded up to float32,
+    both decreasing, for the midpoints φ_abs crosses on [FLT_MIN, 80].
+    t64[j] is the least float64 x with φ_abs(x) <= m_j (a bisection over
+    the float64 bit patterns of the piecewise reference, monotone across
+    its seam at 5); t32[j] the least float32 >= t64[j], so that for every
+    float32 x, x < t32[j] exactly when φ_abs(x) > m_j."""
+    vals = _e5m2_values()
+    mids = 0.5 * (vals[:-1] + vals[1:])
+    lo_phi, hi_phi = _phi_abs_f64(HIGH_THRESHOLD), _phi_abs_f64(_FLT_MIN)
+
+    def bits(x):
+        return int(np.float64(x).view(np.int64))
+
+    def value(b):
+        return float(np.int64(b).view(np.float64))
+
+    t64 = []
+    for m in mids[(mids > lo_phi) & (mids < hi_phi)]:
+        lo, hi = bits(_FLT_MIN), bits(HIGH_THRESHOLD)  # φ(lo) > m >= φ(hi)
+        while hi - lo > 1:
+            mid = (lo + hi) // 2
+            if _phi_abs_f64(value(mid)) > m:
+                lo = mid
+            else:
+                hi = mid
+        t64.append(value(hi))
+    t64 = np.array(t64)
+    t32 = t64.astype(np.float32)
+    t32 = np.where(t32.astype(np.float64) < t64,
+                   np.nextafter(t32, np.float32(np.inf)), t32)
+    t64.flags.writeable = False
+    t32.flags.writeable = False
+    return t64, t32
+
+
+def phi_e5m2_zero() -> float:
+    """t32[0], the kernels' upper clamp: every x >= it has code 0."""
+    return float(phi_e5m2_thresholds()[1][0])
+
+
+def phi_e5m2_bucket_np(bits) -> np.ndarray:
+    """The kernels' bucket of a positive float32 given by its bits (uint32):
+    max(bits >> 17, (bits >> 23) + E5M2_COARSE_OFFSET) - E5M2_FIRST_BUCKET,
+    64 a binade from 2^-4 up, one a binade below."""
+    b = np.asarray(bits, dtype=np.int64)
+    return (np.maximum(b >> E5M2_FINE_SHIFT, (b >> 23) + E5M2_COARSE_OFFSET)
+            - E5M2_FIRST_BUCKET)
+
+
+def phi_e5m2_bucket_bounds() -> tuple[np.ndarray, np.ndarray]:
+    """(first, last): the float32 bits (int64) of the least and the largest
+    x of each bucket within [FLT_MIN, t32[0]]."""
+    top = int(np.float32(phi_e5m2_zero()).view(np.uint32))
+    floor = int(np.float32(_FLT_MIN).view(np.uint32))
+    k = np.arange(int(phi_e5m2_bucket_np(top)) + 1, dtype=np.int64) \
+        + E5M2_FIRST_BUCKET
+    coarse = k < (E5M2_FINE_EXP << (23 - E5M2_FINE_SHIFT))
+    exp = k - E5M2_COARSE_OFFSET
+    first = np.where(coarse, exp << 23, k << E5M2_FINE_SHIFT)
+    last = np.where(coarse, ((exp + 1) << 23) - 1,
+                    ((k + 1) << E5M2_FINE_SHIFT) - 1)
+    return np.maximum(first, floor), np.minimum(last, top)
+
+
+@functools.lru_cache(maxsize=None)
+def phi_e5m2_table() -> np.ndarray:
+    """[N] uint32, one word a bucket of float32 x in [FLT_MIN, t32[0]]: c,
+    the code of the bucket's largest x, in the low byte, and above it the
+    bits of its threshold t32[c] shifted left by 8 (cut to 32 bits), or of
+    the bucket's binade's least float where t32[c] lies below that binade
+    (or c is the last code). Every bucket holds at most one threshold and
+    lies in one binade, so for each of its x, code(x) = c + (x < t32[c]);
+    and with xq = (bits(x) << 8) | 0xFF, which shares the word's top bit
+    (the exponent's lowest), x < t32[c] exactly when xq − word is
+    negative as an int32 (the tests hold the lookup to the thresholds on
+    the first and last x of every bucket)."""
+    t32 = phi_e5m2_thresholds()[1]
+    first, last = phi_e5m2_bucket_bounds()
+    rows = np.arange(len(first))
+    assert np.array_equal(phi_e5m2_bucket_np(first), rows)
+    assert np.array_equal(phi_e5m2_bucket_np(last), rows)
+
+    def code(b):
+        x = torch.from_numpy(b.astype(np.uint32).view(np.float32))
+        return phi_e5m2_codes(x, 0.0).numpy().astype(np.int64)
+
+    c = code(last)
+    assert (code(first) - c <= 1).all(), "a bucket holds two thresholds"
+    thr = t32[np.minimum(c, len(t32) - 1)].view(np.uint32).astype(np.int64)
+    binade = first >> 23
+    inside = (c < len(t32)) & ((thr >> 23) == binade)
+    bits = np.where(inside, thr, binade << 23)
+    table = (((bits << 8) & 0xFFFFFFFF) | c).astype(np.uint32)
+    table.flags.writeable = False
+    return table
+
+
+def _e5m2_floor(pre: float) -> np.float32:
+    return max(np.float32(pre), np.float32(_FLT_MIN))
+
+
+def phi_e5m2_lookup_np(x, pre: float = PRE_THRESHOLD) -> np.ndarray:
+    """Model of the kernels' lookup, step for step: x (float32, >= 0 or
+    NaN) clamped to [max(pre, FLT_MIN), t32[0]] as fmaxf/fminf clamp (a NaN
+    takes the floor), its bucket's word w, xq = (bits << 8) | 0xFF, the code
+    (w & 0xFF) + ((xq − w) >> 31) in uint32 arithmetic. Returns the codes
+    (uint8)."""
+    x = np.asarray(x, dtype=np.float32)
+    xm = np.fmin(np.fmax(x, _e5m2_floor(pre)), np.float32(phi_e5m2_zero()))
+    bits = xm.view(np.uint32).astype(np.int64)
+    w = phi_e5m2_table()[phi_e5m2_bucket_np(bits)].astype(np.int64)
+    xq = ((bits << 8) & 0xFFFFFFFF) | 0xFF
+    return ((w & 0xFF) + (((xq - w) & 0xFFFFFFFF) >> 31)).astype(np.uint8)
+
+
+def phi_e5m2_codes(x: torch.Tensor, pre: float = PRE_THRESHOLD
+                   ) -> torch.Tensor:
+    """Plain version of the kernels' lookup: the e5m2 code (uint8, no
+    sign) of φ_abs(x) correctly rounded, x (float32, >= 0 or NaN) clamped
+    to [max(pre, FLT_MIN), 80] as the kernels clamp it (fmax, fmin: a NaN
+    takes the floor), through ``torch.bucketize`` on the thresholds."""
+    t32 = phi_e5m2_thresholds()[1]
+    asc = torch.from_numpy(t32[::-1].copy()).to(x.device)
+    lo = torch.tensor(float(_e5m2_floor(pre)), device=x.device)
+    hi = torch.tensor(HIGH_THRESHOLD, device=x.device)
+    xm = torch.fmin(torch.fmax(x.to(torch.float32), lo), hi)
+    return (len(t32) - torch.bucketize(xm, asc, right=True)).to(torch.uint8)
+
+
+def phi_e5m2(x: torch.Tensor, pre: float = PRE_THRESHOLD) -> torch.Tensor:
+    """Signed φ correctly rounded to float8_e5m2: the code of φ_abs(|x|)
+    with the sign bit of x (±0 kept), as float8_e5m2."""
+    x32 = x.to(torch.float32)
+    code = phi_e5m2_codes(x32.abs(), pre)
+    sign = torch.signbit(x32).to(torch.uint8) << 7
+    return (code | sign).view(torch.float8_e5m2)

@@ -21,7 +21,9 @@ bfloat16);
 min-sum messages (general and QC, f32, bf16, float8_e5m2 and int8) are
 bitwise equal, and min-sum decodes equal in per-frame iterations too. The
 kernels' float8_e5m2 store equals torch's conversion on the card and on
-the CPU for every bfloat16 input.
+the CPU for every bfloat16 input. The general path's float8_e5m2
+sum-product kernels that the decoder launches (φ and the store as one
+threshold lookup) equal their plain twins bit for bit.
 """
 
 import functools
@@ -1785,6 +1787,62 @@ def test_general_fp8_kernels_match_plain(cuda_device, phi, B):
     assert counts == {"cn_general_fp8": len(t.cn_buckets),
                       "vn_general_fp8": 2 * len(t.vn_buckets),
                       "cn_general": 0, "vn_general": 0}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("data", ["decode-like", "saturating, NaN llr"])
+@pytest.mark.parametrize("pre", [1e-5, 1e-30])
+@pytest.mark.parametrize("B", [64, B_GENERAL, 37])
+def test_general_fp8_table_kernels_match_twin(cuda_device, B, pre, data):
+    """The float8_e5m2 check and variable kernels that the decoder launches
+    (φ and the store as one threshold lookup, csrc/general_e5m2.cuh)
+    against their plain twins (``cn_pass_general_e5m2_plain``,
+    ``vn_pass_general_e5m2_plain``), bit for bit, with and without emit,
+    at B = 64 and 40 (the vector instantiations) and the ragged 37 (one
+    lane), at the default φ floor and a tiny one; on a state with large
+    messages (signed zeros), and on one whose llr saturates the variable
+    total (±1e5: the kernels' saturating conversion against torch's ±inf)
+    or is NaN. Launches count under the _fp8 names, none under
+    phi_accurate."""
+    from ldpc_decoder_tpu_torch.ops import _kernels
+
+    t, st = _general_state(cuda_device, FP8, 16, B)
+    rng = np.random.default_rng(17)
+    big = torch.from_numpy(rng.random(st["mv"].shape) < 0.2).to(cuda_device)
+    st["mv"] = torch.where(big, st["mv"].float() * 16, st["mv"].float()).to(
+        FP8)
+    if data != "decode-like":
+        llr = st["llr"].float()
+        pick = torch.from_numpy(rng.random(llr.shape)).to(cuda_device)
+        llr = torch.where(pick < 0.1, 1e5 * torch.sign(llr), llr)
+        st["llr"] = torch.where(pick > 0.97, float("nan"), llr).to(
+            torch.bfloat16)
+    before = dict(_kernels.launch_counts)
+    rk = G.cn_pass_general(st["mv"], st["syn"], torch.empty_like(st["rc"]), t,
+                           pre)
+    rp = G.cn_pass_general_e5m2_plain(st["mv"], st["syn"],
+                                      torch.empty_like(st["rc"]), t, pre)
+    assert _same_bits(rk, rp)
+    zeros = (rk.view(torch.uint8) & 0x7F) == 0
+    assert (rk.view(torch.uint8)[zeros] == 0x80).any()
+    for emit in (False, True):
+        bk = torch.full((t.n_vars, B), -1, dtype=torch.int8,
+                        device=cuda_device)
+        bp = bk.clone()
+        mk = G.vn_pass_general(st["rc"], st["llr"],
+                               torch.empty_like(st["mv"]), t, pre,
+                               bits=bk if emit else None)
+        mp = G.vn_pass_general_e5m2_plain(st["rc"], st["llr"],
+                                          torch.empty_like(st["mv"]), t, pre,
+                                          bits=bp if emit else None)
+        assert _same_bits(mk, mp), emit
+        assert torch.equal(bk, bp)
+    torch.cuda.synchronize()
+    counts = {n: _kernels.launch_counts[n] - before[n] for n in (
+        "cn_general_fp8", "vn_general_fp8", "phi_accurate")}
+    assert counts == {"cn_general_fp8": len(t.cn_buckets),
+                      "vn_general_fp8": 2 * len(t.vn_buckets),
+                      "phi_accurate": 0}
 
 
 @pytest.mark.cuda
