@@ -48,7 +48,11 @@ one at 80, as the JAX kernels do):
 
 The CLI (``python -m ldpc_decoder_tpu_torch.cli``, the JAX CLI's flags)
 decodes reg36 from its cached alist, 512 frames at sigma = 0.87 in
-bfloat16 at log level 2, in process, then a small QC code in a subprocess.
+bfloat16 at log level 2, in process, then a small QC code in a subprocess;
+and over the BSC (-c 0) the rate-0.9 code at p = 0.007, 512 frames drawn
+by the port's native host library. The full-size BI-AWGN host frames
+come from that library too, asked for by name: no phase falls back to
+numpy when it does not build.
 
 The qualification (``scripts/fer_stats_torch.py``) generates its frames
 on the card (``runtime/datagen_device.py``: the ChaCha8 reference bits and
@@ -291,7 +295,19 @@ Phases:
     Then the grouped kernels against their plain versions at this lift's
     shape (256 host frames, by phase 5's rules, timed), and the control:
     the same base prelifted x8 at the same n (Z = 21,504) through the same
-    measure at sigma_op, FER 0 required.
+    measure at sigma_op, FER 0 required;
+41. the CLI's BSC harness (-c 0) on frames from the port's native host
+    library: the library built from the port's own source
+    (ldpc_decoder_tpu_torch/native/src/ldpc_host.cpp, no fallback to
+    numpy), 64 frames of the
+    rate-0.9 code at p = 0.007 from it and from numpy, equal bit for bit
+    and both timed; then cli.main on the rate-0.9 alist in process (B =
+    256, 512 frames, k = 7, bfloat16, log level 2), its launch counts set
+    to 0 just before and read just after (the regular kernels, the
+    parity's vector instantiation, no other): exit 0, BER 0, no frame in
+    error, the average iterations in the band written before the first
+    run (35-44; the JAX record 41.45 at k = 14); the datagen seconds, the
+    wall and both Mb/s printed with the card's name and power limit.
 
 Every phase must pass: any failure raises, and the script exits nonzero
 without its result line. The last line of stdout is the result object; the
@@ -303,7 +319,8 @@ parity entries with their one-lane instantiation's time as
 ``slice_ms``; the regular sum-product and parity entries with phase 34's
 rate-0.9 times as ``rate09_ms``, ``rate09_accurate_ms``,
 ``rate09_one_lane_ms``, ``rate09_plain_ms``, ``rate09_bound_ms`` and
-their launches per rate-0.9 decode as ``rate09_launches``; the grouped
+their launches per rate-0.9 decode as ``rate09_launches`` and phase
+41's launches in the CLI's BSC run as ``cli_bsc_launches``; the grouped
 entries with phase 40's times at the designed lift as ``design_ms``,
 ``design_accurate_ms``, ``design_plain_ms``, ``design_bound_ms`` and the
 launches of its design run as ``design_launches``; the pool
@@ -336,6 +353,7 @@ import time
 
 # the sample codes (bench.py's cache files and headers)
 from ldpc_decoder_tpu_torch.codes.samples import (
+    BSC_ALIST,
     REG36_ALIST,
     get_bsc_code,
     get_code,
@@ -422,6 +440,24 @@ DESIGN_ARGV = ["--rate", "0.5", "--n", "1048576", "--measure", "--seeds", "3",
                "--frames", str(DESIGN_FRAMES)]
 DESIGN_LIFT = {"n_vars": 1_204_224, "n_erased_vars": 172_032, "Z": 57_344,
                "m": 3}
+# phase 41: the CLI's BSC harness (-c 0) on the rate-0.9 code at RATE09_P:
+# B = 256, two fills (512 frames), k = 7, frames from the port's native
+# host library; its frames held to numpy's first on CLI_BSC_CHECK_FRAMES.
+# The JAX record (RATE09_RECORD) has FER 0/2048 and 41.45 average
+# iterations there at k = 14; at k = 7 a frame retires at the first
+# multiple of 7, not 14, at or after it converges, so the band sits lower
+# (PERF.md §6, the prediction written before the first run)
+CLI_BSC_CHECK_FRAMES = 64
+CLI_BSC_ARGV = ["-c", "0", "-n", str(RATE09_P), "-p", "8", "-m", "2", "-e",
+                "15", "-i", "120", "--check-period", "7", "--dtype",
+                "bfloat16", "-l", "2"]
+CLI_BSC_AVG_ITERS = (35.0, 44.0)
+# the lines of an in-process CLI run that phases 29 and 41 log
+CLI_LINES = ("Number of vectors", " Test vector", "  bp_", "  parity_",
+             "  superstep", "  retire", "  refill", "Iterations (",
+             "  total =", "# of frames", "Total # of", "Bit error",
+             "Frames with", "Mbits", "Elapsed", "Throughput", "Max/min",
+             "Iteration time", "Decoding throughput")
 # the small QC code of the CLI's subprocess run (git-ignored cache)
 CLI_SMALL_ALIST = os.path.join(REPO, "codes_cache", "cli_qc36_z128.alist")
 # phase 39: p41 on a mesh of two replicas of the card, B lanes each; the
@@ -2149,13 +2185,8 @@ def phase_cli(np):
         rc = cli.main(argv)
     wall = time.perf_counter() - t0
     text = buf.getvalue()
-    keep = ("Number of vectors", " Test vector", "  bp_", "  parity_",
-            "  superstep", "  retire", "  refill", "Iterations (",
-            "  total =", "# of frames", "Total # of", "Bit error",
-            "Frames with", "Elapsed", "Throughput", "Max/min",
-            "Iteration time", "Decoding throughput")
     for line in text.splitlines():
-        if line.startswith(keep):
+        if line.startswith(CLI_LINES):
             log(f"  | {line}")
     log(f"  in-process CLI: exit {rc}, {wall:.1f} s wall")
     assert rc == 0, text[-2000:]
@@ -3038,7 +3069,6 @@ def design_code_phase(torch, np, dev, smi):
 
     # the grouped kernels against their plain versions at this lift's
     # shape, on 256 host frames at sigma_op
-    from ldpc_decoder_tpu_torch import native
     from ldpc_decoder_tpu_torch.channels import BIAWGNChannel
     from ldpc_decoder_tpu_torch.codes.protographs import (
         make_protograph_code_two_stage,
@@ -3046,7 +3076,7 @@ def design_code_phase(torch, np, dev, smi):
     from ldpc_decoder_tpu_torch.runtime.datagen import create_data
 
     batch = create_data(code, BIAWGNChannel(sigma_op), 0, 256,
-                        backend="native" if native.available() else "numpy")
+                        backend="native")
     kernels = phase_kernels(torch, np, dev, code, qc, batch,
                             name="designed m = 3")
     del batch
@@ -3510,6 +3540,100 @@ def multi_device_phase(torch, np, dev, code, s, batch, smi):
     return record
 
 
+def cli_bsc_phase(torch, np, code09, smi):
+    """Phase 41: the port's native host library, built from its own source,
+    then 64 rate-0.9 BSC frames from it against numpy's (bit for bit, both
+    timed), then the CLI's BSC harness in process (CLI_BSC_ARGV on the
+    rate-0.9 alist, launch counts set to 0 just before cli.main and read
+    just after: the regular kernels and no other); exit 0, BER 0, no frame
+    in error and the average iterations in CLI_BSC_AVG_ITERS required.
+    Returns the regular kernels' launches in the CLI run."""
+    import io
+
+    from ldpc_decoder_tpu_torch import cli, native
+    from ldpc_decoder_tpu_torch.channels import BSCChannel
+    from ldpc_decoder_tpu_torch.ops import _kernels
+    from ldpc_decoder_tpu_torch.runtime.datagen import create_data
+
+    # (a) the library, from the port's own source: no fallback
+    assert native.available(), "the native host library did not build"
+    port = os.path.join(os.path.realpath(REPO), "ldpc_decoder_tpu_torch")
+    source = os.path.realpath(native.SOURCE)
+    assert source.startswith(port + os.sep), source
+    log(f"  native library built from {os.path.relpath(source, REPO)}; "
+        f"{os.cpu_count()} host cores")
+
+    # (b) 64 host frames from the library and from numpy: equal bit for bit
+    ch = BSCChannel(RATE09_P)
+    times, batches = {}, {}
+    for backend in ("native", "numpy"):
+        t0 = time.perf_counter()
+        batches[backend] = create_data(code09, ch, 0, CLI_BSC_CHECK_FRAMES,
+                                       backend=backend)
+        times[backend] = time.perf_counter() - t0
+    for name in ("ref_bits", "values", "syndromes"):
+        assert np.array_equal(getattr(batches["native"], name),
+                              getattr(batches["numpy"], name)), name
+    log(f"  create_data: {CLI_BSC_CHECK_FRAMES} rate-0.9 frames at p "
+        f"{RATE09_P}: native {times['native']:.3f} s, numpy "
+        f"{times['numpy']:.3f} s, equal bit for bit")
+    del batches
+
+    # (c) the CLI's BSC harness, in process
+    argv = ["-f", BSC_ALIST, *CLI_BSC_ARGV]
+    log(f"  cli.main({' '.join(argv)})")
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    _kernels.reset_launch_counts()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(argv)
+    torch.cuda.synchronize()
+    launches = dict(_kernels.launch_counts)
+    wall = time.perf_counter() - t0
+    text = buf.getvalue()
+    for line in text.splitlines():
+        if line.startswith(CLI_LINES):
+            log(f"  | {line}")
+    assert rc == 0, text[-2000:]
+    assert "Bit error rate (BER):             0\n" in text, text[-2000:]
+    assert "Frames with at least one error:   0 (" in text
+    assert "Phase timings (per call):" in text
+
+    def number(pattern):
+        return float(re.search(pattern, text).group(1))
+    with open(RATE09_RECORD) as f:
+        record, = (pt for pt in json.load(f)["points"]
+                   if pt["sigma"] == RATE09_P)
+    datagen_s = number(r"Test vector computation time: ([\d.e+-]+)")
+    avg = number(r"Max/min/average number of iterations per vector: "
+                 r"\d+/\d+/([\d.e+-]+)")
+    rec = {"frames": int(number(r"Number of vectors \(or frames\) per run: "
+                                r"(\d+)")),
+           "datagen_s": datagen_s, "wall_s": wall, "avg_iter": avg,
+           "record_avg_iter_k14": record["avg_iters"],
+           "band": CLI_BSC_AVG_ITERS,
+           "elapsed_s": number(r"Elapsed system time: +([\d.e+-]+)"),
+           "e2e_mbps": number(r"Throughput including transfers and finish: "
+                              r"([\d.e+-]+)"),
+           "decoding_mbps": number(r"Decoding throughput: ([\d.e+-]+)"),
+           "check_native_s": times["native"],
+           "check_numpy_s": times["numpy"],
+           "check_frames": CLI_BSC_CHECK_FRAMES,
+           "host_cores": os.cpu_count(),
+           "launches": {k: launches[k] for k in REGULAR}, "card": smi}
+    log(json.dumps({"cli_bsc": rec}))
+    assert rec["frames"] == 512, rec["frames"]
+    for name, count in launches.items():
+        if name in REGULAR:
+            assert count > 0, f"cli bsc: {name} never launched"
+        else:
+            assert count == 0, f"cli bsc: {name} launched off its path"
+    assert launches["parity_regular_vec"] == launches["parity_regular"]
+    lo, hi = CLI_BSC_AVG_ITERS
+    assert lo <= avg <= hi, avg
+    return {name: launches[name] for name in REGULAR[:3]}
+
+
 def main():
     import numpy as np
     import torch
@@ -3542,7 +3666,6 @@ def main():
     cuda_numerics_smoke(dev, verbose=lambda m: log(f"  {m}"))
 
     phase(4, "code and frames")
-    from ldpc_decoder_tpu_torch import native
     from ldpc_decoder_tpu_torch.channels import (
         BIAWGNChannel,
         ErasureChannel,
@@ -3561,7 +3684,7 @@ def main():
     log(f"  p41: n = {code.n_vars}, {code.n_erased_vars} punctured, "
         f"{s.n_base_edges} circulants of Z = {s.Z} ({how}, "
         f"{time.perf_counter() - t0:.1f} s)")
-    backend = "native" if native.available() else "numpy"
+    backend = "native"  # the port's host library; no fallback to numpy
     t0 = time.perf_counter()
     ch = BIAWGNChannel(SIGMA)
     batch = create_data(code, ch, 0, N_FRAMES, backend=backend)
@@ -3838,7 +3961,7 @@ def main():
     for name in ("cn_regular", "vn_regular", "parity_regular"):
         rate09[name]["rate09_launches"] = per_decode[name]
         timings[name].update(rate09[name])
-    del code09, s09
+    del s09  # the code stays for phase 41
 
     phase(36, "code design and interleaved reg36 at full size")
     design_phase(torch, dev, code36, s36, batch36, smi)
@@ -3873,6 +3996,11 @@ def main():
     for name, rec in design_code_phase(torch, np, dev, smi).items():
         timings[name].update(rec)
     torch.cuda.empty_cache()
+
+    phase(41, "the CLI's BSC harness on the rate-0.9 code, native frames")
+    for name, count in cli_bsc_phase(torch, np, code09, smi).items():
+        timings[name]["cli_bsc_launches"] = count
+    del code09
     log(f"  all phases passed in {time.perf_counter() - t_all:.1f} s")
 
     launches.update({name: launches36[name] for name in REGULAR})
@@ -3901,9 +4029,9 @@ def main():
             if extra in r:
                 entry[extra] = r[extra]
         # phase 34's times at the rate-0.9 code's d_c = 30, phase 40's at
-        # the designed lift
+        # the designed lift, phase 41's launches in the CLI's BSC run
         entry.update({k: v for k, v in r.items()
-                      if k.startswith(("rate09_", "design_"))})
+                      if k.startswith(("rate09_", "design_", "cli_bsc_"))})
         kernels.append(entry)
     for name, rep in DATAGEN_KERNELS:
         r = timings[name]

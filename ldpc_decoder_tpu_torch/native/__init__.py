@@ -1,13 +1,19 @@
-"""ctypes bindings for the native host library.
+"""ctypes bindings for the port's native host library (``src/ldpc_host.cpp``).
 
-Both packages draw frames from one C++ file,
-``ldpc_decoder_tpu/native/src/ldpc_host.cpp`` (seekable ChaCha8 keystream,
-reference bits, channel noise, bit-packed syndromes; C++17 + OpenMP). The
-port builds it with ``g++`` at first use into its own git-ignored build
-directory (``ldpc_decoder_tpu_torch/build/``) and binds the plain
-``extern "C"`` interface with ctypes; it imports nothing of the JAX
-package. ``available()`` is False when ``g++`` cannot build the library;
-callers then use the numpy implementations, which give the same streams.
+The library implements the host-side hot path — seekable ChaCha8
+keystream, reference-bit generation, channel noise (BI-AWGN and BSC),
+bit-packed syndromes and the 32x32 bit transpose — natively (C++17 + OpenMP
++ AVX2 via ``-march=native``), mirroring the reference's AVX2 CPU layer
+(chacha_stream.cpp, transpose.cpp, ldpc_code.cpp:256-286). The source is the
+port's own copy of the JAX package's ``ldpc_decoder_tpu/native/src/
+ldpc_host.cpp``, and the functions below keep that package's names and
+signatures (``ldpc_decoder_tpu/native/__init__.py``).
+
+The shared object is built with ``g++`` at first use into the port's
+git-ignored build directory (``ldpc_decoder_tpu_torch/build/``) and bound
+with ctypes (no pybind11; plain ``extern "C"``). ``available()`` is False
+when ``g++`` cannot build the library; ``create_data(backend="auto")`` then
+uses the numpy implementations, which give the same streams.
 """
 
 from __future__ import annotations
@@ -21,9 +27,7 @@ import numpy as np
 
 from ldpc_decoder_tpu_torch._build import BuildError, build_shared_library
 
-_REPO = os.path.dirname(os.path.dirname(os.path.dirname(
-    os.path.abspath(__file__))))
-SOURCE = os.path.join(_REPO, "ldpc_decoder_tpu", "native", "src",
+SOURCE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "src",
                       "ldpc_host.cpp")
 _CMD = ["g++", "-O3", "-std=c++17", "-shared", "-fPIC", "-fopenmp",
         "-march=native"]
@@ -52,20 +56,35 @@ def _load():
         p_i32 = np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS")
         p_i64 = np.ctypeslib.ndpointer(np.int64, flags="C_CONTIGUOUS")
         p_f32 = np.ctypeslib.ndpointer(np.float32, flags="C_CONTIGUOUS")
+        lib.ldpc_chacha_stream_words.argtypes = [u64, u64, u64, p_u32]
         lib.ldpc_gen_ref_words.argtypes = [u64, i64, i64, p_u32]
-        lib.ldpc_gen_ref_words.restype = None
         lib.ldpc_add_noise_awgn.argtypes = [
             u64, i64, i64, i64, p_u32, ctypes.c_float, p_f32, i64]
-        lib.ldpc_add_noise_awgn.restype = None
+        lib.ldpc_add_noise_bsc.argtypes = [
+            u64, i64, i64, i64, p_u32, ctypes.c_float, p_f32, i64]
         lib.ldpc_compute_syndrome_words.argtypes = [
             p_i64, p_i32, i64, i64, p_u32, p_u32]
-        lib.ldpc_compute_syndrome_words.restype = None
+        lib.ldpc_deinterlace_words.argtypes = [p_u32, i64, i64, p_u32]
+        for fn in (lib.ldpc_chacha_stream_words, lib.ldpc_gen_ref_words,
+                   lib.ldpc_add_noise_awgn, lib.ldpc_add_noise_bsc,
+                   lib.ldpc_compute_syndrome_words,
+                   lib.ldpc_deinterlace_words):
+            fn.restype = None
+        lib.ldpc_native_version.restype = ctypes.c_int
         _lib = lib
         return _lib
 
 
 def available() -> bool:
     return _load() is not None
+
+
+def stream_words(seed: int, start: int, count: int) -> np.ndarray:
+    """Native twin of :func:`rng.chacha_np.stream_words` (word-exact)."""
+    lib = _load()
+    out = np.empty(count, dtype=np.uint32)
+    lib.ldpc_chacha_stream_words(seed, start, count, out)
+    return out
 
 
 def gen_ref_words(start_index: int, n_vars: int, n_groups: int) -> np.ndarray:
@@ -77,20 +96,24 @@ def gen_ref_words(start_index: int, n_vars: int, n_groups: int) -> np.ndarray:
     return out
 
 
-def add_noise_awgn(sigma: float, vec_start: int, ref_words: np.ndarray,
-                   transmitted: int, n_frames: int, out: np.ndarray) -> None:
+def add_noise(channel_type: str, param: float, vec_start: int,
+              ref_words: np.ndarray, transmitted: int, n_frames: int,
+              out: np.ndarray) -> None:
     """Fill ``out[:transmitted, :n_frames]`` (float32, C-contiguous rows of
-    length out.shape[1]) with noisy BI-AWGN channel values."""
+    length out.shape[1]) with noisy channel values: ``"awgn"`` (``param`` =
+    σ) or ``"bsc"`` (``param`` = p)."""
     lib = _load()
+    fn = {"awgn": lib.ldpc_add_noise_awgn,
+          "bsc": lib.ldpc_add_noise_bsc}[channel_type]
     n_vars, n_groups = ref_words.shape
     if out.dtype != np.float32 or not out.flags.c_contiguous:
         raise ValueError("out must be a C-contiguous float32 array")
     if out.shape[0] < transmitted or out.shape[1] < n_frames:
         raise ValueError(f"out {out.shape} too small for "
                          f"[{transmitted}, {n_frames}]")
-    lib.ldpc_add_noise_awgn(vec_start, n_frames, transmitted, n_groups,
-                            np.ascontiguousarray(ref_words).reshape(-1),
-                            sigma, out.reshape(-1), out.shape[1])
+    fn(vec_start, n_frames, transmitted, n_groups,
+       np.ascontiguousarray(ref_words).reshape(-1), param, out.reshape(-1),
+       out.shape[1])
 
 
 def compute_syndrome_words(offsets: np.ndarray, indices: np.ndarray,
@@ -104,5 +127,19 @@ def compute_syndrome_words(offsets: np.ndarray, indices: np.ndarray,
         np.ascontiguousarray(offsets, np.int64),
         np.ascontiguousarray(indices, np.int32),
         n_checks, n_groups, np.ascontiguousarray(ref_words).reshape(-1),
+        out.reshape(-1))
+    return out
+
+
+def deinterlace_words(words: np.ndarray) -> np.ndarray:
+    """Frame-interleaved [n_words, n_groups] -> per-frame packed
+    [n_groups*32, ceil(n_words/32)] uint32 (deinterlace,
+    main.cpp:273-299): each frame's n_words bits pack 32 per word."""
+    lib = _load()
+    n_words, n_groups = words.shape
+    n_out_words = (n_words + 31) // 32
+    out = np.empty((n_groups * 32, n_out_words), dtype=np.uint32)
+    lib.ldpc_deinterlace_words(
+        np.ascontiguousarray(words).reshape(-1), n_words, n_groups,
         out.reshape(-1))
     return out

@@ -135,11 +135,11 @@ def run(dev: torch.device, small: bool = False, headline: bool = False,
         code, structure = (p41_code(Z=128, m=4, coarse=64, fine_mod=16)
                            if small else p41_code())
     if batch is None:
-        from ldpc_decoder_tpu_torch import native
-
-        backend = "native" if native.available() else "numpy"
+        # on the card's host the native library, asked for by name (no
+        # fallback to numpy); on the CPU create_data's default
         batch = create_data(code, BIAWGNChannel(SIGMA), 0, B,
-                            backend=backend)
+                            backend="native" if dev.type == "cuda"
+                            else "auto")
     t, llr, syn, msgs = lane_state(dev, code, structure, batch, B)
     k = K_ITERATIONS
 

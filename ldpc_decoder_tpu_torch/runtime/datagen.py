@@ -12,9 +12,9 @@ reproducible from its absolute index alone (main.cpp:474-481):
   channel draw per transmitted bit; erased (punctured) trailing variables
   get channel value 0 (main.cpp:529-530).
 
-Backends: pure numpy, or the native C++ library
-(:mod:`ldpc_decoder_tpu_torch.native`) when ``g++`` builds it — same
-streams, about ten times faster.
+Backends: pure numpy, or the port's native C++ library
+(:mod:`ldpc_decoder_tpu_torch.native`, BI-AWGN and BSC) when ``g++`` builds
+it — same streams, several times faster.
 """
 
 from __future__ import annotations
@@ -78,10 +78,11 @@ def create_data(
 ) -> FrameBatch:
     """Generate one decode batch, reference-stream exact.
 
-    ``backend``: "native" (C++ library), "numpy", or "auto" (native when
-    the library builds and the channel is BI-AWGN, numpy otherwise). Both
-    produce the same streams; channel values may differ in the last ulp
-    (libm vs numpy transcendentals).
+    ``backend``: "native" (C++ library; BI-AWGN and BSC), "numpy", or
+    "auto" (native when the library builds and the channel is BI-AWGN or
+    BSC, numpy otherwise, as in the JAX package). Both produce the same
+    streams; BI-AWGN values may differ in the last ulp (libm vs numpy
+    transcendentals), BSC values are equal.
     """
     vec_start = start_index + batch_index * n_frames
     transmitted = code.n_vars - code.n_erased_vars
@@ -90,7 +91,7 @@ def create_data(
         from ldpc_decoder_tpu_torch import native
 
         backend = "native" if (
-            channel.channel_type == "awgn" and native.available()
+            channel.channel_type in ("awgn", "bsc") and native.available()
         ) else "numpy"
 
     if backend == "native":
@@ -118,9 +119,9 @@ def _create_data_native(code: LDPCCode, channel: Channel, vec_start: int,
     """Native (C++/OpenMP) create_data: same streams, parallel over frames."""
     from ldpc_decoder_tpu_torch import native
 
-    if channel.channel_type != "awgn":
+    if channel.channel_type not in ("awgn", "bsc"):
         raise ValueError(
-            f"native datagen supports the awgn channel only, got "
+            f"native datagen supports awgn/bsc channels only, got "
             f"{channel.channel_type!r}; use backend='numpy' or 'auto'"
         )
     if not native.available():
@@ -129,8 +130,9 @@ def _create_data_native(code: LDPCCode, channel: Channel, vec_start: int,
     ref_words = native.gen_ref_words(vec_start, code.n_vars, n_groups)
 
     values = np.zeros((code.n_vars, n_frames), dtype=np.float32)
-    native.add_noise_awgn(channel.sigma, vec_start, ref_words, transmitted,
-                          n_frames, values)
+    param = channel.sigma if channel.channel_type == "awgn" else channel.p
+    native.add_noise(channel.channel_type, param, vec_start, ref_words,
+                     transmitted, n_frames, values)
 
     syn_words = native.compute_syndrome_words(
         code.out_bit_to_edge.astype(np.int64), code.out_edge_to_in_bit,

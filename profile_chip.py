@@ -148,7 +148,6 @@ def main():
     if not torch.cuda.is_available():
         raise SystemExit("profile_chip: torch.cuda.is_available() is False; "
                          "this script needs an NVIDIA GPU")
-    from ldpc_decoder_tpu_torch import native
     from ldpc_decoder_tpu_torch.channels import BIAWGNChannel
     from ldpc_decoder_tpu_torch.codes.generate import make_regular_code
     from ldpc_decoder_tpu_torch.ops import _kernels
@@ -162,7 +161,6 @@ def main():
     cs.log(smi("name,power.limit"))
     for name in _kernels.SOURCES:
         _kernels.load(name)
-    backend = "native" if native.available() else "numpy"
     sp = StaticParams(max_log_parallel_factor_user=8,
                       message_dtype="bfloat16")
     sp_general = StaticParams(parallel_factor_user=384,
@@ -209,7 +207,7 @@ def main():
             continue
         code, s, _ = get()
         ch = BIAWGNChannel(sigma)
-        batch = create_data(code, ch, 0, n, backend=backend)
+        batch = create_data(code, ch, 0, n, backend="native")
         dec = LDPCDecoder(code, ch, params, qc=s)
         results.append(profile_path(torch, label, dec, dyn, batch, n))
         del dec, batch

@@ -45,7 +45,6 @@ def child(tree: str, label: str, turn: int, reps: int) -> None:
     import numpy as np
     import torch
 
-    from ldpc_decoder_tpu_torch import native
     from ldpc_decoder_tpu_torch.channels import BIAWGNChannel
     from ldpc_decoder_tpu_torch.codes.compiled import compile_code
     from ldpc_decoder_tpu_torch.codes.generate import make_regular_code
@@ -59,8 +58,7 @@ def child(tree: str, label: str, turn: int, reps: int) -> None:
     code = make_regular_code(2**20, 3, 6, seed=9)
     t = G.GeneralTables.from_compiled(compile_code(code), dev)
     ch = BIAWGNChannel(SIGMA)
-    batch = create_data(code, ch, 0, B, backend="native"
-                        if native.available() else "numpy")
+    batch = create_data(code, ch, 0, B, backend="native")
     vals = torch.from_numpy(np.ascontiguousarray(
         batch.values[t.vn_order.cpu().numpy(), :B])).to(dev)
     llr = ch.llr_from_channel(vals).masked_fill(

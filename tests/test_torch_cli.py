@@ -4,8 +4,8 @@ Every case of ``tests/test_cli.py`` runs against
 ``ldpc_decoder_tpu_torch.cli.main`` on the CPU (``--device cpu`` with
 ``--memory-bytes``, since the lane model has no card to ask); the port's
 Summary is held to the JAX CLI's on the same alist, seed and flags
-(float32 sum-product and int8 min-sum: every line equal but the time and
-throughput ones), and the report module to its JAX original on the same
+(float32 sum-product and int8 min-sum, and the BSC from each package's
+native library: every line equal but the time and throughput ones), and the report module to its JAX original on the same
 inputs (identical strings).
 """
 
@@ -23,9 +23,11 @@ torch.set_num_threads(2)
 from ldpc_decoder_tpu import channels as jax_channels  # noqa: E402
 from ldpc_decoder_tpu.cli import main as jax_main  # noqa: E402
 from ldpc_decoder_tpu.codes.code import LDPCCode as JaxLDPCCode  # noqa: E402
+from ldpc_decoder_tpu import native as jax_native  # noqa: E402
+from ldpc_decoder_tpu.runtime import datagen as jax_datagen  # noqa: E402
 from ldpc_decoder_tpu.runtime import report as jax_report  # noqa: E402
 
-from ldpc_decoder_tpu_torch import channels  # noqa: E402
+from ldpc_decoder_tpu_torch import channels, native  # noqa: E402
 from ldpc_decoder_tpu_torch.cli import main  # noqa: E402
 from ldpc_decoder_tpu_torch.codes.code import LDPCCode  # noqa: E402
 from ldpc_decoder_tpu_torch.codes.generate import make_regular_code  # noqa: E402
@@ -37,7 +39,7 @@ from ldpc_decoder_tpu_torch.ops import qc_grouped as qg  # noqa: E402
 from ldpc_decoder_tpu_torch.ops import qc_regular as qr  # noqa: E402
 from ldpc_decoder_tpu_torch.ops.phi import phi_abs  # noqa: E402
 from ldpc_decoder_tpu_torch.ops.qc_decode import QCDecodeTables  # noqa: E402
-from ldpc_decoder_tpu_torch.runtime import perf, report  # noqa: E402
+from ldpc_decoder_tpu_torch.runtime import datagen, perf, report  # noqa: E402
 from ldpc_decoder_tpu_torch.runtime.datagen import create_data  # noqa: E402
 from ldpc_decoder_tpu_torch.runtime.decoder import LDPCDecoder  # noqa: E402
 from ldpc_decoder_tpu_torch.runtime.params import (  # noqa: E402
@@ -156,24 +158,41 @@ def _summary(text):
     return [ln for ln in lines if not ln.startswith(TIMED)]
 
 
-@pytest.mark.parametrize("flags", [
-    [],
-    ["--dtype", "int8", "--algorithm", "min-sum", "--minsum-offset", "0.0",
-     "--minsum-alpha", "6:0.8125,0:0.8125"],
-], ids=["float32-sum-product", "int8-min-sum"])
-def test_summary_matches_jax_cli(small_alist, capsys, flags):
+@pytest.mark.parametrize("channel,flags", [
+    (["-c", "1", "-n", "0.75"], []),
+    (["-c", "1", "-n", "0.75"],
+     ["--dtype", "int8", "--algorithm", "min-sum", "--minsum-offset", "0.0",
+      "--minsum-alpha", "6:0.8125,0:0.8125"]),
+    (["-c", "0", "-n", "0.06"], []),
+], ids=["float32-sum-product", "int8-min-sum", "bsc-native"])
+def test_summary_matches_jax_cli(small_alist, capsys, monkeypatch, channel,
+                                 flags):
     """Same alist, seed and flags through both CLIs (two runs from frame
-    5 at σ = 0.75, so some frames fail): the Summary lines are equal but
-    the time and throughput ones."""
-    argv = ["-f", small_alist, "-c", "1", "-n", "0.75", "-p", "3", "-m",
-            "1", "-e", "3", "-i", "30", "-r", "2", "-s", "5",
-            "--check-period", "5", "--memory-bytes", str(1 << 30), *flags]
+    5 at σ = 0.75 or p = 0.06): the Summary lines are
+    equal but the time and throughput ones. The BSC frames come from each
+    package's native library on both sides (the harness's default
+    backend)."""
+    bsc = channel[1] == "0"
+    if bsc:
+        if not (native.available() and jax_native.available()):
+            pytest.skip("g++ cannot build the native libraries")
+        taken = []
+        for module in (datagen, jax_datagen):
+            real = module._create_data_native
+            monkeypatch.setattr(
+                module, "_create_data_native",
+                lambda *a, real=real, m=module: taken.append(m) or real(*a))
+    argv = ["-f", small_alist, *channel, "-p", "3", "-m", "1", "-e", "3",
+            "-i", "30", "-r", "2", "-s", "5", "--check-period", "5",
+            "--memory-bytes", str(1 << 30), *flags]
     assert jax_main(argv) == 0
     ref = capsys.readouterr().out
     assert main(argv + ["--device", "cpu"]) == 0
     got = capsys.readouterr().out
     assert _summary(got) == _summary(ref)
     assert len(_summary(got)) > 20
+    if bsc:  # two batches each
+        assert taken == [jax_datagen] * 2 + [datagen] * 2
 
 
 def test_report_matches_jax(small_alist):

@@ -1721,6 +1721,34 @@ def test_rate09_decode_on_card_matches_cpu(cuda_device):
 
 
 @pytest.mark.cuda
+def test_bsc_native_batch_on_card_matches_numpy(cuda_device):
+    """The same BSC frames from the port's native library and from numpy
+    (the rate-0.9-shaped code at Z = 256, p = 0.0058, 96 frames) are equal
+    bit for bit, and decode on the card to the same words and per-frame
+    iterations (the qualification decoder: B = 256, k = 14)."""
+    from ldpc_decoder_tpu_torch import native
+    from ldpc_decoder_tpu_torch.channels import BSCChannel
+
+    assert native.available()  # the card's host builds it: no fallback
+    code, s = _rate09_small()
+    fer = _fer_stats()
+    n, ch = 96, BSCChannel(0.0058)
+    batches = [create_data(code, ch, 0, n, backend=b)
+               for b in ("native", "numpy")]
+    for name in ("ref_bits", "values", "syndromes"):
+        np.testing.assert_array_equal(getattr(batches[0], name),
+                                      getattr(batches[1], name))
+    dyn = DynamicParams(num_iter_max=fer.MAX_ITER, num_iter_check_parity=14,
+                        loading_factor=2)
+    dec, _ = fer.qualification_decoder(code, s, 1, 0.0058, cuda_device)
+    (res_n, st_n), (res_p, st_p) = (
+        dec.decode(dyn, n, b.values, b.syndromes) for b in batches)
+    np.testing.assert_array_equal(res_n, res_p)
+    np.testing.assert_array_equal(st_n.iterations, st_p.iterations)
+    assert (res_n == batches[0].ref_bits_packed()).all(axis=1).sum() >= n - 4
+
+
+@pytest.mark.cuda
 def test_fp8_qualify_point_on_card_matches_cpu(small_code, cuda_device):
     """qualify_point(message_dtype="float8_e5m2") on the small p41 (the
     grouped family) at sigma 0.8, 64 frames: the card against the plain

@@ -2,7 +2,7 @@
 
 The card's host has no JAX, so ``ldpc_decoder_tpu_torch`` carries JAX-free
 copies of the numpy modules (codes, channels, ChaCha8, datagen) and builds
-the same native C++ source. Same seed in, identical arrays out.
+its own copy of the native C++ source. Same seed in, identical arrays out.
 """
 
 import os

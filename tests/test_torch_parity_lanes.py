@@ -265,3 +265,19 @@ def test_package_data_ships_every_kernel_source():
     # and every file of csrc/ is one of them (none ships unbuilt)
     assert {Path(f).name for f in files} == {
         p.name for p in CSRC.iterdir() if p.suffix in (".cu", ".cuh")}
+
+
+def test_package_data_ships_the_native_source():
+    """An installed port builds its host library at first use from its own
+    copy of the C++ source: the file lies in the port and matches a
+    package-data glob of ``ldpc_decoder_tpu_torch.native``."""
+    from ldpc_decoder_tpu_torch import native
+
+    with open(REPO / "pyproject.toml", "rb") as f:
+        data = tomllib.load(f)["tool"]["setuptools"]["package-data"]
+    pkg = REPO / "ldpc_decoder_tpu_torch" / "native"
+    rel = os.path.relpath(native.SOURCE, pkg)
+    assert rel == os.path.join("src", "ldpc_host.cpp"), rel
+    assert any(fnmatch.fnmatch(rel, g)
+               for g in data["ldpc_decoder_tpu_torch.native"]), rel
+    assert {p.name for p in (pkg / "src").iterdir()} == {"ldpc_host.cpp"}
