@@ -164,10 +164,11 @@ def decode_multiprocess(decoder, dyn_params, n_vecs: int,
         pools.append((vals, syn))
         refs.append(ref)  # the n_gen real frames' packed words
         ids.append(np.arange(lo, lo + n_local))
-    res, iters, supersteps, elapsed = decoder._decode_dealt(
+    res, states, supersteps, elapsed = decoder._decode_dealt(
         [mesh.devices[g] for g in positions], pools, dyn_params,
         reduce=_sum_across_processes if world > 1 else None,
         before_clock=dist.barrier if world > 1 else None)
+    iters = [st.iters_out for st in states]
 
     te = (dyn_params.target_errors if target_errors is None
           else target_errors)

@@ -127,6 +127,7 @@ from ldpc_decoder_tpu_torch.parallel.mesh import (
     reassemble,
 )
 from ldpc_decoder_tpu_torch.rng.chacha_torch import pack_rows
+from ldpc_decoder_tpu_torch.runtime import tracing
 from ldpc_decoder_tpu_torch.runtime.params import DynamicParams, StaticParams
 
 _TORCH_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
@@ -150,6 +151,15 @@ class DecodeStats:
     # decode_start, decode_end on the compute stream, readback_end)
     decode_seconds: float | None = None
     events: dict | None = None
+    # frames loaded into a lane after the first fill, and supersteps
+    # launched while some lane held no frame (summed over the replicas of
+    # decode_sharded)
+    refills: int = 0
+    drain_supersteps: int = 0
+    # while a profiler records (runtime/tracing.py), on the card: ms on the
+    # compute stream from each superstep's flag copy to the next
+    # superstep's launch, one per superstep but the last; else None
+    turn_ms: list | None = None
 
     @property
     def min_iter(self) -> int:
@@ -288,12 +298,26 @@ class _Lanes:
     bits: torch.Tensor | None = None
     flags: torch.Tensor | None = None
     flags_ready: torch.cuda.Event | None = None
+    # DecodeStats' counters, and while tracing the turns' timing events:
+    # (after a flag copy, at the next launch) pairs, and the last flag
+    # copy's event until its pair is recorded
+    refills: int = 0
+    drain_supersteps: int = 0
+    turns: list | None = None
+    turn_start: torch.cuda.Event | None = None
 
     @property
     def n_remaining(self) -> int:
         """Frames not yet retired: active lanes plus the pool's rest."""
         return int(self.active.sum()) + (self.iters_out.size
                                          - self.pool_next)
+
+    def turn_ms(self) -> list | None:
+        """The turns' milliseconds, once the stream has been waited for;
+        None when no turn was timed."""
+        if self.turns is None:
+            return None
+        return [a.elapsed_time(b) for a, b in self.turns]
 
 
 def _as_bits(x: torch.Tensor) -> torch.Tensor:
@@ -671,10 +695,12 @@ class LDPCDecoder:
         """The next chunk in order: its worker's result (or exception), its
         readback waited for, the results copied out of the pinned slot
         that a later chunk reuses."""
-        results, stats, events = future.result()
+        with tracing.span("ldpc.chunk_wait"):
+            results, stats, events = future.result()
         if events is not None:
-            events["readback_end"].synchronize()
-            results = results.numpy().copy().view(np.uint32)
+            with tracing.span("ldpc.readback_wait"):
+                events["readback_end"].synchronize()
+                results = results.numpy().copy().view(np.uint32)
         return results, dataclasses.replace(
             stats, elapsed_seconds=time.perf_counter() - t0,
             decode_seconds=stats.elapsed_seconds, events=events)
@@ -710,31 +736,40 @@ class LDPCDecoder:
         (start, end) on the copy stream, and the pools belong to it until
         a consumer waits on ``end`` and records its stream on them. On the
         CPU the same gather runs at once and ``events`` is None."""
-        vn_order, cn_order = self._io_orders
-        if self.device.type != "cuda":
-            return (torch.from_numpy(np.ascontiguousarray(
-                        values, dtype=np.float32)).index_select(0, vn_order),
-                    torch.from_numpy(np.ascontiguousarray(
-                        syndromes, dtype=np.int8)).index_select(0, cn_order),
-                    None)
-        if slot.uploaded is not None:  # the slot's last upload has left it
-            slot.uploaded.synchronize()
-        host_v = slot.buffer("values", values.shape, torch.float32)
-        host_s = slot.buffer("syndromes", syndromes.shape, torch.int8)
-        _copy_into(host_v.numpy(), values)
-        _copy_into(host_s.numpy(), syndromes)
-        copy = self._cuda_streams()[0]
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        with torch.cuda.stream(copy):
-            start.record(copy)
-            pool_values = host_v.to(self.device, non_blocking=True
-                                    ).index_select(0, vn_order)
-            pool_syn = host_s.to(self.device, non_blocking=True
-                                 ).index_select(0, cn_order)
-            end.record(copy)
-        slot.uploaded = end
-        return pool_values, pool_syn, (start, end)
+        with tracing.span("ldpc.stage"):
+            vn_order, cn_order = self._io_orders
+            cuda = self.device.type == "cuda"
+            with tracing.span("ldpc.stage.slot_wait"):
+                if slot.uploaded is not None:  # its last upload has left it
+                    slot.uploaded.synchronize()
+            with tracing.span("ldpc.stage.cast"):
+                if cuda:
+                    host_v = slot.buffer("values", values.shape, torch.float32)
+                    host_s = slot.buffer("syndromes", syndromes.shape,
+                                         torch.int8)
+                    _copy_into(host_v.numpy(), values)
+                    _copy_into(host_s.numpy(), syndromes)
+                else:
+                    host_v = torch.from_numpy(np.ascontiguousarray(
+                        values, dtype=np.float32))
+                    host_s = torch.from_numpy(np.ascontiguousarray(
+                        syndromes, dtype=np.int8))
+            with tracing.span("ldpc.stage.upload"):
+                if not cuda:
+                    return (host_v.index_select(0, vn_order),
+                            host_s.index_select(0, cn_order), None)
+                copy = self._cuda_streams()[0]
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                with torch.cuda.stream(copy):
+                    start.record(copy)
+                    pool_values = host_v.to(self.device, non_blocking=True
+                                            ).index_select(0, vn_order)
+                    pool_syn = host_s.to(self.device, non_blocking=True
+                                         ).index_select(0, cn_order)
+                    end.record(copy)
+                slot.uploaded = end
+                return pool_values, pool_syn, (start, end)
 
     def _start(self, pool_values, pool_syn, n_pool: int, pre: float,
                input_is_llr: bool = False) -> _Lanes:
@@ -778,20 +813,34 @@ class LDPCDecoder:
         violated flags' copy to the host started: on the card into a pinned
         buffer, asynchronously, behind the event ``st.flags_ready``, so
         that the host can launch another replica's iterations before it
-        reads them (:meth:`_finish`)."""
-        extra = {"fresh": st.fresh} if self._lane_reset else {}
-        st.msgs, st.bits, violated = self._run_iterations(
-            st.msgs, st.llr, st.syn, self.tables, k, pre, **extra)
-        st.iters_done += k
-        if self.device.type != "cuda":
-            st.flags = violated
-            return
-        if st.flags is None:
-            st.flags = torch.empty(violated.shape, dtype=violated.dtype,
-                                   pin_memory=True)
-            st.flags_ready = torch.cuda.Event()
-        st.flags.copy_(violated, non_blocking=True)
-        st.flags_ready.record()
+        reads them (:meth:`_finish`). While tracing, timing events after
+        the flags' copy and at the next launch bound the superstep's turn."""
+        if st.turn_start is not None:
+            turn_end = torch.cuda.Event(enable_timing=True)
+            turn_end.record()
+            st.turns.append((st.turn_start, turn_end))
+            st.turn_start = None
+        if not st.active.all():  # the pool has run dry
+            st.drain_supersteps += 1
+        with tracing.span("ldpc.iterate"):
+            extra = {"fresh": st.fresh} if self._lane_reset else {}
+            st.msgs, st.bits, violated = self._run_iterations(
+                st.msgs, st.llr, st.syn, self.tables, k, pre, **extra)
+            st.iters_done += k
+            if self.device.type != "cuda":
+                st.flags = violated
+                return
+            if st.flags is None:
+                st.flags = torch.empty(violated.shape, dtype=violated.dtype,
+                                       pin_memory=True)
+                st.flags_ready = torch.cuda.Event()
+            st.flags.copy_(violated, non_blocking=True)
+            st.flags_ready.record()
+            if tracing.active():
+                st.turn_start = torch.cuda.Event(enable_timing=True)
+                st.turn_start.record()
+                if st.turns is None:
+                    st.turns = []
 
     def _finish(self, st: _Lanes, pool_values, pool_syn, max_iter: int,
                 pre: float) -> None:
@@ -801,41 +850,43 @@ class LDPCDecoder:
         them from the pool; updates ``st`` in place."""
         t, dev = self.tables, self.device
         n_pool = st.iters_out.size
-        if st.flags_ready is not None:
-            st.flags_ready.synchronize()
-        viol = st.flags.numpy()
-        done = st.active & (~viol | (st.iters_done >= max_iter))
-        bits, st.bits = st.bits, None
+        with tracing.span("ldpc.flag_wait"):
+            if st.flags_ready is not None:
+                st.flags_ready.synchronize()
+            viol = st.flags.numpy()
+        with tracing.span("ldpc.retire"):
+            done = st.active & (~viol | (st.iters_done >= max_iter))
+            bits, st.bits = st.bits, None
+            if done.any():  # pack the finished lanes' bits
+                lanes = np.nonzero(done)[0]
+                ids = st.frame_ids[lanes]
+                packed = self._pack(bits[..., torch.from_numpy(lanes).to(dev)])
+                st.results[torch.from_numpy(ids).to(dev)] = packed
+                st.iters_out[ids] = st.iters_done[lanes]
 
-        if done.any():  # retire: pack the finished lanes' bits
-            lanes = np.nonzero(done)[0]
-            ids = st.frame_ids[lanes]
-            packed = self._pack(bits[..., torch.from_numpy(lanes).to(dev)])
-            st.results[torch.from_numpy(ids).to(dev)] = packed
-            st.iters_out[ids] = st.iters_done[lanes]
-
-        # refill from the pool (flood_refill analog)
-        order = np.cumsum(done) - done
-        new_ids = st.pool_next + order
-        has_new = done & (new_ids < n_pool)
-        st.frame_ids = np.where(has_new, new_ids, st.frame_ids)
-        st.active = np.where(done, has_new, st.active)
-        st.pool_next = min(st.pool_next + int(done.sum()), n_pool)
-        st.iters_done[done] = 0
-        st.fresh = None
-        if has_new.any():
-            lanes = torch.from_numpy(np.nonzero(has_new)[0]).to(dev)
-            ids = torch.from_numpy(st.frame_ids[has_new]).to(dev)
-            st.llr[..., lanes] = self._lane_llr(pool_values[:, ids],
-                                                st.input_is_llr)
-            st.syn[..., lanes] = pool_syn[:, ids].view(
-                *self._node_shape[1], -1)
-            if self._lane_reset:
-                st.fresh = torch.from_numpy(has_new).to(dev)
-            else:  # the refilled lanes' messages start afresh now
-                msgs = _as_bits(st.msgs[0])
-                msgs[:, lanes] = _as_bits(self._init_lanes(
-                    st.llr[:, lanes], t, self.msg_dtype, pre))
+        with tracing.span("ldpc.refill"):  # flood_refill analog
+            order = np.cumsum(done) - done
+            new_ids = st.pool_next + order
+            has_new = done & (new_ids < n_pool)
+            st.frame_ids = np.where(has_new, new_ids, st.frame_ids)
+            st.active = np.where(done, has_new, st.active)
+            st.pool_next = min(st.pool_next + int(done.sum()), n_pool)
+            st.iters_done[done] = 0
+            st.refills += int(has_new.sum())
+            st.fresh = None
+            if has_new.any():
+                lanes = torch.from_numpy(np.nonzero(has_new)[0]).to(dev)
+                ids = torch.from_numpy(st.frame_ids[has_new]).to(dev)
+                st.llr[..., lanes] = self._lane_llr(pool_values[:, ids],
+                                                    st.input_is_llr)
+                st.syn[..., lanes] = pool_syn[:, ids].view(
+                    *self._node_shape[1], -1)
+                if self._lane_reset:
+                    st.fresh = torch.from_numpy(has_new).to(dev)
+                else:  # the refilled lanes' messages start afresh now
+                    msgs = _as_bits(st.msgs[0])
+                    msgs[:, lanes] = _as_bits(self._init_lanes(
+                        st.llr[:, lanes], t, self.msg_dtype, pre))
 
     def decode_presorted(
         self,
@@ -862,25 +913,30 @@ class LDPCDecoder:
         ready. ``progress``: called with the number of frames not yet
         retired after every superstep. ``input_is_llr``: the pool holds
         LLRs, not channel values (:meth:`decoding_input_is_llr`)."""
-        (st,), supersteps, t0 = self._lockstep(
-            [self], [(pool_values, pool_syn)], n_vecs, dyn_params,
-            input_is_llr=input_is_llr, host_poll=host_poll,
-            progress=progress)
-        _sync(self.device)
-        elapsed = time.perf_counter() - t0
-        k = dyn_params.num_iter_check_parity
-        burst = max(0, dyn_params.num_iter_first_check - k)
+        with tracing.span("ldpc.decode"):
+            (st,), supersteps, t0 = self._lockstep(
+                [self], [(pool_values, pool_syn)], n_vecs, dyn_params,
+                input_is_llr=input_is_llr, host_poll=host_poll,
+                progress=progress)
+            with tracing.span("ldpc.sync"):
+                _sync(self.device)
+            elapsed = time.perf_counter() - t0
+            k = dyn_params.num_iter_check_parity
+            burst = max(0, dyn_params.num_iter_first_check - k)
 
-        stats = DecodeStats(
-            iterations=st.iters_out,
-            total_supersteps=supersteps,
-            total_iterations=supersteps * k + burst,
-            elapsed_seconds=elapsed,
-            batch_size=self._parallel_factor,
-        )
-        if not fetch_results:
-            return st.results, stats
-        return st.results.cpu().numpy().view(np.uint32), stats
+            stats = DecodeStats(
+                iterations=st.iters_out,
+                total_supersteps=supersteps,
+                total_iterations=supersteps * k + burst,
+                elapsed_seconds=elapsed,
+                batch_size=self._parallel_factor,
+                refills=st.refills,
+                drain_supersteps=st.drain_supersteps,
+                turn_ms=st.turn_ms(),
+            )
+            if not fetch_results:
+                return st.results, stats
+            return st.results.cpu().numpy().view(np.uint32), stats
 
     # ---- several devices ---------------------------------------------------
     def decode_sharded(
@@ -928,16 +984,21 @@ class LDPCDecoder:
                 self.code.n_vars, self.code.n_erased_vars, self.code.n_checks,
                 idx.size - n_real)
             pools.append((v, s))
-        res, iters, supersteps, elapsed = self._decode_dealt(
+        res, states, supersteps, elapsed = self._decode_dealt(
             mesh.devices, pools, dyn_params)
         k = dyn_params.num_iter_check_parity
         burst = max(0, dyn_params.num_iter_first_check - k)
+        timed = [st.turn_ms() for st in states if st.turns is not None]
         return reassemble(res, order, n_vecs), DecodeStats(
-            iterations=reassemble(iters, order, n_vecs),
+            iterations=reassemble([st.iters_out for st in states], order,
+                                  n_vecs),
             total_supersteps=supersteps,
             total_iterations=supersteps * k + burst,
             elapsed_seconds=elapsed,
-            batch_size=self._parallel_factor * mesh.size)
+            batch_size=self._parallel_factor * mesh.size,
+            refills=sum(st.refills for st in states),
+            drain_supersteps=sum(st.drain_supersteps for st in states),
+            turn_ms=[ms for t in timed for ms in t] if timed else None)
 
     def _decode_dealt(self, devices, pools, dyn_params: DynamicParams,
                       reduce=None, before_clock=None):
@@ -946,8 +1007,9 @@ class LDPCDecoder:
         each on its replica, in lockstep (:meth:`_lockstep`, given
         ``reduce`` and ``before_clock``) once every pool is on its device;
         the clock stops with the results on the host. Returns (results [n,
-        n_words] uint32 per device, iterations [n] per device, supersteps,
-        seconds on the clock)."""
+        n_words] uint32 per device, the lane states per device (their
+        ``iters_out``: iterations [n]), supersteps, seconds on the
+        clock)."""
         seen: dict[torch.device, int] = {}
         reps = []
         for d in devices:
@@ -960,15 +1022,18 @@ class LDPCDecoder:
                 rep._load_libraries()
                 staged.append(rep.upload_pools(values, syndromes))
         n = staged[0][0].shape[1] if staged else 0
-        states, supersteps, t0 = self._lockstep(
-            reps, staged, n, dyn_params, reduce=reduce,
-            before_clock=before_clock)
-        results = []
-        for rep, st in zip(reps, states):
-            with rep._scope():
-                results.append(st.results.cpu().numpy().view(np.uint32))
+        with tracing.span("ldpc.decode"):
+            states, supersteps, t0 = self._lockstep(
+                reps, staged, n, dyn_params, reduce=reduce,
+                before_clock=before_clock)
+            results = []
+            with tracing.span("ldpc.sync"):
+                for rep, st in zip(reps, states):
+                    with rep._scope():
+                        results.append(
+                            st.results.cpu().numpy().view(np.uint32))
         elapsed = time.perf_counter() - t0
-        return results, [st.iters_out for st in states], supersteps, elapsed
+        return results, states, supersteps, elapsed
 
     def _lockstep(self, reps, pools, n: int, dyn_params: DynamicParams,
                   input_is_llr: bool = False, host_poll: bool = False,
@@ -1004,18 +1069,20 @@ class LDPCDecoder:
             before_clock()
         t0 = time.perf_counter()
         states = []
-        for rep, scope, (pv, ps) in zip(reps, scopes, pools):
-            with scope():
-                states.append(rep._start(pv, ps, n, pre, input_is_llr))
+        with tracing.span("ldpc.start"):
+            for rep, scope, (pv, ps) in zip(reps, scopes, pools):
+                with scope():
+                    states.append(rep._start(pv, ps, n, pre, input_is_llr))
         if host_poll:
             sync_all()
             t0 = time.perf_counter()
         if burst:
-            for rep, scope, st in zip(reps, scopes, states):
-                with scope():
-                    rep._run_burst(st.msgs, st.llr, st.syn, rep.tables,
-                                   burst, pre)
-                st.iters_done += burst
+            with tracing.span("ldpc.iterate"):
+                for rep, scope, st in zip(reps, scopes, states):
+                    with scope():
+                        rep._run_burst(st.msgs, st.llr, st.syn, rep.tables,
+                                       burst, pre)
+                    st.iters_done += burst
         supersteps = 0
         while True:
             live = [i for i, st in enumerate(states) if st.n_remaining]
