@@ -81,7 +81,7 @@ stream (phi under traffic, rotated window reads: rows 14, 16).
 Phases:
 
 1. device: the card's name and power limit (nvidia-smi);
-2. build: the six kernel libraries from ldpc_decoder_tpu_torch/csrc/,
+2. build: the seven kernel libraries from ldpc_decoder_tpu_torch/csrc/,
    one nvcc per source, all started together; the grouped, regular and
    general sum-product check and variable kernels' registers and spills by
    (kernel, dtype, lanes per thread, phi policy), no kernel of those
@@ -97,7 +97,8 @@ Phases:
    none spilling, each one's SASS split by class and held to at least its
    ChaCha8 blocks' XORs and rotations (D2 also to runtime/perf.py's issue
    term); the probes' window kernels' registers by kernel
-   and phi policy, none spilling or keeping a stack frame;
+   and phi policy, none spilling or keeping a stack frame; the retire
+   kernel (csrc/retire.cu, every decode's retire) not spilling;
 3. the numerics smoke (``runtime.smoke.cuda_numerics_smoke``): phi on the
    device, through check-node launches of the grouped kernels' fast and
    accurate phi and the regular kernel's fast one, against float64 (max
@@ -119,7 +120,8 @@ Phases:
 7. the p41 path, twice; the second decode is reported, and the kernels'
    launch counts are read around it (every parity launch of a path must
    take the vector instantiation, counted under parity_vec and
-   parity_regular_vec);
+   parity_regular_vec; the retire kernel must launch once for every
+   superstep that retired a frame, read through the decode's progress);
 8. the reg36 code (alist cache) and its frames: 512 at sigma = 0.87, 256
    over the erasure channel;
 9. each regular kernel against its plain version at reg36 x B = 256 on a
@@ -307,7 +309,17 @@ Phases:
     parity's vector instantiation, no other): exit 0, BER 0, no frame in
     error, the average iterations in the band written before the first
     run (35-44; the JAX record 41.45 at k = 14); the datagen seconds, the
-    wall and both Mb/s printed with the card's name and power limit.
+    wall and both Mb/s printed with the card's name and power limit;
+42. the retire kernel (csrc/retire.cu, every decode's retire) by
+    scripts/retire_pack_torch.py's measure, on random hard bits at p41 x
+    256 and rate-0.9 x 256 (their decoders' _src_row) and at a ragged
+    general numbering (a random permutation of 1,000,003 variables, the
+    last word 3 bits) x 256, for L = 1, 64 and 256 lanes retiring into a
+    512-frame pool's results in shuffled frames: ops.retire.pack_retired
+    (one launch), its plain version and the torch chain it replaced equal
+    bit for bit, other rows untouched, the bits past n_vars zero; the
+    kernel, the decoder's call, the plain version and the replaced chain
+    timed beside the bound (runtime/perf.py retire_pack_bytes).
 
 Every phase must pass: any failure raises, and the script exits nonzero
 without its result line. The last line of stdout is the result object; the
@@ -337,7 +349,12 @@ passes as ``accurate_plain_max_abs_err``; the window
 probes with the accurate phi as ``ms``, phi stubbed as ``stub_ms`` and the
 fast phi as ``fast_ms`` where measured, each also by the probes' queued
 timer as ``queued_ms``, ``stub_queued_ms`` and ``fast_queued_ms``, and
-``copy_`` by it as ``queued_library_ms``). Imports nothing of JAX.
+``copy_`` by it as ``queued_library_ms``; the retire kernel with phase
+42's times at p41 x 256, L = 64 as ``ms``, ``plain_ms``, ``bound_ms`` and
+the replaced torch chain's as ``library_ms``, the decoder's call as
+``call_ms``, L = 1 and 256 as ``lanes1_ms`` and ``lanes256_ms``, the same
+at rate 0.9 and the ragged numbering under ``rate09_`` and ``ragged_``,
+and its launches in phase 7's p41 decode). Imports nothing of JAX.
 """
 
 import contextlib
@@ -505,6 +522,10 @@ DATAGEN_KERNELS = [
     # bsc_/erasure_/awgn_values_device (and _make_pool's tail and gather)
     ("channel_values", "ldpc_decoder_tpu/rng/chacha_jax.py:141"),
 ]
+# the retire pack (no Pallas counterpart: it replaces the jnp pack of the
+# finished lanes, _pack_bits_natural, which XLA fuses)
+RETIRE_SOURCE = "ldpc_decoder_tpu_torch/csrc/retire.cu"
+RETIRE_REPLACES = "ldpc_decoder_tpu/runtime/decoder.py:105"
 # (name in the kernels line and in launch_counts, source, TPU kernel)
 KERNELS = [
     ("cn", GROUPED_CN_VN_SOURCE,
@@ -560,23 +581,24 @@ KERNELS = [
 # (every parity launch of a path must take the vector instantiation,
 # counted again under parity_vec and parity_regular_vec; so must the
 # min-sum paths' check launches, under cn_general_minsum_vec and
-# cn_group_minsum_vec)
-GROUPED = ("cn", "vn", "parity", "parity_vec")
+# cn_group_minsum_vec; every decode retires through the retire kernel)
+RETIRE = ("retire_pack",)
+GROUPED = ("cn", "vn", "parity", "parity_vec") + RETIRE
 REGULAR = ("cn_regular", "vn_regular", "parity_regular",
-           "parity_regular_vec")
-GENERAL_SP = ("cn_general", "vn_general")
+           "parity_regular_vec") + RETIRE
+GENERAL_SP = ("cn_general", "vn_general") + RETIRE
 GENERAL_MS = ("cn_general_minsum", "vn_general_minsum",
-              "cn_general_minsum_vec")
+              "cn_general_minsum_vec") + RETIRE
 QC_MS_REGULAR = ("cn_regular_minsum", "vn_regular_minsum", "parity_regular",
-                 "parity_regular_vec")
+                 "parity_regular_vec") + RETIRE
 QC_MS_GROUPED = ("cn_group_minsum", "vn_group_minsum", "parity",
-                 "cn_group_minsum_vec", "parity_vec")
-FP8_GROUPED = ("cn_fp8", "vn_fp8", "parity", "parity_vec")
+                 "cn_group_minsum_vec", "parity_vec") + RETIRE
+FP8_GROUPED = ("cn_fp8", "vn_fp8", "parity", "parity_vec") + RETIRE
 FP8_REGULAR = ("cn_regular_fp8", "vn_regular_fp8", "parity_regular",
-               "parity_regular_vec")
-GENERAL_FP8_SP = ("cn_general_fp8", "vn_general_fp8")
+               "parity_regular_vec") + RETIRE
+GENERAL_FP8_SP = ("cn_general_fp8", "vn_general_fp8") + RETIRE
 GENERAL_FP8_MS = ("cn_general_minsum_fp8", "vn_general_minsum_fp8",
-                  "cn_general_minsum_fp8_vec")
+                  "cn_general_minsum_fp8_vec") + RETIRE
 # the probes of rows 11-16: (name in the kernels line, probe of
 # ldpc_decoder_tpu_torch.probes.PROBES, source, launch counters)
 PROBE_ROWS = [
@@ -884,6 +906,9 @@ def phase_build():
             datagen_report(path)
         if name == "probes":
             probes_report(path)
+        if name == "retire":
+            assert all(spill == 0 for _, _, spill in entries), \
+                "the retire kernel spills"
 
 
 # (kernel, element type, degree, lanes per thread, phi policy) in a mangled
@@ -1448,9 +1473,17 @@ def run_path(dec, dyn, batch, n, kernels, label, repeat=True, ref=None,
         first, _ = dec.decode(dyn, n, batch.values, batch.syndromes)
         log(f"  {label} decode 1: {time.perf_counter() - t0:.2f} s wall")
     _kernels.reset_launch_counts()
-    results, stats = dec.decode(dyn, n, batch.values, batch.syndromes)
+    left = [n]
+    results, stats = dec.decode(dyn, n, batch.values, batch.syndromes,
+                                progress=left.append)
     launches = dict(_kernels.launch_counts)
     assert results.shape == (n, dec.n_words)
+    # one retire launch for every superstep that retired a frame (the
+    # frames left fall only at a retire)
+    retired = sum(a > b for a, b in zip(left, left[1:]))
+    assert launches["retire_pack"] == retired, \
+        f"{label}: {launches['retire_pack']} retire launches, {retired} " \
+        f"supersteps retired"
     if first is not None:
         assert np.array_equal(first, results), \
             f"{label}: the two decodes' words differ"
@@ -2026,7 +2059,9 @@ def detection_decodes(np, dev):
         dec_i = LDPCDecoder(icode, ch, sp)
         assert dec_a.qc.Z == dec_i.qc.Z == Z
         assert type(dec_a.tables) is type(dec_i.tables)
-        assert dec_i._block_perm is None  # packing gathers rows
+        rows = dec_i._src_row.cpu().numpy().reshape(-1, Z)
+        assert not (rows == rows[:, :1] + np.arange(Z)).all(), \
+            "the interleaved retire rows are whole blocks"
         res_a, st_a = dec_a.decode(dyn, n, batch.values, batch.syndromes)
         res_i, st_i = dec_i.decode(dyn, n, vals_i, syn_i)
         assert np.array_equal(unpack(res_i)[:, to_v], unpack(res_a)), \
@@ -3634,6 +3669,37 @@ def cli_bsc_phase(torch, np, code09, smi):
     return {name: launches[name] for name in REGULAR[:3]}
 
 
+def phase_retire(torch, dev, code, s, code09, s09):
+    """Phase 42: the retire kernel at the main path's shapes
+    (scripts/retire_pack_torch.py measure, which checks every route
+    against the kernel bit for bit). Returns its kernels-line fields."""
+    mod = load_script("retire_pack_torch")
+    rec = {}
+    for prefix, label, rows, Z in (
+            ("", "p41", mod.decoder_rows(code, s, dev), s.Z),
+            ("rate09_", "rate09", mod.decoder_rows(code09, s09, dev), s09.Z),
+            ("ragged_", "ragged", mod.random_rows(mod.RAGGED_VARS, dev),
+             None)):
+        for r in mod.measure(label, rows, Z, dev):
+            log(f"  {label} x {r['B']}, L = {r['lanes']}: kernel "
+                f"{r['card_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+                f"({r['bound_by']}, {r['share']:.1%}), call "
+                f"{r['call_ms']:.4f} ms, plain {r['plain_ms']:.3f} ms, "
+                f"replaced chain {r['library_ms']:.3f} ms; equal bit for "
+                f"bit")
+            if r["lanes"] == 64:
+                rec.update({f"{prefix}ms": r["card_ms"],
+                            f"{prefix}call_ms": r["call_ms"],
+                            f"{prefix}plain_ms": r["plain_ms"],
+                            f"{prefix}bound_ms": r["bound_ms"],
+                            f"{prefix}library_ms": r["library_ms"]})
+                if not prefix:
+                    rec["bound_by"] = r["bound_by"]
+            else:
+                rec[f"{prefix}lanes{r['lanes']}_ms"] = r["card_ms"]
+    return rec
+
+
 def main():
     import numpy as np
     import torch
@@ -3713,6 +3779,7 @@ def main():
                         num_iter_first_check=70, loading_factor=2)
     stats, launches = run_path(dec, dyn, batch, N_FRAMES, GROUPED, "p41")
     assert AVG_ITERS[0] <= stats.avg_iter <= AVG_ITERS[1], stats.avg_iter
+    retire_launches = launches["retire_pack"]  # the later paths' overwrite
     del dec  # the frames stay for phase 18
     torch.cuda.empty_cache()
 
@@ -3961,7 +4028,6 @@ def main():
     for name in ("cn_regular", "vn_regular", "parity_regular"):
         rate09[name]["rate09_launches"] = per_decode[name]
         timings[name].update(rate09[name])
-    del s09  # the code stays for phase 41
 
     phase(36, "code design and interleaved reg36 at full size")
     design_phase(torch, dev, code36, s36, batch36, smi)
@@ -4000,7 +4066,10 @@ def main():
     phase(41, "the CLI's BSC harness on the rate-0.9 code, native frames")
     for name, count in cli_bsc_phase(torch, np, code09, smi).items():
         timings[name]["cli_bsc_launches"] = count
-    del code09
+
+    phase(42, "the retire kernel vs plain at p41, rate 0.9 and ragged x 256")
+    retire_rec = phase_retire(torch, dev, code, s, code09, s09)
+    del code09, s09
     log(f"  all phases passed in {time.perf_counter() - t_all:.1f} s")
 
     launches.update({name: launches36[name] for name in REGULAR})
@@ -4043,6 +4112,10 @@ def main():
             "bound_by": r["bound"][1], "library_ms": None,
             **{k: v for k, v in r.items() if k.endswith("_ms")
                and k not in ("plain_ms",)}})
+    kernels.append({
+        "name": "retire_pack", "route": "cuda", "source": RETIRE_SOURCE,
+        "replaces": RETIRE_REPLACES, "launches": retire_launches,
+        "max_abs_err": 0.0, **retire_rec})
     kernels += probe_entries
     log(json.dumps({"kernels": kernels}))
     assert "jax" not in sys.modules

@@ -1,6 +1,6 @@
 """Build, load and launch the CUDA kernels of ``csrc/``.
 
-Six libraries: ``qc_grouped`` (the grouped family's sum-product and
+Seven libraries: ``qc_grouped`` (the grouped family's sum-product and
 parity kernels, one launch per degree group; ``qc_grouped.cu``,
 ``qc_grouped_accurate.cu`` and ``qc_grouped_parity.cu``, which compile in
 parallel, and the kernels' header ``qc_grouped.cuh``), ``qc_regular`` (the
@@ -22,7 +22,9 @@ device by :func:`phi_e5m2_table`), the min-sum ones in
 ``probes.cu`` (the measurement probes of
 :mod:`ldpc_decoder_tpu_torch.probes`, which no decode runs) and
 ``datagen.cu`` (a frame pool's ChaCha8 reference bits and channel values,
-:mod:`ldpc_decoder_tpu_torch.rng.chacha_torch`). The
+:mod:`ldpc_decoder_tpu_torch.rng.chacha_torch`) and ``retire.cu`` (the
+superstep's retire: the finished lanes' hard bits packed into the results,
+:mod:`ldpc_decoder_tpu_torch.ops.retire`). The
 sum-product check and variable kernels of all three families share
 ``sum_product.cuh``: the fast φ, the φ policies and the vectors of lanes;
 the grouped and general min-sum check kernels share ``minsum.cuh``, the
@@ -50,13 +52,15 @@ launches again under ``cn_group_minsum_vec``, ``cn_general_minsum_vec``,
 instantiation it took; the probes count ``probe_row_copy`` and
 ``probe_window``, the pool generators ``chacha_bits`` and
 ``channel_values`` (its four-frame vector launches again under
-``channel_values_vec``). Every sum-product launch of the accurate φ also
-counts under ``phi_accurate``, which no decode touches. Argument checking
-is the callers' job (:mod:`ldpc_decoder_tpu_torch.ops.qc_grouped`,
+``channel_values_vec``), the retire ``retire_pack`` (one launch per
+superstep that retires a lane). Every sum-product launch of the accurate
+φ also counts under ``phi_accurate``, which no decode touches. Argument
+checking is the callers' job (:mod:`ldpc_decoder_tpu_torch.ops.qc_grouped`,
 :mod:`ldpc_decoder_tpu_torch.ops.qc_regular`,
 :mod:`ldpc_decoder_tpu_torch.ops.general`,
 :mod:`ldpc_decoder_tpu_torch.probes.kernels`,
-:mod:`ldpc_decoder_tpu_torch.rng.chacha_torch`); a nonzero CUDA error from a
+:mod:`ldpc_decoder_tpu_torch.rng.chacha_torch`,
+:mod:`ldpc_decoder_tpu_torch.ops.retire`); a nonzero CUDA error from a
 launch raises.
 """
 
@@ -78,7 +82,7 @@ CSRC = os.path.join(os.path.dirname(os.path.dirname(
 # the sources of each library (compiled in parallel when several)
 SOURCES = {name: [os.path.join(CSRC, f"{name}.cu")]
            for name in ("qc_grouped", "qc_regular", "qc_minsum", "general",
-                        "probes", "datagen")}
+                        "probes", "datagen", "retire")}
 SOURCES["qc_grouped"].append(os.path.join(CSRC, "qc_grouped_accurate.cu"))
 SOURCES["qc_regular"].append(os.path.join(CSRC, "qc_regular_accurate.cu"))
 # the parity kernels (parity.cuh) in their own sources, compiled beside
@@ -109,7 +113,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
               "--split-compile=0"]
 # each source's kMaxDegree: degrees 1..max are instantiated (probes: the
-# most windows per output node; datagen has no node degree)
+# most windows per output node; datagen and retire have no node degree)
 MAX_DEGREES = {"qc_grouped": 16, "qc_regular": 32, "qc_minsum": 32,
                "general": 32, "probes": 6}
 
@@ -129,13 +133,14 @@ launch_counts = {"cn": 0, "vn": 0, "parity": 0,
                  "probe_row_copy": 0, "probe_window": 0,
                  "chacha_bits": 0, "channel_values": 0,
                  "channel_values_vec": 0,
+                 "retire_pack": 0,
                  "phi_accurate": 0}
 
 _p, _i, _f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _ll = ctypes.c_longlong
 # per library: {launch function: argtypes}; each returns a CUDA error code.
 # Every library also exports ldpc_cuda_error_string, and each but datagen
-# ldpc_max_degree().
+# and retire ldpc_max_degree().
 _SIGNATURES = {
     "qc_grouped": {
         "ldpc_cn_group": [_p, _p, _p, _p, _p, _i, _i, _i, _i, _i, _i, _f, _i,
@@ -199,6 +204,9 @@ _SIGNATURES = {
         "ldpc_channel_values_vec_frames": [],
         "ldpc_chacha_bits_plan": [_i, _i, _p],
         "ldpc_channel_values_plan": [_i, _i, _i, _i, _p],
+    },
+    "retire": {
+        "ldpc_retire_pack": [_p, _p, _p, _p, _i, _i, _i, _p],
     },
 }
 # message dtype codes of every library's C entries (each takes the ones
@@ -736,3 +744,16 @@ def channel_values(values, bits, pos, start: int, n_vars: int, n_tx: int,
     launch_counts["channel_values"] += 1
     if frames > 1:
         launch_counts["channel_values_vec"] += 1
+
+
+def retire_pack(bits, src_row, lane_frame, results, n_vars: int,
+                n_words: int, B: int) -> None:
+    """The retire pack: the words of every lane b with lane_frame[b] >= 0
+    of bits [n_vars, B] int8 into row lane_frame[b] of results [n_pool,
+    n_words] int32, natural variable u read from row src_row[u]."""
+    lib = load("retire")
+    err = lib.ldpc_retire_pack(_ptr(bits), _ptr(src_row), _ptr(lane_frame),
+                               _ptr(results), n_vars, n_words, B,
+                               _stream(bits))
+    _check(lib, err, "retire pack kernel")
+    launch_counts["retire_pack"] += 1

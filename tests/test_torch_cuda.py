@@ -1959,10 +1959,11 @@ def test_general_fp8_decode_on_card_matches_cpu(cuda_device, alg,
                                                      _phi="accurate"))
         res_g, st_g = decode(cuda_device)
     launched = {k for k, v in _kernels.launch_counts.items() if v}
-    want = ({"cn_general_fp8", "vn_general_fp8", "phi_accurate"}
+    want = ({"cn_general_fp8", "vn_general_fp8", "phi_accurate",
+             "retire_pack"}
             if alg == "sum-product" else
             {"cn_general_minsum_fp8", "vn_general_minsum_fp8",
-             "cn_general_minsum_fp8_vec"})
+             "cn_general_minsum_fp8_vec", "retire_pack"})
     assert launched == want, launched
     np.testing.assert_array_equal(res_g, res_c)
     np.testing.assert_array_equal(st_g.iterations, st_c.iterations)
@@ -1974,6 +1975,96 @@ def test_general_fp8_decode_on_card_matches_cpu(cuda_device, alg,
     good = (res_c == ref).all(axis=1)
     np.testing.assert_array_equal(res_f[good], res_c[good])
     assert abs(st_f.avg_iter - st_c.avg_iter) <= 5
+
+
+# ---- the retire: the finished lanes' words into the results ------------------
+
+# (n_vars, Z of a block-aligned numbering or None for a random one, B):
+# p41's and the rate-0.9 code's shapes at B = 256, a ragged general code
+# (n_vars no multiple of 32), and a lane count no multiple of 16 (the
+# kernel's byte-at-a-time reads)
+RETIRE_SHAPES = {"p41": (1_032_192, 18_432, 256),
+                 "rate09": (983_040, 12_288, 256),
+                 "general": (100_003, None, 256),
+                 "general-B40": (100_003, None, 40)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_lanes", [1, 37, "B"])
+@pytest.mark.parametrize("shape", sorted(RETIRE_SHAPES))
+def test_retire_kernel_matches_plain(cuda_device, shape, n_lanes):
+    """The retire kernel against its plain version on the card, bit for
+    bit: the named frames' rows (out of order) get the lanes' words, every
+    other row keeps its bits; one launch a call."""
+    from ldpc_decoder_tpu_torch.ops import _kernels, retire
+
+    n_vars, Z, nb = RETIRE_SHAPES[shape]
+    rng = np.random.default_rng(n_vars + nb)
+    if Z is None:
+        src_row = rng.permutation(n_vars)
+    else:
+        src_row = (rng.permutation(n_vars // Z)[:, None] * Z
+                   + np.arange(Z)).reshape(-1)
+    src_row = torch.from_numpy(src_row.astype(np.int32)).to(cuda_device)
+    bits = torch.randint(0, 2, (n_vars, nb), dtype=torch.int8,
+                         device=cuda_device)
+    n = nb if n_lanes == "B" else n_lanes
+    lanes = rng.permutation(nb)[:n]
+    frames = rng.permutation(2 * nb)[:n]
+    n_words = (n_vars + 31) // 32
+    results = torch.randint(-2**31, 2**31 - 1, (2 * nb, n_words),
+                            dtype=torch.int32, device=cuda_device)
+    want = results.clone()
+    retire.pack_retired_plain(bits, src_row, lanes, frames, want)
+    before = _kernels.launch_counts["retire_pack"]
+    retire.pack_retired(bits, src_row, lanes, frames, results)
+    torch.cuda.synchronize()
+    assert _kernels.launch_counts["retire_pack"] == before + 1
+    assert torch.equal(results, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family", ["grouped", "regular", "general"])
+def test_retire_on_card_matches_the_plain_route(small_code, cuda_device,
+                                                family, monkeypatch):
+    """A decode_presorted on the card through the retire kernel against the
+    same decode through the plain retire on the card: the same words and
+    per-frame iterations, and one kernel launch for every superstep that
+    retired a lane (the frames left fall only at a retire)."""
+    from ldpc_decoder_tpu_torch.ops import _kernels, retire
+
+    if family == "grouped":
+        code, s = small_code
+    elif family == "regular":
+        code, s = make_qc_code(np.ones((3, 6), np.int8), Z=128, seed=1)
+    else:
+        code, s = make_regular_code(1002, 3, 6, seed=4), None
+    ch = BIAWGNChannel(0.7)
+    n = 3 * 32 + 8
+    batch = create_data(code, ch, 0, n, backend="numpy")
+    dyn = DynamicParams(num_iter_max=60, num_iter_check_parity=5)
+    dec = LDPCDecoder(code, ch, StaticParams(parallel_factor_user=32),
+                      qc=s, device=cuda_device)
+    assert (dec.qc is None) == (family == "general")
+    pools = dec.upload_pools(batch.values, batch.syndromes)
+    left = [n]
+    before = _kernels.launch_counts["retire_pack"]
+    res_k, st_k = dec.decode_presorted(dyn, n, *pools, progress=left.append)
+    torch.cuda.synchronize()
+    retired = sum(a > b for a, b in zip(left, left[1:]))
+    assert retired > 1
+    assert _kernels.launch_counts["retire_pack"] - before == retired
+
+    def plain(bits, src_row, lanes, frame_ids, results, staging=None):
+        retire.pack_retired_plain(bits, src_row, lanes, frame_ids, results)
+
+    monkeypatch.setattr(retire, "pack_retired", plain)
+    before = _kernels.launch_counts["retire_pack"]
+    res_p, st_p = dec.decode_presorted(dyn, n, *pools)
+    assert _kernels.launch_counts["retire_pack"] == before
+    np.testing.assert_array_equal(res_k, res_p)
+    np.testing.assert_array_equal(st_k.iterations, st_p.iterations)
+    assert (res_k == batch.ref_bits_packed()).all()
 
 
 # ---- several devices: replicas of one card and gloo processes -----------------
@@ -2055,9 +2146,8 @@ def test_decode_sharded_on_mixed_mesh(small_code, cuda_device, family,
     moved = dec._replica(next(d for d in mesh.devices
                               if d.type != built_on), 0)
     assert moved.device.type != built_on
-    for x in (moved.tables.vn_pos, *moved._io_orders, moved._block_perm,
-              moved._pack_rows):
-        assert x is None or x.device.type == moved.device.type
+    for x in (moved.tables.vn_pos, *moved._io_orders, moved._src_row):
+        assert x.device.type == moved.device.type
 
 
 @pytest.mark.cuda

@@ -43,10 +43,8 @@ from ldpc_decoder_tpu_torch.codes.qc import qc_to_code  # noqa: E402
 from ldpc_decoder_tpu_torch.ops.qc_grouped import GroupedQCTables  # noqa: E402
 from ldpc_decoder_tpu_torch.ops.qc_regular import QCRegularTables  # noqa: E402
 from ldpc_decoder_tpu_torch.convert import structure_from_numpy  # noqa: E402
-from ldpc_decoder_tpu_torch.runtime.decoder import (  # noqa: E402
-    LDPCDecoder,
-    _pack_bits_natural,
-)
+from ldpc_decoder_tpu_torch.ops import retire  # noqa: E402
+from ldpc_decoder_tpu_torch.runtime.decoder import LDPCDecoder  # noqa: E402
 from ldpc_decoder_tpu_torch.runtime.params import (  # noqa: E402
     DynamicParams,
     StaticParams,
@@ -180,11 +178,101 @@ def test_pack_bits_natural_matches_reference_packing(setup):
     ref = setup["batch"].ref_bits[:, :B]  # natural order, bit 31 included
     t = dec.tables
     sorted_bits = torch.from_numpy(ref[t.vn_order.numpy()].copy())
-    packed = _pack_bits_natural(sorted_bits.view(t.C, t.Z, B),
-                                dec._block_perm, dec.n_words)
+    packed = torch.zeros((B, dec.n_words), dtype=torch.int32)
+    retire.pack_retired(sorted_bits.view(t.C, t.Z, B), dec._src_row,
+                        np.arange(B), np.arange(B), packed)
     np.testing.assert_array_equal(
         packed.numpy().view(np.uint32),
         setup["batch"].ref_bits_packed()[:B])
+
+
+def _retire_decoder(setup, regular, layout):
+    """A CPU decoder of each retire layout: block-aligned QC (the p41-shaped
+    code), interleaved QC (the regular code renumbered) and the general
+    path on a code whose n_vars is no multiple of 32."""
+    from ldpc_decoder_tpu_torch.codes.generate import make_regular_code
+    from ldpc_decoder_tpu_torch.codes.qc import interleave_code_numbering
+
+    ch, sp = BIAWGNChannel(SIGMA), StaticParams(parallel_factor_user=B)
+    if layout == "aligned":
+        return LDPCDecoder(setup["code"], ch, sp, qc=setup["s"],
+                           device="cpu")
+    if layout == "interleaved":
+        icode = interleave_code_numbering(regular["code"], regular["s"].Z)[0]
+        return LDPCDecoder(icode, ch, sp, device="cpu")
+    return LDPCDecoder(make_regular_code(1002, 3, 6, seed=4), ch, sp,
+                       device="cpu")
+
+
+def _pack_rows_route(dec, bits):
+    """The retire's words as the decoder packed them before the retire
+    kernel: whole Z-blocks permuted where the numbering is block-aligned,
+    else a row gather, then ``pack_rows``."""
+    from ldpc_decoder_tpu_torch.rng.chacha_torch import pack_rows
+
+    n = bits.shape[-1]
+    vn_pos = dec._src_row.numpy()
+    if dec.qc is not None:
+        Z = dec.qc.Z
+        perm = vn_pos[::Z] // Z
+        if np.array_equal(vn_pos.reshape(-1, Z),
+                          perm[:, None] * Z + np.arange(Z)):
+            rows = bits.reshape(-1, Z, n)[torch.from_numpy(perm)]
+            return pack_rows(rows.reshape(-1, n), dec.n_words)
+    return pack_rows(bits.reshape(-1, n).index_select(
+        0, torch.from_numpy(vn_pos).long()), dec.n_words)
+
+
+@pytest.mark.parametrize("lanes", ["one", "shuffled subset", "all"])
+@pytest.mark.parametrize("layout", ["aligned", "interleaved", "general"])
+def test_pack_retired_matches_the_pack_rows_route(setup, regular, layout,
+                                                  lanes):
+    """The retire's plain version (``ops/retire.py``, what a CPU decode and
+    the card's kernel are held to) against the decoder's former route:
+    the same words in the named frames' rows, frame ids out of order, the
+    last word's bits past n_vars zero, and the rows no lane names left as
+    they were."""
+    dec = _retire_decoder(setup, regular, layout)
+    if layout != "general":  # whole Z-blocks in order, or interleaved
+        vn_pos = dec._src_row.numpy().reshape(-1, dec.qc.Z)
+        assert (vn_pos == vn_pos[:, :1] + np.arange(dec.qc.Z)).all() == (
+            layout == "aligned")
+    if layout == "general":
+        assert dec.qc is None and dec.code.n_vars % 32
+    rng = np.random.default_rng(11)
+    shape = (*dec._node_shape[0], B)
+    bits = torch.from_numpy((rng.random(shape) < 0.5).astype(np.int8))
+    lane_ids = {"one": np.array([B - 3]),
+                "shuffled subset": rng.permutation(B)[:B // 3],
+                "all": np.arange(B)}[lanes]
+    n_pool = 3 * B
+    frames = rng.permutation(n_pool)[:lane_ids.size]
+    results = torch.from_numpy(rng.integers(-2**31, 2**31, (
+        n_pool, dec.n_words), dtype=np.int64).astype(np.int32))
+    want = results.clone()
+    want[torch.from_numpy(frames)] = _pack_rows_route(
+        dec, bits[..., torch.from_numpy(lane_ids)])
+    retire.pack_retired(bits, dec._src_row, lane_ids, frames, results)
+    assert torch.equal(results, want)
+    tail = dec.n_words * 32 - dec.code.n_vars
+    if tail:  # the last word's bits past n_vars are zero
+        last = results[torch.from_numpy(frames), -1].numpy().view(np.uint32)
+        assert not (last >> np.uint32(32 - tail)).any()
+    np.testing.assert_array_equal(  # and the decoder's own route agrees
+        dec._pack(bits[..., torch.from_numpy(lane_ids)]).numpy(),
+        want[torch.from_numpy(frames)].numpy())
+
+
+def test_pack_retired_refuses_what_it_cannot_write(setup):
+    dec = _retire_decoder(setup, None, "aligned")
+    bits = torch.zeros((*dec._node_shape[0], B), dtype=torch.int8)
+    results = torch.zeros((4, dec.n_words), dtype=torch.int32)
+    for lanes, frames in (([B], [0]), ([0], [4]), ([1, 1], [0, 2]),
+                          ([0, 1], [2, 2]), ([0, 1], [0])):
+        with pytest.raises(ValueError):
+            retire.pack_retired(bits, dec._src_row, lanes, frames, results)
+    with pytest.raises(ValueError, match="results"):
+        retire.pack_retired(bits, dec._src_row, [0], [0], results[:, 1:])
 
 
 def test_lane_count_model(setup):
